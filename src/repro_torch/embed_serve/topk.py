@@ -1,0 +1,268 @@
+"""Exact MIPS top-k over one table shard: the CUDA scan and its plain versions.
+
+Counterpart of the JAX package's ``embed_serve/topk.py``. Two wrappers
+launch one CUDA source, ``kernels/csrc/topk_scan.cu``:
+
+* :func:`topk_mips` replaces the TPU kernel ``topk_mips`` (f32 or bf16
+  table);
+* :func:`topk_mips_quant` replaces ``topk_mips_quant`` (int8 table with
+  per-row scales, the first pass of the two-tier scan in ``quant``).
+
+A tensor on the CPU takes the plain version (:func:`topk_mips_plain`,
+:func:`topk_mips_quant_plain`); a tensor on the card goes to the kernel or
+the call raises. The plain versions scan the rows in chunks and fold each
+chunk into the running result with :func:`select_topk`, so they never hold
+the whole (Q, N) score matrix.
+
+Exactness: scores are f32 (tables widened before the dot, queries kept in
+f32), and selection follows one total order, score descending and then row
+ascending, the order of the numpy oracle's stable argsort. Invalid
+positions (rows >= ``valid``, unfilled slots) carry ``(-inf, int32 max)``.
+
+Bound on an H100 (the kernel's own note has the design): the scan does
+2*Q*N*d f32 FMA-operations on the CUDA cores against N*d*itemsize table
+bytes, so at the serving widths it is bound by operations (67 TFLOP/s f32)
+rather than bytes (3.35 TB/s).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = float("-inf")
+IDX_SENTINEL = 2**31 - 1          # int32 max
+
+# launches of each CUDA kernel of this module (counted where it launches)
+LAUNCHES = {"topk_scan_exact": 0, "topk_scan_int8": 0}
+
+SMEM_PER_BLOCK = 232_448          # H100: 227 KB of dynamic shared memory
+SCAN_THREADS = 256                # rows per tile == threads per scan block
+QUERY_BLOCKS = (8, 16, 32, 64)    # compiled query-block sizes (BQ)
+MERGE_WARPS = 4                   # queries per merge block
+PLAIN_CHUNK_ELEMS = 1 << 26       # (Q, chunk) scores per plain-scan step
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+# --------------------------------------------------------------------------
+# shared-memory planner (replaces the TPU's VMEM planner choose_block_n)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """Launch geometry of one scan: BQ queries per block, the row range
+    of each split, and the dynamic shared memory of a scan block."""
+
+    bq: int
+    splits: int
+    rows_per_split: int
+    smem_bytes: int
+
+
+def topk_scan_smem_bytes(bq: int, d: int, k: int) -> int:
+    """Shared memory of one scan block: the (bq, d) f32 queries, the
+    (bq, SCAN_THREADS) f32 tile scores and the (bq, k) running lists."""
+    return 4 * (bq * d + bq * SCAN_THREADS) + 8 * bq * k
+
+
+def plan_topk_scan(Q: int, d: int, k: int, valid: int, *,
+                   sm_count: int = 132) -> ScanPlan:
+    """Geometry from the shapes alone.
+
+    BQ is the smallest compiled size that holds all Q queries (at most 64),
+    halved while a block's shared memory would exceed the card's 227 KB;
+    the table is read once per query block, so a larger BQ reads it fewer
+    times. The rows are split so that about four blocks per SM are in
+    flight, each split a whole number of tiles. Raises ``ValueError`` when
+    even BQ = 8 does not fit (k too large for d).
+    """
+    if d % 8:
+        raise ValueError(f"the scan kernel needs d % 8 == 0, got d={d}")
+    if k < 1 or valid < 1 or Q < 1:
+        raise ValueError(f"need k, valid, Q >= 1 (got {k}, {valid}, {Q})")
+    bq = next((b for b in QUERY_BLOCKS if b >= Q), QUERY_BLOCKS[-1])
+    while bq > QUERY_BLOCKS[0] and topk_scan_smem_bytes(bq, d, k) > SMEM_PER_BLOCK:
+        bq //= 2
+    smem = topk_scan_smem_bytes(bq, d, k)
+    if smem > SMEM_PER_BLOCK or 8 * MERGE_WARPS * k > SMEM_PER_BLOCK:
+        kmax = (SMEM_PER_BLOCK - 4 * QUERY_BLOCKS[0] * (d + SCAN_THREADS)
+                ) // (8 * QUERY_BLOCKS[0])
+        raise ValueError(f"k={k} does not fit the scan's shared memory at "
+                         f"d={d} (largest k: {max(kmax, 0)})")
+    qblocks = -(-Q // bq)
+    tiles = -(-valid // SCAN_THREADS)
+    splits = max(1, min(tiles, -(-4 * sm_count // qblocks)))
+    per_split = -(-valid // splits)
+    rows = -(-per_split // SCAN_THREADS) * SCAN_THREADS
+    return ScanPlan(bq=bq, splits=-(-valid // rows), rows_per_split=rows,
+                    smem_bytes=smem)
+
+
+# --------------------------------------------------------------------------
+# selection and the cross-shard merge
+# --------------------------------------------------------------------------
+def select_topk(vals: torch.Tensor, idx: torch.Tensor, k: int):
+    """Exact top-k over (Q, M) candidate (value, index) pairs.
+
+    Order: larger value first, and among equal values the smaller index;
+    slots past the candidates are (-inf, int32 max). The same rule as the
+    JAX package's ``select_topk``, computed by two stable sorts (index
+    ascending, then value descending). Returns ((Q, k) f32, (Q, k) i32).
+    """
+    vals = vals.float()
+    idx = idx.int()
+    Q, M = vals.shape
+    if M < k:
+        vals = torch.cat([vals, vals.new_full((Q, k - M), NEG_INF)], 1)
+        idx = torch.cat([idx, idx.new_full((Q, k - M), IDX_SENTINEL)], 1)
+    order = torch.argsort(idx, dim=1, stable=True)
+    vals, idx = vals.gather(1, order), idx.gather(1, order)
+    # + 0.0 turns -0.0 into +0.0, so the two zeros tie as they compare
+    order = torch.argsort(vals + 0.0, dim=1, descending=True,
+                          stable=True)[:, :k]
+    return vals.gather(1, order), idx.gather(1, order)
+
+
+def merge_topk(vals: torch.Tensor, idx: torch.Tensor, k: int):
+    """Cross-shard reduce: (P, Q, kk) per-shard results (global ids) ->
+    the global (Q, k), by one selection over the P*kk candidates."""
+    P, Q, kk = vals.shape
+    return select_topk(vals.transpose(0, 1).reshape(Q, P * kk),
+                       idx.transpose(0, 1).reshape(Q, P * kk), k)
+
+
+# --------------------------------------------------------------------------
+# plain versions (the CPU path and the kernels' reference on the card)
+# --------------------------------------------------------------------------
+def _scan_plain(score_chunk, n_valid: int, queries, k: int):
+    """Fold row chunks [lo, hi) of the valid rows into a running top-k;
+    ``score_chunk(lo, hi)`` gives their (Q, hi - lo) f32 scores."""
+    Q = queries.shape[0]
+    dev = queries.device
+    best_v = torch.full((Q, k), NEG_INF, dtype=torch.float32, device=dev)
+    best_i = torch.full((Q, k), IDX_SENTINEL, dtype=torch.int32, device=dev)
+    step = max(1, PLAIN_CHUNK_ELEMS // max(Q, 1))
+    for lo in range(0, n_valid, step):
+        hi = min(lo + step, n_valid)
+        rows = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+        best_v, best_i = select_topk(
+            torch.cat([best_v, score_chunk(lo, hi)], 1),
+            torch.cat([best_i, rows.expand(Q, -1)], 1), k)
+    return best_v, best_i
+
+
+def topk_mips_plain(table, queries, k: int, valid: int | None = None):
+    """Plain top-k of f32 scores ``queries @ table.T`` over rows < valid."""
+    valid = table.shape[0] if valid is None else valid
+    q = queries.float()
+    return _scan_plain(lambda lo, hi: q @ table[lo:hi].float().T,
+                       valid, q, k)
+
+
+def topk_mips_quant_plain(qtable, scales, queries, m: int,
+                          valid: int | None = None):
+    """Plain int8 first pass: top-m of ``(queries @ qtable.T) * scales``,
+    the scale applied after the dot as in the kernel."""
+    valid = qtable.shape[0] if valid is None else valid
+    q = queries.float()
+    sc = scales.float()
+    return _scan_plain(
+        lambda lo, hi: (q @ qtable[lo:hi].float().T) * sc[lo:hi], valid, q, m)
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+# --------------------------------------------------------------------------
+def _check_cuda_scan(table, queries, scales, quant: bool) -> None:
+    if table.dim() != 2 or not table.is_contiguous():
+        raise ValueError("topk scan: table must be a contiguous (N, d) "
+                         f"tensor, got {tuple(table.shape)}")
+    want = (torch.int8,) if quant else (torch.float32, torch.bfloat16)
+    if table.dtype not in want:
+        raise ValueError(f"topk scan: table dtype {table.dtype} not in {want}")
+    if table.data_ptr() % 16:
+        raise ValueError("topk scan: table must be 16-byte aligned")
+    d = table.shape[1]
+    if (queries.device != table.device or queries.dtype != torch.float32
+            or queries.dim() != 2 or queries.shape[1] != d
+            or not queries.is_contiguous()):
+        raise ValueError("topk scan: queries must be a contiguous (Q, d) "
+                         f"float32 tensor on {table.device}, got "
+                         f"{queries.dtype} {tuple(queries.shape)} on "
+                         f"{queries.device}")
+    if quant and (scales.device != table.device
+                  or scales.dtype != torch.float32
+                  or tuple(scales.shape) != (table.shape[0],)
+                  or not scales.is_contiguous()):
+        raise ValueError("topk scan: scales must be a contiguous (N,) "
+                         f"float32 tensor on {table.device}")
+
+
+def _launch_scan(kind: str, table, scales, queries, k: int, valid: int):
+    """Run the two-phase scan kernel; returns ((Q, k) f32, (Q, k) i32)."""
+    N, d = table.shape
+    if not 0 < valid <= N:
+        raise ValueError(f"valid={valid} outside (0, {N}]")
+    Q = queries.shape[0]
+    dev = table.device
+    out_v = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    if Q == 0:
+        return out_v, out_i
+    plan = plan_topk_scan(
+        Q, d, k, valid,
+        sm_count=torch.cuda.get_device_properties(dev).multi_processor_count)
+    part_v = torch.empty((Q, plan.splits, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((Q, plan.splits, k), dtype=torch.int32, device=dev)
+    lib = build.library("topk_scan")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.topk_scan_partials(
+            _DTYPE_CODES[table.dtype], plan.bq, table.data_ptr(),
+            None if scales is None else scales.data_ptr(),
+            queries.data_ptr(), Q, d, valid, k, plan.rows_per_split,
+            plan.splits, part_v.data_ptr(), part_i.data_ptr(), stream)
+        build.check(rc, f"{kind} (partials)")
+        rc = lib.topk_scan_merge(part_v.data_ptr(), part_i.data_ptr(), Q,
+                                 plan.splits, k, out_v.data_ptr(),
+                                 out_i.data_ptr(), stream)
+        build.check(rc, f"{kind} (merge)")
+    LAUNCHES[kind] += 1
+    return out_v, out_i
+
+
+def topk_mips(table, queries, k: int, valid: int | None = None):
+    """Exact-MIPS top-k of ``queries`` against one table shard.
+
+    table: (N, d) f32 or bf16 (scored in f32); queries: (Q, d) f32 on the
+    same device; rows >= ``valid`` are never returned. Returns ((Q, k) f32
+    scores, (Q, k) i32 shard-local row ids), sorted by (score desc, row
+    asc); when valid < k the tail is (-inf, int32 max). Replaces the TPU
+    kernel ``repro/embed_serve/topk.py::topk_mips``.
+    """
+    valid = table.shape[0] if valid is None else valid
+    if table.device.type == "cpu":
+        return topk_mips_plain(table, queries, k, valid)
+    if table.device.type != "cuda":
+        raise ValueError(f"topk_mips: unsupported device {table.device}")
+    _check_cuda_scan(table, queries, None, quant=False)
+    return _launch_scan("topk_scan_exact", table, None, queries, k, valid)
+
+
+def topk_mips_quant(qtable, scales, queries, m: int,
+                    valid: int | None = None):
+    """Int8 first pass: approximate top-``m`` candidates per query.
+
+    qtable: (N, d) int8 (``quant.quantize_rows``); scales: (N,) f32;
+    queries: (Q, d) f32. Scores are ``(q . row) * scale`` in f32. Returns
+    ((Q, m) f32, (Q, m) i32 shard-local ids) for ``quant.rescore_exact``.
+    Replaces the TPU kernel ``repro/embed_serve/topk.py::topk_mips_quant``.
+    """
+    valid = qtable.shape[0] if valid is None else valid
+    if qtable.device.type == "cpu":
+        return topk_mips_quant_plain(qtable, scales, queries, m, valid)
+    if qtable.device.type != "cuda":
+        raise ValueError(f"topk_mips_quant: unsupported device {qtable.device}")
+    _check_cuda_scan(qtable, queries, scales, quant=True)
+    return _launch_scan("topk_scan_int8", qtable, scales, queries, m, valid)

@@ -1,0 +1,164 @@
+"""The port's top-k scan against the JAX package's Pallas kernel (interpret
+mode) and its jnp path.
+
+On the CPU the wrappers run their plain versions. Tables and queries are
+small integers, so every f32 dot is exact whatever the summation order and
+the results must agree bitwise; the frequent ties exercise the
+smaller-index rule. Continuous data is held to equal ids and scores within
+rtol 1e-6 (summation order differs from BLAS). The kernels themselves are
+held against these plain versions on the card in ``test_torch_card.py``."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.embed_serve import topk as jtk
+from repro_torch.embed_serve import topk as tk
+from repro_torch.kernels import ref as tref
+
+
+def _int(n, d, seed, lo=-4, hi=5):
+    rng = np.random.default_rng(seed)
+    return rng.integers(lo, hi, size=(n, d)).astype(np.float32)
+
+
+def _pair(arr, bf16):
+    """The same table for both packages (bf16 rounded identically)."""
+    j, t = jnp.asarray(arr), torch.from_numpy(arr)
+    if bf16:
+        j, t = j.astype(jnp.bfloat16), t.bfloat16()
+    return j, t
+
+
+def _assert_same(port, jax_out):
+    np.testing.assert_array_equal(port[1].numpy(), np.asarray(jax_out[1]))
+    np.testing.assert_array_equal(port[0].numpy(), np.asarray(jax_out[0]))
+
+
+@pytest.mark.parametrize("k,bf16,N,Q", [
+    (1, False, 230, 17),
+    (10, False, 230, 17),
+    (10, True, 230, 17),
+    (100, True, 130, 5),      # k a large share of an odd N
+])
+def test_topk_matches_jax_kernel(k, bf16, N, Q):
+    jt, tt = _pair(_int(N, 32, 1), bf16)
+    q = _int(Q, 32, 2)
+    want = jtk.topk_mips(jt, jnp.asarray(q), k=k, valid=N, block_q=8,
+                         block_n=64, interpret=True)
+    _assert_same(tk.topk_mips(tt, torch.from_numpy(q), k, N), want)
+
+
+@pytest.mark.parametrize("k", [1, 10, 100])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_topk_matches_jax_xla(k, bf16):
+    N = 317                                    # odd, not a tile multiple
+    jt, tt = _pair(_int(N, 32, 3), bf16)
+    q = _int(9, 32, 4)
+    want = jtk.topk_mips_xla(jt, jnp.asarray(q), k=k, valid=N)
+    _assert_same(tk.topk_mips_plain(tt, torch.from_numpy(q), k, N), want)
+    rv, ri = tref.topk_mips_ref(np.asarray(jt.astype(jnp.float32)), q, k)
+    np.testing.assert_array_equal(np.asarray(want[1]), ri)
+
+
+def test_topk_heavy_ties():
+    """Six distinct rows: ties at every rank, inside and across chunks."""
+    rng = np.random.default_rng(3)
+    tbl = _int(6, 16, 4)[rng.integers(0, 6, size=200)]
+    q = _int(9, 16, 5)
+    want = jtk.topk_mips(jnp.asarray(tbl), jnp.asarray(q), k=25, valid=200,
+                         block_q=4, block_n=32, interpret=True)
+    got = tk.topk_mips(torch.from_numpy(tbl), torch.from_numpy(q), 25, 200)
+    _assert_same(got, want)
+
+
+def test_topk_chunked_plain_scan(monkeypatch):
+    """Folding chunk by chunk gives the one-shot answer, ties included."""
+    rng = np.random.default_rng(6)
+    tbl = _int(5, 8, 7)[rng.integers(0, 5, size=301)]
+    q = _int(4, 8, 8)
+    whole = tk.topk_mips_plain(torch.from_numpy(tbl), torch.from_numpy(q), 30)
+    monkeypatch.setattr(tk, "PLAIN_CHUNK_ELEMS", 4 * 7)   # 7-row chunks
+    chunked = tk.topk_mips_plain(torch.from_numpy(tbl), torch.from_numpy(q),
+                                 30)
+    assert torch.equal(whole[0], chunked[0])
+    assert torch.equal(whole[1], chunked[1])
+    want = jtk.topk_mips_xla(jnp.asarray(tbl), jnp.asarray(q), k=30)
+    _assert_same(chunked, want)
+
+
+@pytest.mark.parametrize("k", [5, 50])
+def test_topk_padded_shard_masked(k):
+    """Rows >= valid never surface, even where their zero rows would beat
+    real (negative) rows; k > valid leaves (-inf, int32 max) slots."""
+    tbl = np.full((64, 8), -2.0, np.float32)
+    tbl[40:] = 0.0
+    q = np.ones((3, 8), np.float32)
+    want = jtk.topk_mips_xla(jnp.asarray(tbl), jnp.asarray(q), k=k, valid=40)
+    got = tk.topk_mips(torch.from_numpy(tbl), torch.from_numpy(q), k, 40)
+    _assert_same(got, want)
+    real = got[1][got[1] != tk.IDX_SENTINEL]
+    assert int(real.max()) < 40
+    if k > 40:
+        assert (got[1][:, 40:] == tk.IDX_SENTINEL).all()
+        assert torch.isneginf(got[0][:, 40:]).all()
+
+
+def test_topk_continuous_matches_jax():
+    rng = np.random.default_rng(9)
+    tbl = rng.normal(0, 0.1, size=(400, 32)).astype(np.float32)
+    q = rng.normal(0, 1, size=(13, 32)).astype(np.float32)
+    jv, ji = jtk.topk_mips_xla(jnp.asarray(tbl), jnp.asarray(q), k=10)
+    v, i = tk.topk_mips(torch.from_numpy(tbl), torch.from_numpy(q), 10)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=1e-6)
+
+
+def test_select_and_merge_match_jax():
+    """Unsorted candidate ids, duplicated values, -inf and sentinels."""
+    rng = np.random.default_rng(10)
+    vals = rng.integers(-3, 4, size=(7, 40)).astype(np.float32)
+    vals[:, :5] = -np.inf
+    idx = np.stack([rng.permutation(1000)[:40] for _ in range(7)]
+                   ).astype(np.int32)
+    idx[:, 3] = tk.IDX_SENTINEL
+    for k in (1, 12, 40, 45):
+        want = jtk.select_topk(jnp.asarray(vals), jnp.asarray(idx), k)
+        got = tk.select_topk(torch.from_numpy(vals), torch.from_numpy(idx), k)
+        _assert_same(got, want)
+    pv = vals[:, :36].reshape(7, 3, 12).transpose(1, 0, 2).copy()
+    pi = idx[:, :36].reshape(7, 3, 12).transpose(1, 0, 2).copy()
+    want = jtk.merge_topk(jnp.asarray(pv), jnp.asarray(pi), k=12)
+    got = tk.merge_topk(torch.from_numpy(pv), torch.from_numpy(pi), 12)
+    _assert_same(got, want)
+
+
+def test_plan_fits_shared_memory():
+    for Q, d, k in [(256, 128, 10), (256, 128, 400), (5, 32, 100),
+                    (1, 1024, 512), (300, 128, 100)]:
+        for valid in (1, 255, 257, 26_250_000):
+            p = tk.plan_topk_scan(Q, d, k, valid)
+            assert p.smem_bytes <= tk.SMEM_PER_BLOCK
+            assert p.bq in tk.QUERY_BLOCKS
+            assert p.rows_per_split % tk.SCAN_THREADS == 0
+            # the splits cover every valid row, and none is empty
+            assert (p.splits - 1) * p.rows_per_split < valid
+            assert p.splits * p.rows_per_split >= valid
+    assert tk.plan_topk_scan(256, 128, 10, 26_250_000).bq == 64
+    assert tk.plan_topk_scan(256, 128, 400, 26_250_000).bq == 32
+    with pytest.raises(ValueError, match="does not fit"):
+        tk.plan_topk_scan(16, 128, 5000, 10_000)
+    with pytest.raises(ValueError, match="d % 8"):
+        tk.plan_topk_scan(16, 30, 10, 10_000)
+
+
+def test_wrappers_refuse_other_devices():
+    """Only a CPU tensor takes the plain version: anything else goes to
+    the kernel or raises."""
+    tbl = torch.zeros((16, 8), device="meta")
+    q = torch.zeros((2, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.topk_mips(tbl, q, 3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.topk_mips_quant(tbl.to(torch.int8), torch.ones(16, device="meta"),
+                           q, 3)
