@@ -9,20 +9,39 @@ failure ends the run with a non-zero exit:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, and the build of every CUDA kernel from
    ``src/repro_torch/kernels/csrc`` (all sources compiled in parallel);
-2. every kernel against its plain PyTorch version on the card: integer
-   tables (bitwise) at the JAX tests' shapes and at the full width
+2. every serving kernel against its plain PyTorch version on the card:
+   integer tables (bitwise) at the JAX tests' shapes and at the full width
    d = 128, then a seeded continuous 26,250,000 x 128 bf16 table (one
    card's share of the paper's 1.05 B nodes over 40 GPUs) served through
    ``ShardedEmbeddingStore.topk``, exact and int8, checked at recall 1.0
    against the plain scan; kernel, plain and library times beside the
    bound;
-3. the main path: a seeded 1,048,576 x 128 bf16 checkpoint written with
-   the port's ``save_checkpoint`` and served by
+3. the serving main path: a seeded 1,048,576 x 128 bf16 checkpoint written
+   with the port's ``save_checkpoint`` and served by
    ``repro_torch.launch.embed_serve.main`` at recall 1.0, exact and int8,
    with every kernel's launch count read around the two runs; then every
-   kernel against its plain version on that table and the launcher's own
-   queries, at the shapes the launcher gives it;
-4. a JSON line of per-kernel results, the card's line, and as the last
+   serving kernel against its plain version on that table and the
+   launcher's own queries, at the shapes the launcher gives it;
+4. the SGNS kernels (``sgns_fused_update``, ``sgns_fused_grads``) against
+   their plain versions at f32 and bf16, with heavy duplicates, an odd B
+   and one index per table, at the JAX kernel tests' tolerances, and each
+   run twice for bitwise repeatability; the bf16 tables also to within
+   two bf16 steps of plain, so that no row's update can go missing;
+5. the per-card training shape: vertex and context tables of 26,250,000 x
+   128 f32 (26.9 GB, made on the card from a seed) installed in the
+   trainer, 4 sub-parts of 8,192-pair blocks of Zipf(1.1)-skewed ids,
+   minibatch 256, 5 negatives from a 65,536-row pool; the kernels against
+   their plain versions on one minibatch (on a compact copy of the rows it
+   touches, and the full-table launch bitwise against that copy), a few
+   episodes timed (edges/s), and one launch of each kernel timed beside
+   its bound and its plain version;
+6. the training main path: ``repro_torch.launch.train.main`` on the CI
+   gate schedule at d = 128 (an SBM graph, AUC >= 0.62) and at the
+   config's geometry (a 262,144-node power-law graph, minibatch 256, 5
+   negatives, f32), the second run's checkpoint served by the serving
+   launcher at recall 1.0, with the launch counts read around the three
+   runs;
+7. a JSON line of per-kernel results, the card's line, and as the last
    line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -44,6 +63,16 @@ SERVE_ROWS = 26_250_000            # 1.05 B nodes over 40 GPUs, per card
 CKPT_ROWS = 1 << 20
 DIM = 128                          # configs/tencent_embedding.py
 BATCH, K, BATCHES = 256, 10, 4
+SGNS_TOL = {"float32": (2e-4, 1e-6), "bfloat16": (3e-2, 3e-3)}
+CI_GATE = ["--graph-kind", "sbm", "--nodes", "1200", "--epochs", "12",
+           "--episodes", "3", "--dim", "128", "--subparts", "2",
+           "--minibatch", "32", "--negatives", "8", "--neg-pool", "2048",
+           "--walk-workers", "2", "--pipeline-depth", "2",
+           "--ckpt-every", "12", "--min-auc", "0.62"]
+CONFIG_RUN = ["--graph-kind", "powerlaw", "--nodes", "262144", "--epochs",
+              "1", "--episodes", "4", "--dim", "128", "--subparts", "4",
+              "--minibatch", "256", "--negatives", "5", "--neg-pool",
+              "65536", "--dtype", "float32"]
 
 
 def card_line() -> str:
@@ -56,6 +85,256 @@ def card_line() -> str:
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def sgns_bound(B, S, d, uniq_rows, out_rows):
+    """Least time of one SGNS minibatch on an H100: each of the
+    ``uniq_rows`` distinct f32 rows the minibatch touches read once,
+    ``out_rows`` rows written once, the indices and mask read once;
+    6BSd + 4Bd operations at the f32 rate."""
+    nbytes = uniq_rows * d * 4 + out_rows * d * 4 + (3 * B + S) * 4
+    return bound_ms(nbytes, 6.0 * B * S * d + 4.0 * B * d)
+
+
+def bf16_steps_off(torch, got, want, before):
+    """Where a bf16 table updated by the kernel differs from the plain
+    version's by more than the last bits allow. The two sum each row's
+    gradients in another order, so their f32 totals may round to bf16
+    updates one step apart, and the new rows to values one step apart (two
+    across a power of two); a dropped or doubled update moves a row by
+    more. A step is the spacing of bf16 values at that magnitude."""
+    def step(x):
+        s = torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
+        return torch.where(x == 0, torch.zeros_like(x), s)
+    got, want, before = got.float(), want.float(), before.float()
+    diff = (got - want).abs()
+    return diff > 2 * step(want) + step(want - before)
+
+
+def check_sgns_kernels(torch, sgns, dev, err):
+    """Both SGNS kernels against their plain versions, and twice against
+    themselves, on numpy-seeded inputs. Returns the number of cases."""
+    cases = 0
+
+    def inputs(dtype, B, S, d, case, seed):
+        rng = np.random.default_rng(seed)
+        Nv, Nc = max(70, B // 2), max(90, B // 2)
+        iv = rng.integers(0, Nv, B).astype(np.int32)
+        ic = rng.integers(0, Nc, B).astype(np.int32)
+        inn = rng.integers(0, Nc, S).astype(np.int32)
+        mask = (rng.random(B) > 0.15).astype(np.float32)
+        if case == "dup":
+            iv[::3], ic[::4], inn[0] = 3, 5, 5
+        elif case == "odd":
+            iv[0] = 0
+        elif case == "same":
+            iv[:], ic[:], inn[:], mask[:] = 7, 9, 9, 1.0
+        tdt = getattr(torch, dtype)
+        tables = [torch.from_numpy(rng.normal(0, 0.1, (n, d)).astype(
+            np.float32)).to(dev, tdt) for n in (Nv, Nc)]
+        # the mask in the tables' dtype, as the trainer passes it
+        return (*tables, *(torch.from_numpy(a).to(dev) for a in (iv, ic, inn)),
+                torch.from_numpy(mask).to(dev, tdt))
+
+    def close(name, got, want, rtol, atol, what):
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        bad = diff > atol + rtol * want.float().abs()
+        if bad.any():
+            raise AssertionError(f"{name} {what}: kernel != plain at "
+                                 f"{int(bad.sum())} elements (max |diff| "
+                                 f"{diff.max().item():.3g})")
+        err[name] = max(err[name], diff.max().item())
+
+    for dtype in ("float32", "bfloat16"):
+        for case, B, S, d in (("nodup", 64, 8, 64), ("dup", 64, 8, 64),
+                              ("odd", 37, 4, 32), ("same", 128, 8, 32),
+                              ("dup", 32, 8, DIM), ("dup", 256, 5, DIM)):
+            what = f"{dtype} {case} B={B} S={S} d={d}"
+            rtol, atol = SGNS_TOL[dtype]
+            if case == "same" and dtype == "float32":
+                rtol, atol = 1e-3, 1e-5   # a 128-term f32 sum reassociated
+            x = inputs(dtype, B, S, d, case, seed=B + S + d)
+            runs = [sgns.sgns_fused_update(x[0].clone(), x[1].clone(),
+                                           *x[2:], 0.05) for _ in range(2)]
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                raise AssertionError(f"sgns_fused_update {what}: two runs "
+                                     f"differ")
+            want = sgns.sgns_fused_update_plain(x[0].clone(), x[1].clone(),
+                                                *x[2:], 0.05)
+            close("sgns_fused_update", runs[0][2], want[2], 1e-4, 0.0,
+                  f"{what} loss")
+            for got_t, want_t, before in zip(runs[0][:2], want[:2], x[:2]):
+                close("sgns_fused_update", got_t, want_t, rtol, atol, what)
+                if dtype == "bfloat16":
+                    off = bf16_steps_off(torch, got_t, want_t, before)
+                    if off.any():
+                        raise AssertionError(
+                            f"sgns_fused_update {what}: {int(off.sum())} "
+                            f"elements more than two bf16 steps from plain")
+            runs = [sgns.sgns_fused_grads(*x) for _ in range(2)]
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                raise AssertionError(f"sgns_fused_grads {what}: two runs "
+                                     f"differ")
+            want = sgns.sgns_fused_grads_plain(*x)
+            close("sgns_fused_grads", runs[0][0], want[0], 1e-4, 0.0,
+                  f"{what} loss")
+            g_rtol, g_atol = ((1e-4, 1e-6) if dtype == "float32"
+                              else SGNS_TOL[dtype])
+            for got_t, want_t in zip(runs[0][1:], want[1:]):
+                close("sgns_fused_grads", got_t, want_t, g_rtol, g_atol,
+                      what)
+            cases += 1
+    return cases
+
+
+def per_card_training(torch, sgns, dev, time_ms, err):
+    """The per-card training shape; prints edges/s and returns the timing
+    records of the two SGNS kernels."""
+    from repro_torch.configs.tencent_embedding import CONFIG
+    from repro_torch.core import HybridConfig, HybridEmbeddingTrainer
+    from repro_torch.core.partition import build_episode_blocks
+
+    cfg = HybridConfig(dim=CONFIG.dim, lr=CONFIG.lr,
+                       negatives=CONFIG.negatives,
+                       minibatch=CONFIG.minibatch, subparts=CONFIG.subparts,
+                       neg_pool=CONFIG.neg_pool, seed=SEED,
+                       dtype=CONFIG.dtype)
+    t0 = time.perf_counter()
+    gd = torch.Generator(device=dev).manual_seed(SEED + 2)
+    tables = []
+    for _ in range(2):
+        t = torch.empty((SERVE_ROWS, DIM), dtype=torch.float32, device=dev)
+        for lo in range(0, SERVE_ROWS, 1 << 22):
+            hi = min(lo + (1 << 22), SERVE_ROWS)
+            t[lo:hi] = torch.randn((hi - lo, DIM), generator=gd,
+                                   device=dev).mul_(0.1)
+        tables.append(t)
+    trainer = HybridEmbeddingTrainer(SERVE_ROWS, cfg, device=dev)
+    trainer.set_embeddings(*tables)
+    if trainer.vert.data_ptr() != tables[0].data_ptr():
+        raise AssertionError("set_embeddings copied a device table")
+    del tables
+    # Zipf(1.1) ranks through a seeded permutation of the ids: minibatches
+    # hold many duplicate rows, spread over the whole 13.4 GB of each table
+    rng = np.random.default_rng(SEED + 3)
+    perm = rng.permutation(SERVE_ROWS).astype(np.int64)
+    n_pairs = 2 * cfg.subparts * CONFIG.block_cap
+    ranks = (rng.zipf(1.1, size=(n_pairs, 2)) - 1) % SERVE_ROWS
+    pairs = perm[ranks]
+    eb = build_episode_blocks(pairs, trainer.part,
+                              block_cap=CONFIG.block_cap,
+                              pad_multiple=cfg.minibatch)
+    staged = trainer.stage_blocks(eb)
+    torch.cuda.synchronize()
+    print(f"per-card training: 2 x {SERVE_ROWS} x {DIM} f32 tables and "
+          f"{staged.num_samples} pairs in blocks of {eb.block_cap} on the "
+          f"card in {time.perf_counter() - t0:.1f}s")
+
+    # one minibatch of the staged blocks, kernel against plain
+    B, S = cfg.minibatch, cfg.negatives
+    iv, ic = staged.idx_v[0, :B], staged.idx_c[0, :B]
+    mask = staged.mask[0, :B]
+    idx_n = trainer._pool_dev[torch.randint(
+        0, cfg.neg_pool, (S,), generator=gd, device=dev)]
+    vj = trainer.vert.view(cfg.subparts, -1, DIM)[0]
+    ctx = trainer.ctx
+    # compact copies of the touched rows; the remap is monotone, so the
+    # sorted runs (and the kernel's sums) are those of the full tables
+    uv, iv_c = torch.unique(iv, return_inverse=True)
+    uc, icn_c = torch.unique(torch.cat([ic, idx_n]), return_inverse=True)
+    small = (vj[uv.long()], ctx[uc.long()], iv_c.int(),
+             icn_c[:B].int().contiguous(), icn_c[B:].int().contiguous(),
+             mask)
+    lr = cfg.lr
+    got = sgns.sgns_fused_update(small[0].clone(), small[1].clone(),
+                                 *small[2:], lr)
+    want = sgns.sgns_fused_update_plain(small[0].clone(), small[1].clone(),
+                                        *small[2:], lr)
+    torch.cuda.synchronize()
+    rtol, atol = SGNS_TOL["float32"]
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+        err["sgns_fused_update"] = max(err["sgns_fused_update"],
+                                       (g - w).abs().max().item())
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0.0)
+    gg = sgns.sgns_fused_grads(*small)
+    gp = sgns.sgns_fused_grads_plain(*small)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(gg[0], gp[0], rtol=1e-4, atol=0.0)
+    for g, w in zip(gg[1:], gp[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+        err["sgns_fused_grads"] = max(err["sgns_fused_grads"],
+                                      (g - w).abs().max().item())
+    # the same minibatch on the full tables: bitwise the compact result
+    full = sgns.sgns_fused_update(vj, ctx, iv, ic, idx_n, mask, lr)
+    torch.cuda.synchronize()
+    if not (torch.equal(vj[uv.long()], got[0])
+            and torch.equal(ctx[uc.long()], got[1])
+            and torch.equal(full[2], got[2])):
+        raise AssertionError("sgns_fused_update on the 13.4 GB tables != "
+                             "the same launch on a compact copy")
+    print(f"per-card minibatch (B={B}, S={S}, {uv.numel()} unique vertex "
+          f"and {uc.numel()} unique context rows): kernels == plain within "
+          f"tolerance; full tables == compact copy (bitwise)")
+
+    # episodes: the first one warms up, the next ones are timed
+    trainer.train_episode(staged)
+    episodes = 3
+    t0 = time.perf_counter()
+    losses = [trainer.train_episode(staged) for _ in range(episodes)]
+    dt = time.perf_counter() - t0
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"per-card episode losses {losses}")
+    rate = staged.num_samples * episodes / dt
+    print(f"per-card training: {rate:.1f} edges/s, {dt / episodes:.4f} "
+          f"s/episode ({staged.num_samples} edges, "
+          f"{-(-staged.num_samples // B)} minibatches), losses "
+          f"{[round(x, 4) for x in losses]}")
+    # where an episode's time goes: one more episode under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_episode(staged)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    stats = prof.key_averages()
+    dev_ops = [e for e in stats if str(e.device_type).endswith("CUDA")]
+    busy_ms = sum(e.self_device_time_total for e in dev_ops) / 1e3
+    print(f"per-card episode under the profiler: wall {wall_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+    for title, rows, attr in (
+            ("device", dev_ops, "self_device_time_total"),
+            ("host", [e for e in stats if e not in dev_ops],
+             "self_cpu_time_total")):
+        top = sorted(rows, key=lambda e: -getattr(e, attr))[:6]
+        print(f"  top {title} time: " + "; ".join(
+            f"{e.key[:60]} {getattr(e, attr) / 1e3:.3f} ms x{e.count}"
+            for e in top))
+
+    uniq = uv.numel() + uc.numel()
+    recs = {
+        "sgns_fused_update": dict(
+            replaces="src/repro/kernels/sgns.py:535",
+            ms=time_ms(lambda: sgns.sgns_fused_update(
+                vj, ctx, iv, ic, idx_n, mask, lr), 50),
+            plain_ms=time_ms(lambda: sgns.sgns_fused_update_plain(
+                vj, ctx, iv, ic, idx_n, mask, lr), 20),
+            library_ms=None, bound=sgns_bound(B, S, DIM, uniq, uniq)),
+        "sgns_fused_grads": dict(
+            replaces="src/repro/kernels/sgns.py:177",
+            ms=time_ms(lambda: sgns.sgns_fused_grads(
+                vj, ctx, iv, ic, idx_n, mask), 50),
+            plain_ms=time_ms(lambda: sgns.sgns_fused_grads_plain(
+                vj, ctx, iv, ic, idx_n, mask), 20),
+            library_ms=None, bound=sgns_bound(B, S, DIM, uniq, 2 * B + S)),
+    }
+    for r in recs.values():
+        r["source"] = "src/repro_torch/kernels/csrc/sgns_update.cu"
+    return recs
 
 
 def main() -> int:
@@ -75,6 +354,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import sgns
     from repro_torch.launch import embed_serve
+    from repro_torch.launch import train as train_launcher
     from repro_torch.train.checkpoint import save_checkpoint
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
@@ -96,7 +376,8 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 2
     g = torch.Generator(device="cpu").manual_seed(SEED)
-    err = {"topk_scan_exact": 0.0, "topk_scan_int8": 0.0, "gather_rows": 0.0}
+    err = {"topk_scan_exact": 0.0, "topk_scan_int8": 0.0, "gather_rows": 0.0,
+           "sgns_fused_grads": 0.0, "sgns_fused_update": 0.0}
 
     def int_table(n, d, lo=-4, hi=5):
         return torch.randint(lo, hi, (n, d), generator=g).float().to(dev)
@@ -333,13 +614,60 @@ def main() -> int:
         print(f"main path {mode}: {s['qps']:.1f} QPS, p50 {s['p50_ms']:.2f} "
               f"ms, p99 {s['p99_ms']:.2f} ms, recall {s['recall']:.4f}, "
               f"{s['batches']} batches")
-    print(f"main-path launches: {launches}")
+    print(f"serving main-path launches: {launches}")
     missing = [n for n in rec if launches.get(n, 0) == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+        raise AssertionError(f"kernels never launched on the serving main "
+                             f"path: {missing}")
 
     # ---------------------------------------------------------- phase 4
+    cases = check_sgns_kernels(torch, sgns, dev, err)
+    print(f"sgns kernels == plain within tolerance on {cases} cases each "
+          f"(f32, bf16; dup, odd B, one index; bf16 tables within two "
+          f"bf16 steps), bitwise repeatable")
+
+    # ---------------------------------------------------------- phase 5
+    rec.update(per_card_training(torch, sgns, dev, time_ms, err))
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- phase 6
+    with tempfile.TemporaryDirectory() as tmp:
+        for counts in (tk.LAUNCHES, sgns.LAUNCHES):
+            for name in counts:
+                counts[name] = 0
+        gate = train_launcher.main(
+            [*CI_GATE, "--out-dir", str(Path(tmp) / "gate"),
+             "--device", "cuda"])
+        config_run = train_launcher.main(
+            [*CONFIG_RUN, "--out-dir", str(Path(tmp) / "config"),
+             "--device", "cuda"])
+        served_train = embed_serve.main(
+            ["--ckpt", config_run["checkpoint"], "--k", str(K), "--queries",
+             str(BATCH), "--check-recall", "1.0", "--device", "cuda"])
+        train_launches = {**tk.LAUNCHES, **sgns.LAUNCHES}
+    for name, r in (("CI gate (sbm 1200 nodes, bf16)", gate),
+                    ("config geometry (powerlaw 262144 nodes, f32)",
+                     config_run)):
+        print(f"train main path {name}: AUC {r['auc']:.4f}, "
+              f"{r['edges_per_s']:.1f} edges/s, {r['episode_s']:.4f} "
+              f"s/episode over {r['episodes']} episodes")
+    if not gate["auc"] >= 0.62:
+        raise AssertionError(f"CI gate AUC {gate['auc']} < 0.62")
+    print(f"served the trained checkpoint: recall {served_train['recall']}, "
+          f"p50 {served_train['p50_ms']:.2f} ms")
+    print(f"training main-path launches: {train_launches}")
+    if train_launches["sgns_fused_update"] == 0:
+        raise AssertionError("sgns_fused_update never launched on the "
+                             "training main path")
+    launches["sgns_fused_update"] = train_launches["sgns_fused_update"]
+    launches["sgns_fused_grads"] = train_launches["sgns_fused_grads"]
+    for name in ("sgns_fused_update", "sgns_fused_grads"):
+        r = rec[name]
+        print(f"{name}: {r['ms']:.4f} ms/launch, bound {r['bound'][0]:.5f} "
+              f"ms ({r['bound'][1]}), plain {r['plain_ms']:.4f} ms, library "
+              f"none, max |kernel - plain| {err[name]:.3g}")
+
+    # ---------------------------------------------------------- phase 7
     for name, r in rec.items():
         results.append({
             "name": name, "route": "cuda", "source": r["source"],

@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 # source name -> {C function: argtypes}; every function returns an int
 SIGNATURES = {
     "topk_scan": {
@@ -43,6 +44,18 @@ SIGNATURES = {
     "gather_rows": {
         # table, idx, B, row_bytes, out, stream
         "gather_rows": [_P, _P, _I, _LL, _P, _P],
+    },
+    "sgns_update": {
+        # dtype, mask_bf16, vert, ctx, idx_v, idx_c, idx_n, mask, B, S, d,
+        # lr, bb, smem, ivs, perm_v, icns, perm_c, dv, dc, dn_part,
+        # loss_part, loss, stream
+        "sgns_fused_update": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _F, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _P],
+        # dtype, mask_bf16, vert, ctx, idx_v, idx_c, idx_n, mask, B, S, d,
+        # bb, smem, dv, dc, dn_part, loss_part, dn, loss, stream
+        "sgns_fused_grads": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _P, _P, _P, _P, _P, _P, _P],
     },
 }
 

@@ -1,4 +1,5 @@
-"""Telemetry hooks the serving path calls, with nothing behind them yet.
+"""Telemetry hooks the serving and training paths call, with nothing
+behind them yet.
 
 The JAX package's ``obs`` records these calls into a metrics registry and a
 trace once ``enable()`` / ``set_tracer()`` switch them on; disabled, each is
@@ -14,6 +15,10 @@ import contextlib
 def span(name: str, cat: str = "", args: dict | None = None):
     """A timed region of the trace (``with span(...):``)."""
     return contextlib.nullcontext()
+
+
+def counter_add(name: str, n=1) -> None:
+    """Add ``n`` to the counter ``name``."""
 
 
 def observe(name: str, value: float) -> None:

@@ -1,11 +1,37 @@
-"""Serving failures, from the JAX package's ``runtime/errors.py``.
+"""Failures of the port, from the JAX package's ``runtime/errors.py``.
 
 The port imports nothing of the JAX package, so it keeps its own copy of
-the one class its serving path raises. The rest of that vocabulary (fault
-injection, sample-store stalls, transport and corrupt-episode errors, the
-``Overloaded`` of admission control) comes with the slices that raise it.
+the classes its paths raise: serving's ``DeadlineExceeded`` and the sample
+store's ``StoreStalled``. The rest of that vocabulary (fault injection,
+transport and corrupt-episode errors, the ``Overloaded`` of admission
+control) comes with the slices that raise it.
 """
 from __future__ import annotations
+
+
+class StoreStalled(RuntimeError):
+    """A sample-store wait loop gave up: the producer died or the stall
+    deadline passed with no store progress.
+
+    Carries the diagnostics the old silent ``_cv.wait(60.0)`` spin threw
+    away: which key the waiter was blocked on, what was resident at the
+    time, and whether the producer looked alive."""
+
+    def __init__(self, op: str, key, *, resident, producer_alive,
+                 waited_s: float, producer_info: str | None = None):
+        self.op = op
+        self.key = key
+        self.resident = tuple(resident)
+        self.producer_alive = producer_alive
+        self.producer_info = producer_info
+        self.waited_s = waited_s
+        alive = ("unknown" if producer_alive is None
+                 else "alive" if producer_alive else "DEAD")
+        super().__init__(
+            f"sample store stalled in {op} waiting on {key!r} "
+            f"({waited_s:.1f}s without progress); resident episodes: "
+            f"{sorted(self.resident)!r}; producer: {alive}"
+            + (f" [{producer_info}]" if producer_info else ""))
 
 
 class DeadlineExceeded(RuntimeError):

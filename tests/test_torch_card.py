@@ -6,8 +6,11 @@ it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_card.py
 
-Integer tables and queries make every f32 dot exact, so kernel and plain
-version must agree bitwise, ties included."""
+For the scans, integer tables and queries make every f32 dot exact, so
+kernel and plain version must agree bitwise, ties included. The SGNS
+kernels sum in another order than their plain versions, so they are held
+to the JAX kernel tests' tolerances (bf16 tables also to two bf16 steps),
+and to themselves bitwise."""
 import numpy as np
 import pytest
 import torch
@@ -90,3 +93,118 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="idx"):
         sgns.gather_rows(torch.zeros((32, 16), device=card),
                          torch.zeros(3, device=card, dtype=torch.int64))
+
+
+SGNS_TOL = {torch.float32: (2e-4, 1e-6), torch.bfloat16: (3e-2, 3e-3)}
+
+
+def _sgns_inputs(card, dtype, Nv=70, Nc=90, B=64, S=8, d=64, seed=60,
+                 case="nodup"):
+    """Tables, indices and mask on the card from a numpy seed; ``case``:
+    nodup, dup (vertex 3 and context 5 repeat, a negative hits context 5),
+    odd (row 0 a real target of an odd B) or same (one index per table)."""
+    rng = np.random.default_rng(seed)
+    vert = torch.from_numpy(rng.normal(0, 0.1, (Nv, d)).astype(np.float32))
+    ctx = torch.from_numpy(rng.normal(0, 0.1, (Nc, d)).astype(np.float32))
+    iv = rng.integers(0, Nv, B).astype(np.int32)
+    ic = rng.integers(0, Nc, B).astype(np.int32)
+    inn = rng.integers(0, Nc, S).astype(np.int32)
+    mask = (rng.random(B) > 0.15).astype(np.float32)
+    if case == "dup":
+        iv[::3], ic[::4], inn[0] = 3, 5, 5
+    elif case == "odd":
+        iv[0] = 0
+    elif case == "same":
+        iv[:], ic[:], inn[:], mask[:] = 7, 9, 9, 1.0
+    idx = [torch.from_numpy(a).to(card) for a in (iv, ic, inn)]
+    # the mask in the tables' dtype, as the trainer passes it
+    return (vert.to(card, dtype), ctx.to(card, dtype), *idx,
+            torch.from_numpy(mask).to(card, dtype))
+
+
+def _bf16_step(x):
+    """The spacing of bf16 values at the magnitude of each element of x."""
+    s = torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
+    return torch.where(x == 0, torch.zeros_like(x), s)
+
+
+def _within_bf16_steps(got, want, before):
+    """A bf16 table updated by the kernel against the plain version's: the
+    two sum each row's gradients in another order, so their bf16 updates
+    may round one step apart, and the new rows one step apart (two across
+    a power of two). A dropped or doubled update moves a row by more."""
+    got, want, before = got.float(), want.float(), before.float()
+    tol = 2 * _bf16_step(want) + _bf16_step(want - before)
+    assert ((got - want).abs() <= tol).all()
+
+
+def _close(got, want, rtol, atol):
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case,B,d", [("nodup", 64, 64), ("dup", 64, 64),
+                                      ("odd", 37, 32), ("dup", 256, 128),
+                                      ("same", 128, 32)])
+def test_sgns_update_kernel_matches_plain(card, dtype, case, B, d):
+    x = _sgns_inputs(card, dtype, B=B, d=d, case=case)
+    rtol, atol = SGNS_TOL[dtype]
+    if case == "same" and dtype == torch.float32:
+        rtol, atol = 1e-3, 1e-5      # a 128-term f32 sum reassociated
+    before = sgns.LAUNCHES["sgns_fused_update"]
+    outs = []
+    for _ in range(2):               # twice from the same tables
+        vert, ctx = x[0].clone(), x[1].clone()
+        outs.append(sgns.sgns_fused_update(vert, ctx, *x[2:], 0.05))
+    torch.cuda.synchronize()
+    assert sgns.LAUNCHES["sgns_fused_update"] == before + 2
+    for a, b in zip(*outs):          # deterministic: bitwise repeatable
+        assert torch.equal(a, b)
+    vp, cp, lp = sgns.sgns_fused_update_plain(x[0].clone(), x[1].clone(),
+                                              *x[2:], 0.05)
+    vk, ck, lk = outs[0]
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=0)
+    _close(vk, vp, rtol, atol)
+    _close(ck, cp, rtol, atol)
+    if dtype == torch.bfloat16:
+        _within_bf16_steps(vk, vp, x[0])
+        _within_bf16_steps(ck, cp, x[1])
+    assert not torch.equal(vk, x[0])          # the update happened
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["nodup", "dup"])
+def test_sgns_grads_kernel_matches_plain(card, dtype, case):
+    x = _sgns_inputs(card, dtype, seed=40, case=case)
+    got = sgns.sgns_fused_grads(*x)
+    again = sgns.sgns_fused_grads(*x)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    want = sgns.sgns_fused_grads_plain(*x)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0)
+    rtol, atol = (1e-4, 1e-6) if dtype == torch.float32 else SGNS_TOL[dtype]
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == dtype
+        _close(g, w, rtol, atol)
+
+
+def test_sgns_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    vert, ctx, iv, ic, inn, mask = _sgns_inputs(card, torch.float32)
+    with pytest.raises(ValueError, match="overlap"):
+        sgns.sgns_fused_update(vert, vert, iv, ic, inn, mask, 0.05)
+    both = torch.zeros((160, 64), device=card)
+    with pytest.raises(ValueError, match="overlap"):
+        sgns.sgns_fused_update(both[:100], both[60:], iv, ic, inn, mask, 0.05)
+    with pytest.raises(ValueError, match="idx_v"):
+        sgns.sgns_fused_update(vert, ctx, iv.long(), ic, inn, mask, 0.05)
+    with pytest.raises(ValueError, match="idx_n"):
+        sgns.sgns_fused_grads(vert, ctx, iv, ic, inn.cpu(), mask)
+    with pytest.raises(ValueError, match="dtype"):
+        sgns.sgns_fused_update(vert.half(), ctx.half(), iv, ic, inn,
+                               mask, 0.05)
+    with pytest.raises(ValueError, match="mask"):
+        sgns.sgns_fused_grads(vert, ctx, iv, ic, inn, mask.double())
