@@ -22,30 +22,39 @@ failure ends the run with a non-zero exit:
    with every kernel's launch count read around the two runs; then every
    serving kernel against its plain version on that table and the
    launcher's own queries, at the shapes the launcher gives it;
-4. the SGNS kernels (``sgns_fused_update``, ``sgns_fused_grads``) against
-   their plain versions at f32 and bf16, with heavy duplicates, an odd B
-   and one index per table, at the JAX kernel tests' tolerances, and each
-   run twice for bitwise repeatability; the bf16 tables also to within
-   two bf16 steps of plain, so that no row's update can go missing;
+4. the SGNS kernels (``sgns_fused_update``, ``sgns_fused_grads``,
+   ``sgns_grads``) against their plain versions at f32 and bf16, with
+   heavy duplicates, an odd B and one index per table, at the JAX kernel
+   tests' tolerances, and each run twice for bitwise repeatability; the
+   bf16 tables also to within two bf16 steps of plain, so that no row's
+   update can go missing; the row kernels of the unfused routes
+   (``scatter_add_rows``, its row-wise reference, and ``gather_rows_rowwise``)
+   bitwise against their plain versions and the blocked kernels bitwise
+   against their row-wise references; one ``ops.sgns_step`` per kernel
+   route against the ``ref`` route (the same composition, plain);
 5. the per-card training shape: vertex and context tables of 26,250,000 x
    128 f32 (26.9 GB, made on the card from a seed) installed in the
    trainer, 4 sub-parts of 8,192-pair blocks of Zipf(1.1)-skewed ids,
    minibatch 256, 5 negatives from a 65,536-row pool; the kernels against
    their plain versions on one minibatch (on a compact copy of the rows it
    touches, and the full-table launch bitwise against that copy), a few
-   episodes timed (edges/s), and one launch of each kernel timed beside
-   its bound and its plain version;
+   episodes timed per route (edges/s) and one of each kernel route under
+   the profiler, and one launch of each kernel timed beside its bound,
+   its plain version and its library call;
 6. the training main path: ``repro_torch.launch.train.main`` on the CI
    gate schedule at d = 128 (an SBM graph, AUC >= 0.62) and at the
    config's geometry (a 262,144-node power-law graph, minibatch 256, 5
    negatives, f32), the second run's checkpoint served by the serving
-   launcher at recall 1.0, with the launch counts read around the three
-   runs;
-7. a JSON line of per-kernel results, the card's line, and as the last
-   line ``{"ok": true, "device": {...}}``.
+   launcher at recall 1.0; then the same launcher on ``--impl pallas`` and
+   ``--impl pallas_fused`` on the CI gate and on ``--impl pallas`` at the
+   config's geometry, served at recall 1.0; the launch counts read around
+   each run;
+7. a JSON line of per-kernel results (launches per path), the card's line,
+   and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -73,6 +82,10 @@ CONFIG_RUN = ["--graph-kind", "powerlaw", "--nodes", "262144", "--epochs",
               "1", "--episodes", "4", "--dim", "128", "--subparts", "4",
               "--minibatch", "256", "--negatives", "5", "--neg-pool",
               "65536", "--dtype", "float32"]
+# the kernels each kernel route of ops.sgns_step launches
+ROUTE_KERNELS = {"pallas_fused2": ("sgns_fused_update",),
+                 "pallas_fused": ("sgns_fused_grads", "scatter_add_rows"),
+                 "pallas": ("gather_rows", "sgns_grads", "scatter_add_rows")}
 
 
 def card_line() -> str:
@@ -190,9 +203,153 @@ def check_sgns_kernels(torch, sgns, dev, err):
     return cases
 
 
-def per_card_training(torch, sgns, dev, time_ms, err):
-    """The per-card training shape; prints edges/s and returns the timing
-    records of the two SGNS kernels."""
+def check_route_kernels(torch, sgns, ops, dev, err):
+    """The kernels of the unfused routes against their plain versions and
+    the blocked row kernels against their row-wise references, on
+    numpy-seeded inputs at the JAX tests' shapes and at d = 128; then one
+    ``ops.sgns_step`` per kernel route against the ``ref`` route on the
+    same tensors. Returns the number of cases."""
+    cases = 0
+
+    def same(name, got, want, what):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} {what}: != reference (max |diff| "
+                                 f"{(got.float() - want.float()).abs().max()})")
+
+    def normal(rng, shape, std, dtype):
+        return torch.from_numpy(rng.normal(0, std, shape).astype(
+            np.float32)).to(dev, dtype)
+
+    # sgns_grads (#5): rows gathered beforehand, the mask in f32 and in
+    # the rows' dtype; test_kernels.py's tolerances, bitwise run to run
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, d, S in ((128, 128, 16), (256, 64, 8), (512, 256, 32),
+                        (64, 32, 4), (37, DIM, 5), (32, DIM, 8),
+                        (256, DIM, 5)):
+            rng = np.random.default_rng(B + d + S)
+            x = [normal(rng, shape, 0.3, dtype)
+                 for shape in ((B, d), (B, d), (S, d))]
+            mask = torch.from_numpy((rng.random(B) > 0.2).astype(
+                np.float32)).to(dev)
+            for m in (mask, mask.to(dtype)):
+                what = f"{dtype} B={B} S={S} d={d} mask {m.dtype}"
+                runs = [sgns.sgns_grads(*x, m) for _ in range(2)]
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                    raise AssertionError(f"sgns_grads {what}: two runs "
+                                         f"differ")
+                want = sgns.sgns_grads_plain(*x, m)
+                diff = (runs[0][0] - want[0]).abs().item()
+                if diff > 3e-5 + 3e-5 * want[0].abs().item():
+                    raise AssertionError(f"sgns_grads {what}: loss off by "
+                                         f"{diff}")
+                rtol, atol = ((1e-4, 1e-5) if dtype == torch.float32
+                              else SGNS_TOL["bfloat16"])
+                for g, w in zip(runs[0][1:], want[1:]):
+                    dd = (g.float() - w.float()).abs()
+                    if (dd > atol + rtol * w.float().abs()).any():
+                        raise AssertionError(f"sgns_grads {what}: kernel != "
+                                             f"plain (max {dd.max()})")
+                    err["sgns_grads"] = max(err["sgns_grads"], dd.max().item())
+                cases += 1
+
+    # scatter_add_rows (#9) == plain == scatter_add_rows_rowwise (#10),
+    # bitwise: no duplicates, one index, runs within and across 8-row
+    # blocks; upd in f32 (as the routes pass it) or the table's dtype; the
+    # CI gate's B = 32 vertex and B + S = 40 context scatters at d = 128
+    for dtype, upd_dtype in ((torch.float32, torch.float32),
+                             (torch.bfloat16, torch.float32),
+                             (torch.bfloat16, torch.bfloat16)):
+        for case, N, B, d in (("nodup", 40, 32, 64), ("same", 40, 30, 64),
+                              ("dup", 40, 30, 64), ("dup", 90, 32, DIM),
+                              ("dup", 90, 40, DIM), ("dup", 90, 261, DIM),
+                              ("dup", 5, 77, 20)):
+            rng = np.random.default_rng(N + B + d)
+            if case == "nodup":
+                idx = rng.permutation(N)[:B]
+            elif case == "same":
+                idx = np.full(B, 3)
+            else:
+                idx = rng.integers(0, N, B)
+                idx[::7] = 1
+                idx[1:24:8] = idx[2:25:8] = idx[3:26:8] = 2
+            idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+            table = normal(rng, (N, d), 1.0, dtype)
+            upd = normal(rng, (B, d), 3e-3, upd_dtype)
+            what = f"{dtype} upd {upd_dtype} {case} N={N} B={B} d={d}"
+            got = sgns.scatter_add_rows(table.clone(), idx, upd)
+            want = sgns.scatter_add_rows_plain(table.clone(), idx, upd)
+            same("scatter_add_rows", got, want, what)
+            ref = sgns.scatter_add_rows_rowwise(table.clone(), idx, upd)
+            same("scatter_add_rows_rowwise", ref, want, what)
+            same("scatter_add_rows vs scatter_add_rows_rowwise", got, ref,
+                 what)
+            cases += 1
+
+    # gather_rows_rowwise (#8) == gather_rows (#3) == plain, bitwise
+    for dtype in (torch.float32, torch.bfloat16):
+        for N, d, B in ((50, 64, 20), (30, 32, 9), (64, 128, 64),
+                        (1000, DIM, 1001), (77, 20, 333)):
+            rng = np.random.default_rng(N + d + B)
+            table = normal(rng, (N, d), 1.0, dtype)
+            idx = torch.from_numpy(rng.integers(0, N, B).astype(
+                np.int32)).to(dev)
+            what = f"{dtype} N={N} d={d} B={B}"
+            got = sgns.gather_rows_rowwise(table, idx)
+            same("gather_rows_rowwise", got, sgns.gather_rows_plain(table, idx),
+                 what)
+            same("gather_rows vs gather_rows_rowwise",
+                 sgns.gather_rows(table, idx), got, what)
+            cases += 1
+
+    # one step per kernel route against the ref route on the same tensors
+    def inputs(dtype, B, S, d, case, seed):
+        rng = np.random.default_rng(seed)
+        Nv, Nc = max(70, B // 2), max(90, B // 2)
+        iv = rng.integers(0, Nv, B).astype(np.int32)
+        ic = rng.integers(0, Nc, B).astype(np.int32)
+        inn = rng.integers(0, Nc, S).astype(np.int32)
+        mask = (rng.random(B) > 0.15).astype(np.float32)
+        if case == "dup":
+            iv[::3], ic[::4], inn[0] = 3, 5, 5
+        elif case == "same":
+            iv[:], ic[:], inn[:], mask[:] = 7, 9, 9, 1.0
+        tdt = getattr(torch, dtype)
+        tables = [normal(rng, (n, d), 0.1, tdt) for n in (Nv, Nc)]
+        return (*tables, *(torch.from_numpy(a).to(dev) for a in (iv, ic, inn)),
+                torch.from_numpy(mask).to(dev, tdt))
+
+    for dtype in ("float32", "bfloat16"):
+        for case, B, S, d in (("dup", 64, 8, 64), ("dup", 37, 4, 32),
+                              ("same", 128, 8, 32), ("dup", 32, 8, DIM),
+                              ("dup", 256, 5, DIM)):
+            x = inputs(dtype, B, S, d, case, seed=B + S + d)
+            rtol, atol = SGNS_TOL[dtype]
+            if case == "same" and dtype == "float32":
+                rtol, atol = 1e-3, 1e-5   # a 128-term f32 sum reassociated
+            want = ops.sgns_step(x[0].clone(), x[1].clone(), *x[2:], 0.05,
+                                 impl="ref")
+            for impl in ("pallas", "pallas_fused"):
+                what = f"sgns_step impl={impl} {dtype} {case} B={B} d={d}"
+                got = ops.sgns_step(x[0].clone(), x[1].clone(), *x[2:], 0.05,
+                                    impl=impl)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0)
+                for g, w, before in zip(got[:2], want[:2], x[:2]):
+                    torch.testing.assert_close(g.float(), w.float(),
+                                               rtol=rtol, atol=atol)
+                    if dtype == "bfloat16" and bf16_steps_off(
+                            torch, g, w, before).any():
+                        raise AssertionError(f"{what}: more than two bf16 "
+                                             f"steps from the ref route")
+                cases += 1
+    return cases
+
+
+def per_card_training(torch, sgns, dev, time_ms, wall_ms, err):
+    """The per-card training shape; prints edges/s per route and returns
+    the timing records of the training kernels."""
     from repro_torch.configs.tencent_embedding import CONFIG
     from repro_torch.core import HybridConfig, HybridEmbeddingTrainer
     from repro_torch.core.partition import build_episode_blocks
@@ -289,51 +446,150 @@ def per_card_training(torch, sgns, dev, time_ms, err):
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"per-card episode losses {losses}")
     rate = staged.num_samples * episodes / dt
-    print(f"per-card training: {rate:.1f} edges/s, {dt / episodes:.4f} "
+    print(f"per-card training impl pallas_fused2: {rate:.1f} edges/s, "
+          f"{dt / episodes:.4f} "
           f"s/episode ({staged.num_samples} edges, "
           f"{-(-staged.num_samples // B)} minibatches), losses "
           f"{[round(x, 4) for x in losses]}")
     # where an episode's time goes: one more episode under the profiler
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def profile_episode(label):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train_episode(staged)
+            wall = 1e3 * (time.perf_counter() - t0)
+        stats = prof.key_averages()
+        dev_ops = [e for e in stats if str(e.device_type).endswith("CUDA")]
+        busy_ms = sum(e.self_device_time_total for e in dev_ops) / 1e3
+        print(f"per-card {label} episode under the profiler: wall "
+              f"{wall:.3f} ms, device busy {busy_ms:.3f} ms "
+              f"({100 * busy_ms / wall:.1f} %)")
+        for title, rows, attr in (
+                ("device", dev_ops, "self_device_time_total"),
+                ("host", [e for e in stats if e not in dev_ops],
+                 "self_cpu_time_total")):
+            top = sorted(rows, key=lambda e: -getattr(e, attr))[:6]
+            print(f"  top {title} time: " + "; ".join(
+                f"{e.key[:60]} {getattr(e, attr) / 1e3:.3f} ms x{e.count}"
+                for e in top))
+
+    profile_episode("pallas_fused2")
+    # the other routes on the same blocks: a warm-up episode, then timed
+    # ones (one for ref, whose scatter loops on the host over run ranks),
+    # then one under the profiler for the kernel routes
+    for impl in ("pallas_fused", "pallas", "ref"):
+        trainer.cfg = dataclasses.replace(cfg, impl=impl)
         trainer.train_episode(staged)
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    stats = prof.key_averages()
-    dev_ops = [e for e in stats if str(e.device_type).endswith("CUDA")]
-    busy_ms = sum(e.self_device_time_total for e in dev_ops) / 1e3
-    print(f"per-card episode under the profiler: wall {wall_ms:.3f} ms, "
-          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %)")
-    for title, rows, attr in (
-            ("device", dev_ops, "self_device_time_total"),
-            ("host", [e for e in stats if e not in dev_ops],
-             "self_cpu_time_total")):
-        top = sorted(rows, key=lambda e: -getattr(e, attr))[:6]
-        print(f"  top {title} time: " + "; ".join(
-            f"{e.key[:60]} {getattr(e, attr) / 1e3:.3f} ms x{e.count}"
-            for e in top))
+        n_ep = 1 if impl == "ref" else episodes
+        t0 = time.perf_counter()
+        losses = [trainer.train_episode(staged) for _ in range(n_ep)]
+        dt = time.perf_counter() - t0
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"per-card {impl} episode losses {losses}")
+        print(f"per-card training impl {impl}: "
+              f"{staged.num_samples * n_ep / dt:.1f} edges/s, "
+              f"{dt / n_ep:.4f} s/episode")
+        if impl != "ref":
+            profile_episode(impl)
+    trainer.cfg = cfg
+
+    # the unfused routes' kernels on this minibatch: gradients of the
+    # gathered rows against plain, and the context scatter of -lr * (dc ++
+    # dn) over idx_c ++ idx_n bitwise against plain on the compact copy,
+    # then on the full table bitwise against that copy
+    v, c, n = vj[iv.long()], ctx[ic.long()], ctx[idx_n.long()]
+    g5, p5 = sgns.sgns_grads(v, c, n, mask), sgns.sgns_grads_plain(v, c, n,
+                                                                     mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(g5[0], p5[0], rtol=3e-5, atol=3e-5)
+    for g, w in zip(g5[1:], p5[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+        err["sgns_grads"] = max(err["sgns_grads"], (g - w).abs().max().item())
+    icn = torch.cat([ic, idx_n])
+    upd = torch.cat([g5[2], g5[3]]) * float(-np.float32(lr))
+    cc = ctx[uc.long()]                      # the rows as the episodes left them
+    got9 = sgns.scatter_add_rows(cc.clone(), icn_c.int(), upd)
+    got10 = sgns.scatter_add_rows_rowwise(cc.clone(), icn_c.int(), upd)
+    want9 = sgns.scatter_add_rows_plain(cc.clone(), icn_c.int(), upd)
+    sgns.scatter_add_rows(ctx, icn, upd)
+    g8 = sgns.gather_rows_rowwise(vj, iv)
+    torch.cuda.synchronize()
+    if not (torch.equal(got9, want9) and torch.equal(got10, want9)
+            and torch.equal(ctx[uc.long()], got9)):
+        raise AssertionError("scatter_add_rows at the per-card minibatch: "
+                             "kernel, row-wise kernel, plain and the full "
+                             "table disagree")
+    if not (torch.equal(g8, sgns.gather_rows_plain(vj, iv))
+            and torch.equal(g8, sgns.gather_rows(vj, iv))):
+        raise AssertionError("gather_rows_rowwise at the per-card minibatch "
+                             "!= gather_rows / plain")
+    print(f"per-card minibatch, unfused routes: sgns_grads == plain within "
+          f"tolerance; scatter_add_rows == row-wise == plain == full table, "
+          f"gather_rows_rowwise == gather_rows == plain (bitwise)")
 
     uniq = uv.numel() + uc.numel()
+    L = B + S
+    row_bytes = DIM * 4
+
+    def timed(kernel, plain, reps=50):
+        return dict(ms=time_ms(kernel, reps), wall_ms=wall_ms(kernel, reps),
+                    plain_ms=time_ms(plain, 20))
+
     recs = {
         "sgns_fused_update": dict(
             replaces="src/repro/kernels/sgns.py:535",
-            ms=time_ms(lambda: sgns.sgns_fused_update(
-                vj, ctx, iv, ic, idx_n, mask, lr), 50),
-            plain_ms=time_ms(lambda: sgns.sgns_fused_update_plain(
-                vj, ctx, iv, ic, idx_n, mask, lr), 20),
+            **timed(lambda: sgns.sgns_fused_update(
+                vj, ctx, iv, ic, idx_n, mask, lr),
+                lambda: sgns.sgns_fused_update_plain(
+                vj, ctx, iv, ic, idx_n, mask, lr)),
             library_ms=None, bound=sgns_bound(B, S, DIM, uniq, uniq)),
         "sgns_fused_grads": dict(
             replaces="src/repro/kernels/sgns.py:177",
-            ms=time_ms(lambda: sgns.sgns_fused_grads(
-                vj, ctx, iv, ic, idx_n, mask), 50),
-            plain_ms=time_ms(lambda: sgns.sgns_fused_grads_plain(
-                vj, ctx, iv, ic, idx_n, mask), 20),
+            **timed(lambda: sgns.sgns_fused_grads(
+                vj, ctx, iv, ic, idx_n, mask),
+                lambda: sgns.sgns_fused_grads_plain(
+                vj, ctx, iv, ic, idx_n, mask)),
             library_ms=None, bound=sgns_bound(B, S, DIM, uniq, 2 * B + S)),
+        "sgns_grads": dict(
+            replaces="src/repro/kernels/sgns.py:90",
+            **timed(lambda: sgns.sgns_grads(v, c, n, mask),
+                    lambda: sgns.sgns_grads_plain(v, c, n, mask)),
+            library_ms=None,
+            # (2B + S) rows read and written, the mask read
+            bound=bound_ms(2 * (2 * B + S) * row_bytes + 4 * B,
+                           6.0 * B * S * DIM + 4.0 * B * DIM)),
     }
     for r in recs.values():
         r["source"] = "src/repro_torch/kernels/csrc/sgns_update.cu"
+    # the scatters time the context scatter in place on the 13.4 GB table;
+    # bound: the update rows and ids read, each unique row read and written
+    scatter_bound = bound_ms(L * row_bytes + 2 * uc.numel() * row_bytes
+                             + 4 * L, float(L * DIM))
+    library = time_ms(lambda: ctx.index_add_(0, icn.long(), upd), 50)
+    for name, fn in (("scatter_add_rows", sgns.scatter_add_rows),
+                     ("scatter_add_rows_rowwise",
+                      sgns.scatter_add_rows_rowwise)):
+        recs[name] = dict(
+            replaces=("src/repro/kernels/sgns.py:810" if name ==
+                      "scatter_add_rows" else "src/repro/kernels/sgns.py:867"),
+            source="src/repro_torch/kernels/csrc/scatter_rows.cu",
+            **timed(lambda fn=fn: fn(ctx, icn, upd),
+                    lambda: sgns.scatter_add_rows_plain(ctx, icn, upd)),
+            library_ms=library, bound=scatter_bound)
+    recs["gather_rows_rowwise"] = dict(
+        replaces="src/repro/kernels/sgns.py:719",
+        source="src/repro_torch/kernels/csrc/gather_rows.cu",
+        **timed(lambda: sgns.gather_rows_rowwise(vj, iv),
+                lambda: sgns.gather_rows_plain(vj, iv)),
+        library_ms=time_ms(lambda: vj.index_select(0, iv), 50),
+        # the unique rows read, B rows written, the ids read
+        bound=bound_ms((uv.numel() + B) * row_bytes + 4 * B, 0.0))
+    print(f"gather_rows at the same shape (B={B} f32 rows): "
+          f"{time_ms(lambda: sgns.gather_rows(vj, iv), 50):.4f} device "
+          f"ms/launch, {wall_ms(lambda: sgns.gather_rows(vj, iv), 50):.4f} "
+          f"ms wall")
     return recs
 
 
@@ -351,8 +607,7 @@ def main() -> int:
                                                rescore_exact)
     from repro_torch.embed_serve.store import (ShardedEmbeddingStore,
                                                recall_at_k)
-    from repro_torch.kernels import build
-    from repro_torch.kernels import sgns
+    from repro_torch.kernels import build, ops, sgns
     from repro_torch.launch import embed_serve
     from repro_torch.launch import train as train_launcher
     from repro_torch.train.checkpoint import save_checkpoint
@@ -376,8 +631,17 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 2
     g = torch.Generator(device="cpu").manual_seed(SEED)
-    err = {"topk_scan_exact": 0.0, "topk_scan_int8": 0.0, "gather_rows": 0.0,
-           "sgns_fused_grads": 0.0, "sgns_fused_update": 0.0}
+    err = {"topk_scan_exact": 0.0, "topk_scan_int8": 0.0,
+           **{name: 0.0 for name in sgns.LAUNCHES}}
+
+    def counted(run):
+        """``run()`` with every launch count set to 0 just before it;
+        returns its result and the counts read just after."""
+        for counts in (tk.LAUNCHES, sgns.LAUNCHES):
+            for name in counts:
+                counts[name] = 0
+        out = run()
+        return out, {**tk.LAUNCHES, **sgns.LAUNCHES}
 
     def int_table(n, d, lo=-4, hi=5):
         return torch.randint(lo, hi, (n, d), generator=g).float().to(dev)
@@ -520,16 +784,69 @@ def main() -> int:
     print(f"{SERVE_ROWS}-row serving shape: exact scan, int8 scan (m={m}) "
           f"and gather (B={gidx.numel()}) == plain (bitwise)")
 
-    # CUDA events around each launch, after a warm-up; L2 (50 MB) is
-    # flushed before every launch, since the serving path finds the rows
-    # the gather reads cold, just after a scan of gigabytes
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    # L2 (50 MB) is flushed before every timed call, since the serving
+    # path finds the rows the gather reads cold, just after a scan of
+    # gigabytes. A microsecond kernel's wall time between two CUDA events
+    # is mostly its wrapper's enqueue on the host, so the times that stand
+    # beside the bounds are device times, from the profiler. The flush
+    # rewrites 256 MiB with an op no timed function launches (torch.sort
+    # fills bytes, so a uint8 zero_ would not do)
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
+
+    def device_events(run):
+        """(start us, duration us, name) of each kernel ``run()`` launches,
+        in the order the card ran them."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        return sorted((e.time_range.start, e.time_range.elapsed_us(), e.key)
+                      for e in prof.events()
+                      if str(e.device_type).endswith("CUDA"))
+
+    flush.bitwise_not_()
+    flush_events = device_events(flush.bitwise_not_)
+    if len(flush_events) != 1:
+        raise AssertionError(f"the profiler saw {flush_events} for one "
+                             f"flush")
+    _, flush_us, flush_key = flush_events[0]
 
     def time_ms(fn, reps):
+        """Device ms of one call of ``fn`` with a cold L2: ``reps`` calls,
+        each after a flush, under the profiler; the duration of every
+        kernel that follows a recorded flush, the flushes left out, summed
+        and divided by the number of flushes recorded. (After the profiled
+        training episodes the profiler misses the first few kernels of a
+        session, so only the calls after the first recorded flush are
+        whole.)"""
+        fn()
+
+        def run():
+            for _ in range(reps):
+                flush.bitwise_not_()
+                fn()
+        events = device_events(run)
+        flushes = [i for i, (_, us, key) in enumerate(events)
+                   if key == flush_key and us > flush_us / 2]
+        if not flushes or len(flushes) < reps / 2:
+            raise AssertionError(f"the profiler recorded {len(flushes)} of "
+                                 f"{reps} flushes")
+        ends = flushes[1:] + [len(events)]
+        sizes = sorted({e - f - 1 for f, e in zip(flushes, ends)})
+        if len(sizes) > 1:
+            print(f"  note: calls of {sizes} kernels in one timing")
+        skip = set(flushes)
+        return sum(us for i, (_, us, _) in enumerate(events)
+                   if i > flushes[0] and i not in skip) / len(flushes) / 1e3
+
+    def wall_ms(fn, reps):
+        """Ms between CUDA events around one call of ``fn`` (the host's
+        enqueue included), cold L2, averaged over ``reps`` calls."""
         fn()
         total = 0.0
         for _ in range(reps):
-            flush.zero_()
+            flush.bitwise_not_()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -563,8 +880,16 @@ def main() -> int:
             ms=time_ms(lambda: sgns.gather_rows(shard, gidx), 50),
             plain_ms=time_ms(lambda: sgns.gather_rows_plain(shard, gidx), 50),
             library_ms=time_ms(lambda: shard.index_select(0, gidx), 50),
-            bound=bound_ms(gidx.numel() * (2 * d * 2 + 4), 0.0)),
+            # the unique rows read, B rows written, the ids read
+            bound=bound_ms((torch.unique(gidx).numel() + gidx.numel()) * d
+                           * 2 + 4 * gidx.numel(), 0.0)),
     }
+    rec["topk_scan_exact"]["wall_ms"] = wall_ms(
+        lambda: tk.topk_mips(shard, q, K), 5)
+    rec["topk_scan_int8"]["wall_ms"] = wall_ms(
+        lambda: tk.topk_mips_quant(q8, sc, q, m), 5)
+    rec["gather_rows"]["wall_ms"] = wall_ms(
+        lambda: sgns.gather_rows(shard, gidx), 50)
     tf = shard.float()
     rec["topk_scan_exact"]["library_ms"] = time_ms(
         lambda: torch.topk(q @ tf.T, K), 2)
@@ -576,10 +901,10 @@ def main() -> int:
     del qf, table, store, shard, q8, sc
     torch.cuda.empty_cache()
     for name, r in rec.items():
-        print(f"{name}: {r['ms']:.3f} ms/launch, bound {r['bound'][0]:.3f} "
-              f"ms ({r['bound'][1]}), plain {r['plain_ms']:.3f} ms, library "
-              f"{r['library_ms']:.3f} ms, max |kernel - plain| "
-              f"{err[name]:.3g}")
+        print(f"{name}: {r['ms']:.3f} device ms/launch ({r['wall_ms']:.3f} "
+              f"wall), bound {r['bound'][0]:.5f} ms ({r['bound'][1]}), plain "
+              f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
+              f"max |kernel - plain| {err[name]:.3g}")
 
     # ---------------------------------------------------------- phase 3
     gc = torch.Generator(device="cpu").manual_seed(SEED + 1)
@@ -588,15 +913,12 @@ def main() -> int:
         tables = {name: (0.1 * torch.randn((CKPT_ROWS, DIM), generator=gc)
                          ).bfloat16() for name in ("vertex", "context")}
         save_checkpoint(ckpt, tables, step=1)
-        for counts in (tk.LAUNCHES, sgns.LAUNCHES):
-            for name in counts:
-                counts[name] = 0
-        served = {}
-        for extra in ([], ["--quant", "int8"]):
-            served["int8" if extra else "exact"] = embed_serve.main(
+        served, launches = counted(lambda: {
+            "int8" if extra else "exact": embed_serve.main(
                 ["--ckpt", ckpt, "--k", str(K), "--queries", str(BATCH),
                  "--check-recall", "1.0", "--device", "cuda", *extra])
-        launches = {**tk.LAUNCHES, **sgns.LAUNCHES}
+            for extra in ([], ["--quant", "int8"])})
+        paths = {"serve": launches}
         # the kernels against their plain versions on the main path's own
         # table and queries (the launcher's seed), at its padded batch
         main_store = ShardedEmbeddingStore.load(ckpt, devices=[dev],
@@ -625,54 +947,85 @@ def main() -> int:
     print(f"sgns kernels == plain within tolerance on {cases} cases each "
           f"(f32, bf16; dup, odd B, one index; bf16 tables within two "
           f"bf16 steps), bitwise repeatable")
+    cases = check_route_kernels(torch, sgns, ops, dev, err)
+    print(f"unfused-route kernels on {cases} cases: sgns_grads == plain "
+          f"within tolerance and bitwise repeatable; scatter_add_rows == "
+          f"plain == scatter_add_rows_rowwise and gather_rows == "
+          f"gather_rows_rowwise == plain (bitwise); sgns_step pallas and "
+          f"pallas_fused == ref route within tolerance (bf16 within two bf16 "
+          f"steps)")
 
     # ---------------------------------------------------------- phase 5
-    rec.update(per_card_training(torch, sgns, dev, time_ms, err))
+    rec.update(per_card_training(torch, sgns, dev, time_ms, wall_ms, err))
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 6
-    with tempfile.TemporaryDirectory() as tmp:
-        for counts in (tk.LAUNCHES, sgns.LAUNCHES):
-            for name in counts:
-                counts[name] = 0
-        gate = train_launcher.main(
-            [*CI_GATE, "--out-dir", str(Path(tmp) / "gate"),
-             "--device", "cuda"])
-        config_run = train_launcher.main(
-            [*CONFIG_RUN, "--out-dir", str(Path(tmp) / "config"),
-             "--device", "cuda"])
-        served_train = embed_serve.main(
-            ["--ckpt", config_run["checkpoint"], "--k", str(K), "--queries",
-             str(BATCH), "--check-recall", "1.0", "--device", "cuda"])
-        train_launches = {**tk.LAUNCHES, **sgns.LAUNCHES}
-    for name, r in (("CI gate (sbm 1200 nodes, bf16)", gate),
-                    ("config geometry (powerlaw 262144 nodes, f32)",
-                     config_run)):
+    def train_run(name, argv, out_dir, serve=False):
+        """The training launcher (then, with ``serve``, the serving
+        launcher on its checkpoint at recall 1.0); returns its summary."""
+        r = train_launcher.main([*argv, "--out-dir", out_dir,
+                                 "--device", "cuda"])
         print(f"train main path {name}: AUC {r['auc']:.4f}, "
               f"{r['edges_per_s']:.1f} edges/s, {r['episode_s']:.4f} "
               f"s/episode over {r['episodes']} episodes")
-    if not gate["auc"] >= 0.62:
-        raise AssertionError(f"CI gate AUC {gate['auc']} < 0.62")
-    print(f"served the trained checkpoint: recall {served_train['recall']}, "
-          f"p50 {served_train['p50_ms']:.2f} ms")
-    print(f"training main-path launches: {train_launches}")
-    if train_launches["sgns_fused_update"] == 0:
-        raise AssertionError("sgns_fused_update never launched on the "
-                             "training main path")
-    launches["sgns_fused_update"] = train_launches["sgns_fused_update"]
-    launches["sgns_fused_grads"] = train_launches["sgns_fused_grads"]
-    for name in ("sgns_fused_update", "sgns_fused_grads"):
+        if serve:
+            s = embed_serve.main(
+                ["--ckpt", r["checkpoint"], "--k", str(K), "--queries",
+                 str(BATCH), "--check-recall", "1.0", "--device", "cuda"])
+            print(f"served the {name} checkpoint: recall {s['recall']}, "
+                  f"p50 {s['p50_ms']:.2f} ms")
+        return r
+
+    gate_name = "CI gate (sbm 1200 nodes, bf16)"
+    config_name = "config geometry (powerlaw 262144 nodes, f32)"
+    with tempfile.TemporaryDirectory() as tmp:
+        (gate, _), paths["train"] = counted(lambda: (
+            train_run(gate_name, CI_GATE, str(Path(tmp) / "gate")),
+            train_run(config_name, CONFIG_RUN, str(Path(tmp) / "config"),
+                      serve=True)))
+        gates = {"pallas_fused2": gate}
+        for impl in ("pallas", "pallas_fused"):
+            def routed(impl=impl):
+                argv = [*CI_GATE, "--impl", impl]
+                runs = [train_run(f"{gate_name} impl {impl}", argv,
+                                  str(Path(tmp) / f"gate_{impl}"))]
+                if impl == "pallas":
+                    runs.append(train_run(
+                        f"{config_name} impl {impl}",
+                        [*CONFIG_RUN, "--impl", impl],
+                        str(Path(tmp) / f"config_{impl}"), serve=True))
+                return runs[0]
+            gates[impl], paths[f"train_{impl}"] = counted(routed)
+    for impl, r in gates.items():
+        if not r["auc"] >= 0.62:
+            raise AssertionError(f"CI gate impl {impl}: AUC {r['auc']} < 0.62")
+    for path, counts in paths.items():
+        print(f"{path} main-path launches: {counts}")
+    for impl, names in ROUTE_KERNELS.items():
+        path = "train" if impl == "pallas_fused2" else f"train_{impl}"
+        missing = [n for n in names if paths[path][n] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the training "
+                                 f"route {impl}: {missing}")
+    for name in ("sgns_fused_update", "sgns_fused_grads", "sgns_grads",
+                 "scatter_add_rows", "scatter_add_rows_rowwise",
+                 "gather_rows_rowwise"):
         r = rec[name]
-        print(f"{name}: {r['ms']:.4f} ms/launch, bound {r['bound'][0]:.5f} "
-              f"ms ({r['bound'][1]}), plain {r['plain_ms']:.4f} ms, library "
-              f"none, max |kernel - plain| {err[name]:.3g}")
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        print(f"{name}: {r['ms']:.4f} device ms/launch ({r['wall_ms']:.4f} "
+              f"wall), bound {r['bound'][0]:.6f} ms ({r['bound'][1]}), plain "
+              f"{r['plain_ms']:.4f} ms, library {lib}, max |kernel - plain| "
+              f"{err[name]:.3g}")
 
     # ---------------------------------------------------------- phase 7
     for name, r in rec.items():
+        by_path = {path: counts[name] for path, counts in paths.items()}
         results.append({
             "name": name, "route": "cuda", "source": r["source"],
-            "replaces": r["replaces"], "launches": launches[name],
-            "max_abs_err": err[name], "ms": r["ms"],
+            "replaces": r["replaces"], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": err[name], "ms": r["ms"], "wall_ms": r["wall_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
     print(f"kernels: {', '.join(rec)} (total run "

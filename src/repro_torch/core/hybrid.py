@@ -12,7 +12,7 @@ rotation is the identity, and an episode is
 
     for each sub-part j (a view of the vertex table, no copy):
         for each minibatch of block j:
-            kernels.ops.sgns_step            one fused CUDA launch
+            kernels.ops.sgns_step(impl=cfg.impl)
 
 The multi-card rings (``torch.distributed`` P2P in place of the JAX
 ``ppermute``) come with a later slice; asking for more than one shard
@@ -51,10 +51,19 @@ class HybridConfig:
     reduction: str = "sum"        # word2vec-faithful; see kernels.ops.sgns_step
     subparts: int = 4             # paper's k (ping-pong sub-parts)
     neg_pool: int = 8192          # deg^0.75-sampled per-device negative pool
+    # kernels.ops route: "ref" | "pallas" | "pallas_fused" | "pallas_fused2".
+    # The default is the fused CUDA update, the port's main path; the JAX
+    # config defaults to "ref" because its container has no TPU. There is
+    # no block_b: it pins the TPU's tile, and each CUDA wrapper plans its
+    # own geometry.
+    impl: str = "pallas_fused2"
     seed: int = 0
     # bf16 tables halve the HBM footprint; grads are computed in f32 inside
     # the kernel. dtype="float32" keeps the paper-faithful tables.
     dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        ops.check_impl(self.impl)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,6 +260,7 @@ class HybridEmbeddingTrainer:
                        idx_n[j, :n_run].unbind(0))
             for iv, ic, m, inn in rows:
                 _, _, loss = ops.sgns_step(vj, self.ctx, iv, ic, inn, m, lr,
+                                           impl=cfg.impl,
                                            reduction=cfg.reduction)
                 losses.append(loss)
         if not losses:

@@ -44,6 +44,7 @@ SIGNATURES = {
     "gather_rows": {
         # table, idx, B, row_bytes, out, stream
         "gather_rows": [_P, _P, _I, _LL, _P, _P],
+        "gather_rows_rowwise": [_P, _P, _I, _LL, _P, _P],
     },
     "sgns_update": {
         # dtype, mask_bf16, vert, ctx, idx_v, idx_c, idx_n, mask, B, S, d,
@@ -56,6 +57,16 @@ SIGNATURES = {
         # bb, smem, dv, dc, dn_part, loss_part, dn, loss, stream
         "sgns_fused_grads": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        # dtype, mask_bf16, v, c, n, mask, B, S, d, bb, smem, dv, dc,
+        # dn_part, loss_part, dn, loss, stream
+        "sgns_grads": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                       _P, _P, _P, _P, _P],
+    },
+    "scatter_rows": {
+        # dtype, upd_f32, table, sorted idx, perm, upd, B, d, stream
+        "scatter_add_rows": [_I, _I, _P, _P, _P, _P, _I, _I, _P],
+        # dtype, upd_f32, table, idx, upd, B, d, stream
+        "scatter_add_rows_rowwise": [_I, _I, _P, _P, _P, _I, _I, _P],
     },
 }
 

@@ -1,6 +1,7 @@
 // Fused SGNS minibatch for Hopper: the port of the JAX package's
-// kernels/sgns.py::sgns_fused_update (combine="segsum") and of its
-// gather-and-grads sibling sgns_fused_grads.
+// kernels/sgns.py::sgns_fused_update (combine="segsum"), of its
+// gather-and-grads sibling sgns_fused_grads and of sgns_grads, the
+// gradients of rows gathered beforehand.
 //
 // What it computes, for one minibatch of B (vertex, context) pairs sharing
 // S negative context rows:
@@ -36,14 +37,18 @@
 //
 // sgns_fused_grads is sgns_tile_grads (gradients in the table's dtype) plus
 // sgns_reduce_partials, the fixed-order sum of the dn and loss partials.
+// sgns_grads is the same pair with the gather taken out: its index
+// pointers are null, so row r of a tile is row row0 + r of v and c, and
+// negative s is row s of n. dn is summed in f32 and cast once, as the TPU
+// kernel accumulates it in an f32 output (sgns.py:105, 127).
 //
 // Bound on an H100: bytes. A minibatch reads (2B + S) rows and writes the
 // unique ones (B = 256, S = 5, d = 128 f32: about 0.5 MB, 0.15 us at
 // 3.35 TB/s) and does about 6BSd + 4Bd operations (1.1 MFLOP, 0.02 us at the
-// 67 TFLOP/s f32 rate). Launch and the host's sort dominate at that size;
-// this design keeps every row read once from device memory and the
-// gradients in f32 scratch, and leaves batching several minibatches into
-// one launch to later work.
+// 67 TFLOP/s f32 rate); sgns_grads reads and writes (2B + S) rows. Launch
+// and the host's sort dominate at that size; this design keeps every row
+// read once from device memory and the gradients in f32 scratch, and
+// leaves batching several minibatches into one launch to later work.
 //
 // Row offsets are 64-bit: a 26.25 M x 128 f32 table is 13.4 GB, past 2^31
 // bytes. The kernels check no index bounds (as on the TPU).
@@ -78,6 +83,13 @@ __device__ __forceinline__ float softplus_f32(float x) {
   return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
 }
 
+// Row i of a table addressed through idx, or row i itself when idx is null
+// (rows gathered beforehand).
+__device__ __forceinline__ long long row_of(const int* idx, int i) {
+  return idx != nullptr ? static_cast<long long>(idx[i])
+                        : static_cast<long long>(i);
+}
+
 __device__ __forceinline__ float load_mask(const void* mask, int mask_bf16,
                                            int b) {
   return mask_bf16
@@ -87,9 +99,12 @@ __device__ __forceinline__ float load_mask(const void* mask, int mask_bf16,
 
 // Shared memory (floats): v (bb, d), c (bb, d), n (S, d), g and l
 // (bb, S + 1) each (column 0 the positive pair, 1 + s negative s), m (bb).
+// v, c and n rows come from vsrc, csrc and nsrc through idx_v, idx_c and
+// idx_n, each null when its rows were gathered beforehand.
 template <typename T, typename OutT>
 __global__ void __launch_bounds__(THREADS)
-    sgns_tile_grads(const T* __restrict__ vert, const T* __restrict__ ctx,
+    sgns_tile_grads(const T* __restrict__ vsrc, const T* __restrict__ csrc,
+                    const T* __restrict__ nsrc,
                     const int* __restrict__ idx_v,
                     const int* __restrict__ idx_c,
                     const int* __restrict__ idx_n,
@@ -114,15 +129,15 @@ __global__ void __launch_bounds__(THREADS)
     const int r = i / d, k = i - r * d;
     float v = 0.0f, c = 0.0f;
     if (r < rows) {
-      v = to_f32(vert[static_cast<long long>(idx_v[row0 + r]) * dd + k]);
-      c = to_f32(ctx[static_cast<long long>(idx_c[row0 + r]) * dd + k]);
+      v = to_f32(vsrc[row_of(idx_v, row0 + r) * dd + k]);
+      c = to_f32(csrc[row_of(idx_c, row0 + r) * dd + k]);
     }
     v_s[i] = v;
     c_s[i] = c;
   }
   for (int i = threadIdx.x; i < S * d; i += THREADS) {
     const int s = i / d, k = i - s * d;
-    n_s[i] = to_f32(ctx[static_cast<long long>(idx_n[s]) * dd + k]);
+    n_s[i] = to_f32(nsrc[row_of(idx_n, s) * dd + k]);
   }
   for (int r = threadIdx.x; r < bb; r += THREADS)
     m_s[r] = r < rows ? load_mask(mask, mask_bf16, row0 + r) : 0.0f;
@@ -254,8 +269,9 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <typename T, typename OutT>
-int launch_tile_grads(const void* vert, const void* ctx, const void* idx_v,
-                      const void* idx_c, const void* idx_n, const void* mask,
+int launch_tile_grads(const void* vsrc, const void* csrc, const void* nsrc,
+                      const void* idx_v, const void* idx_c,
+                      const void* idx_n, const void* mask,
                       int mask_bf16, int B, int S, int d, int bb, int smem,
                       void* dv, void* dc, void* dn_part, void* loss_part,
                       cudaStream_t st) {
@@ -267,9 +283,10 @@ int launch_tile_grads(const void* vert, const void* ctx, const void* idx_v,
   }
   const int nblk = (B + bb - 1) / bb;
   sgns_tile_grads<T, OutT><<<nblk, THREADS, smem, st>>>(
-      static_cast<const T*>(vert), static_cast<const T*>(ctx),
-      static_cast<const int*>(idx_v), static_cast<const int*>(idx_c),
-      static_cast<const int*>(idx_n), mask, mask_bf16, B, S, d, bb,
+      static_cast<const T*>(vsrc), static_cast<const T*>(csrc),
+      static_cast<const T*>(nsrc), static_cast<const int*>(idx_v),
+      static_cast<const int*>(idx_c), static_cast<const int*>(idx_n), mask,
+      mask_bf16, B, S, d, bb,
       static_cast<OutT*>(dv), static_cast<OutT*>(dc),
       static_cast<float*>(dn_part), static_cast<float*>(loss_part));
   return static_cast<int>(cudaGetLastError());
@@ -282,9 +299,9 @@ int launch_update(void* vert, void* ctx, const void* idx_v, const void* idx_c,
                   const void* perm_v, const void* icns, const void* perm_c,
                   void* dv, void* dc, void* dn_part, void* loss_part,
                   void* loss, cudaStream_t st) {
-  int rc = launch_tile_grads<T, float>(vert, ctx, idx_v, idx_c, idx_n, mask,
-                                       mask_bf16, B, S, d, bb, smem, dv, dc,
-                                       dn_part, loss_part, st);
+  int rc = launch_tile_grads<T, float>(vert, ctx, ctx, idx_v, idx_c, idx_n,
+                                       mask, mask_bf16, B, S, d, bb, smem, dv,
+                                       dc, dn_part, loss_part, st);
   if (rc != 0) return rc;
   const int nblk = (B + bb - 1) / bb;
   const int warps = 2 * B + S;
@@ -300,13 +317,13 @@ int launch_update(void* vert, void* ctx, const void* idx_v, const void* idx_c,
 }
 
 template <typename T>
-int launch_grads(const void* vert, const void* ctx, const void* idx_v,
-                 const void* idx_c, const void* idx_n, const void* mask,
-                 int mask_bf16, int B, int S, int d, int bb, int smem,
-                 void* dv, void* dc, void* dn_part, void* loss_part, void* dn,
-                 void* loss, cudaStream_t st) {
-  int rc = launch_tile_grads<T, T>(vert, ctx, idx_v, idx_c, idx_n, mask,
-                                   mask_bf16, B, S, d, bb, smem, dv, dc,
+int launch_grads(const void* vsrc, const void* csrc, const void* nsrc,
+                 const void* idx_v, const void* idx_c, const void* idx_n,
+                 const void* mask, int mask_bf16, int B, int S, int d, int bb,
+                 int smem, void* dv, void* dc, void* dn_part, void* loss_part,
+                 void* dn, void* loss, cudaStream_t st) {
+  int rc = launch_tile_grads<T, T>(vsrc, csrc, nsrc, idx_v, idx_c, idx_n,
+                                   mask, mask_bf16, B, S, d, bb, smem, dv, dc,
                                    dn_part, loss_part, st);
   if (rc != 0) return rc;
   const int nblk = (B + bb - 1) / bb;
@@ -360,12 +377,31 @@ extern "C" int sgns_fused_grads(int dtype, int mask_bf16, const void* vert,
                                 void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_grads<float>(vert, ctx, idx_v, idx_c, idx_n, mask,
+    return launch_grads<float>(vert, ctx, ctx, idx_v, idx_c, idx_n, mask,
                                mask_bf16, B, S, d, bb, smem, dv, dc, dn_part,
                                loss_part, dn, loss, st);
   if (dtype == 1)
-    return launch_grads<__nv_bfloat16>(vert, ctx, idx_v, idx_c, idx_n, mask,
-                                       mask_bf16, B, S, d, bb, smem, dv, dc,
-                                       dn_part, loss_part, dn, loss, st);
+    return launch_grads<__nv_bfloat16>(vert, ctx, ctx, idx_v, idx_c, idx_n,
+                                       mask, mask_bf16, B, S, d, bb, smem, dv,
+                                       dc, dn_part, loss_part, dn, loss, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The gradients of rows gathered beforehand: v, c (B, d) and n (S, d) in
+// one dtype; outputs and scratch as sgns_fused_grads.
+extern "C" int sgns_grads(int dtype, int mask_bf16, const void* v,
+                          const void* c, const void* n, const void* mask,
+                          int B, int S, int d, int bb, int smem, void* dv,
+                          void* dc, void* dn_part, void* loss_part, void* dn,
+                          void* loss, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_grads<float>(v, c, n, nullptr, nullptr, nullptr, mask,
+                               mask_bf16, B, S, d, bb, smem, dv, dc, dn_part,
+                               loss_part, dn, loss, st);
+  if (dtype == 1)
+    return launch_grads<__nv_bfloat16>(v, c, n, nullptr, nullptr, nullptr,
+                                       mask, mask_bf16, B, S, d, bb, smem, dv,
+                                       dc, dn_part, loss_part, dn, loss, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,27 +1,39 @@
 """Embedding-row kernels shared by training and serving: the CUDA kernels
 and their plain PyTorch versions.
 
-Counterpart of the JAX package's ``kernels/sgns.py``. Three wrappers launch
-two CUDA sources:
+Counterpart of the JAX package's ``kernels/sgns.py``. Seven wrappers launch
+three CUDA sources:
 
 * :func:`gather_rows` replaces the TPU kernel ``gather_rows`` (blocked row
-  DMAs); the two-tier retrieval scan uses it to fetch its survivors. Its
-  source is ``csrc/gather_rows.cu``: one warp per output row, 16-byte loads
-  when the row allows. Bound by bytes; at serving sizes the launch is most
-  of its time.
+  DMAs); the two-tier retrieval scan uses it to fetch its survivors, and
+  the trainer's ``pallas`` route its minibatch rows. Its source is
+  ``csrc/gather_rows.cu``: one warp per output row, 16-byte loads when the
+  row allows. Bound by bytes; at serving sizes the launch is most of its
+  time. :func:`gather_rows_rowwise` replaces ``gather_rows_rowwise``, the
+  one-row-per-grid-step reference the blocked gather is held against: one
+  block per output row, in the same source.
 * :func:`sgns_fused_update` replaces ``sgns_fused_update`` (the training
   hot loop: gather, SGNS gradients, duplicate combine and in-place SGD),
-  and :func:`sgns_fused_grads` replaces ``sgns_fused_grads`` (gather and
-  gradients only). Both launch ``csrc/sgns_update.cu``, whose header has
-  the design: a tile-gradients kernel with per-block partials, then a
-  combine-and-apply kernel with one warp per run of equal indices, so a
-  run repeats bitwise.
+  :func:`sgns_fused_grads` replaces ``sgns_fused_grads`` (gather and
+  gradients only) and :func:`sgns_grads` replaces ``sgns_grads`` (the
+  gradients of pre-gathered rows). All three launch ``csrc/sgns_update.cu``,
+  whose header has the design: a tile-gradients kernel with per-block
+  partials, then a combine-and-apply kernel with one warp per run of equal
+  indices (or a fixed-order reduction of the partials), so a run repeats
+  bitwise.
+* :func:`scatter_add_rows` replaces ``scatter_add_rows`` (``table[idx[p]]
+  += upd[p]`` in position order, in place) and
+  :func:`scatter_add_rows_rowwise` its one-row-per-grid-step reference
+  ``scatter_add_rows_rowwise``. Both launch ``csrc/scatter_rows.cu``: one
+  warp per run of equal indices in the stably sorted ids, or one thread
+  per column walking every position in order.
 
 A tensor on the CPU takes the plain version (``*_plain``); a tensor on the
 card goes to the kernel or the call raises. The plain versions compute the
 same function in plain PyTorch: gradients in f32 (:func:`tile_grads_plain`,
-the counterpart of ``_tile_grads``), duplicates combined in f32, and one
-cast per row.
+the counterpart of ``_tile_grads``); for the fused update duplicates
+combined in f32 and one cast per row; for the scatter one rounding to the
+table's dtype per position, in position order.
 """
 from __future__ import annotations
 
@@ -31,7 +43,9 @@ import torch
 from repro_torch.kernels import build
 
 # launches of each CUDA kernel of this module (counted where it launches)
-LAUNCHES = {"gather_rows": 0, "sgns_fused_grads": 0, "sgns_fused_update": 0}
+LAUNCHES = {"gather_rows": 0, "gather_rows_rowwise": 0, "sgns_grads": 0,
+            "sgns_fused_grads": 0, "sgns_fused_update": 0,
+            "scatter_add_rows": 0, "scatter_add_rows_rowwise": 0}
 
 SMEM_PER_BLOCK = 232_448          # H100: 227 KB of dynamic shared memory
 GRAD_TILE_ROWS = 16               # minibatch rows per tile-gradients block
@@ -43,22 +57,15 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, idx.long())
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(N, d) table, (B,) int32 ids -> (B, d) rows in the table's dtype.
-
-    A CUDA table goes to the kernel; a CPU table takes the plain version.
-    Ids are not bounds-checked on the card (as on the TPU): the caller
-    keeps them in [0, N).
-    """
-    if table.device.type == "cpu":
-        return gather_rows_plain(table, idx)
+def _gather(name, table, idx):
+    """Launch C function ``name`` of ``gather_rows.cu`` on a CUDA table."""
     if table.device.type != "cuda":
-        raise ValueError(f"gather_rows: unsupported device {table.device}")
+        raise ValueError(f"{name}: unsupported device {table.device}")
     if table.dim() != 2 or not table.is_contiguous():
-        raise ValueError("gather_rows: table must be a contiguous (N, d) "
+        raise ValueError(f"{name}: table must be a contiguous (N, d) "
                          f"tensor, got shape {tuple(table.shape)}")
     if idx.dtype != torch.int32 or idx.dim() != 1 or idx.device != table.device:
-        raise ValueError("gather_rows: idx must be a (B,) int32 tensor on "
+        raise ValueError(f"{name}: idx must be a (B,) int32 tensor on "
                          f"{table.device}, got {idx.dtype} {tuple(idx.shape)} "
                          f"on {idx.device}")
     idx = idx.contiguous()
@@ -69,11 +76,36 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     lib = build.library("gather_rows")
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
-        rc = lib.gather_rows(table.data_ptr(), idx.data_ptr(), B,
-                             d * table.element_size(), out.data_ptr(), stream)
-    build.check(rc, "gather_rows")
-    LAUNCHES["gather_rows"] += 1
+        rc = getattr(lib, name)(table.data_ptr(), idx.data_ptr(), B,
+                                d * table.element_size(), out.data_ptr(),
+                                stream)
+    build.check(rc, name)
+    LAUNCHES[name] += 1
     return out
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(N, d) table, (B,) int32 ids -> (B, d) rows in the table's dtype.
+
+    A CUDA table goes to the kernel; a CPU table takes the plain version.
+    Ids are not bounds-checked on the card (as on the TPU): the caller
+    keeps them in [0, N).
+    """
+    if table.device.type == "cpu":
+        return gather_rows_plain(table, idx)
+    return _gather("gather_rows", table, idx)
+
+
+# the row-wise reference computes the blocked gather's function
+gather_rows_rowwise_plain = gather_rows_plain
+
+
+def gather_rows_rowwise(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """:func:`gather_rows` one output row per block: the reference the
+    blocked gather is held against bitwise. Arguments as there."""
+    if table.device.type == "cpu":
+        return gather_rows_rowwise_plain(table, idx)
+    return _gather("gather_rows_rowwise", table, idx)
 
 
 # --------------------------------------------------------------------------
@@ -98,19 +130,26 @@ def tile_grads_plain(v, c, n, m):
     return dv, dc, dn, loss
 
 
-def _gathered_grads(vert, ctx, idx_v, idx_c, idx_n, mask):
+def _grads_f32(v, c, n, mask):
     f32 = torch.float32
-    v = vert.index_select(0, idx_v.long()).to(f32)
-    c = ctx.index_select(0, idx_c.long()).to(f32)
-    n = ctx.index_select(0, idx_n.long()).to(f32)
-    return tile_grads_plain(v, c, n, mask.to(f32).reshape(-1, 1))
+    return tile_grads_plain(v.to(f32), c.to(f32), n.to(f32),
+                            mask.to(f32).reshape(-1, 1))
+
+
+def sgns_grads_plain(v, c, n, mask):
+    """(loss f32, dv, dc, dn) of pre-gathered rows v, c: (B, d), n: (S, d)
+    and mask (B,), computed in f32 and returned in the inputs' dtypes, as
+    ``sgns_grads`` returns them (``ref.sgns_grads_ref``)."""
+    dv, dc, dn, loss = _grads_f32(v, c, n, mask)
+    return loss, dv.to(v.dtype), dc.to(c.dtype), dn.to(n.dtype)
 
 
 def sgns_fused_grads_plain(vert, ctx, idx_v, idx_c, idx_n, mask):
     """(loss f32, dv, dc, dn) of one minibatch, the gradients in the tables'
     dtype, as ``sgns_fused_grads`` returns them."""
-    dv, dc, dn, loss = _gathered_grads(vert, ctx, idx_v, idx_c, idx_n, mask)
-    return loss, dv.to(vert.dtype), dc.to(ctx.dtype), dn.to(ctx.dtype)
+    return sgns_grads_plain(gather_rows_plain(vert, idx_v),
+                            gather_rows_plain(ctx, idx_c),
+                            gather_rows_plain(ctx, idx_n), mask)
 
 
 def _apply_plain(table, idx, grad, lr32):
@@ -134,10 +173,42 @@ def sgns_fused_update_plain(vert, ctx, idx_v, idx_c, idx_n, mask, lr):
     ``(vert, ctx, loss)``.
     """
     lr32 = float(np.float32(lr))
-    dv, dc, dn, loss = _gathered_grads(vert, ctx, idx_v, idx_c, idx_n, mask)
+    dv, dc, dn, loss = _grads_f32(gather_rows_plain(vert, idx_v),
+                                  gather_rows_plain(ctx, idx_c),
+                                  gather_rows_plain(ctx, idx_n), mask)
     _apply_plain(vert, idx_v, dv, lr32)
     _apply_plain(ctx, torch.cat([idx_c, idx_n]), torch.cat([dc, dn]), lr32)
     return vert, ctx, loss
+
+
+def scatter_add_rows_plain(table, idx, upd):
+    """``table[idx[p]] += upd[p]`` in place, in position order, the update
+    rounded to the table's dtype and each add rounded to it: what the TPU
+    kernel's sequential grid gives for duplicates. Returns ``table``.
+
+    Vectorized by rank: each position's rank within its run of equal ids
+    in the stable sort is how many earlier positions hit the same row, so
+    round r adds every rank-r position, and the rows of one round are
+    unique. There are as many rounds as the longest run.
+    """
+    n = idx.shape[0]
+    if n == 0:
+        return table
+    srt, perm = torch.sort(idx.long(), stable=True)
+    pos = torch.arange(n, device=idx.device)
+    first = torch.ones(n, dtype=torch.bool, device=idx.device)
+    first[1:] = srt[1:] != srt[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    upd_t = upd.to(table.dtype)
+    for r in range(int(rank.max()) + 1):
+        sel = rank == r
+        rows, p = srt[sel], perm[sel]
+        table[rows] = (table[rows].float() + upd_t[p].float()).to(table.dtype)
+    return table
+
+
+# the row-wise reference computes the sorted scatter's function
+scatter_add_rows_rowwise_plain = scatter_add_rows_plain
 
 
 # --------------------------------------------------------------------------
@@ -286,3 +357,130 @@ def sgns_fused_update(vert, ctx, idx_v, idx_c, idx_n, mask, lr):
     build.check(rc, "sgns_fused_update")
     LAUNCHES["sgns_fused_update"] += 1
     return vert, ctx, scratch[-1]
+
+
+def sgns_grads(v, c, n, mask):
+    """SGNS loss and gradients of pre-gathered rows.
+
+    v, c: (B, d) and n: (S, d), one dtype (f32 or bf16); mask: (B,) f32 or
+    that dtype. Returns ``(loss, dv, dc, dn)``: loss a 0-d f32 tensor, dv
+    and dc in the rows' dtype, dn summed in f32 over the tiles in a fixed
+    order and cast once. A CPU tensor takes the plain version.
+    """
+    if v.device.type == "cpu":
+        return sgns_grads_plain(v, c, n, mask)
+    dev = v.device
+    if dev.type != "cuda" or c.device != dev or n.device != dev:
+        raise ValueError(f"sgns_grads: v, c and n must be on one CUDA "
+                         f"device, got {v.device}, {c.device}, {n.device}")
+    if v.dtype not in _TABLE_DTYPES or c.dtype != v.dtype or n.dtype != v.dtype:
+        raise ValueError(f"sgns_grads: v, c and n must share a dtype in "
+                         f"{sorted(map(str, _TABLE_DTYPES))}, got {v.dtype}, "
+                         f"{c.dtype} and {n.dtype}")
+    if (v.dim() != 2 or c.shape != v.shape or n.dim() != 2
+            or n.shape[1] != v.shape[1] or v.shape[0] < 1 or n.shape[0] < 1
+            or not all(t.is_contiguous() for t in (v, c, n))):
+        raise ValueError(f"sgns_grads: need contiguous v, c (B, d) and n "
+                         f"(S, d) with B, S >= 1, got {tuple(v.shape)}, "
+                         f"{tuple(c.shape)} and {tuple(n.shape)}")
+    (B, d), S = v.shape, n.shape[0]
+    if (mask.shape != (B,) or mask.device != dev or not mask.is_contiguous()
+            or mask.dtype not in (torch.float32, v.dtype)):
+        raise ValueError(f"sgns_grads: mask must be a contiguous ({B},) "
+                         f"float32 or {v.dtype} tensor on {dev}, got "
+                         f"{mask.dtype} {tuple(mask.shape)}")
+    bb, smem = plan_grads_tile(B, S, d)
+    nblk = -(-B // bb)
+    dv, dc = torch.empty_like(v), torch.empty_like(c)
+    dn = torch.empty_like(n)
+    # f32 scratch: dn partials (nblk, S, d), loss partials (nblk,), loss
+    scratch = torch.empty(nblk * S * d + nblk + 1, dtype=torch.float32,
+                          device=dev)
+    p = scratch.data_ptr()
+    p_lp, p_loss = p + 4 * nblk * S * d, p + 4 * (nblk * S * d + nblk)
+    lib = build.library("sgns_update")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sgns_grads(
+            _TABLE_DTYPES[v.dtype], int(mask.dtype == torch.bfloat16),
+            v.data_ptr(), c.data_ptr(), n.data_ptr(), mask.data_ptr(), B, S,
+            d, bb, smem, dv.data_ptr(), dc.data_ptr(), p, p_lp, dn.data_ptr(),
+            p_loss, stream)
+    build.check(rc, "sgns_grads")
+    LAUNCHES["sgns_grads"] += 1
+    return scratch[-1], dv, dc, dn
+
+
+def _check_scatter_args(name, table, idx, upd):
+    """Validate what the scatter kernels take; returns (B, d, upd_f32)."""
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if (table.dtype not in _TABLE_DTYPES or table.dim() != 2
+            or not table.is_contiguous()):
+        raise ValueError(f"{name}: table must be a contiguous (N, d) tensor "
+                         f"of dtype in {sorted(map(str, _TABLE_DTYPES))}, "
+                         f"got {table.dtype} {tuple(table.shape)}")
+    if idx.dtype != torch.int32 or idx.dim() != 1 or idx.device != dev:
+        raise ValueError(f"{name}: idx must be a (B,) int32 tensor on {dev}, "
+                         f"got {idx.dtype} {tuple(idx.shape)} on {idx.device}")
+    B, d = idx.shape[0], table.shape[1]
+    if (upd.shape != (B, d) or upd.device != dev or not upd.is_contiguous()
+            or upd.dtype not in (torch.float32, table.dtype)):
+        raise ValueError(f"{name}: upd must be a contiguous ({B}, {d}) "
+                         f"float32 or {table.dtype} tensor on {dev}, got "
+                         f"{upd.dtype} {tuple(upd.shape)} on {upd.device}")
+    if _overlap(table, upd):
+        raise ValueError(f"{name}: upd overlaps the table in memory")
+    return B, d, int(upd.dtype == torch.float32)
+
+
+def scatter_add_rows(table, idx, upd):
+    """``table[idx[p]] += upd[p]`` in place, in position order.
+
+    table: (N, d) f32 or bf16; idx: (B,) int32; upd: (B, d) f32 or the
+    table's dtype. Each position's update is rounded to the table's dtype
+    and each add rounded to it, so a duplicated row takes its updates one
+    after another, as on the TPU's sequential grid. The ids are sorted
+    stably outside the kernel (``torch.sort``), which keeps position order
+    within each run. Returns ``table``. A CPU table takes the plain
+    version.
+    """
+    if table.device.type == "cpu":
+        return scatter_add_rows_plain(table, idx, upd)
+    B, d, upd_f32 = _check_scatter_args("scatter_add_rows", table, idx, upd)
+    if B == 0:
+        return table
+    srt, perm = torch.sort(idx, stable=True)
+    lib = build.library("scatter_rows")
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        rc = lib.scatter_add_rows(_TABLE_DTYPES[table.dtype], upd_f32,
+                                  table.data_ptr(), srt.data_ptr(),
+                                  perm.data_ptr(), upd.data_ptr(), B, d,
+                                  stream)
+    build.check(rc, "scatter_add_rows")
+    LAUNCHES["scatter_add_rows"] += 1
+    return table
+
+
+def scatter_add_rows_rowwise(table, idx, upd):
+    """:func:`scatter_add_rows` with no sort: one thread per column walks
+    every position in order. Slow by design; the reference the sorted
+    scatter is held against bitwise. Arguments as there."""
+    if table.device.type == "cpu":
+        return scatter_add_rows_rowwise_plain(table, idx, upd)
+    B, d, upd_f32 = _check_scatter_args("scatter_add_rows_rowwise", table,
+                                        idx, upd)
+    if B == 0:
+        return table
+    idx = idx.contiguous()
+    lib = build.library("scatter_rows")
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        rc = lib.scatter_add_rows_rowwise(_TABLE_DTYPES[table.dtype], upd_f32,
+                                          table.data_ptr(), idx.data_ptr(),
+                                          upd.data_ptr(), B, d, stream)
+    build.check(rc, "scatter_add_rows_rowwise")
+    LAUNCHES["scatter_add_rows_rowwise"] += 1
+    return table

@@ -2,8 +2,9 @@
 
 The port of the embedding mode of the JAX package's ``launch/train.py``:
 the decoupled walk engine (async, one epoch ahead), the episode pipeline,
-the single-card hybrid trainer with the fused CUDA SGNS update, periodic
-resume checkpoints and the link-prediction AUC.
+the single-card hybrid trainer with the CUDA SGNS kernels (``--impl`` picks
+the route, the fused update by default), periodic resume checkpoints and
+the link-prediction AUC.
 
     PYTHONPATH=src python -m repro_torch.launch.train --graph-kind sbm \\
         --nodes 1200 --epochs 12 --episodes 3 --dim 128 --subparts 2 \\
@@ -68,7 +69,8 @@ def train_embedding(args) -> dict:
                        negatives=args.negatives or SMALL.negatives,
                        subparts=args.subparts,
                        neg_pool=args.neg_pool or SMALL.neg_pool,
-                       lr=args.lr, seed=args.seed, **cfg_kw)
+                       lr=args.lr, seed=args.seed, impl=args.impl,
+                       **cfg_kw)
     trainer = HybridEmbeddingTrainer(g.num_nodes, cfg, degrees=g.degrees(),
                                      device=device)
 
@@ -227,8 +229,8 @@ def _train_embedding_epochs(args, cfg, trainer, engine, store, pipe,
     rate = edges / train_s if train_s > 0 else 0.0
     mean_ep = train_s / n_episodes if n_episodes else 0.0
     print(f"trained {edges} edges in {n_episodes} episodes on "
-          f"{trainer.device}: {rate:.1f} edges/s, mean episode "
-          f"{mean_ep:.4f}s")
+          f"{trainer.device} (impl {cfg.impl}): {rate:.1f} edges/s, mean "
+          f"episode {mean_ep:.4f}s")
     if args.min_auc is not None and auc < args.min_auc:
         raise SystemExit(
             f"final AUC {auc:.4f} below --min-auc {args.min_auc}")
@@ -240,6 +242,8 @@ def _train_embedding_epochs(args, cfg, trainer, engine, store, pipe,
 def main(argv=None) -> dict:
     """Run the trainer; returns ``{"auc", "loss", "edges", "train_s",
     "edges_per_s", "episode_s", "episodes", "checkpoint"}``."""
+    from repro_torch.kernels.ops import STEP_IMPLS
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out-dir",
@@ -297,6 +301,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--min-auc", type=float, default=None,
                     help="exit non-zero if the final epoch's link-prediction "
                          "AUC is below this (CI sanity gate)")
+    ap.add_argument("--impl", default="pallas_fused2", choices=STEP_IMPLS,
+                    help="SGNS minibatch route (kernels.ops.sgns_step): "
+                         "pallas_fused2 (default) launches the fused CUDA "
+                         "update (gather, gradients, duplicate combine, SGD) "
+                         "once per minibatch; pallas_fused the fused "
+                         "gather-and-gradients kernel, then two row "
+                         "scatter-add kernels; pallas three row gathers, the "
+                         "gradients kernel and two scatter-adds; ref the "
+                         "plain PyTorch composition, no CUDA kernel. The JAX "
+                         "launcher's default is ref")
     ap.add_argument("--device", default="cuda",
                     help="training device (cuda, cuda:N or cpu)")
     args = ap.parse_args(argv)

@@ -7,10 +7,12 @@ it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q tests/test_torch_card.py
 
 For the scans, integer tables and queries make every f32 dot exact, so
-kernel and plain version must agree bitwise, ties included. The SGNS
-kernels sum in another order than their plain versions, so they are held
-to the JAX kernel tests' tolerances (bf16 tables also to two bf16 steps),
-and to themselves bitwise."""
+kernel and plain version must agree bitwise, ties included. The gathers and
+scatter-adds have one defined order, so they agree bitwise too, and the
+blocked kernels with their row-wise references. The SGNS kernels sum in
+another order than their plain versions, so they are held to the JAX
+kernel tests' tolerances (bf16 tables also to two bf16 steps), and to
+themselves bitwise."""
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,7 @@ import torch
 from repro_torch.embed_serve import ShardedEmbeddingStore
 from repro_torch.embed_serve import quant as qz
 from repro_torch.embed_serve import topk as tk
-from repro_torch.kernels import sgns
+from repro_torch.kernels import ops, sgns
 
 
 @pytest.fixture
@@ -208,3 +210,134 @@ def test_sgns_wrappers_raise_on_what_the_kernels_do_not_take(card):
                                mask, 0.05)
     with pytest.raises(ValueError, match="mask"):
         sgns.sgns_fused_grads(vert, ctx, iv, ic, inn, mask.double())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case,B,S,d", [("nodup", 64, 8, 64),
+                                        ("odd", 37, 4, 32),
+                                        ("dup", 256, 5, 128)])
+def test_sgns_grads_kernel_matches_plain(card, dtype, case, B, S, d):
+    vert, ctx, iv, ic, inn, mask = _sgns_inputs(card, dtype, B=B, S=S, d=d,
+                                                case=case)
+    x = (vert[iv.long()], ctx[ic.long()], ctx[inn.long()])
+    before = sgns.LAUNCHES["sgns_grads"]
+    for m in (mask, mask.float()):
+        got = sgns.sgns_grads(*x, m)
+        again = sgns.sgns_grads(*x, m)
+        torch.cuda.synchronize()
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        want = sgns.sgns_grads_plain(*x, m)
+        torch.testing.assert_close(got[0], want[0], rtol=3e-5, atol=3e-5)
+        rtol, atol = (1e-4, 1e-5) if dtype == torch.float32 else SGNS_TOL[dtype]
+        for g, w in zip(got[1:], want[1:]):
+            assert g.dtype == dtype and g.shape == w.shape
+            _close(g, w, rtol, atol)
+    assert sgns.LAUNCHES["sgns_grads"] == before + 4
+
+
+def _scatter_case(card, case, N=40, B=30, seed=0):
+    rng = np.random.default_rng(seed)
+    if case == "nodup":
+        idx = rng.permutation(N)[:B]
+    elif case == "same":
+        idx = np.full(B, 3)
+    else:                      # runs within 8-row blocks and across them
+        idx = rng.integers(0, N, B)
+        idx[::7] = 5
+        idx[1:24:8] = idx[2:25:8] = idx[3:26:8] = 11
+    return torch.from_numpy(idx.astype(np.int32)).to(card)
+
+
+@pytest.mark.parametrize("dtype,upd_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)], ids=["f32", "bf16-f32upd", "bf16"])
+@pytest.mark.parametrize("case,d", [("nodup", 64), ("same", 64), ("dup", 64),
+                                    ("dup", 128), ("dup", 20)])
+def test_scatter_kernels_match_plain_bitwise(card, dtype, upd_dtype, case, d):
+    """The sorted scatter, the row-wise one and the plain version agree bit
+    for bit: one defined order, one rounding per position."""
+    rng = np.random.default_rng(d)
+    idx = _scatter_case(card, case)
+    table = torch.from_numpy(rng.normal(0, 1, (40, d)).astype(np.float32)
+                             ).to(card, dtype)
+    upd = torch.from_numpy(rng.normal(0, 3e-3, (30, d)).astype(np.float32)
+                           ).to(card, upd_dtype)
+    before = dict(sgns.LAUNCHES)
+    got = sgns.scatter_add_rows(table.clone(), idx, upd)
+    ref = sgns.scatter_add_rows_rowwise(table.clone(), idx, upd)
+    want = sgns.scatter_add_rows_plain(table.clone(), idx, upd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(ref, want)
+    assert not torch.equal(got, table)
+    for name in ("scatter_add_rows", "scatter_add_rows_rowwise"):
+        assert sgns.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gather_rowwise_matches_blocked_bitwise(card, dtype):
+    tbl = torch.randn((1000, 128), device=card).to(dtype)
+    before = sgns.LAUNCHES["gather_rows_rowwise"]
+    for t in (tbl, tbl[:, :20].contiguous()):
+        idx = torch.randint(0, 1000, (333,), device=card, dtype=torch.int32)
+        got = sgns.gather_rows_rowwise(t, idx)
+        assert torch.equal(got, sgns.gather_rows(t, idx))
+        assert torch.equal(got, sgns.gather_rows_plain(t, idx))
+    assert sgns.LAUNCHES["gather_rows_rowwise"] == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("impl", ["pallas", "pallas_fused"])
+def test_step_routes_match_plain_composition(card, impl, dtype):
+    """Each kernel route of ``ops.sgns_step`` against the ``ref`` route, the
+    same composition through the plain functions, on the same card tensors;
+    each route launches its kernels and no others."""
+    x = _sgns_inputs(card, dtype, B=37, S=5, d=128, case="dup")
+    before = dict(sgns.LAUNCHES)
+    got = ops.sgns_step(x[0].clone(), x[1].clone(), *x[2:], 0.05, impl=impl)
+    torch.cuda.synchronize()
+    ran = {k: sgns.LAUNCHES[k] - before[k] for k in before}
+    if impl == "pallas":
+        assert ran["gather_rows"] == 3 and ran["sgns_grads"] == 1
+    else:
+        assert ran["sgns_fused_grads"] == 1
+    assert ran["scatter_add_rows"] == 2 and ran["sgns_fused_update"] == 0
+    want = ops.sgns_step(x[0].clone(), x[1].clone(), *x[2:], 0.05, impl="ref")
+    torch.cuda.synchronize()
+    assert sgns.LAUNCHES == {k: before[k] + ran[k] for k in before}
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0)
+    rtol, atol = SGNS_TOL[dtype]
+    for g, w, b in zip(got[:2], want[:2], x[:2]):
+        _close(g, w, rtol, atol)
+        if dtype == torch.bfloat16:
+            _within_bf16_steps(g, w, b)
+
+
+def test_unfused_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    vert, ctx, iv, ic, inn, mask = _sgns_inputs(card, torch.float32)
+    v, c, n = vert[iv.long()], ctx[ic.long()], ctx[inn.long()]
+    with pytest.raises(ValueError, match="dtype"):
+        sgns.sgns_grads(v.half(), c.half(), n.half(), mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        sgns.sgns_grads(v.t().contiguous().t(), c, n, mask)
+    with pytest.raises(ValueError, match="mask"):
+        sgns.sgns_grads(v, c, n, mask.double())
+    upd = torch.zeros((iv.shape[0], 64), device=card)
+    for fn in (sgns.scatter_add_rows, sgns.scatter_add_rows_rowwise):
+        with pytest.raises(ValueError, match="idx"):
+            fn(vert, iv.cpu(), upd)
+        with pytest.raises(ValueError, match="idx"):
+            fn(vert, iv.long(), upd)
+        with pytest.raises(ValueError, match="upd"):
+            fn(vert, iv, upd.t().contiguous().t())
+        with pytest.raises(ValueError, match="upd"):
+            fn(vert, iv, upd.bfloat16())
+        with pytest.raises(ValueError, match="dtype"):
+            fn(vert.half(), iv, upd)
+        with pytest.raises(ValueError, match="overlaps"):
+            fn(vert, iv, vert[: iv.shape[0]])
+    with pytest.raises(ValueError, match="idx"):
+        sgns.gather_rows_rowwise(vert, iv.cpu())

@@ -75,14 +75,15 @@ def test_init_and_negative_pool_bitwise(dtype):
     assert tt.vert.shape[0] == tt.part.padded_num_nodes
 
 
-def _episode_pair(cfg, nodes, n_pairs, seed, jimpl):
-    """One episode through both trainers from the same init, the port
-    given the JAX negative stream. Returns (port loss, jax loss, port
-    trainer, jax trainer)."""
+def _episode_pair(cfg, nodes, n_pairs, seed, jimpl, impl="pallas_fused2"):
+    """One episode through both trainers from the same init, the JAX one on
+    route ``jimpl`` and the port on ``impl``, the port given the JAX
+    negative stream. Returns (port loss, jax loss, port trainer, jax
+    trainer)."""
     degrees, pairs = _pair_episode(nodes, n_pairs, seed)
     jt = JTrainer(nodes, _mesh(), JConfig(**cfg, impl=jimpl), degrees=degrees)
-    tt = HybridEmbeddingTrainer(nodes, HybridConfig(**cfg), degrees=degrees,
-                                device="cpu")
+    tt = HybridEmbeddingTrainer(nodes, HybridConfig(**cfg, impl=impl),
+                                degrees=degrees, device="cpu")
     jt.init_embeddings()
     tt.set_embeddings(jt.embeddings(), jt.context_embeddings())
     jeb = jbuild(pairs, jt.part, pad_multiple=cfg["minibatch"])
