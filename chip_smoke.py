@@ -11,17 +11,19 @@ failure ends the run with a non-zero exit:
    ``src/repro_torch/kernels/csrc`` (all sources compiled in parallel);
 2. every serving kernel against its plain PyTorch version on the card:
    integer tables (bitwise) at the JAX tests' shapes and at the full width
-   d = 128, then a seeded continuous 26,250,000 x 128 bf16 table (one
+   d = 128 (the row-sequential ``topk_rowwise`` on every case of the
+   scan), then a seeded continuous 26,250,000 x 128 bf16 table (one
    card's share of the paper's 1.05 B nodes over 40 GPUs) served through
    ``ShardedEmbeddingStore.topk``, exact and int8, checked at recall 1.0
    against the plain scan; kernel, plain and library times beside the
    bound;
 3. the serving main path: a seeded 1,048,576 x 128 bf16 checkpoint written
-   with the port's ``save_checkpoint`` and served by
+   with the port's ``save_checkpoint``; every serving kernel against its
+   plain version on that table and the launcher's own queries, at the
+   shapes the launcher gives it, the row-sequential kernel also bit for
+   bit against the scan, and timed; then the checkpoint served by
    ``repro_torch.launch.embed_serve.main`` at recall 1.0, exact and int8,
-   with every kernel's launch count read around the two runs; then every
-   serving kernel against its plain version on that table and the
-   launcher's own queries, at the shapes the launcher gives it;
+   with every kernel's launch count read around the two runs;
 4. the SGNS kernels (``sgns_fused_update``, ``sgns_fused_grads``,
    ``sgns_grads``) against their plain versions at f32 and bf16, with
    heavy duplicates, an odd B and one index per table, at the JAX kernel
@@ -49,7 +51,13 @@ failure ends the run with a non-zero exit:
    ``--impl pallas_fused`` on the CI gate and on ``--impl pallas`` at the
    config's geometry, served at recall 1.0; the launch counts read around
    each run;
-7. a JSON line of per-kernel results (launches per path), the card's line,
+7. the serving launcher's other legs on the phase-3 checkpoint, each a
+   path with its own counts: ``--impl rowwise``, ``--quant int8
+   --hot-rows 120``, the 3-shard chaos leg (shard 1 delayed past a 150 ms
+   deadline, ``--expect-degraded``, recall against the surviving shards)
+   and ``--metrics-dir`` + ``--trace`` (the files and the trace's
+   ``serve_batch`` spans checked);
+8. a JSON line of per-kernel results (launches per path), the card's line,
    and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -68,6 +76,7 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM, f32 outside the tensor cores
+SLEEP_CYCLES = 10_000_000          # a GPU sleep of about 5 ms (~1.98 GHz)
 SERVE_ROWS = 26_250_000            # 1.05 B nodes over 40 GPUs, per card
 CKPT_ROWS = 1 << 20
 DIM = 128                          # configs/tencent_embedding.py
@@ -631,7 +640,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 2
     g = torch.Generator(device="cpu").manual_seed(SEED)
-    err = {"topk_scan_exact": 0.0, "topk_scan_int8": 0.0,
+    err = {"topk_scan_exact": 0.0, "topk_scan_int8": 0.0, "topk_rowwise": 0.0,
            **{name: 0.0 for name in sgns.LAUNCHES}}
 
     def counted(run):
@@ -658,8 +667,13 @@ def main() -> int:
             err[kind] = max(err[kind], diff.abs().max().item())
 
     def check_exact(tbl, q, k, valid, what):
-        check_pair("topk_scan_exact", tk.topk_mips(tbl, q, k, valid),
-                   tk.topk_mips_plain(tbl, q, k, valid), what)
+        """The scan (#1) and the row-sequential kernel (#4) against their
+        plain version (the same function)."""
+        want = tk.topk_mips_plain(tbl, q, k, valid)
+        check_pair("topk_scan_exact", tk.topk_mips(tbl, q, k, valid), want,
+                   what)
+        check_pair("topk_rowwise", tk.topk_mips_rowwise(tbl, q, k, valid),
+                   want, what)
 
     def check_quant(tbl, q, m, valid, what):
         q8, sc = quantize_rows(tbl)
@@ -735,7 +749,8 @@ def main() -> int:
     want = tk.topk_mips_plain(tbl, q, 10)
     check_pair("topk_scan_exact", got, want, "two-tier == exact")
     cases += 1
-    print(f"kernels == plain on {cases} integer cases (bitwise)")
+    print(f"kernels == plain on {cases} integer cases (bitwise; "
+          f"topk_rowwise on each topk_scan_exact case)")
 
     # the per-card serving table, made on the card from a seed
     gd = torch.Generator(device=dev).manual_seed(SEED)
@@ -760,7 +775,7 @@ def main() -> int:
         q = shard[rows].float() + 0.05 * torch.randn(
             (BATCH, DIM), generator=gd, device=dev)
         pv, pi = tk.topk_mips_plain(shard, q, K)
-        for impl in ("exact", "quant"):
+        for impl in ("pallas", "quant"):
             gv, gi = store.topk(q, K, impl=impl)
             gi_t = torch.as_tensor(gi).to(dev).long()
             truth = (shard[gi_t].float() * q[:, None, :]).sum(2)
@@ -768,7 +783,7 @@ def main() -> int:
                             got_vals=truth.cpu().numpy(),
                             oracle_vals=pv.cpu().numpy())
             recalls.append(r)
-            if impl == "exact":
+            if impl == "pallas":
                 err["topk_scan_exact"] = max(
                     err["topk_scan_exact"],
                     (torch.as_tensor(gv).to(dev) - pv).abs().max().item())
@@ -793,6 +808,7 @@ def main() -> int:
     # fills bytes, so a uint8 zero_ would not do)
     from torch.profiler import ProfilerActivity, profile
     flush = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
+    pad = torch.zeros(8, dtype=torch.int32, device=dev)
 
     def device_events(run):
         """(start us, duration us, name) of each kernel ``run()`` launches,
@@ -816,22 +832,33 @@ def main() -> int:
         """Device ms of one call of ``fn`` with a cold L2: ``reps`` calls,
         each after a flush, under the profiler; the duration of every
         kernel that follows a recorded flush, the flushes left out, summed
-        and divided by the number of flushes recorded. (After the profiled
-        training episodes the profiler misses the first few kernels of a
-        session, so only the calls after the first recorded flush are
-        whole.)"""
+        and divided by the number of flushes recorded. The profiler can
+        drop the first kernels of a session (a few, or in some processes
+        most of the session), so each session starts with eight small
+        kernels of another kind, only the calls after the first recorded
+        flush count as whole, a session that kept fewer than half its
+        flushes is run again, and after three such sessions the calls are
+        timed with CUDA events instead (``event_ms``)."""
         fn()
 
         def run():
+            for _ in range(8):
+                pad.add_(1)
             for _ in range(reps):
                 flush.bitwise_not_()
                 fn()
-        events = device_events(run)
-        flushes = [i for i, (_, us, key) in enumerate(events)
-                   if key == flush_key and us > flush_us / 2]
-        if not flushes or len(flushes) < reps / 2:
-            raise AssertionError(f"the profiler recorded {len(flushes)} of "
-                                 f"{reps} flushes")
+        for _ in range(3):
+            events = device_events(run)
+            flushes = [i for i, (_, us, key) in enumerate(events)
+                       if key == flush_key and us > flush_us / 2]
+            if len(flushes) >= max(1, reps / 2):
+                break
+            print(f"  note: the profiler kept {len(flushes)} of {reps} "
+                  f"flushes among {len(events)} kernels")
+        else:
+            print(f"  note: {reps} calls timed with CUDA events behind a "
+                  f"GPU sleep")
+            return event_ms(fn, reps)
         ends = flushes[1:] + [len(events)]
         sizes = sorted({e - f - 1 for f, e in zip(flushes, ends)})
         if len(sizes) > 1:
@@ -839,6 +866,24 @@ def main() -> int:
         skip = set(flushes)
         return sum(us for i, (_, us, _) in enumerate(events)
                    if i > flushes[0] and i not in skip) / len(flushes) / 1e3
+
+    def event_ms(fn, reps):
+        """Device ms of one call of ``fn`` with a cold L2, from CUDA events:
+        each call follows a flush and a GPU sleep long enough for the host
+        to enqueue the events and the call behind it, so the card runs
+        them back to back and the events bracket the call's device work."""
+        total = 0.0
+        for _ in range(reps):
+            flush.bitwise_not_()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            total += s.elapsed_time(e)
+        return total / reps
 
     def wall_ms(fn, reps):
         """Ms between CUDA events around one call of ``fn`` (the host's
@@ -907,37 +952,67 @@ def main() -> int:
               f"max |kernel - plain| {err[name]:.3g}")
 
     # ---------------------------------------------------------- phase 3
+    # the 1 M-row checkpoint lives until phase 7, which serves it again
+    serve_dir = tempfile.TemporaryDirectory()
+    ckpt = str(Path(serve_dir.name) / "embeddings.npz")
     gc = torch.Generator(device="cpu").manual_seed(SEED + 1)
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = str(Path(tmp) / "embeddings.npz")
-        tables = {name: (0.1 * torch.randn((CKPT_ROWS, DIM), generator=gc)
-                         ).bfloat16() for name in ("vertex", "context")}
-        save_checkpoint(ckpt, tables, step=1)
-        served, launches = counted(lambda: {
-            "int8" if extra else "exact": embed_serve.main(
-                ["--ckpt", ckpt, "--k", str(K), "--queries", str(BATCH),
-                 "--check-recall", "1.0", "--device", "cuda", *extra])
-            for extra in ([], ["--quant", "int8"])})
-        paths = {"serve": launches}
-        # the kernels against their plain versions on the main path's own
-        # table and queries (the launcher's seed), at its padded batch
-        main_store = ShardedEmbeddingStore.load(ckpt, devices=[dev],
-                                                quant="int8")
-        rows = np.random.default_rng(SEED).integers(0, CKPT_ROWS, BATCH)
-        q = main_store.host_table[rows].float().to(dev)
-        shard = main_store.shards[0]
-        q8, sc = main_store.qshards[0]
-        check_serving_shape(shard, q8, sc, q, tk.topk_mips_plain(shard, q, K),
-                            f"{CKPT_ROWS} rows (main path) Q={BATCH}")
-        del main_store, shard, q8, sc
-    print(f"{CKPT_ROWS}-row main-path shape: exact scan, int8 scan and "
-          f"gather == plain (bitwise)")
-    for mode, s in served.items():
-        print(f"main path {mode}: {s['qps']:.1f} QPS, p50 {s['p50_ms']:.2f} "
-              f"ms, p99 {s['p99_ms']:.2f} ms, recall {s['recall']:.4f}, "
-              f"{s['batches']} batches")
+    tables = {name: (0.1 * torch.randn((CKPT_ROWS, DIM), generator=gc)
+                     ).bfloat16() for name in ("vertex", "context")}
+    save_checkpoint(ckpt, tables, step=1)
+    del tables
+
+    def serve(*extra):
+        return embed_serve.main(
+            ["--ckpt", ckpt, "--k", str(K), "--queries", str(BATCH),
+             "--check-recall", "1.0", "--device", "cuda", *extra])
+
+    # the kernels against their plain versions on the main path's own table
+    # and queries (the launcher's seed), at its padded batch; the
+    # row-sequential kernel also against the scan, bit for bit, and timed
+    # here, before the launchers' numpy oracles run: after them the
+    # profiler drops the first kernels of each session
+    main_store = ShardedEmbeddingStore.load(ckpt, devices=[dev],
+                                            quant="int8")
+    rows = np.random.default_rng(SEED).integers(0, CKPT_ROWS, BATCH)
+    q = main_store.host_table[rows].float().to(dev)
+    shard = main_store.shards[0]
+    q8, sc = main_store.qshards[0]
+    exact_plain = tk.topk_mips_plain(shard, q, K)
+    what = f"{CKPT_ROWS} rows (main path) Q={BATCH}"
+    check_serving_shape(shard, q8, sc, q, exact_plain, what)
+    rowwise = tk.topk_mips_rowwise(shard, q, K)
+    check_pair("topk_rowwise", rowwise, exact_plain, what)
+    check_pair("topk_rowwise", rowwise, tk.topk_mips(shard, q, K),
+               f"{what} against the scan")
+    print(f"{CKPT_ROWS}-row main-path shape: exact scan, int8 scan, gather "
+          f"and row-sequential scan == plain, row-sequential == scan "
+          f"(bitwise)")
+    tf = shard.float()
+    rec["topk_rowwise"] = dict(
+        source="src/repro_torch/kernels/csrc/topk_rowwise.cu",
+        replaces="src/repro/embed_serve/topk.py:382",
+        ms=time_ms(lambda: tk.topk_mips_rowwise(shard, q, K), 3),
+        wall_ms=wall_ms(lambda: tk.topk_mips_rowwise(shard, q, K), 2),
+        plain_ms=time_ms(lambda: tk.topk_mips_plain(shard, q, K), 5),
+        library_ms=time_ms(lambda: torch.topk(q @ tf.T, K), 5),
+        bound=bound_ms(CKPT_ROWS * DIM * 2 + BATCH * DIM * 4
+                       + BATCH * K * 8, 2.0 * BATCH * CKPT_ROWS * DIM))
+    del main_store, shard, q8, sc, tf
+    torch.cuda.empty_cache()
+    r = rec["topk_rowwise"]
+    print(f"topk_rowwise at {CKPT_ROWS} x {DIM} bf16, Q={BATCH}, k={K}: "
+          f"{r['ms']:.3f} device ms/launch ({r['wall_ms']:.3f} wall), bound "
+          f"{r['bound'][0]:.5f} ms ({r['bound'][1]}), plain "
+          f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, max "
+          f"|kernel - plain| {err['topk_rowwise']:.3g}")
+
+    served, launches = counted(lambda: {
+        "int8" if extra else "exact": serve(*extra)
+        for extra in ([], ["--quant", "int8"])})
+    paths = {"serve": launches}
     print(f"serving main-path launches: {launches}")
-    missing = [n for n in rec if launches.get(n, 0) == 0]
+    missing = [n for n in ("topk_scan_exact", "topk_scan_int8", "gather_rows")
+               if launches[n] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the serving main "
                              f"path: {missing}")
@@ -1019,6 +1094,50 @@ def main() -> int:
               f"{err[name]:.3g}")
 
     # ---------------------------------------------------------- phase 7
+    # the serving launcher's other legs on the phase-3 checkpoint, each a
+    # path of its own: the flags and the kernels each must launch (run
+    # last: nothing is profiled after their numpy oracles)
+    mdir = Path(serve_dir.name) / "metrics"
+    tpath = Path(serve_dir.name) / "trace.json"
+    legs = {
+        "serve_rowwise": (["--impl", "rowwise"], ("topk_rowwise",)),
+        "serve_hot": (["--quant", "int8", "--hot-rows", "120"],
+                      ("topk_scan_exact", "topk_scan_int8", "gather_rows")),
+        "serve_degraded": (
+            ["--shards", "3", "--shard-timeout-ms", "150", "--inject",
+             "serve.shard:delay:key=1:delay=1.0:times=inf",
+             "--expect-degraded"], ("topk_scan_exact",)),
+        "serve_telemetry": (["--metrics-dir", str(mdir), "--trace",
+                             str(tpath)], ("topk_scan_exact",)),
+    }
+    for path, (extra, names) in legs.items():
+        served[path], paths[path] = counted(lambda: serve(*extra))
+        print(f"{path} main-path launches: {paths[path]}")
+        missing = [n for n in names if paths[path][n] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the {path} "
+                                 f"path: {missing}")
+    deg = served["serve_degraded"]
+    if not (deg["degraded"] > 0 and 1 in deg["failed_shards"]):
+        raise AssertionError(f"degraded leg: {deg}")
+    trace = json.loads(tpath.read_text())
+    n_spans = sum(e.get("name") == "serve_batch" and e["ph"] == "X"
+                  for e in trace["traceEvents"])
+    summary = json.loads((mdir / "metrics_summary.json").read_text())
+    if not ((mdir / "metrics.jsonl").exists() and n_spans > 0
+            and summary["histograms"]["serve.request_s"]["count"] == BATCH):
+        raise AssertionError(f"telemetry leg: {n_spans} serve_batch spans, "
+                             f"summary {sorted(summary)}")
+    print(f"telemetry leg: {n_spans} serve_batch spans in the trace, "
+          f"metrics.jsonl and metrics_summary.json written")
+    serve_dir.cleanup()
+    for mode, r in served.items():
+        print(f"main path {mode}: {r['qps']:.1f} QPS, p50 {r['p50_ms']:.2f} "
+              f"ms, p99 {r['p99_ms']:.2f} ms, recall {r['recall']:.4f}, "
+              f"{r['batches']} batches, {r['degraded']} degraded requests, "
+              f"failed shards {r['failed_shards']}")
+
+    # ---------------------------------------------------------- phase 8
     for name, r in rec.items():
         by_path = {path: counts[name] for path, counts in paths.items()}
         results.append({

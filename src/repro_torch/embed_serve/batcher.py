@@ -1,16 +1,16 @@
 """Async micro-batching request frontend for embedding retrieval.
 
-A near-verbatim port of the JAX package's ``embed_serve/batcher.py`` (pure
-Python) onto the port's copies of ``obs`` and ``runtime.errors``.
+A copy of the JAX package's ``embed_serve/batcher.py`` (pure Python) on
+the port's copies of ``obs`` and ``runtime``.
 
 Single-query requests are individually tiny (one (d,) vector) while the
 top-k kernel's cost is dominated by the per-batch table scan, so serving
 heavy traffic means coalescing: requests enter a bounded queue, a worker
-thread (the single-worker pattern of the JAX package's episode pipeline)
-collects them until either the batch-window deadline or the max batch size
-hits, pads the stacked queries to ``max_batch`` rows (one shape for the
-backend, warmed up before serving), runs the backend once, and resolves
-each request's future with its own row of the result.
+thread (the single-worker pattern of the episode pipeline) collects them
+until either the batch-window deadline or the max batch size hits, pads
+the stacked queries to ``pad_multiple`` rows (or to ``max_batch`` with
+``fixed_batch``), runs the backend once, and resolves each request's
+future with its own row of the result.
 
 Backpressure is the queue bound: ``submit`` blocks when the queue is full,
 so an over-driven client slows to the serve rate instead of ballooning
@@ -18,15 +18,15 @@ memory. Exceptions from the backend propagate to every future of the
 failed batch; ``close()`` serves everything already queued before the
 worker exits (drain, don't drop).
 
-Overload control (``runtime.errors``): ``deadline_ms`` stamps every request
-at admission and expires it with ``DeadlineExceeded`` — instead of serving
+Overload control (``runtime``): ``deadline_ms`` stamps every request at
+admission and expires it with ``DeadlineExceeded`` — instead of serving
 it — once the stamp passes (a request never hangs past its deadline: it is
-either served or expired).
-
-Left out until the slices that need them: the JAX batcher's
-``pad_multiple`` and ``queue_cap`` options (the launcher pads every call to
-``max_batch``), ``shed_on_full`` admission control, the degraded-scan tag
-(the port's store has no degraded mode) and the metrics-registry source.
+either served, expired, or shed). ``shed_on_full=True`` turns the full-
+queue block into an immediate ``Overloaded`` raise, the admission-control
+mode for latency-sensitive serving. When the backend returns a third
+element (``ShardedEmbeddingStore.topk(return_meta=True)``'s ``TopKMeta``),
+it is attached to every request of the batch, so callers see degraded
+responses tagged as such.
 """
 from __future__ import annotations
 
@@ -38,24 +38,26 @@ from concurrent.futures import Future
 
 import numpy as np
 
-from repro_torch.obs import gauge_set, observe, span, trace_counter
-from repro_torch.runtime.errors import DeadlineExceeded
+from repro_torch.obs import (gauge_set, observe, register_source, span,
+                             trace_counter, unregister_source)
+from repro_torch.runtime import DeadlineExceeded, Overloaded
 
 _CLOSE = object()
-QUEUE_CAP = 4096        # requests held before submit blocks (backpressure)
 
 
 @dataclasses.dataclass
 class BatcherStats:
-    """Coalescing + overload counters, written by the worker under the
-    batcher's stats lock; readers should take a consistent
-    :meth:`MicroBatcher.stats_snapshot` rather than reading fields off the
-    live object mid-flight."""
+    """Coalescing + overload counters. ``shed`` is bumped by submitter
+    threads, the rest by the worker — ALL under the batcher's stats lock,
+    and readers should take a consistent :meth:`MicroBatcher.stats_snapshot`
+    rather than reading fields off the live object mid-flight."""
 
     requests: int = 0
     batches: int = 0
     padded_rows: int = 0
+    shed: int = 0         # rejected at admission (queue full, shed_on_full)
     expired: int = 0      # deadline passed before the batch ran
+    degraded: int = 0     # requests answered from a degraded (partial) scan
 
     @property
     def mean_batch(self) -> float:
@@ -72,20 +74,28 @@ class MicroBatcher:
     """
 
     def __init__(self, serve_fn, dim: int, *, max_batch: int = 256,
-                 window_ms: float = 2.0, deadline_ms: float | None = None):
-        """Every backend call is padded to max_batch rows, so the backend
-        sees exactly one batch shape (one kernel launch plan) — warm it up
-        with one max_batch call.
+                 window_ms: float = 2.0, pad_multiple: int = 8,
+                 queue_cap: int = 4096, fixed_batch: bool = False,
+                 deadline_ms: float | None = None,
+                 shed_on_full: bool = False):
+        """fixed_batch=True pads every backend call to max_batch rows, so a
+        jitted (shape-specialized) backend compiles exactly one batch shape
+        instead of one per first-seen multiple of pad_multiple — the right
+        mode for compiled serving (warm up with one max_batch call).
         deadline_ms gives every request a per-request deadline from the
         moment of admission: a request still queued when it expires fails
-        with DeadlineExceeded instead of being served late."""
-        assert max_batch >= 1
+        with DeadlineExceeded instead of being served late. shed_on_full
+        makes a full queue raise Overloaded at submit instead of blocking
+        (admission control instead of backpressure)."""
+        assert max_batch >= 1 and pad_multiple >= 1 and queue_cap >= 1
         self._serve_fn = serve_fn
         self._dim = dim
         self._max_batch = max_batch
         self._window_s = window_ms / 1e3
+        self._pad = max_batch if fixed_batch else pad_multiple
         self._deadline_s = None if deadline_ms is None else deadline_ms / 1e3
-        self._queue = queue.Queue(maxsize=QUEUE_CAP)
+        self._shed_on_full = shed_on_full
+        self._queue = queue.Queue(maxsize=queue_cap)
         self._closed = False
         self._drained = False       # close() finished its cancel-drain
         self.stats = BatcherStats()
@@ -94,10 +104,23 @@ class MicroBatcher:
                                         name="embed-serve-batcher",
                                         daemon=True)
         self._thread.start()
+        # BatcherStats over the registry: the canonical counters live here
+        # (under _stats_mu); the registry polls them at snapshot time, so
+        # metrics.jsonl / diagnostics see the same numbers stats_snapshot
+        # callers do, without a second set of books
+        register_source("serve.batcher", self._stats_source)
+
+    def _stats_source(self) -> dict:
+        s = self.stats_snapshot()
+        d = dataclasses.asdict(s)
+        d["mean_batch"] = s.mean_batch
+        d["queue_depth"] = self._queue.qsize()
+        return d
 
     # ---------------------------------------------------------------- API
     def submit(self, query) -> Future:
-        """Enqueue one (d,) query; blocks when the queue is full."""
+        """Enqueue one (d,) query; blocks when the queue is full (or, with
+        ``shed_on_full``, raises Overloaded instead of blocking)."""
         q = np.asarray(query, dtype=np.float32)
         if q.shape != (self._dim,):
             raise ValueError(f"query shape {q.shape} != ({self._dim},)")
@@ -107,7 +130,17 @@ class MicroBatcher:
         t_sub = time.perf_counter()
         dl = (None if self._deadline_s is None
               else t_sub + self._deadline_s)
-        self._queue.put((q, fut, dl, t_sub))
+        if self._shed_on_full:
+            try:
+                self._queue.put_nowait((q, fut, dl, t_sub))
+            except queue.Full:
+                with self._stats_mu:
+                    self.stats.shed += 1
+                raise Overloaded(
+                    f"queue full ({self._queue.maxsize}); request shed"
+                ) from None
+        else:
+            self._queue.put((q, fut, dl, t_sub))
         depth = self._queue.qsize()
         gauge_set("serve.queue_depth", depth)
         trace_counter("serve.queue_depth", depth)
@@ -129,6 +162,7 @@ class MicroBatcher:
         if self._closed:
             return
         self._closed = True
+        unregister_source("serve.batcher")
         self._queue.put(_CLOSE)
         self._thread.join()
         # a submit() that raced close() past the closed check would
@@ -223,25 +257,32 @@ class MicroBatcher:
             return
         qs = np.stack([q for q, _, _ in live])
         B = qs.shape[0]
-        Bp = self._max_batch            # B <= max_batch: one backend shape
+        Bp = -(-B // self._pad) * self._pad
         if Bp > B:                      # pad rows: results are discarded
             qs = np.concatenate(
                 [qs, np.zeros((Bp - B, self._dim), qs.dtype)])
         try:
             with span("serve_batch", "serve", {"batch": B, "padded": Bp}):
-                vals, ids = self._serve_fn(qs)
+                out = self._serve_fn(qs)
         except Exception as e:          # noqa: BLE001 — propagate to callers
             for _, fut, _ in live:
                 fut.set_exception(e)
             return
+        # backend returns (vals, ids) or (vals, ids, meta) — a degraded-scan
+        # tag (TopKMeta) is attached to every request of the batch
+        meta = out[2] if len(out) == 3 else None
+        vals, ids = out[0], out[1]
         t_done = time.perf_counter()
         for i, (_, fut, t_sub) in enumerate(live):
-            fut.set_result((np.asarray(vals[i]), np.asarray(ids[i])))
+            row = (np.asarray(vals[i]), np.asarray(ids[i]))
+            fut.set_result(row if meta is None else row + (meta,))
             observe("serve.request_s", t_done - t_sub)  # admission -> served
         with self._stats_mu:
             self.stats.requests += B
             self.stats.batches += 1
             self.stats.padded_rows += Bp - B
+            if meta is not None and getattr(meta, "degraded", False):
+                self.stats.degraded += len(live)
 
 
 def drive_open_loop(batcher: MicroBatcher, queries, *, qps: float = 0.0,

@@ -58,22 +58,23 @@ def overfetch_m(k: int, overfetch: float, n_rows: int) -> int:
     return max(1, min(max(k, math.ceil(k * overfetch)), n_rows))
 
 
-def rescore_exact(table, queries, cand_idx, k: int):
+def rescore_exact(table, queries, cand_idx, k: int, *, plain: bool = False):
     """Tier two: gather the surviving rows, re-score in f32, re-rank.
 
     table: the (N, d) full-precision shard; queries: (Q, d) f32;
     cand_idx: (Q, m) shard-local ids from the first pass (sentinel slots
     allowed: they gather row 0 but score -inf). The gather is the row
-    kernel on the card and its plain version on the CPU; the scores are
-    an elementwise f32 product summed over d, which no TF32 setting
-    touches. Returns ((Q, k) f32, (Q, k) i32).
+    kernel on the card and its plain version on the CPU (or anywhere, with
+    ``plain``); the scores are an elementwise f32 product summed over d,
+    which no TF32 setting touches. Returns ((Q, k) f32, (Q, k) i32).
     """
     Q, m = cand_idx.shape
     d = table.shape[1]
     idx = cand_idx.int()
     sentinel = idx == tk.IDX_SENTINEL
     safe = torch.where(sentinel, torch.zeros_like(idx), idx).reshape(-1)
-    rows = _k.gather_rows(table, safe.contiguous()).reshape(Q, m, d).float()
+    gather = _k.gather_rows_plain if plain else _k.gather_rows
+    rows = gather(table, safe.contiguous()).reshape(Q, m, d).float()
     scores = (queries.float()[:, None, :] * rows).sum(dim=2)
     scores = torch.where(sentinel, torch.full_like(scores, tk.NEG_INF), scores)
     return tk.select_topk(scores, idx, k)
@@ -81,14 +82,16 @@ def rescore_exact(table, queries, cand_idx, k: int):
 
 def topk_mips_quant_rescored(table, qtable, scales, queries, k: int, *,
                              overfetch: float = DEFAULT_OVERFETCH,
-                             valid: int | None = None):
+                             valid: int | None = None, plain: bool = False):
     """The full two-tier shard scan: int8 top-m, exact rescore to top-k.
 
     table and (qtable, scales) cover the same rows in the same order;
     ``valid`` masks rows past the shard's real ones in both tiers. Kernels
-    or plain versions follow the tensors' device.
+    or plain versions follow the tensors' device; ``plain`` runs the plain
+    versions on any device (the store's ``quant_xla`` route).
     """
     n_rows = qtable.shape[0] if valid is None else valid
     m = overfetch_m(k, overfetch, n_rows)
-    _, ci = tk.topk_mips_quant(qtable, scales, queries, m, valid)
-    return rescore_exact(table, queries, ci, k)
+    scan = tk.topk_mips_quant_plain if plain else tk.topk_mips_quant
+    _, ci = scan(qtable, scales, queries, m, valid)
+    return rescore_exact(table, queries, ci, k, plain=plain)

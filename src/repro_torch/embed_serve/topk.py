@@ -8,11 +8,17 @@ launch one CUDA source, ``kernels/csrc/topk_scan.cu``:
 * :func:`topk_mips_quant` replaces ``topk_mips_quant`` (int8 table with
   per-row scales, the first pass of the two-tier scan in ``quant``).
 
+and a third launches ``kernels/csrc/topk_rowwise.cu``:
+
+* :func:`topk_mips_rowwise` replaces ``topk_mips_rowwise``, the
+  row-sequential reference of ``topk_mips`` (one thread per query walks
+  every row in order; no split, no merge).
+
 A tensor on the CPU takes the plain version (:func:`topk_mips_plain`,
-:func:`topk_mips_quant_plain`); a tensor on the card goes to the kernel or
-the call raises. The plain versions scan the rows in chunks and fold each
-chunk into the running result with :func:`select_topk`, so they never hold
-the whole (Q, N) score matrix.
+:func:`topk_mips_quant_plain`, :func:`topk_mips_rowwise_plain`); a tensor
+on the card goes to the kernel or the call raises. The plain versions scan
+the rows in chunks and fold each chunk into the running result with
+:func:`select_topk`, so they never hold the whole (Q, N) score matrix.
 
 Exactness: scores are f32 (tables widened before the dot, queries kept in
 f32), and selection follows one total order, score descending and then row
@@ -36,12 +42,14 @@ NEG_INF = float("-inf")
 IDX_SENTINEL = 2**31 - 1          # int32 max
 
 # launches of each CUDA kernel of this module (counted where it launches)
-LAUNCHES = {"topk_scan_exact": 0, "topk_scan_int8": 0}
+LAUNCHES = {"topk_scan_exact": 0, "topk_scan_int8": 0, "topk_rowwise": 0}
 
 SMEM_PER_BLOCK = 232_448          # H100: 227 KB of dynamic shared memory
 SCAN_THREADS = 256                # rows per tile == threads per scan block
 QUERY_BLOCKS = (8, 16, 32, 64)    # compiled query-block sizes (BQ)
 MERGE_WARPS = 4                   # queries per merge block
+ROWWISE_QUERIES = 32              # queries (threads) per rowwise block
+ROWWISE_TILE = 16                 # rows per rowwise staged tile
 PLAIN_CHUNK_ELEMS = 1 << 26       # (Q, chunk) scores per plain-scan step
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -160,6 +168,10 @@ def topk_mips_plain(table, queries, k: int, valid: int | None = None):
                        valid, q, k)
 
 
+# the row-sequential kernel computes the same function as the scan
+topk_mips_rowwise_plain = topk_mips_plain
+
+
 def topk_mips_quant_plain(qtable, scales, queries, m: int,
                           valid: int | None = None):
     """Plain int8 first pass: top-m of ``(queries @ qtable.T) * scales``,
@@ -266,3 +278,54 @@ def topk_mips_quant(qtable, scales, queries, m: int,
         raise ValueError(f"topk_mips_quant: unsupported device {qtable.device}")
     _check_cuda_scan(qtable, queries, scales, quant=True)
     return _launch_scan("topk_scan_int8", qtable, scales, queries, m, valid)
+
+
+def topk_rowwise_smem_bytes(d: int, k: int, itemsize: int) -> int:
+    """Shared memory of one rowwise block: the (32, d) f32 queries, one
+    (16, d) f32 tile, the (32, k) running lists and the tile's raw bytes."""
+    return (4 * (ROWWISE_QUERIES * d + ROWWISE_TILE * d)
+            + 8 * ROWWISE_QUERIES * k + itemsize * ROWWISE_TILE * d)
+
+
+def topk_mips_rowwise(table, queries, k: int, valid: int | None = None):
+    """Row-sequential exact-MIPS top-k: the same function as
+    :func:`topk_mips`, computed by a kernel that walks rows 0..valid-1 in
+    order for each query (the reference the split-and-merge scan is held
+    to; slow by design). Same arguments and results as :func:`topk_mips`.
+    Replaces the TPU kernel ``repro/embed_serve/topk.py::topk_mips_rowwise``.
+    """
+    N = table.shape[0]
+    valid = N if valid is None else valid
+    if table.device.type == "cpu":
+        return topk_mips_rowwise_plain(table, queries, k, valid)
+    if table.device.type != "cuda":
+        raise ValueError(f"topk_mips_rowwise: unsupported device "
+                         f"{table.device}")
+    _check_cuda_scan(table, queries, None, quant=False)
+    d = table.shape[1]
+    if d % 8:
+        raise ValueError(f"topk_mips_rowwise needs d % 8 == 0, got d={d}")
+    if not 0 < valid <= N:
+        raise ValueError(f"valid={valid} outside (0, {N}]")
+    if k < 1:
+        raise ValueError(f"need k >= 1, got {k}")
+    if topk_rowwise_smem_bytes(d, k, table.element_size()) > SMEM_PER_BLOCK:
+        raise ValueError(f"k={k} does not fit the rowwise kernel's shared "
+                         f"memory at d={d}")
+    if queries.data_ptr() % 16:
+        raise ValueError("topk_mips_rowwise: queries must be 16-byte aligned")
+    Q = queries.shape[0]
+    dev = table.device
+    out_v = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    if Q == 0:
+        return out_v, out_i
+    lib = build.library("topk_rowwise")
+    with torch.cuda.device(dev):
+        rc = lib.topk_rowwise(
+            _DTYPE_CODES[table.dtype], table.data_ptr(), queries.data_ptr(),
+            Q, d, valid, k, out_v.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(rc, "topk_rowwise")
+    LAUNCHES["topk_rowwise"] += 1
+    return out_v, out_i

@@ -41,6 +41,10 @@ SIGNATURES = {
         # part_v, part_i, Q, splits, k, out_v, out_i, stream
         "topk_scan_merge": [_P, _P, _I, _I, _I, _P, _P, _P],
     },
+    "topk_rowwise": {
+        # dtype, table, queries, Q, d, valid, k, out_v, out_i, stream
+        "topk_rowwise": [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    },
     "gather_rows": {
         # table, idx, B, row_bytes, out, stream
         "gather_rows": [_P, _P, _I, _LL, _P, _P],

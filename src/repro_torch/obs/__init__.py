@@ -1,33 +1,44 @@
-"""Telemetry hooks the serving and training paths call, with nothing
-behind them yet.
+"""Unified telemetry: metrics registry + span tracer + sinks.
 
-The JAX package's ``obs`` records these calls into a metrics registry and a
-trace once ``enable()`` / ``set_tracer()`` switch them on; disabled, each is
-a single ``None`` check. The port has no sink to switch them on, so here
-they do nothing. The registry, the tracer and ``--metrics-dir`` /
-``--trace`` come with the telemetry slice and replace these bodies.
+Copies of the JAX package's ``obs`` modules, exporting what it exports.
+Disabled by default. ``enable()`` installs the process-wide registry;
+``set_tracer(Tracer())`` installs the span recorder. Every hot-path
+helper (``counter_add``/``gauge_set``/``observe``/``span``/``instant``/
+``trace_counter``) is a single module-level ``None`` check while
+disabled, so instrumented code pays nothing until a launcher opts in via
+``--metrics-dir`` / ``--trace``.
 """
-from __future__ import annotations
+from .metrics import (  # noqa: F401
+    Counter,
+    Gauge,
+    Histogram,
+    Registry,
+    active,
+    counter_add,
+    disable,
+    enable,
+    enabled,
+    gauge_set,
+    observe,
+    register_source,
+    unregister_source,
+)
+from .sink import MetricsWriter  # noqa: F401
+from .trace import (  # noqa: F401
+    PIPELINE_TRACKS,
+    Tracer,
+    instant,
+    set_tracer,
+    span,
+    trace_counter,
+    tracer,
+)
 
-import contextlib
-
-
-def span(name: str, cat: str = "", args: dict | None = None):
-    """A timed region of the trace (``with span(...):``)."""
-    return contextlib.nullcontext()
-
-
-def counter_add(name: str, n=1) -> None:
-    """Add ``n`` to the counter ``name``."""
-
-
-def observe(name: str, value: float) -> None:
-    """One sample of the histogram ``name``."""
-
-
-def gauge_set(name: str, value: float) -> None:
-    """The current value of the gauge ``name``."""
-
-
-def trace_counter(name: str, value: float) -> None:
-    """One point of the trace's counter track ``name``."""
+__all__ = [
+    "Counter", "Gauge", "Histogram", "Registry", "MetricsWriter", "Tracer",
+    "PIPELINE_TRACKS",
+    "enable", "disable", "active", "enabled",
+    "counter_add", "gauge_set", "observe",
+    "register_source", "unregister_source",
+    "set_tracer", "tracer", "span", "instant", "trace_counter",
+]

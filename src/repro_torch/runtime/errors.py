@@ -1,12 +1,25 @@
 """Failures of the port, from the JAX package's ``runtime/errors.py``.
 
 The port imports nothing of the JAX package, so it keeps its own copy of
-the classes its paths raise: serving's ``DeadlineExceeded`` and the sample
-store's ``StoreStalled``. The rest of that vocabulary (fault injection,
-transport and corrupt-episode errors, the ``Overloaded`` of admission
-control) comes with the slices that raise it.
+the classes its paths raise: fault injection's ``InjectedFault``, the
+sample store's ``StoreStalled`` and serving's ``DeadlineExceeded`` and
+``Overloaded``. The transport and corrupt-episode errors come with the
+slices that raise them.
 """
 from __future__ import annotations
+
+
+class InjectedFault(RuntimeError):
+    """Raised by a ``crash`` fault spec firing at a fault point.
+
+    Deliberately a distinct type: tests and chaos runs assert that a
+    failure was the injected one and not an incidental bug."""
+
+    def __init__(self, site: str, key=None):
+        self.site = site
+        self.key = key
+        super().__init__(f"injected fault at {site!r}"
+                         + (f" key={key!r}" if key is not None else ""))
 
 
 class StoreStalled(RuntimeError):
@@ -36,3 +49,7 @@ class StoreStalled(RuntimeError):
 
 class DeadlineExceeded(RuntimeError):
     """A serving request's deadline passed before it was served."""
+
+
+class Overloaded(RuntimeError):
+    """A serving request was shed at admission because the queue was full."""

@@ -9,7 +9,8 @@ it runs on a machine that has only PyTorch:
 For the scans, integer tables and queries make every f32 dot exact, so
 kernel and plain version must agree bitwise, ties included. The gathers and
 scatter-adds have one defined order, so they agree bitwise too, and the
-blocked kernels with their row-wise references. The SGNS kernels sum in
+blocked kernels with their row-wise references (the row-sequential top-k
+with the scan even on continuous rows). The SGNS kernels sum in
 another order than their plain versions, so they are held to the JAX
 kernel tests' tolerances (bf16 tables also to two bf16 steps), and to
 themselves bitwise."""
@@ -75,7 +76,7 @@ def test_store_on_card_matches_cpu(card):
                                            quant="int8")
     gpu = ShardedEmbeddingStore.from_array(tbl, devices=[card] * 3,
                                            quant="int8")
-    for impl in ("exact", "quant"):
+    for impl in ("pallas", "quant"):
         for k in (1, 10, 100):
             want, got = cpu.topk(q, k, impl=impl), gpu.topk(q, k, impl=impl)
             np.testing.assert_array_equal(got[1], want[1])
@@ -95,6 +96,85 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="idx"):
         sgns.gather_rows(torch.zeros((32, 16), device=card),
                          torch.zeros(3, device=card, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_rowwise_kernel_matches_plain(card, dtype):
+    """#4 on integer tables: six distinct rows (ties at every rank), a
+    ragged last tile, valid < N, k > valid, Q not a multiple of 32."""
+    rng = np.random.default_rng(21)
+    base = _int(6, 128, 22)
+    tbl = base[rng.integers(0, 6, size=5_003)].to(card, dtype)
+    q = _int(37, 128, 23).to(card)
+    before = tk.LAUNCHES["topk_rowwise"]
+    cases = ((1, 5_003), (100, 5_003), (10, 4_990), (64, 40), (10, 1))
+    for k, valid in cases:
+        _same(tk.topk_mips_rowwise(tbl, q, k, valid),
+              tk.topk_mips_rowwise_plain(tbl, q, k, valid))
+    assert tk.LAUNCHES["topk_rowwise"] == before + len(cases)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_rowwise_kernel_matches_scan_on_continuous_rows(card, dtype):
+    """#4 and #1 take one fmaf chain over d in index order, so they agree
+    bit for bit on continuous rows too; repeated rows make exact ties."""
+    g = torch.Generator(device=card).manual_seed(24)
+    tbl = torch.randn((20_000, 128), generator=g, device=card).to(dtype)
+    tbl[1_000:1_500] = tbl[:500]
+    q = torch.randn((70, 128), generator=g, device=card)
+    for k, valid in ((10, 20_000), (128, 20_000), (16, 19_993)):
+        _same(tk.topk_mips_rowwise(tbl, q, k, valid),
+              tk.topk_mips(tbl, q, k, valid))
+
+
+def test_tiered_and_degraded_store_on_card_match_cpu(card):
+    """The tiered route (CUDA scan of the hot rows, int8 scan, gather and
+    rescore of the cold ones) and a 3-shard degraded store, each shard on
+    its own stream, give the CPU store's answers."""
+    from repro_torch.runtime import inject
+
+    tbl = _int(3001, 128, 25).bfloat16()
+    q = _int(64, 128, 26).numpy()
+    counts = np.random.default_rng(27).integers(0, 3, 3001)
+    stores = [ShardedEmbeddingStore.from_array(tbl, devices=[dev] * 3,
+                                               quant="int8")
+              for dev in ("cpu", card)]
+    for s in stores:
+        s.enable_hot_tier(300, counts=counts)
+    for k in (1, 10, 100):
+        want, got = (s.topk(q, k, impl="tiered") for s in stores)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
+    assert stores[0].hot_tier_stats() == stores[1].hot_tier_stats()
+    for impl in ("pallas", "rowwise", "quant", "tiered"):
+        outs = []
+        for s in stores:
+            s.topk(q, 10, impl=impl, shard_timeout_s=None)
+            with inject("serve.shard:delay:key=1:delay=1.0:times=inf"):
+                outs.append(s.topk(q, 10, impl=impl, shard_timeout_s=0.5,
+                                   return_meta=True))
+        (wv, wi, wm), (gv, gi, gm) = outs
+        assert gm.failed_shards == wm.failed_shards == (1,)
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gv, wv)
+
+
+def test_rowwise_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    q = torch.zeros((4, 16), device=card)
+    with pytest.raises(ValueError, match="dtype"):
+        tk.topk_mips_rowwise(torch.zeros((32, 16), device=card,
+                                         dtype=torch.int8), q, 3)
+    with pytest.raises(ValueError, match="d % 8"):
+        tk.topk_mips_rowwise(torch.zeros((32, 12), device=card),
+                             torch.zeros((4, 12), device=card), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.topk_mips_rowwise(torch.zeros((16, 32), device=card).T, q, 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.topk_mips_rowwise(torch.zeros((32, 16), device=card), q, 5000)
+    with pytest.raises(ValueError, match="valid"):
+        tk.topk_mips_rowwise(torch.zeros((32, 16), device=card), q, 3, 0)
 
 
 SGNS_TOL = {torch.float32: (2e-4, 1e-6), torch.bfloat16: (3e-2, 3e-3)}

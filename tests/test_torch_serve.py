@@ -55,7 +55,7 @@ def test_stores_agree_on_jax_checkpoint(jax_ckpt, shards, quant):
         np.float32)
     for k in (1, 10, 100):
         want = jstore.topk(q, k, impl="quant_xla" if quant else "xla")
-        got = store.topk(q, k, impl="quant" if quant else "exact")
+        got = store.topk(q, k, impl="quant" if quant else "pallas")
         np.testing.assert_array_equal(got[1], want[1])
         np.testing.assert_array_equal(got[0], want[0])
         rv, ri = store.oracle_topk(q, k)
@@ -85,7 +85,7 @@ def test_store_empty_tail_shards_and_errors():
     q = np.random.default_rng(3).integers(-4, 5, size=(4, 8)).astype(
         np.float32)
     rv, ri = store.oracle_topk(q, 5)
-    for impl in ("exact", "quant"):
+    for impl in ("pallas", "quant"):
         v, i = store.topk(q, 5, impl=impl)
         np.testing.assert_array_equal(i, ri)
         np.testing.assert_array_equal(v, rv)
@@ -146,9 +146,9 @@ def test_launcher_recall_gate_fails_loudly(jax_ckpt, monkeypatch):
 
 
 def _both_batchers(serve_fn, **kw):
-    """The port's batcher pads every call to max_batch, as the JAX one
-    does with fixed_batch=True."""
-    return [(MicroBatcher(serve_fn, 8, **kw), DeadlineExceeded),
+    """Both batchers padding every call to max_batch (fixed_batch=True)."""
+    return [(MicroBatcher(serve_fn, 8, fixed_batch=True, **kw),
+             DeadlineExceeded),
             (JaxBatcher(serve_fn, 8, fixed_batch=True, **kw),
              JaxDeadlineExceeded)]
 

@@ -1,5 +1,5 @@
-"""The port's top-k scan against the JAX package's Pallas kernel (interpret
-mode) and its jnp path.
+"""The port's top-k scans against the JAX package's Pallas kernels
+(interpret mode) and its jnp path.
 
 On the CPU the wrappers run their plain versions. Tables and queries are
 small integers, so every f32 dot is exact whatever the summation order and
@@ -114,6 +114,29 @@ def test_topk_continuous_matches_jax():
     np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=1e-6)
 
 
+@pytest.mark.parametrize("k,bf16,N,valid,ties", [
+    (1, False, 40, 40, False),
+    (10, True, 64, 64, False),
+    (10, False, 64, 57, False),       # valid < N: rows past it never ranked
+    (12, True, 48, 48, True),         # six distinct rows: ties everywhere
+    (30, False, 24, 19, True),        # k > valid: sentinel slots
+])
+def test_rowwise_matches_jax_kernel(k, bf16, N, valid, ties):
+    """The row-sequential route's CPU path against the JAX kernel in
+    interpret mode (one grid step per row), bit for bit."""
+    tbl = _int(N, 32, N + k)
+    if ties:
+        tbl = _int(6, 32, 1)[np.random.default_rng(2).integers(0, 6, N)]
+    jt, tt = _pair(tbl, bf16)
+    q = _int(7, 32, k)
+    want = jtk.topk_mips_rowwise(jt, jnp.asarray(q), k=k, valid=valid,
+                                 interpret=True)
+    got = tk.topk_mips_rowwise(tt, torch.from_numpy(q), k, valid)
+    _assert_same(got, want)
+    if k > valid:
+        assert (got[1][:, valid:] == tk.IDX_SENTINEL).all()
+
+
 def test_select_and_merge_match_jax():
     """Unsorted candidate ids, duplicated values, -inf and sentinels."""
     rng = np.random.default_rng(10)
@@ -162,3 +185,5 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         tk.topk_mips_quant(tbl.to(torch.int8), torch.ones(16, device="meta"),
                            q, 3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.topk_mips_rowwise(tbl, q, 3)
