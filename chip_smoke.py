@@ -57,7 +57,21 @@ failure ends the run with a non-zero exit:
    deadline, ``--expect-degraded``, recall against the surviving shards)
    and ``--metrics-dir`` + ``--trace`` (the files and the trace's
    ``serve_batch`` spans checked);
-8. a JSON line of per-kernel results (launches per path), the card's line,
+8. the flash-attention kernel (``flash_attention``, TPU kernel #11)
+   against ``mha_plain`` on the card, f32 and bf16, at the five shapes of
+   the JAX package's ``tests/test_flash_attention.py``, a case with rows
+   that have no valid key, and granite-3-2b's prefill (B = 4, H = 32, Hkv
+   = 8, S = 2048, hd = 64; causal, and with a 512-key window) on the
+   (B, S, H, hd) views the model passes; then timed at that prefill shape
+   beside its bound, ``mha_plain`` and PyTorch's
+   ``scaled_dot_product_attention``;
+9. the LM serving main path: ``repro_torch.launch.serve.main`` for
+   granite-3-2b at full width (``--no-reduced``), batch 4, a 2,048-token
+   prompt and 32 tokens, with exactly one flash launch per layer (40) and
+   no masked prefill; then granite at full width and 2 layers, its
+   prefill logits on the kernel route against the masked plain route
+   within 2e-3;
+10. a JSON line of per-kernel results (launches per path), the card's line,
    and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -91,6 +105,22 @@ CONFIG_RUN = ["--graph-kind", "powerlaw", "--nodes", "262144", "--epochs",
               "1", "--episodes", "4", "--dim", "128", "--subparts", "4",
               "--minibatch", "256", "--negatives", "5", "--neg-pool",
               "65536", "--dtype", "float32"]
+# flash attention: tests/test_flash_attention.py's tolerances (rtol, atol)
+FLASH_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (2e-2, 2e-2)}
+# granite-3-2b's prefill at the LM path's batch and prompt
+LM_B, LM_S, LM_TOKENS = 4, 2048, 32
+FLASH_CASES = [  # B, H, Hkv, Sq, Skv, hd, causal, window
+    (2, 4, 4, 64, 64, 32, True, 0), (1, 4, 2, 64, 128, 32, True, 0),
+    (2, 2, 2, 96, 96, 16, True, 24), (1, 2, 1, 64, 64, 64, False, 0),
+    (1, 8, 8, 128, 128, 8, True, 0),
+    (1, 2, 1, 64, 32, 16, True, 8),      # rows 39.. have no valid key
+    (LM_B, 32, 8, LM_S, LM_S, 64, True, 0),
+    (LM_B, 32, 8, LM_S, LM_S, 64, True, 512),
+]
+LM_ARGV = ["--arch", "granite-3-2b", "--no-reduced", "--batch", str(LM_B),
+           "--prompt-len", str(LM_S), "--tokens", str(LM_TOKENS),
+           "--device", "cuda"]
+BF16_FLOP_PER_S = 989e12           # H100 SXM, dense bf16 tensor cores
 # the kernels each kernel route of ops.sgns_step launches
 ROUTE_KERNELS = {"pallas_fused2": ("sgns_fused_update",),
                  "pallas_fused": ("sgns_fused_grads", "scatter_add_rows"),
@@ -602,6 +632,181 @@ def per_card_training(torch, sgns, dev, time_ms, wall_ms, err):
     return recs
 
 
+def attention_pairs(Sq, Skv, causal, window) -> int:
+    """(query, key) pairs a row-wise attention must score: the valid keys
+    of each row (a row with none scores all Skv, as the kernel does)."""
+    q = np.arange(Sq)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros_like(q)
+    hi = np.minimum(Skv - 1, q) if causal else np.full_like(q, Skv - 1)
+    n = np.maximum(hi - lo + 1, 0)
+    return int(np.where(n > 0, n, Skv).sum())
+
+
+def check_flash_kernel(torch, fa, dev, err):
+    """The flash kernel against ``mha_plain`` at :data:`FLASH_CASES`, f32 and
+    bf16, on (B, S, H, hd) buffers passed as (B, H, S, hd) views; rows with
+    no valid key also against the mean of v. Returns the number of cases."""
+    cases = 0
+    for dtype in ("float32", "bfloat16"):
+        rtol, atol = FLASH_TOL[dtype]
+        for i, (B, H, Hkv, Sq, Skv, hd, causal, window) in enumerate(
+                FLASH_CASES):
+            g = torch.Generator(device=dev).manual_seed(SEED + 100 + i)
+            q, k, v = (
+                (0.5 * torch.randn(shape, generator=g, device=dev)).to(
+                    getattr(torch, dtype)).transpose(1, 2)
+                for shape in ((B, Sq, H, hd), (B, Skv, Hkv, hd),
+                              (B, Skv, Hkv, hd)))
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            want = fa.mha_plain(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            what = (f"{dtype} B={B} H={H} Hkv={Hkv} Sq={Sq} Skv={Skv} "
+                    f"hd={hd} causal={causal} window={window}")
+            diff = (got.float() - want.float()).abs()
+            bad = diff > atol + rtol * want.float().abs()
+            if bad.any():
+                raise AssertionError(f"flash_attention {what}: kernel != "
+                                     f"plain at {int(bad.sum())} elements "
+                                     f"(max |diff| {diff.max().item():.3g})")
+            err[f"flash_attention {dtype}"] = max(
+                err[f"flash_attention {dtype}"], diff.max().item())
+            if window and Sq >= Skv + window:
+                rows = slice(Skv + window - 1, None)
+                mean_v = v.float().mean(dim=2, keepdim=True).repeat_interleave(
+                    H // Hkv, dim=1)
+                torch.testing.assert_close(
+                    got[:, :, rows].float(),
+                    mean_v.expand_as(got[:, :, rows]), rtol=rtol, atol=atol)
+            cases += 1
+    return cases
+
+
+def time_flash(torch, fa, dev, time_ms, wall_ms):
+    """The flash kernel at granite-3-2b's prefill shape (f32, causal) on the
+    views the model passes, beside its bound, ``mha_plain`` and
+    ``scaled_dot_product_attention`` on k, v repeated to H heads (a
+    yardstick the port never calls); the 512-key window and bf16 printed
+    beside it. Returns the kernel's record."""
+    B, H, Hkv, S, hd = LM_B, 32, 8, LM_S, 64
+    g = torch.Generator(device=dev).manual_seed(SEED + 200)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).transpose(1, 2)
+               for shape in ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+    kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec = dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:80",
+        ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=True), 10),
+        wall_ms=wall_ms(lambda: fa.flash_attention(q, k, v, causal=True), 10),
+        plain_ms=time_ms(lambda: fa.mha_plain(q, k, v, causal=True), 3),
+        library_ms=time_ms(lambda: sdpa(q, kr, vr, is_causal=True), 10))
+    nbytes = 4 * (2 * B * H * S * hd + 2 * B * Hkv * S * hd)
+    flops = 4.0 * B * H * hd * attention_pairs(S, S, True, 0)
+    rec["bound"] = bound_ms(nbytes, flops)
+    win_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                                window=512), 10)
+    win_bound = bound_ms(nbytes, 4.0 * B * H * hd
+                         * attention_pairs(S, S, True, 512))
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    bf16_ms = time_ms(lambda: fa.flash_attention(qb, kb, vb, causal=True), 10)
+    print(f"flash_attention at B={B} H={H} Hkv={Hkv} S={S} hd={hd} f32 "
+          f"causal: {rec['ms']:.4f} device ms/launch ({rec['wall_ms']:.4f} "
+          f"wall), bound {rec['bound'][0]:.4f} ms ({rec['bound'][1]}; "
+          f"{1e3 * flops / BF16_FLOP_PER_S:.4f} ms at the bf16 tensor-core "
+          f"rate), plain {rec['plain_ms']:.4f} ms, library (sdpa) "
+          f"{rec['library_ms']:.4f} ms; window 512: {win_ms:.4f} ms, bound "
+          f"{win_bound[0]:.4f} ms; bf16 inputs: {bf16_ms:.4f} ms")
+    return rec
+
+
+def lm_serving(torch, dev, counted):
+    """The LM serving main path at full width, then the kernel route against
+    the masked route at 2 layers. Returns the main path's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import attention as lm_attn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.train_step import synthetic_batch
+
+    cfg = get_config("granite-3-2b")
+    for name in lm_attn.ROUTE_CALLS:
+        lm_attn.ROUTE_CALLS[name] = 0
+    lm, launches = counted(lambda: lm_serve.main(LM_ARGV))
+    routes = dict(lm_attn.ROUTE_CALLS)
+    print(f"lm_serve main-path launches: {launches}; prefill "
+          f"routes {routes}")
+    layers, vocab = cfg.num_layers, cfg.vocab_size
+    if not (launches["flash_attention"] == layers
+            and routes == {"flash_calls": layers, "masked_calls": 0}):
+        raise AssertionError(f"LM serving path: {launches} flash "
+                             f"launches, routes {routes}; want {layers} "
+                             f"flash launches and no masked prefill")
+    logits, gen_tokens = lm["logits"], lm["tokens"]
+    if not (tuple(logits.shape) == (LM_B, 1, vocab)
+            and torch.isfinite(logits).all()
+            and gen_tokens.shape == (LM_B, LM_TOKENS)
+            and ((0 <= gen_tokens) & (gen_tokens < vocab)).all()):
+        raise AssertionError(f"LM serving path: logits {tuple(logits.shape)}"
+                             f" (finite: {bool(torch.isfinite(logits).all())}"
+                             f"), tokens {gen_tokens.shape}")
+    print(f"LM main path granite-3-2b full width, batch {LM_B}, prompt "
+          f"{LM_S}, {LM_TOKENS} tokens: prefill {lm['prefill_s'] * 1e3:.1f} "
+          f"ms, decode {lm['tok_per_s']:.1f} tok/s "
+          f"({lm['decode_s'] * 1e3:.1f} ms for {LM_TOKENS - 1} steps); "
+          f"first tokens {gen_tokens[:, :8].tolist()}")
+    del lm, logits
+    torch.cuda.empty_cache()
+    # the kernel route against the masked plain route at full width, 2 layers
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    params2 = tfm.init_params(cfg2, seed=SEED, device=dev)
+    prompt = synthetic_batch(cfg2, LM_B, LM_S, seed=SEED)["tokens"]
+    by_route = [lm_serve.run(params2, cfg2, prompt, new_tokens=1,
+                             cache_len=LM_S + LM_TOKENS + 8, flash=flash)
+                for flash in (True, False)]
+    lf, lmask = (r["logits"] for r in by_route)
+    torch.testing.assert_close(lf, lmask, rtol=2e-3, atol=2e-3)
+    print(f"granite-3-2b full width, 2 layers: prefill logits on the flash "
+          f"route == masked route within 2e-3 (max |diff| "
+          f"{(lf - lmask).abs().max().item():.3g}; prefill "
+          f"{by_route[0]['prefill_s'] * 1e3:.1f} vs "
+          f"{by_route[1]['prefill_s'] * 1e3:.1f} ms)")
+    # where a layer's time goes: one prefill and four decode steps of the
+    # 2-layer model under the profiler
+    batch = {"tokens": torch.as_tensor(prompt, device=dev)}
+    cache_len = LM_S + LM_TOKENS + 8
+    _, caches = profile_split(torch, "prefill (2 layers)", lambda: tfm.prefill(
+        params2, batch, cfg2, cache_len))
+    tok = batch["tokens"][:, -1:]
+    profile_split(torch, "4 decode steps (2 layers)", lambda: [
+        tfm.decode_step(params2, tok, caches, cfg2) for _ in range(4)])
+    del params2, by_route, lf, lmask, caches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_split(torch, label, run):
+    """``run()`` once under the profiler: wall ms, the device's busy share
+    and the top device ops by self device time. Returns ``run()``'s
+    result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    dev_ops = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in dev_ops) / 1e3
+    top = sorted(dev_ops, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"LM {label} under the profiler: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms ({100 * busy / wall:.1f} %); top device ops: "
+          + "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3:.3f} "
+                      f"ms x{e.count}" for e in top))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -617,6 +822,7 @@ def main() -> int:
     from repro_torch.embed_serve.store import (ShardedEmbeddingStore,
                                                recall_at_k)
     from repro_torch.kernels import build, ops, sgns
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import embed_serve
     from repro_torch.launch import train as train_launcher
     from repro_torch.train.checkpoint import save_checkpoint
@@ -641,16 +847,17 @@ def main() -> int:
     # ---------------------------------------------------------- phase 2
     g = torch.Generator(device="cpu").manual_seed(SEED)
     err = {"topk_scan_exact": 0.0, "topk_scan_int8": 0.0, "topk_rowwise": 0.0,
-           **{name: 0.0 for name in sgns.LAUNCHES}}
+           **{name: 0.0 for name in sgns.LAUNCHES},
+           "flash_attention float32": 0.0, "flash_attention bfloat16": 0.0}
 
     def counted(run):
         """``run()`` with every launch count set to 0 just before it;
         returns its result and the counts read just after."""
-        for counts in (tk.LAUNCHES, sgns.LAUNCHES):
+        for counts in (tk.LAUNCHES, sgns.LAUNCHES, fa.LAUNCHES):
             for name in counts:
                 counts[name] = 0
         out = run()
-        return out, {**tk.LAUNCHES, **sgns.LAUNCHES}
+        return out, {**tk.LAUNCHES, **sgns.LAUNCHES, **fa.LAUNCHES}
 
     def int_table(n, d, lo=-4, hi=5):
         return torch.randint(lo, hi, (n, d), generator=g).float().to(dev)
@@ -1138,6 +1345,19 @@ def main() -> int:
               f"failed shards {r['failed_shards']}")
 
     # ---------------------------------------------------------- phase 8
+    cases = check_flash_kernel(torch, fa, dev, err)
+    print(f"flash_attention == mha_plain on {cases} cases (f32 rtol 2e-4 "
+          f"atol 2e-5, bf16 2e-2; rows with no valid key == mean of v); max "
+          f"|kernel - plain| f32 {err['flash_attention float32']:.3g}, bf16 "
+          f"{err['flash_attention bfloat16']:.3g}")
+    err["flash_attention"] = err["flash_attention float32"]
+    rec["flash_attention"] = time_flash(torch, fa, dev, time_ms, wall_ms)
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- phase 9
+    paths["lm_serve"] = lm_serving(torch, dev, counted)
+
+    # ---------------------------------------------------------- phase 10
     for name, r in rec.items():
         by_path = {path: counts[name] for path, counts in paths.items()}
         results.append({

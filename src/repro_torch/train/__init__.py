@@ -1,1 +1,2 @@
-"""Training-side modules the serving slice needs (the checkpoint format)."""
+"""Training-side modules: the checkpoint format, the LM serving steps and
+the LM data stand-in."""

@@ -159,6 +159,10 @@ def test_tiered_and_degraded_store_on_card_match_cpu(card):
         assert gm.failed_shards == wm.failed_shards == (1,)
         np.testing.assert_array_equal(gi, wi)
         np.testing.assert_array_equal(gv, wv)
+    # the timed-out shard tasks wake after their 1 s delay and still scan and
+    # gather: let them end here, so their launches land in no later test
+    for s in stores:
+        s._pool.shutdown(wait=True)
 
 
 def test_rowwise_wrapper_raises_on_what_the_kernel_does_not_take(card):
@@ -421,3 +425,75 @@ def test_unfused_wrappers_raise_on_what_the_kernels_do_not_take(card):
             fn(vert, iv, vert[: iv.shape[0]])
     with pytest.raises(ValueError, match="idx"):
         sgns.gather_rows_rowwise(vert, iv.cpu())
+
+
+# flash attention (#11): f32 within tests/test_flash_attention.py's rtol
+# 2e-4 / atol 2e-5, bf16 within its 2e-2 (other summation orders)
+FLASH_CASES = [  # B, H, Hkv, Sq, Skv, hd, causal, window
+    (2, 4, 4, 64, 64, 32, True, 0), (1, 4, 2, 64, 128, 32, True, 0),
+    (2, 2, 2, 96, 96, 16, True, 24), (1, 2, 1, 64, 64, 64, False, 0),
+    (1, 8, 8, 128, 128, 8, True, 0),
+    (1, 2, 1, 100, 40, 64, True, 8),     # rows with no valid key, ragged
+    (1, 4, 2, 33, 97, 128, True, 0),     # GQA, Sq < Skv, ragged, hd 128
+    (2, 8, 2, 300, 300, 64, True, 50),   # granite's grouping, window
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_matches_plain(card, dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    before = fa.LAUNCHES["flash_attention"]
+    for i, (B, H, Hkv, Sq, Skv, hd, causal, window) in enumerate(FLASH_CASES):
+        g = torch.Generator().manual_seed(70 + i)
+        q, k, v = (0.5 * torch.randn(shape, generator=g)
+                   for shape in ((B, Sq, H, hd), (B, Skv, Hkv, hd),
+                                 (B, Skv, Hkv, hd)))
+        # (B, S, H, hd) buffers as (B, H, S, hd) views, as attention passes
+        q, k, v = (t.to(card, dtype).transpose(1, 2) for t in (q, k, v))
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.mha_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert got.stride() == q.stride()
+        tol = (dict(rtol=2e-4, atol=2e-5) if dtype == torch.float32
+               else dict(rtol=2e-2, atol=2e-2))
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert fa.LAUNCHES["flash_attention"] == before + len(FLASH_CASES)
+
+
+def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels import flash_attention as fa
+
+    q = torch.zeros((1, 4, 8, 64), device=card)
+    k = torch.zeros((1, 2, 8, 64), device=card)
+    for bad in (dict(q=q[..., :48].contiguous(), k=k[..., :48].contiguous()),
+                dict(k=k.bfloat16()), dict(k=k.cpu()),
+                dict(q=q.transpose(2, 3).contiguous().transpose(2, 3))):
+        args = {"q": q, "k": k, **bad}
+        with pytest.raises(ValueError):
+            fa.flash_attention(args["q"], args["k"], args["k"])
+
+
+def test_lm_prefill_routes_agree_on_card(card):
+    """Reduced granite on the card: prefill on the flash kernel equals the
+    masked plain route within 2e-3 (the LM tests' tolerance), one kernel
+    launch per layer."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tfm
+
+    cfg = configs.get_config("granite-3-2b").reduced()
+    params = tfm.init_params(cfg, seed=0, device=card)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 96),
+                           generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": tokens.to(card)}
+    before = (fa.LAUNCHES["flash_attention"], dict(attn.ROUTE_CALLS))
+    lf, _ = tfm.prefill(params, batch, cfg, 128)
+    lm, _ = tfm.prefill(params, batch, cfg, 128, flash=False)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before[0] + cfg.num_layers
+    assert attn.ROUTE_CALLS["masked_calls"] == (before[1]["masked_calls"]
+                                                + cfg.num_layers)
+    torch.testing.assert_close(lf, lm, rtol=2e-3, atol=2e-3)
