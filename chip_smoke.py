@@ -11,8 +11,9 @@ failure ends the run with a non-zero exit:
    ``src/repro_torch/kernels/csrc`` (all sources compiled in parallel);
 2. every serving kernel against its plain PyTorch version on the card:
    integer tables (bitwise) at the JAX tests' shapes and at the full width
-   d = 128 (the row-sequential ``topk_rowwise`` on every case of the
-   scan), then a seeded continuous 26,250,000 x 128 bf16 table (one
+   d = 128 (the rowwise ``topk_rowwise`` on every case of the
+   scan, and over many chunks with ties across their edges), then a
+   seeded continuous 26,250,000 x 128 bf16 table (one
    card's share of the paper's 1.05 B nodes over 40 GPUs) served through
    ``ShardedEmbeddingStore.topk``, exact and int8, checked at recall 1.0
    against the plain scan; kernel, plain and library times beside the
@@ -20,8 +21,9 @@ failure ends the run with a non-zero exit:
 3. the serving main path: a seeded 1,048,576 x 128 bf16 checkpoint written
    with the port's ``save_checkpoint``; every serving kernel against its
    plain version on that table and the launcher's own queries, at the
-   shapes the launcher gives it, the row-sequential kernel also bit for
-   bit against the scan, and timed; then the checkpoint served by
+   shapes the launcher gives it, the rowwise kernel (#4) also bit for
+   bit against the scan, and timed, with the split between its score and
+   selection kernels; then the checkpoint served by
    ``repro_torch.launch.embed_serve.main`` at recall 1.0, exact and int8,
    with every kernel's launch count read around the two runs;
 4. the SGNS kernels (``sgns_fused_update``, ``sgns_fused_grads``,
@@ -32,8 +34,9 @@ failure ends the run with a non-zero exit:
    update can go missing; the row kernels of the unfused routes
    (``scatter_add_rows``, its row-wise reference, and ``gather_rows_rowwise``)
    bitwise against their plain versions and the blocked kernels bitwise
-   against their row-wise references; one ``ops.sgns_step`` per kernel
-   route against the ``ref`` route (the same composition, plain);
+   against their row-wise references, the scatter also over several
+   position chunks with a 100-position hub run; one ``ops.sgns_step`` per
+   kernel route against the ``ref`` route (the same composition, plain);
 5. the per-card training shape: vertex and context tables of 26,250,000 x
    128 f32 (26.9 GB, made on the card from a seed) installed in the
    trainer, 4 sub-parts of 8,192-pair blocks of Zipf(1.1)-skewed ids,
@@ -325,6 +328,28 @@ def check_route_kernels(torch, sgns, ops, dev, err):
             same("scatter_add_rows vs scatter_add_rows_rowwise", got, ref,
                  what)
             cases += 1
+    # more positions than one chunk holds (B = 3 P + 7, four launches in one
+    # call) with a 100-position run of one hub row across the chunk edges
+    for dtype, upd_dtype in ((torch.float32, torch.float32),
+                             (torch.bfloat16, torch.float32),
+                             (torch.bfloat16, torch.bfloat16)):
+        P = sgns.plan_scatter(
+            1, DIM, torch.empty(0, dtype=dtype).element_size(),
+            torch.empty(0, dtype=upd_dtype).element_size()).positions
+        B = 3 * P + 7
+        rng = np.random.default_rng(B)
+        idx = rng.integers(0, 500, B)
+        idx[rng.choice(B, 100, replace=False)] = 7
+        idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+        table = normal(rng, (500, DIM), 1.0, dtype)
+        upd = normal(rng, (B, DIM), 3e-3, upd_dtype)
+        what = f"{dtype} upd {upd_dtype} B={B} (P={P}) hub run of 100"
+        got = sgns.scatter_add_rows(table.clone(), idx, upd)
+        want = sgns.scatter_add_rows_plain(table.clone(), idx, upd)
+        same("scatter_add_rows", got, want, what)
+        ref = sgns.scatter_add_rows_rowwise(table.clone(), idx, upd)
+        same("scatter_add_rows vs scatter_add_rows_rowwise", got, ref, what)
+        cases += 1
 
     # gather_rows_rowwise (#8) == gather_rows (#3) == plain, bitwise
     for dtype in (torch.float32, torch.bfloat16):
@@ -386,7 +411,8 @@ def check_route_kernels(torch, sgns, ops, dev, err):
     return cases
 
 
-def per_card_training(torch, sgns, dev, time_ms, wall_ms, err):
+def per_card_training(torch, sgns, dev, time_ms, wall_ms, call_kernels,
+                      err):
     """The per-card training shape; prints edges/s per route and returns
     the timing records of the training kernels."""
     from repro_torch.configs.tencent_embedding import CONFIG
@@ -607,6 +633,15 @@ def per_card_training(torch, sgns, dev, time_ms, wall_ms, err):
     scatter_bound = bound_ms(L * row_bytes + 2 * uc.numel() * row_bytes
                              + 4 * L, float(L * DIM))
     library = time_ms(lambda: ctx.index_add_(0, icn.long(), upd), 50)
+    # one launch per call and nothing else on the device: the ids are
+    # sorted on chip, not by torch.sort
+    calls = call_kernels(lambda: sgns.scatter_add_rows(ctx, icn, upd))
+    if len(calls) != 1 or len(next(iter(calls))) != 1 or (
+            "scatter_sorted" not in next(iter(calls))[0]):
+        raise AssertionError(f"scatter_add_rows at the per-card minibatch "
+                             f"launched {calls}, not one scatter_sorted")
+    print(f"scatter_add_rows at the per-card minibatch: one device kernel "
+          f"per call ({next(iter(calls))[0][:60]})")
     for name, fn in (("scatter_add_rows", sgns.scatter_add_rows),
                      ("scatter_add_rows_rowwise",
                       sgns.scatter_add_rows_rowwise)):
@@ -874,7 +909,7 @@ def main() -> int:
             err[kind] = max(err[kind], diff.abs().max().item())
 
     def check_exact(tbl, q, k, valid, what):
-        """The scan (#1) and the row-sequential kernel (#4) against their
+        """The scan (#1) and the rowwise kernel (#4) against their
         plain version (the same function)."""
         want = tk.topk_mips_plain(tbl, q, k, valid)
         check_pair("topk_scan_exact", tk.topk_mips(tbl, q, k, valid), want,
@@ -925,6 +960,25 @@ def main() -> int:
         check_exact(tbl, q, 100, tbl.shape[0], f"{dtype} heavy ties")
         check_quant(tbl, q, 400, tbl.shape[0], f"{dtype} heavy ties m=400")
         cases += 2
+        # the rowwise kernel over many chunks (a small score
+        # scratch): the ties at the k-th key run across every chunk edge
+        scratch = tk.ROWWISE_SCRATCH_BYTES
+        try:
+            for k, valid, chunk in ((10, 300_000, 4096),
+                                    (100, 299_993, 1024), (1, 70_001, 128)):
+                tk.ROWWISE_SCRATCH_BYTES = 4 * q.shape[0] * chunk
+                what = (f"{dtype} heavy ties k={k} valid={valid} chunks of "
+                        f"{chunk}")
+                assert tk.plan_topk_rowwise(q.shape[0], DIM, k,
+                                            valid).chunks > 1
+                got = tk.topk_mips_rowwise(tbl, q, k, valid)
+                check_pair("topk_rowwise", got, tk.topk_mips(tbl, q, k, valid),
+                           f"{what} against the scan")
+                check_pair("topk_rowwise", got,
+                           tk.topk_mips_plain(tbl, q, k, valid), what)
+                cases += 1
+        finally:
+            tk.ROWWISE_SCRATCH_BYTES = scratch
     # rows >= valid never surface, even when their scores would win
     tbl = torch.full((64, 8), -2.0, device=dev)
     tbl[40:] = 0.0
@@ -957,7 +1011,8 @@ def main() -> int:
     check_pair("topk_scan_exact", got, want, "two-tier == exact")
     cases += 1
     print(f"kernels == plain on {cases} integer cases (bitwise; "
-          f"topk_rowwise on each topk_scan_exact case)")
+          f"topk_rowwise on each topk_scan_exact case, and over many chunks "
+          f"== scan == plain)")
 
     # the per-card serving table, made on the card from a seed
     gd = torch.Generator(device=dev).manual_seed(SEED)
@@ -1035,17 +1090,16 @@ def main() -> int:
                              f"flush")
     _, flush_us, flush_key = flush_events[0]
 
-    def time_ms(fn, reps):
-        """Device ms of one call of ``fn`` with a cold L2: ``reps`` calls,
-        each after a flush, under the profiler; the duration of every
-        kernel that follows a recorded flush, the flushes left out, summed
-        and divided by the number of flushes recorded. The profiler can
-        drop the first kernels of a session (a few, or in some processes
-        most of the session), so each session starts with eight small
-        kernels of another kind, only the calls after the first recorded
-        flush count as whole, a session that kept fewer than half its
-        flushes is run again, and after three such sessions the calls are
-        timed with CUDA events instead (``event_ms``)."""
+    def profiled_calls(fn, reps):
+        """The kernels of each of ``reps`` calls of ``fn`` with a cold L2,
+        as lists of (device us, name): the calls run each after a flush,
+        under the profiler, and a call is the kernels between two recorded
+        flushes, the flushes left out. The profiler can drop the first
+        kernels of a session (a few, or in some processes most of the
+        session), so each session starts with eight small kernels of
+        another kind, only the calls after the first recorded flush count
+        as whole, and a session that kept fewer than half its flushes is
+        run again. None after three such sessions."""
         fn()
 
         def run():
@@ -1063,16 +1117,25 @@ def main() -> int:
             print(f"  note: the profiler kept {len(flushes)} of {reps} "
                   f"flushes among {len(events)} kernels")
         else:
+            return None
+        ends = flushes[1:] + [len(events)]
+        return [[(us, key) for _, us, key in events[f + 1:e]]
+                for f, e in zip(flushes, ends)]
+
+    def time_ms(fn, reps):
+        """Device ms of one call of ``fn`` with a cold L2: the duration of
+        every kernel of the calls ``profiled_calls`` recorded, summed and
+        divided by their number; after three sessions that kept too few
+        calls, timed with CUDA events instead (``event_ms``)."""
+        calls = profiled_calls(fn, reps)
+        if calls is None:
             print(f"  note: {reps} calls timed with CUDA events behind a "
                   f"GPU sleep")
             return event_ms(fn, reps)
-        ends = flushes[1:] + [len(events)]
-        sizes = sorted({e - f - 1 for f, e in zip(flushes, ends)})
+        sizes = sorted({len(c) for c in calls})
         if len(sizes) > 1:
             print(f"  note: calls of {sizes} kernels in one timing")
-        skip = set(flushes)
-        return sum(us for i, (_, us, _) in enumerate(events)
-                   if i > flushes[0] and i not in skip) / len(flushes) / 1e3
+        return sum(us for c in calls for us, _ in c) / len(calls) / 1e3
 
     def event_ms(fn, reps):
         """Device ms of one call of ``fn`` with a cold L2, from CUDA events:
@@ -1091,6 +1154,15 @@ def main() -> int:
             e.synchronize()
             total += s.elapsed_time(e)
         return total / reps
+
+    def call_kernels(fn, reps=5):
+        """The names of the device kernels of each recorded call of ``fn``
+        (``profiled_calls``), as a set of tuples."""
+        calls = profiled_calls(fn, reps)
+        if calls is None:
+            raise AssertionError(f"the profiler kept too few of {reps} "
+                                 f"flushes to count a call's kernels")
+        return {tuple(key for _, key in c) for c in calls}
 
     def wall_ms(fn, reps):
         """Ms between CUDA events around one call of ``fn`` (the host's
@@ -1175,7 +1247,7 @@ def main() -> int:
 
     # the kernels against their plain versions on the main path's own table
     # and queries (the launcher's seed), at its padded batch; the
-    # row-sequential kernel also against the scan, bit for bit, and timed
+    # rowwise kernel also against the scan, bit for bit, and timed
     # here, before the launchers' numpy oracles run: after them the
     # profiler drops the first kernels of each session
     main_store = ShardedEmbeddingStore.load(ckpt, devices=[dev],
@@ -1192,7 +1264,7 @@ def main() -> int:
     check_pair("topk_rowwise", rowwise, tk.topk_mips(shard, q, K),
                f"{what} against the scan")
     print(f"{CKPT_ROWS}-row main-path shape: exact scan, int8 scan, gather "
-          f"and row-sequential scan == plain, row-sequential == scan "
+          f"and rowwise top-k == plain, rowwise == scan "
           f"(bitwise)")
     tf = shard.float()
     rec["topk_rowwise"] = dict(
@@ -1204,6 +1276,17 @@ def main() -> int:
         library_ms=time_ms(lambda: torch.topk(q @ tf.T, K), 5),
         bound=bound_ms(CKPT_ROWS * DIM * 2 + BATCH * DIM * 4
                        + BATCH * K * 8, 2.0 * BATCH * CKPT_ROWS * DIM))
+    # where #4's time goes: its score and selection kernels, per chunk
+    def kind(key):
+        return next((n for n in ("score_kernel", "select_kernel") if n in key),
+                    key[:40])
+
+    calls = profiled_calls(lambda: tk.topk_mips_rowwise(shard, q, K), 3)
+    if calls:
+        chunks = tk.plan_topk_rowwise(BATCH, DIM, K, CKPT_ROWS).chunks
+        split = [(kind(key), round(us, 1)) for us, key in calls[0]]
+        print(f"topk_rowwise device us per kernel, in launch order (one call "
+              f"of {chunks} chunks): {split}")
     del main_store, shard, q8, sc, tf
     torch.cuda.empty_cache()
     r = rec["topk_rowwise"]
@@ -1238,7 +1321,8 @@ def main() -> int:
           f"steps)")
 
     # ---------------------------------------------------------- phase 5
-    rec.update(per_card_training(torch, sgns, dev, time_ms, wall_ms, err))
+    rec.update(per_card_training(torch, sgns, dev, time_ms, wall_ms,
+                                 call_kernels, err))
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 6

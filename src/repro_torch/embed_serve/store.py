@@ -9,7 +9,7 @@ as in the JAX store. Queries fan out to every shard and the per-shard
 top-k lists meet in ``topk.merge_topk``.
 
 Routes (``impl``) take the JAX store's names. ``pallas`` is the CUDA scan,
-``rowwise`` the row-sequential CUDA kernel, ``quant_pallas`` the int8 scan
+``rowwise`` the CUDA kernel ``topk_rowwise``, ``quant_pallas`` the int8 scan
 with the CUDA gather and an exact rescore; on a CPU shard each of them
 runs its plain version. ``xla`` and ``quant_xla`` run the plain versions
 on the shard's own device, because the caller asked for them by name.

@@ -11,8 +11,10 @@ launch one CUDA source, ``kernels/csrc/topk_scan.cu``:
 and a third launches ``kernels/csrc/topk_rowwise.cu``:
 
 * :func:`topk_mips_rowwise` replaces ``topk_mips_rowwise``, the
-  row-sequential reference of ``topk_mips`` (one thread per query walks
-  every row in order; no split, no merge).
+  independent reference of ``topk_mips``: every score of a chunk of
+  rows into a scratch buffer, then an exact radix select per query that
+  carries the k best from chunk to chunk (:func:`plan_topk_rowwise`); no
+  per-split lists, no merge, no code shared with the scan.
 
 A tensor on the CPU takes the plain version (:func:`topk_mips_plain`,
 :func:`topk_mips_quant_plain`, :func:`topk_mips_rowwise_plain`); a tensor
@@ -48,8 +50,14 @@ SMEM_PER_BLOCK = 232_448          # H100: 227 KB of dynamic shared memory
 SCAN_THREADS = 256                # rows per tile == threads per scan block
 QUERY_BLOCKS = (8, 16, 32, 64)    # compiled query-block sizes (BQ)
 MERGE_WARPS = 4                   # queries per merge block
-ROWWISE_QUERIES = 32              # queries (threads) per rowwise block
-ROWWISE_TILE = 16                 # rows per rowwise staged tile
+SMEM_STATIC = 49_152              # static shared memory of one block
+ROWWISE_ROW_TILE = 128            # rows per rowwise score block
+ROWWISE_QUERY_TILE = 64           # queries per rowwise score block
+ROWWISE_K_TILE = 32               # depth per staged step of a score block
+ROWWISE_SCRATCH_BYTES = 256 << 20 # cap on the (Q, chunk) f32 score scratch
+ROWWISE_SELECT_CAP = 2048         # candidates a selection block sorts
+ROWWISE_SELECT_BINS = 2048        # radix histogram bins (11-bit digits)
+ROWWISE_K_MAX = ROWWISE_SELECT_CAP // 2
 PLAIN_CHUNK_ELEMS = 1 << 26       # (Q, chunk) scores per plain-scan step
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -168,7 +176,7 @@ def topk_mips_plain(table, queries, k: int, valid: int | None = None):
                        valid, q, k)
 
 
-# the row-sequential kernel computes the same function as the scan
+# the rowwise kernel computes the same function as the scan
 topk_mips_rowwise_plain = topk_mips_plain
 
 
@@ -280,19 +288,55 @@ def topk_mips_quant(qtable, scales, queries, m: int,
     return _launch_scan("topk_scan_int8", qtable, scales, queries, m, valid)
 
 
-def topk_rowwise_smem_bytes(d: int, k: int, itemsize: int) -> int:
-    """Shared memory of one rowwise block: the (32, d) f32 queries, one
-    (16, d) f32 tile, the (32, k) running lists and the tile's raw bytes."""
-    return (4 * (ROWWISE_QUERIES * d + ROWWISE_TILE * d)
-            + 8 * ROWWISE_QUERIES * k + itemsize * ROWWISE_TILE * d)
+@dataclasses.dataclass(frozen=True)
+class RowwisePlan:
+    """Geometry of one rowwise top-k: ``chunk_rows`` rows scored per chunk
+    (a whole number of row tiles), ``chunks`` chunks in order over the
+    valid rows, the (Q, chunk_rows) f32 scratch, and the static shared
+    memory of a score and of a selection block."""
+
+    chunk_rows: int
+    chunks: int
+    scratch_bytes: int
+    score_smem_bytes: int
+    select_smem_bytes: int
+
+
+def plan_topk_rowwise(Q: int, d: int, k: int, valid: int) -> RowwisePlan:
+    """Chunks from the shapes alone: as many row tiles per chunk as keep
+    the (Q, chunk) f32 scores under ``ROWWISE_SCRATCH_BYTES`` (at least one
+    tile), and no more than the valid rows need. Raises ``ValueError`` for
+    k past
+    ``ROWWISE_K_MAX``: the selection sorts at most ``ROWWISE_SELECT_CAP``
+    candidates, which holds the k - 1 better ones and the ties at the k-th
+    key only while 2k - 1 <= the cap."""
+    if d % 8:
+        raise ValueError(f"topk_mips_rowwise needs d % 8 == 0, got d={d}")
+    if k < 1 or valid < 1 or Q < 1:
+        raise ValueError(f"need k, valid, Q >= 1 (got {k}, {valid}, {Q})")
+    if k > ROWWISE_K_MAX:
+        raise ValueError(f"k={k} does not fit the rowwise kernel's "
+                         f"shared memory (largest k: {ROWWISE_K_MAX})")
+    tile = ROWWISE_ROW_TILE
+    tiles = max(1, ROWWISE_SCRATCH_BYTES // (4 * Q * tile))
+    chunk = min(tiles, -(-valid // tile)) * tile
+    return RowwisePlan(
+        chunk_rows=chunk, chunks=-(-valid // chunk),
+        scratch_bytes=4 * Q * chunk,
+        score_smem_bytes=4 * ROWWISE_K_TILE * (tile + ROWWISE_QUERY_TILE),
+        select_smem_bytes=(4 * ROWWISE_SELECT_BINS + 12 * ROWWISE_SELECT_CAP
+                           + 4 * 16 + 16))
 
 
 def topk_mips_rowwise(table, queries, k: int, valid: int | None = None):
-    """Row-sequential exact-MIPS top-k: the same function as
-    :func:`topk_mips`, computed by a kernel that walks rows 0..valid-1 in
-    order for each query (the reference the split-and-merge scan is held
-    to; slow by design). Same arguments and results as :func:`topk_mips`.
-    Replaces the TPU kernel ``repro/embed_serve/topk.py::topk_mips_rowwise``.
+    """Exact-MIPS top-k by full scoring and radix selection: the same
+    function as :func:`topk_mips`, computed with nothing of the scan's
+    design (the reference the split-and-merge scan is held to). Rows are
+    scored in chunks whose (Q, chunk) f32 scores fit
+    ``ROWWISE_SCRATCH_BYTES``; each chunk's selection carries the k best
+    into the next. Same arguments and results as :func:`topk_mips`; k at
+    most ``ROWWISE_K_MAX``. Replaces the TPU kernel
+    ``repro/embed_serve/topk.py::topk_mips_rowwise``.
     """
     N = table.shape[0]
     valid = N if valid is None else valid
@@ -303,28 +347,25 @@ def topk_mips_rowwise(table, queries, k: int, valid: int | None = None):
                          f"{table.device}")
     _check_cuda_scan(table, queries, None, quant=False)
     d = table.shape[1]
-    if d % 8:
-        raise ValueError(f"topk_mips_rowwise needs d % 8 == 0, got d={d}")
     if not 0 < valid <= N:
         raise ValueError(f"valid={valid} outside (0, {N}]")
-    if k < 1:
-        raise ValueError(f"need k >= 1, got {k}")
-    if topk_rowwise_smem_bytes(d, k, table.element_size()) > SMEM_PER_BLOCK:
-        raise ValueError(f"k={k} does not fit the rowwise kernel's shared "
-                         f"memory at d={d}")
     if queries.data_ptr() % 16:
         raise ValueError("topk_mips_rowwise: queries must be 16-byte aligned")
     Q = queries.shape[0]
     dev = table.device
+    plan = plan_topk_rowwise(max(Q, 1), d, k, valid)
     out_v = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
         return out_v, out_i
+    scratch = torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
+                          device=dev)
     lib = build.library("topk_rowwise")
     with torch.cuda.device(dev):
         rc = lib.topk_rowwise(
             _DTYPE_CODES[table.dtype], table.data_ptr(), queries.data_ptr(),
-            Q, d, valid, k, out_v.data_ptr(), out_i.data_ptr(),
+            Q, d, valid, k, plan.chunk_rows, scratch.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         build.check(rc, "topk_rowwise")
     LAUNCHES["topk_rowwise"] += 1

@@ -42,8 +42,9 @@ SIGNATURES = {
         "topk_scan_merge": [_P, _P, _I, _I, _I, _P, _P, _P],
     },
     "topk_rowwise": {
-        # dtype, table, queries, Q, d, valid, k, out_v, out_i, stream
-        "topk_rowwise": [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+        # dtype, table, queries, Q, d, valid, k, chunk_rows, scratch,
+        # out_v, out_i, stream
+        "topk_rowwise": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     },
     "gather_rows": {
         # table, idx, B, row_bytes, out, stream
@@ -67,8 +68,9 @@ SIGNATURES = {
                        _P, _P, _P, _P, _P],
     },
     "scatter_rows": {
-        # dtype, upd_f32, table, sorted idx, perm, upd, B, d, stream
-        "scatter_add_rows": [_I, _I, _P, _P, _P, _P, _I, _I, _P],
+        # dtype, upd_f32, table, idx, upd, B, d, positions per chunk,
+        # stream
+        "scatter_add_rows": [_I, _I, _P, _P, _P, _I, _I, _I, _P],
         # dtype, upd_f32, table, idx, upd, B, d, stream
         "scatter_add_rows_rowwise": [_I, _I, _P, _P, _P, _I, _I, _P],
     },

@@ -1,6 +1,7 @@
 // Row scatter-add table[idx[p]] += upd[p], in place and in position order,
 // for Hopper: the port of the JAX package's kernels/sgns.py::scatter_add_rows
-// and of its one-row-per-grid-step reference scatter_add_rows_rowwise. The
+// (the blocked TPU kernel, rows_per_block positions per grid step) and of
+// its one-row-per-grid-step reference scatter_add_rows_rowwise. The
 // trainer's unfused routes (ops.sgns_step, impl "pallas" and "pallas_fused")
 // apply -lr * grad to the vertex table over idx_v and to the context table
 // over idx_c ++ idx_n with it.
@@ -13,28 +14,52 @@
 // a block take its serialized path, sgns.py:738-806). It is not the fused
 // update's semantics, which sums a run in f32 and rounds once.
 //
-// Hopper blocks run in no order, so the order comes from elsewhere:
+// Bound on an H100: bytes. The update rows are read once and each unique
+// row read and written once, plus the ids (B = 256 + 5 context rows of 128
+// f32: about 0.4 MB, 0.10 us at 3.35 TB/s); one add per element. At the
+// trainer's sizes latency sets the time: a launch, a few dependent
+// device-memory round trips, and the longest run of one row (a Zipf hub
+// row's tens of positions), whose adds are serial by the semantics.
 //
-//   scatter_runs      the host sorts idx stably (torch.sort), which keeps
-//                     position order within each run of equal ids. One
-//                     warp per sorted position; the warp at the start of a
-//                     run owns it, reads the row once into registers, adds
-//                     the run's updates in sorted (= position) order and
-//                     writes the row once. Each row has one owner: no
-//                     atomics, and the result is that of the plain version
-//                     bit for bit.
+// Hopper blocks run in no order, so the order comes from a sort:
+//
+//   scatter_sorted    B is cut into consecutive chunks of at most P =
+//                     1024 positions (the wrapper's plan); the chunks are
+//                     launched one after another on the stream, which is
+//                     the same function, as the JAX kernel's blocks are.
+//                     One block of 1024 threads per 8 columns (16 blocks
+//                     at d = 128, so the loads spread over 16 SMs). Each
+//                     thread loads one position's id and its share of the
+//                     update slice; then every position's table slice is
+//                     loaded while the keys (id << 32 | pos, one per
+//                     thread) are bitonic-sorted, by shuffles for strides
+//                     below 32 and through shared memory above: the
+//                     position in the low bits makes the sort stable. A
+//                     block scan of the run-start flags numbers the runs.
+//                     Then one group of 8 lanes per run, one lane per
+//                     column, adds the run's updates in sorted (=
+//                     position) order out of shared memory and writes the
+//                     row once. Each row has one owner: no atomics, and
+//                     the result is that of the plain version bit for bit.
 //   scatter_rowwise   no sort: each block owns 32 columns, one thread per
 //                     column, and walks all B positions in order. No two
 //                     threads touch one element, so position order is exact
 //                     with no synchronisation. Slow by design (B dependent
-//                     steps per thread): it is the reference scatter_runs is
-//                     held against.
+//                     steps per thread): it is the reference scatter_sorted
+//                     is held against.
 //
-// Bound on an H100: bytes. The update rows are read once and each unique
-// row read and written once, plus the ids (B = 2 * 256 + 5 context rows of
-// 128 f32: about 0.4 MB, 0.13 us at 3.35 TB/s); one add per element. At the
-// trainer's sizes the launch and the longest run (a Zipf hub row's tens of
-// positions, walked serially by its warp) set the time.
+// What held the earlier design back (measured by chip_smoke.py on an H100
+// 80GB HBM3 at 700 W, the per-card minibatch: 0.0401 device ms against
+// index_add_'s 0.0060): the host sorted the ids with torch.sort (its own
+// launches), and the warp at a run's head walked the run through a chain
+// of dependent device-memory loads (sorted id for the run's end, then
+// perm[p], then upd[perm[p]]), a round trip per step with L2 cold. Here
+// the sort is on chip and every load is independent of the others, so a
+// chunk costs two round trips (ids and updates; then table rows, with the
+// sort hidden under them), and a run's serial adds read shared memory, a
+// few ns per step. Blocks of 8 columns rather than 32 spread the loads
+// over four times the SMs, and the shuffle stages spare the sort most of
+// its barriers.
 //
 // Row offsets are 64-bit: a 26.25 M x 128 f32 table is 13.4 GB. No index
 // bounds are checked (as on the TPU). __fadd_rn keeps the compiler from
@@ -45,9 +70,10 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int COLS = 32;            // columns per block of scatter_rowwise
+constexpr int SLICE = 8;            // columns per block of scatter_sorted
+constexpr int THREADS = 1024;       // positions per chunk, at most
 constexpr int WARPS = THREADS / 32;
-constexpr int COLS = 32;  // columns per block of scatter_rowwise
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -70,24 +96,140 @@ __device__ __forceinline__ T add_rounded(T row, U upd) {
       __fadd_rn(to_f32(row), to_f32(from_f32<T>(to_f32(upd)))));
 }
 
+__device__ __forceinline__ int key_row(unsigned long long key) {
+  return static_cast<int>(key >> 32);
+}
+__device__ __forceinline__ int key_pos(unsigned long long key) {
+  return static_cast<int>(key & 0xffffffffu);
+}
+
+// Shared memory of a chunk of n positions (n2: n rounded up to a power of
+// two): the sorted keys, the update and table slices by position, the ids
+// and the run starts.
+template <typename T, typename U>
+__host__ __device__ constexpr size_t sorted_smem(int n, int n2) {
+  return sizeof(unsigned long long) * n2 +
+         static_cast<size_t>(n) * SLICE * (sizeof(U) + sizeof(T)) +
+         sizeof(int) * (2 * static_cast<size_t>(n) + 1);
+}
+
+// One chunk of n <= THREADS positions; n2 is n rounded up to a power of
+// two. table is not __restrict__: it is read and written in one launch.
 template <typename T, typename U>
 __global__ void __launch_bounds__(THREADS)
-    scatter_runs(T* __restrict__ table, const int* __restrict__ sidx,
-                 const long long* __restrict__ perm,
-                 const U* __restrict__ upd, int B, int d) {
-  const int j = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (j >= B) return;
-  const int row = sidx[j];
-  if (j > 0 && sidx[j - 1] == row) return;       // not the start of its run
-  int e = j + 1;
-  while (e < B && sidx[e] == row) ++e;
+    scatter_sorted(T* table, const int* __restrict__ idx,
+                   const U* __restrict__ upd, int n, int d, int n2) {
+  extern __shared__ unsigned long long srt[];      // (n2,) sorted (id, pos)
+  U* su = reinterpret_cast<U*>(srt + n2);          // (n, SLICE) by position
+  T* st = reinterpret_cast<T*>(su + n * SLICE);    // (n, SLICE) by position
+  int* sid = reinterpret_cast<int*>(st + n * SLICE);   // (n,) ids
+  int* start = sid + n;                            // (runs + 1,) run starts
+  __shared__ int wcount[WARPS];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int c0 = blockIdx.x * SLICE;
+  const int cols = min(SLICE, d - c0);
   const long long dd = d;
-  T* dst = table + static_cast<long long>(row) * dd;
-  for (int k = lane; k < d; k += 32) {
-    T acc = dst[k];
-    for (int p = j; p < e; ++p) acc = add_rounded(acc, upd[perm[p] * dd + k]);
-    dst[k] = acc;
+  const int cells = n * SLICE;
+
+  // 1. the ids and the update slice, every load in flight at once (a
+  // chunk has at most THREADS * SLICE cells: SLICE loads per thread)
+  const int id = tid < n ? idx[tid] : 0;
+  U uv[SLICE];
+#pragma unroll
+  for (int b = 0; b < SLICE; ++b) {
+    const int e = b * THREADS + tid;
+    if (e < cells && e % SLICE < cols)
+      uv[b] = upd[(e / SLICE) * dd + c0 + e % SLICE];
+  }
+  if (tid < n) sid[tid] = id;
+#pragma unroll
+  for (int b = 0; b < SLICE; ++b) {
+    const int e = b * THREADS + tid;
+    if (e < cells && e % SLICE < cols) su[e] = uv[b];
+  }
+  __syncthreads();
+
+  // 2. every position's table slice in flight while the keys sort (a
+  // row's slice is read before any of the chunk's writes, so each of its
+  // positions holds the same bits)
+  T tv[SLICE];
+#pragma unroll
+  for (int b = 0; b < SLICE; ++b) {
+    const int e = b * THREADS + tid;
+    if (e < cells && e % SLICE < cols)
+      tv[b] = table[sid[e / SLICE] * dd + c0 + e % SLICE];
+  }
+  // bitonic sort of (id << 32 | pos), one key per thread, ascending: by
+  // id, then by position. Strides below 32 exchange by shuffle, the rest
+  // through shared memory.
+  unsigned long long x =
+      tid < n ? (static_cast<unsigned long long>(static_cast<unsigned>(id))
+                     << 32) |
+                    static_cast<unsigned>(tid)
+              : ~0ull;
+  for (int size = 2; size <= n2; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      unsigned long long y;
+      if (stride >= 32) {
+        if (tid < n2) srt[tid] = x;
+        __syncthreads();
+        y = tid < n2 ? srt[tid ^ stride] : x;
+        __syncthreads();
+      } else {
+        y = __shfl_xor_sync(0xffffffffu, x, stride);
+      }
+      const bool take_min = ((tid & stride) == 0) == ((tid & size) == 0);
+      x = take_min ? min(x, y) : max(x, y);
+    }
+  }
+  if (tid < n2) srt[tid] = x;
+#pragma unroll
+  for (int b = 0; b < SLICE; ++b) {
+    const int e = b * THREADS + tid;
+    if (e < cells && e % SLICE < cols) st[e] = tv[b];
+  }
+  __syncthreads();
+
+  // 3. the runs of equal ids: a run starts where the id changes; its
+  // number is the count of starts before it (a block scan of the flags)
+  const bool head =
+      tid < n && (tid == 0 || key_row(srt[tid - 1]) != key_row(x));
+  const unsigned heads = __ballot_sync(0xffffffffu, head);
+  if (lane == 0) wcount[warp] = __popc(heads);
+  __syncthreads();
+  if (warp == 0) {
+    int c = wcount[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, c, o);
+      if (lane >= o) c += v;
+    }
+    wcount[lane] = c;                  // inclusive over warps
+  }
+  __syncthreads();
+  const int runs = wcount[WARPS - 1];
+  if (head) {
+    start[(warp > 0 ? wcount[warp - 1] : 0) +
+          __popc(heads & ((1u << lane) - 1))] = tid;
+  }
+  if (tid == 0) start[runs] = n;
+  __syncthreads();
+
+  // 4. one group of SLICE lanes per run, one lane per column: the run's
+  // adds in sorted (= position) order out of shared memory, the row
+  // written once
+  const int g = tid / SLICE, c = tid % SLICE;
+  for (int r = g; r < runs; r += THREADS / SLICE) {
+    const int j = start[r], end = start[r + 1];
+    const unsigned long long first = srt[j];
+    if (c < cols) {
+      T acc = st[key_pos(first) * SLICE + c];
+#pragma unroll 4
+      for (int p = j; p < end; ++p)
+        acc = add_rounded(acc, su[key_pos(srt[p]) * SLICE + c]);
+      table[key_row(first) * dd + c0 + c] = acc;
+    }
   }
 }
 
@@ -105,13 +247,26 @@ __global__ void __launch_bounds__(COLS)
   }
 }
 
+
 template <typename T, typename U>
-int launch_runs(void* table, const void* sidx, const void* perm,
-                const void* upd, int B, int d, cudaStream_t st) {
-  scatter_runs<T, U><<<(B + WARPS - 1) / WARPS, THREADS, 0, st>>>(
-      static_cast<T*>(table), static_cast<const int*>(sidx),
-      static_cast<const long long*>(perm), static_cast<const U*>(upd), B, d);
-  return static_cast<int>(cudaGetLastError());
+int launch_sorted(void* table, const void* idx, const void* upd, int B,
+                  int d, int P, cudaStream_t st) {
+  for (int p0 = 0; p0 < B; p0 += P) {
+    const int n = min(P, B - p0);
+    int n2 = 1;
+    while (n2 < n) n2 <<= 1;
+    const size_t smem = sorted_smem<T, U>(n, n2);
+    cudaError_t e = cudaFuncSetAttribute(
+        scatter_sorted<T, U>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    scatter_sorted<T, U><<<(d + SLICE - 1) / SLICE, THREADS, smem, st>>>(
+        static_cast<T*>(table), static_cast<const int*>(idx) + p0,
+        static_cast<const U*>(upd) + static_cast<size_t>(p0) * d, n, d, n2);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
 }
 
 template <typename T, typename U>
@@ -128,21 +283,22 @@ int launch_rowwise(void* table, const void* idx, const void* upd, int B,
 // dtype: 0 = f32 table, 1 = bf16. upd_f32: upd (B, d) is f32 (else in the
 // table's dtype; an f32 table takes f32 only). The trainer's routes pass
 // f32; upd in the table's dtype is taken as the JAX scatter_add_rows takes
-// it, so the two are held against each other on the same inputs. sidx: idx
-// sorted stably (int32), perm: its int64 sort permutation.
+// it, so the two are held against each other on the same inputs. idx:
+// (B,) int32, unsorted. P: positions per chunk, one launch per chunk (the
+// wrapper's plan; the launch fails if its shared memory does not fit).
 extern "C" int scatter_add_rows(int dtype, int upd_f32, void* table,
-                                const void* sidx, const void* perm,
-                                const void* upd, int B, int d, void* stream) {
+                                const void* idx, const void* upd, int B, int d,
+                                int P, void* stream) {
   if (B == 0) return 0;
+  if (P < 1 || P > THREADS) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && upd_f32)
-    return launch_runs<float, float>(table, sidx, perm, upd, B, d, st);
+    return launch_sorted<float, float>(table, idx, upd, B, d, P, st);
   if (dtype == 1 && upd_f32)
-    return launch_runs<__nv_bfloat16, float>(table, sidx, perm, upd, B, d,
-                                             st);
+    return launch_sorted<__nv_bfloat16, float>(table, idx, upd, B, d, P, st);
   if (dtype == 1)
-    return launch_runs<__nv_bfloat16, __nv_bfloat16>(table, sidx, perm, upd,
-                                                     B, d, st);
+    return launch_sorted<__nv_bfloat16, __nv_bfloat16>(table, idx, upd, B, d,
+                                                       P, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

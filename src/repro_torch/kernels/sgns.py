@@ -24,9 +24,10 @@ three CUDA sources:
 * :func:`scatter_add_rows` replaces ``scatter_add_rows`` (``table[idx[p]]
   += upd[p]`` in position order, in place) and
   :func:`scatter_add_rows_rowwise` its one-row-per-grid-step reference
-  ``scatter_add_rows_rowwise``. Both launch ``csrc/scatter_rows.cu``: one
-  warp per run of equal indices in the stably sorted ids, or one thread
-  per column walking every position in order.
+  ``scatter_add_rows_rowwise``. Both launch ``csrc/scatter_rows.cu``: a
+  block per 8 columns that sorts a chunk's ids on chip and gives each run
+  of equal ids to one group of lanes (:func:`plan_scatter` cuts the
+  chunks), or one thread per column walking every position in order.
 
 A tensor on the CPU takes the plain version (``*_plain``); a tensor on the
 card goes to the kernel or the call raises. The plain versions compute the
@@ -36,6 +37,8 @@ combined in f32 and one cast per row; for the scatter one rounding to the
 table's dtype per position, in position order.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -49,6 +52,8 @@ LAUNCHES = {"gather_rows": 0, "gather_rows_rowwise": 0, "sgns_grads": 0,
 
 SMEM_PER_BLOCK = 232_448          # H100: 227 KB of dynamic shared memory
 GRAD_TILE_ROWS = 16               # minibatch rows per tile-gradients block
+SCATTER_COLS = 8                  # columns per sorted-scatter block
+SCATTER_MAX_POSITIONS = 1024      # positions per chunk: one per thread
 _TABLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -435,29 +440,69 @@ def _check_scatter_args(name, table, idx, upd):
     return B, d, int(upd.dtype == torch.float32)
 
 
+def scatter_smem_bytes(n: int, table_itemsize: int,
+                       upd_itemsize: int) -> int:
+    """Shared memory of one sorted-scatter block over a chunk of ``n``
+    positions: the 64-bit sort keys (``n`` rounded up to a power of two),
+    ``n`` rows of ``SCATTER_COLS`` columns of the updates and of the
+    table, the ids and the run starts."""
+    n2 = 1 << max(n - 1, 0).bit_length()
+    return (8 * n2 + n * SCATTER_COLS * (table_itemsize + upd_itemsize)
+            + 4 * (2 * n + 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class ScatterPlan:
+    """Launch geometry of one sorted scatter: ``positions`` per chunk, one
+    launch per chunk in order (``chunks``, the [lo, hi) position ranges
+    the C entry point walks), ``blocks`` of ``SCATTER_COLS`` columns each,
+    and the shared memory of a full chunk's block."""
+
+    positions: int
+    chunks: tuple[tuple[int, int], ...]
+    blocks: int
+    smem_bytes: int
+
+
+def plan_scatter(B: int, d: int, table_itemsize: int,
+                 upd_itemsize: int) -> ScatterPlan:
+    """Chunks of ``SCATTER_MAX_POSITIONS`` consecutive positions (one per
+    thread of a block; a full chunk's block takes under 90 KB of shared
+    memory at any supported dtypes). Applying consecutive chunks one
+    after another is the same function as applying all B positions in
+    order (the JAX kernel's ``rows_per_block`` blocks do the same)."""
+    P = SCATTER_MAX_POSITIONS
+    chunks = tuple((lo, min(lo + P, B)) for lo in range(0, B, P))
+    return ScatterPlan(positions=P, chunks=chunks,
+                       blocks=-(-d // SCATTER_COLS),
+                       smem_bytes=scatter_smem_bytes(
+                           P, table_itemsize, upd_itemsize))
+
+
 def scatter_add_rows(table, idx, upd):
     """``table[idx[p]] += upd[p]`` in place, in position order.
 
     table: (N, d) f32 or bf16; idx: (B,) int32; upd: (B, d) f32 or the
     table's dtype. Each position's update is rounded to the table's dtype
     and each add rounded to it, so a duplicated row takes its updates one
-    after another, as on the TPU's sequential grid. The ids are sorted
-    stably outside the kernel (``torch.sort``), which keeps position order
-    within each run. Returns ``table``. A CPU table takes the plain
-    version.
+    after another, as on the TPU's sequential grid. The kernel sorts each
+    chunk's ids on chip (:func:`plan_scatter`; one launch per chunk, one
+    at the trainer's sizes), keeping position order within each run.
+    Returns ``table``. A CPU table takes the plain version.
     """
     if table.device.type == "cpu":
         return scatter_add_rows_plain(table, idx, upd)
     B, d, upd_f32 = _check_scatter_args("scatter_add_rows", table, idx, upd)
     if B == 0:
         return table
-    srt, perm = torch.sort(idx, stable=True)
+    idx = idx.contiguous()
+    plan = plan_scatter(B, d, table.element_size(), upd.element_size())
     lib = build.library("scatter_rows")
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         rc = lib.scatter_add_rows(_TABLE_DTYPES[table.dtype], upd_f32,
-                                  table.data_ptr(), srt.data_ptr(),
-                                  perm.data_ptr(), upd.data_ptr(), B, d,
+                                  table.data_ptr(), idx.data_ptr(),
+                                  upd.data_ptr(), B, d, plan.positions,
                                   stream)
     build.check(rc, "scatter_add_rows")
     LAUNCHES["scatter_add_rows"] += 1

@@ -14,7 +14,7 @@ recall@k against the numpy oracle.
 if there is no card; ``--device cpu`` serves through their plain versions.
 ``--check-recall`` makes the run a gate (exit 1 below the threshold).
 ``--impl`` takes the JAX store's route names (``rowwise`` is the
-row-sequential kernel). ``--quant int8`` builds the int8 tier and (with
+scan's reference kernel, ``topk_rowwise``). ``--quant int8`` builds the int8 tier and (with
 ``--impl auto``) serves through the two-tier scan; ``--hot-rows N`` puts an
 exact hot tier of the stream's N most requested rows in front of a
 compacted int8 cold remainder (``impl="tiered"``).
@@ -58,7 +58,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--impl", default="auto", choices=list(QUERY_IMPLS),
                     help="shard top-k route (auto: the CUDA scan on a card, "
                          "the plain scan on the CPU; rowwise: the "
-                         "row-sequential kernel; xla / quant_xla: the plain "
+                         "scan's reference kernel; xla / quant_xla: the plain "
                          "versions on the shard's device; quant* need "
                          "--quant int8; tiered needs --hot-rows)")
     ap.add_argument("--hot-rows", type=int, default=None,

@@ -9,7 +9,7 @@ it runs on a machine that has only PyTorch:
 For the scans, integer tables and queries make every f32 dot exact, so
 kernel and plain version must agree bitwise, ties included. The gathers and
 scatter-adds have one defined order, so they agree bitwise too, and the
-blocked kernels with their row-wise references (the row-sequential top-k
+blocked kernels with their row-wise references (the rowwise top-k
 with the scan even on continuous rows). The SGNS kernels sum in
 another order than their plain versions, so they are held to the JAX
 kernel tests' tolerances (bf16 tables also to two bf16 steps), and to
@@ -127,6 +127,30 @@ def test_rowwise_kernel_matches_scan_on_continuous_rows(card, dtype):
     for k, valid in ((10, 20_000), (128, 20_000), (16, 19_993)):
         _same(tk.topk_mips_rowwise(tbl, q, k, valid),
               tk.topk_mips(tbl, q, k, valid))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_rowwise_kernel_over_several_chunks(card, dtype, monkeypatch):
+    """#4 with a small score scratch, so the rows take many chunks: six
+    distinct integer rows tie at the k-th key inside chunks and across
+    their edges, bitwise against plain and against the scan (#1)."""
+    rng = np.random.default_rng(31)
+    base = _int(6, 128, 32)
+    tbl = base[rng.integers(0, 6, size=9_001)].to(card, dtype)
+    tbl[1_023:1_026] = tbl[0]         # one row's ties around a chunk edge
+    q = _int(37, 128, 33).to(card)
+    before = tk.LAUNCHES["topk_rowwise"]
+    cases = ((10, 9_001, 4 * 37 * 1_024), (100, 8_999, 4 * 37 * 1_024),
+             (1, 9_001, 4 * 37 * 128), (512, 3_000, 4 * 37 * 256),
+             (7, 9_001, 4 * 37 * 4_096))
+    for k, valid, scratch in cases:
+        monkeypatch.setattr(tk, "ROWWISE_SCRATCH_BYTES", scratch)
+        assert tk.plan_topk_rowwise(37, 128, k, valid).chunks > 1
+        got = tk.topk_mips_rowwise(tbl, q, k, valid)
+        _same(got, tk.topk_mips_rowwise_plain(tbl, q, k, valid))
+        _same(got, tk.topk_mips(tbl, q, k, valid))
+    assert tk.LAUNCHES["topk_rowwise"] == before + len(cases)
 
 
 def test_tiered_and_degraded_store_on_card_match_cpu(card):
@@ -263,7 +287,7 @@ def test_sgns_update_kernel_matches_plain(card, dtype, case, B, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", ["nodup", "dup"])
-def test_sgns_grads_kernel_matches_plain(card, dtype, case):
+def test_sgns_fused_grads_kernel_matches_plain(card, dtype, case):
     x = _sgns_inputs(card, dtype, seed=40, case=case)
     got = sgns.sgns_fused_grads(*x)
     again = sgns.sgns_fused_grads(*x)
@@ -355,6 +379,37 @@ def test_scatter_kernels_match_plain_bitwise(card, dtype, upd_dtype, case, d):
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(ref, want)
     assert not torch.equal(got, table)
+    for name in ("scatter_add_rows", "scatter_add_rows_rowwise"):
+        assert sgns.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("dtype,upd_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)], ids=["f32", "bf16-f32upd", "bf16"])
+def test_scatter_kernel_over_several_chunks(card, dtype, upd_dtype):
+    """#9 with B = 3 P + 7 positions (four launches in one call) and a
+    100-position run of one hub row across the chunk edges, bitwise against
+    plain and the row-wise kernel (#10)."""
+    d = 128
+    P = sgns.plan_scatter(1, d, torch.empty(0, dtype=dtype).element_size(),
+                          torch.empty(0, dtype=upd_dtype).element_size()
+                          ).positions
+    B = 3 * P + 7
+    rng = np.random.default_rng(41)
+    idx = rng.integers(0, 500, B)
+    idx[rng.choice(B, 100, replace=False)] = 7      # the hub row's run
+    idx = torch.from_numpy(idx.astype(np.int32)).to(card)
+    table = torch.from_numpy(rng.normal(0, 1, (500, d)).astype(np.float32)
+                             ).to(card, dtype)
+    upd = torch.from_numpy(rng.normal(0, 3e-3, (B, d)).astype(np.float32)
+                           ).to(card, upd_dtype)
+    before = dict(sgns.LAUNCHES)
+    got = sgns.scatter_add_rows(table.clone(), idx, upd)
+    ref = sgns.scatter_add_rows_rowwise(table.clone(), idx, upd)
+    want = sgns.scatter_add_rows_plain(table.clone(), idx, upd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(ref, want)
+    assert not torch.equal(got[7], table[7])
     for name in ("scatter_add_rows", "scatter_add_rows_rowwise"):
         assert sgns.LAUNCHES[name] == before[name] + 1
 

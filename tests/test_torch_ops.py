@@ -126,6 +126,67 @@ def test_scatter_add_rows_plain_matches_jax_kernels_bitwise(dtype, upd_dtype,
         np.testing.assert_array_equal(_bits(out), _bits(want))
 
 
+def _itemsize(dtype):
+    return torch.empty(0, dtype=TDT[dtype]).element_size()
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype,upd_dtype", [
+    ("float32", "float32"), ("bfloat16", "float32"),
+    ("bfloat16", "bfloat16")])
+def test_scatter_plan_covers_each_position_once_and_fits(d, dtype,
+                                                         upd_dtype):
+    """#9's chunks: every position once and in order, each chunk's block
+    within shared memory, and one chunk (one launch) at the trainer's
+    B = 256 + 5 context positions."""
+    ti, ui = _itemsize(dtype), _itemsize(upd_dtype)
+    for B in (1, 261, 876, 877, 1024, 1025, 5000):
+        p = sgns.plan_scatter(B, d, ti, ui)
+        assert p.smem_bytes <= sgns.SMEM_PER_BLOCK
+        assert p.positions <= sgns.SCATTER_MAX_POSITIONS
+        assert [i for lo, hi in p.chunks for i in range(lo, hi)] == list(
+            range(B))
+        for lo, hi in p.chunks:
+            assert 0 < hi - lo <= p.positions
+            assert sgns.scatter_smem_bytes(hi - lo, ti,
+                                           ui) <= sgns.SMEM_PER_BLOCK
+        assert (p.blocks - 1) * sgns.SCATTER_COLS < d <= (
+            p.blocks * sgns.SCATTER_COLS)
+    assert len(sgns.plan_scatter(261, d, ti, ui).chunks) == 1
+
+
+@pytest.mark.parametrize("dtype,upd_dtype", [
+    ("float32", "float32"), ("bfloat16", "float32"),
+    ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("cuts", ["plan", "inside_runs"])
+def test_scatter_chunked_matches_jax_kernels_bitwise(dtype, upd_dtype, cuts,
+                                                     monkeypatch):
+    """Consecutive position chunks applied one after another, as the
+    kernel launches them, are the JAX blocked and row-wise kernels' result
+    bit for bit: with the plan's cuts (8-position chunks) and with cuts
+    that split the runs of rows 5 and 11."""
+    rng = np.random.default_rng(17)
+    N, d, B = 40, 64, 30
+    idx = _scatter_ids("dup", B, N, rng).astype(np.int32)
+    jt, tt = _pair(rng.normal(0, 1, (N, d)).astype(np.float32), dtype)
+    ju, tu = _pair(rng.normal(0, 3e-3, (B, d)).astype(np.float32), upd_dtype)
+    if cuts == "plan":
+        monkeypatch.setattr(sgns, "SCATTER_MAX_POSITIONS", 8)
+        chunks = sgns.plan_scatter(B, d, _itemsize(dtype),
+                                   _itemsize(upd_dtype)).chunks
+        assert chunks == ((0, 8), (8, 16), (16, 24), (24, 30))
+    else:     # row 11 at 1-3, 9-11, 17-19 and row 5 at 0, 7, 14, 21, 28
+        chunks = ((0, 2), (2, 10), (10, 18), (18, 19), (19, 30))
+    for lo, hi in chunks:
+        sgns.scatter_add_rows_plain(tt, torch.from_numpy(idx[lo:hi]),
+                                    tu[lo:hi])
+    for want in (jsgns.scatter_add_rows(jt, jnp.asarray(idx), ju,
+                                        rows_per_block=8, interpret=True),
+                 jsgns.scatter_add_rows_rowwise(jt, jnp.asarray(idx), ju,
+                                                interpret=True)):
+        np.testing.assert_array_equal(_bits(tt), _bits(want))
+
+
 def test_scatter_add_rows_plain_rounds_each_position():
     """Two bf16 adds of half a step each leave the row where it was (each
     rounds back to even); one add of their f32 sum would move it."""

@@ -175,6 +175,157 @@ def test_plan_fits_shared_memory():
         tk.plan_topk_scan(16, 30, 10, 10_000)
 
 
+@pytest.mark.parametrize("Q,d,k", [(256, 128, 10), (256, 128, 400),
+                                   (5, 32, 100), (1, 1024, 512),
+                                   (300, 128, 100)])
+def test_rowwise_plan_chunks_cover_valid(Q, d, k, monkeypatch):
+    """#4's plan: tiles and scratch under their caps, whole row tiles per
+    chunk, and the chunks cover the valid rows exactly."""
+    for valid in (1, 255, 257, 1 << 20, 26_250_000):
+        p = tk.plan_topk_rowwise(Q, d, k, valid)
+        assert p.score_smem_bytes <= tk.SMEM_STATIC
+        assert p.select_smem_bytes <= tk.SMEM_STATIC
+        assert p.chunk_rows % tk.ROWWISE_ROW_TILE == 0
+        assert p.scratch_bytes == 4 * Q * p.chunk_rows
+        assert p.scratch_bytes <= tk.ROWWISE_SCRATCH_BYTES
+        assert (p.chunks - 1) * p.chunk_rows < valid <= p.chunks * p.chunk_rows
+        assert p.chunk_rows < valid + tk.ROWWISE_ROW_TILE   # no idle tile
+    # the serving main path: four chunks of 262,144 rows
+    p = tk.plan_topk_rowwise(256, 128, 10, 1 << 20)
+    assert (p.chunk_rows, p.chunks) == (1 << 18, 4)
+    monkeypatch.setattr(tk, "ROWWISE_SCRATCH_BYTES", 4 * Q * 300)
+    p = tk.plan_topk_rowwise(Q, d, k, 10_000)
+    assert p.chunk_rows == 256 and p.chunks == 40
+
+
+def test_rowwise_plan_refuses_k_past_its_limit():
+    tk.plan_topk_rowwise(16, 128, tk.ROWWISE_K_MAX, 10_000)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.plan_topk_rowwise(16, 128, tk.ROWWISE_K_MAX + 1, 10_000)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.plan_topk_rowwise(16, 16, 5000, 10_000)
+    with pytest.raises(ValueError, match="d % 8"):
+        tk.plan_topk_rowwise(16, 30, 10, 10_000)
+
+
+# --------------------------------------------------------------------------
+# an emulation of the rowwise kernel's selection (topk_rowwise.cu), held
+# against the order that topk_scan.cu's better() and the plain scan use
+# --------------------------------------------------------------------------
+_U = np.uint64
+
+
+def _sort_keys(scores, rows):
+    """select_kernel's sort_key: (~order-preserving bits) << 32 | row."""
+    b = np.asarray(scores, np.float32).view(np.uint32).copy()
+    b[b == 0x80000000] = 0                        # -0.0 ties +0.0
+    asc = np.where(b & 0x80000000, ~b, b | 0x80000000).astype(np.uint32)
+    return ((~asc).astype(_U) << _U(32)) | np.asarray(rows).astype(
+        np.uint32).astype(_U)
+
+
+def _select(keys, vals, k, limit, cap):
+    """select_kernel's radix select: 11-bit digits from the top until at
+    most ``cap`` entries can still be among the k best, then a sort of
+    those. Returns the k smallest keys and their values."""
+    bits = int(np.log2(tk.ROWWISE_SELECT_BINS))
+    keep = keys <= limit
+    prefix = mask = _U(0)
+    below, shift, first = 0, 64 - bits, True
+    while True:
+        m = keep & ((keys & mask) == prefix)
+        hist = np.bincount(((keys[m] >> _U(shift)) & _U(2**bits - 1)
+                            ).astype(np.int64), minlength=2**bits)
+        if first and hist.sum() <= cap:
+            break
+        first = False
+        cum = np.cumsum(hist)
+        digit = int(np.searchsorted(cum, k - below))   # first cum >= need
+        below += int(cum[digit] - hist[digit])
+        prefix |= _U(digit) << _U(shift)
+        mask |= _U(2**bits - 1) << _U(shift)
+        if below + hist[digit] <= cap or shift == 0:
+            break
+        shift = max(shift - bits, 0)
+    sel = keep & ((keys & mask) <= prefix)
+    assert k <= sel.sum() <= cap
+    order = np.argsort(keys[sel], kind="stable")[:k]
+    return keys[sel][order], vals[sel][order]
+
+
+def _rowwise_emulated(scores, k, chunk_rows, cap=tk.ROWWISE_SELECT_CAP):
+    """The kernel's chunk loop over a (Q, valid) score matrix: each chunk's
+    selection takes the chunk and the k best carried from before."""
+    Q, valid = scores.shape
+    sentinel = _sort_keys([-np.inf], [tk.IDX_SENTINEL])[0]
+    best_v = np.full((Q, k), -np.inf, np.float32)
+    best_i = np.full((Q, k), tk.IDX_SENTINEL, np.int64)
+    for base in range(0, valid, chunk_rows):
+        hi = min(base + chunk_rows, valid)
+        for q in range(Q):
+            ck = (np.full(k, sentinel) if base == 0
+                  else _sort_keys(best_v[q], best_i[q]))
+            keys = np.concatenate([_sort_keys(scores[q, base:hi],
+                                              np.arange(base, hi)), ck])
+            vals = np.concatenate([scores[q, base:hi], best_v[q]])
+            kk, vv = _select(keys, vals, k, ck.max(), cap)
+            best_v[q], best_i[q] = vv, (kk & _U(0xffffffff)).astype(np.int64)
+    return best_v, best_i.astype(np.int32)
+
+
+def _better_order(scores, k):
+    """The k best of each row of scores by better(): score descending
+    (-0.0 == +0.0), then row ascending; (-inf, int32 max) past the end."""
+    out_v = np.full((scores.shape[0], k), -np.inf, np.float32)
+    out_i = np.full((scores.shape[0], k), tk.IDX_SENTINEL, np.int32)
+    for q, row in enumerate(scores):
+        best = sorted(range(len(row)), key=lambda r: (-row[r], r))[:k]
+        out_v[q, :len(best)], out_i[q, :len(best)] = row[best], best
+    return out_v, out_i
+
+
+@pytest.mark.parametrize("k,chunk,cap", [
+    (10, 64, tk.ROWWISE_SELECT_CAP), (25, 64, tk.ROWWISE_SELECT_CAP),
+    (4, 16, 8), (1, 7, 2), (8, 50, 16), (30, 8, 64)])
+def test_rowwise_selection_emulated_keeps_the_order(k, chunk, cap):
+    """Ties at every rank and across chunk edges, -0.0 beside +0.0, fewer
+    rows than k in the first chunk: the emulated selection equals
+    better()'s order and the plain scan bitwise. A small ``cap`` forces
+    every radix digit, the row bits included."""
+    rng = np.random.default_rng(k + chunk)
+    tbl = _int(6, 16, 4)[rng.integers(0, 6, size=300)]
+    tbl[::11] = 0.0                                 # rows that score 0
+    q = _int(9, 16, 5)
+    scores = q @ tbl.T                              # exact: small integers
+    scores[0] = -np.abs(scores[0])                  # zeros are its best
+    scores[:, 5::13] = -0.0
+    scores[:, 6::13] = 0.0
+    got = _rowwise_emulated(scores, k, chunk, cap)
+    want = _better_order(scores, k)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+    plain = tk.topk_mips_plain(torch.from_numpy(tbl), torch.from_numpy(q), k)
+    np.testing.assert_array_equal(
+        _rowwise_emulated(q @ tbl.T, k, chunk, cap)[1], plain[1].numpy())
+
+
+def test_rowwise_selection_emulated_on_continuous_scores():
+    """Distinct continuous scores and a query whose best rows sit at the
+    chunk edges; valid < k leaves sentinel slots."""
+    rng = np.random.default_rng(12)
+    scores = rng.normal(0, 0.1, (5, 700)).astype(np.float32)
+    scores[0, [127, 128, 255, 256]] = 3.0
+    got = _rowwise_emulated(scores, 10, 128)
+    want = _better_order(scores, 10)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+    assert list(got[1][0, :4]) == [127, 128, 255, 256]
+    short = _rowwise_emulated(scores[:, :6], 10, 4)
+    np.testing.assert_array_equal(short[1],
+                                  _better_order(scores[:, :6], 10)[1])
+    assert (short[1][:, 6:] == tk.IDX_SENTINEL).all()
+
+
 def test_wrappers_refuse_other_devices():
     """Only a CPU tensor takes the plain version: anything else goes to
     the kernel or raises."""
