@@ -35,8 +35,10 @@ failure ends the run with a non-zero exit:
    (``scatter_add_rows``, its row-wise reference, and ``gather_rows_rowwise``)
    bitwise against their plain versions and the blocked kernels bitwise
    against their row-wise references, the scatter also over several
-   position chunks with a 100-position hub run; one ``ops.sgns_step`` per
-   kernel route against the ``ref`` route (the same composition, plain);
+   position chunks with a 100-position hub run, for each kernel's own
+   chunk size (the row-wise scatter also checked to launch one kernel per
+   chunk and nothing else); one ``ops.sgns_step`` per kernel route against
+   the ``ref`` route (the same composition, plain);
 5. the per-card training shape: vertex and context tables of 26,250,000 x
    128 f32 (26.9 GB, made on the card from a seed) installed in the
    trainer, 4 sub-parts of 8,192-pair blocks of Zipf(1.1)-skewed ids,
@@ -63,11 +65,13 @@ failure ends the run with a non-zero exit:
 8. the flash-attention kernel (``flash_attention``, TPU kernel #11)
    against ``mha_plain`` on the card, f32 and bf16, at the five shapes of
    the JAX package's ``tests/test_flash_attention.py``, a case with rows
-   that have no valid key, and granite-3-2b's prefill (B = 4, H = 32, Hkv
-   = 8, S = 2048, hd = 64; causal, and with a 512-key window) on the
-   (B, S, H, hd) views the model passes; then timed at that prefill shape
-   beside its bound, ``mha_plain`` and PyTorch's
-   ``scaled_dot_product_attention``;
+   that have no valid key, hd 128 and hd 8 with ragged tiles, and
+   granite-3-2b's prefill (B = 4, H = 32, Hkv = 8, S = 2048, hd = 64;
+   causal, and with a 512-key window) on the (B, S, H, hd) views the model
+   passes; then timed at that prefill shape beside its bound (f32 CUDA
+   cores and 3xTF32 tensor cores), ``mha_plain`` and PyTorch's
+   ``scaled_dot_product_attention``, with the device kernels of one call
+   of each;
 9. the LM serving main path: ``repro_torch.launch.serve.main`` for
    granite-3-2b at full width (``--no-reduced``), batch 4, a 2,048-token
    prompt and 32 tokens, with exactly one flash launch per layer (40) and
@@ -117,6 +121,8 @@ FLASH_CASES = [  # B, H, Hkv, Sq, Skv, hd, causal, window
     (2, 2, 2, 96, 96, 16, True, 24), (1, 2, 1, 64, 64, 64, False, 0),
     (1, 8, 8, 128, 128, 8, True, 0),
     (1, 2, 1, 64, 32, 16, True, 8),      # rows 39.. have no valid key
+    (2, 4, 2, 201, 77, 128, False, 0),   # hd 128 and 8, ragged tiles
+    (1, 8, 4, 257, 257, 8, True, 0),
     (LM_B, 32, 8, LM_S, LM_S, 64, True, 0),
     (LM_B, 32, 8, LM_S, LM_S, 64, True, 512),
 ]
@@ -124,6 +130,7 @@ LM_ARGV = ["--arch", "granite-3-2b", "--no-reduced", "--batch", str(LM_B),
            "--prompt-len", str(LM_S), "--tokens", str(LM_TOKENS),
            "--device", "cuda"]
 BF16_FLOP_PER_S = 989e12           # H100 SXM, dense bf16 tensor cores
+TF32_FLOP_PER_S = 495e12           # H100 SXM, dense TF32 tensor cores
 # the kernels each kernel route of ops.sgns_step launches
 ROUTE_KERNELS = {"pallas_fused2": ("sgns_fused_update",),
                  "pallas_fused": ("sgns_fused_grads", "scatter_add_rows"),
@@ -245,7 +252,7 @@ def check_sgns_kernels(torch, sgns, dev, err):
     return cases
 
 
-def check_route_kernels(torch, sgns, ops, dev, err):
+def check_route_kernels(torch, sgns, ops, dev, err, call_kernels):
     """The kernels of the unfused routes against their plain versions and
     the blocked row kernels against their row-wise references, on
     numpy-seeded inputs at the JAX tests' shapes and at d = 128; then one
@@ -349,6 +356,37 @@ def check_route_kernels(torch, sgns, ops, dev, err):
         same("scatter_add_rows", got, want, what)
         ref = sgns.scatter_add_rows_rowwise(table.clone(), idx, upd)
         same("scatter_add_rows vs scatter_add_rows_rowwise", got, ref, what)
+        cases += 1
+    # the row-wise scatter (#10) over its own chunk edges: B = 3 P + 7 for
+    # its planned P, a 100-position hub run across them; one call is one
+    # scatter_rowwise launch per chunk and nothing else (no sort)
+    for dtype, upd_dtype in ((torch.float32, torch.float32),
+                             (torch.bfloat16, torch.float32),
+                             (torch.bfloat16, torch.bfloat16)):
+        sizes = (torch.empty(0, dtype=dtype).element_size(),
+                 torch.empty(0, dtype=upd_dtype).element_size())
+        P = sgns.plan_scatter_rowwise(*sizes)
+        B = 3 * P + 7
+        rng = np.random.default_rng(B + 1)
+        idx = rng.integers(0, 700, B)
+        idx[rng.choice(B, 100, replace=False)] = 9
+        idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+        table = normal(rng, (700, DIM), 1.0, dtype)
+        upd = normal(rng, (B, DIM), 3e-3, upd_dtype)
+        what = (f"{dtype} upd {upd_dtype} B={B} (its own P={P}) hub run "
+                f"of 100")
+        ref = sgns.scatter_add_rows_rowwise(table.clone(), idx, upd)
+        want = sgns.scatter_add_rows_plain(table.clone(), idx, upd)
+        same("scatter_add_rows_rowwise", ref, want, what)
+        got = sgns.scatter_add_rows(table.clone(), idx, upd)
+        same("scatter_add_rows vs scatter_add_rows_rowwise", got, ref, what)
+        calls = call_kernels(
+            lambda: sgns.scatter_add_rows_rowwise(table, idx, upd), reps=2)
+        if any(len(c) != 4 or not all("scatter_rowwise" in k for k in c)
+               for c in calls):
+            raise AssertionError(f"scatter_add_rows_rowwise {what}: "
+                                 f"launched {calls}, not four "
+                                 f"scatter_rowwise")
         cases += 1
 
     # gather_rows_rowwise (#8) == gather_rows (#3) == plain, bitwise
@@ -642,6 +680,14 @@ def per_card_training(torch, sgns, dev, time_ms, wall_ms, call_kernels,
                              f"launched {calls}, not one scatter_sorted")
     print(f"scatter_add_rows at the per-card minibatch: one device kernel "
           f"per call ({next(iter(calls))[0][:60]})")
+    calls = call_kernels(lambda: sgns.scatter_add_rows_rowwise(ctx, icn, upd))
+    if len(calls) != 1 or len(next(iter(calls))) != 1 or (
+            "scatter_rowwise" not in next(iter(calls))[0]):
+        raise AssertionError(f"scatter_add_rows_rowwise at the per-card "
+                             f"minibatch launched {calls}, not one "
+                             f"scatter_rowwise")
+    print(f"scatter_add_rows_rowwise at the per-card minibatch: one device "
+          f"kernel per call ({next(iter(calls))[0][:60]})")
     for name, fn in (("scatter_add_rows", sgns.scatter_add_rows),
                      ("scatter_add_rows_rowwise",
                       sgns.scatter_add_rows_rowwise)):
@@ -716,12 +762,15 @@ def check_flash_kernel(torch, fa, dev, err):
     return cases
 
 
-def time_flash(torch, fa, dev, time_ms, wall_ms):
+def time_flash(torch, fa, dev, time_ms, wall_ms, profiled_calls):
     """The flash kernel at granite-3-2b's prefill shape (f32, causal) on the
     views the model passes, beside its bound, ``mha_plain`` and
     ``scaled_dot_product_attention`` on k, v repeated to H heads (a
     yardstick the port never calls); the 512-key window and bf16 printed
-    beside it. Returns the kernel's record."""
+    beside it, then the bound both ways (f32 CUDA cores; 3xTF32 tensor
+    cores, the record's), the achieved rate, and the device kernels of one
+    call of the kernel and of the yardstick. Returns the kernel's
+    record."""
     B, H, Hkv, S, hd = LM_B, 32, 8, LM_S, 64
     g = torch.Generator(device=dev).manual_seed(SEED + 200)
     q, k, v = (torch.randn(shape, generator=g, device=dev).transpose(1, 2)
@@ -737,7 +786,11 @@ def time_flash(torch, fa, dev, time_ms, wall_ms):
         library_ms=time_ms(lambda: sdpa(q, kr, vr, is_causal=True), 10))
     nbytes = 4 * (2 * B * H * S * hd + 2 * B * Hkv * S * hd)
     flops = 4.0 * B * H * hd * attention_pairs(S, S, True, 0)
-    rec["bound"] = bound_ms(nbytes, flops)
+    f32_bound = bound_ms(nbytes, flops)
+    # the kernel's products take three TF32 tensor-core passes each
+    tf32x3_ms = 1e3 * 3 * flops / TF32_FLOP_PER_S
+    rec["bound"] = max((1e3 * nbytes / HBM_BYTES_PER_S, "bytes"),
+                       (tf32x3_ms, "operations"))
     win_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
                                                 window=512), 10)
     win_bound = bound_ms(nbytes, 4.0 * B * H * hd
@@ -746,11 +799,23 @@ def time_flash(torch, fa, dev, time_ms, wall_ms):
     bf16_ms = time_ms(lambda: fa.flash_attention(qb, kb, vb, causal=True), 10)
     print(f"flash_attention at B={B} H={H} Hkv={Hkv} S={S} hd={hd} f32 "
           f"causal: {rec['ms']:.4f} device ms/launch ({rec['wall_ms']:.4f} "
-          f"wall), bound {rec['bound'][0]:.4f} ms ({rec['bound'][1]}; "
-          f"{1e3 * flops / BF16_FLOP_PER_S:.4f} ms at the bf16 tensor-core "
-          f"rate), plain {rec['plain_ms']:.4f} ms, library (sdpa) "
-          f"{rec['library_ms']:.4f} ms; window 512: {win_ms:.4f} ms, bound "
-          f"{win_bound[0]:.4f} ms; bf16 inputs: {bf16_ms:.4f} ms")
+          f"wall), bound {f32_bound[0]:.4f} ms ({f32_bound[1]} at the f32 "
+          f"CUDA-core rate; {1e3 * flops / BF16_FLOP_PER_S:.4f} ms at the "
+          f"bf16 tensor-core rate), plain {rec['plain_ms']:.4f} ms, library "
+          f"(sdpa) {rec['library_ms']:.4f} ms; window 512: {win_ms:.4f} ms, "
+          f"bound {win_bound[0]:.4f} ms; bf16 inputs: {bf16_ms:.4f} ms")
+    print(f"flash_attention 3xTF32 bound {tf32x3_ms:.4f} ms (3 x "
+          f"{flops:.4g} flop at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s TF32), "
+          f"achieved {flops / rec['ms'] / 1e9:.1f} effective TFLOP/s "
+          f"({100 * tf32x3_ms / rec['ms']:.1f} % of the 3xTF32 bound); "
+          f"sdpa {flops / rec['library_ms'] / 1e9:.1f} TFLOP/s")
+    for label, fn in (("flash_attention", lambda: fa.flash_attention(
+            q, k, v, causal=True)), ("sdpa", lambda: sdpa(q, kr, vr,
+                                                          is_causal=True))):
+        calls = profiled_calls(fn, 2)
+        split = ([(key[:90], round(us, 1)) for us, key in calls[0]]
+                 if calls else "not measured (the profiler kept no call)")
+        print(f"{label} one call's device kernels (name, us): {split}")
     return rec
 
 
@@ -1312,10 +1377,11 @@ def main() -> int:
     print(f"sgns kernels == plain within tolerance on {cases} cases each "
           f"(f32, bf16; dup, odd B, one index; bf16 tables within two "
           f"bf16 steps), bitwise repeatable")
-    cases = check_route_kernels(torch, sgns, ops, dev, err)
+    cases = check_route_kernels(torch, sgns, ops, dev, err, call_kernels)
     print(f"unfused-route kernels on {cases} cases: sgns_grads == plain "
           f"within tolerance and bitwise repeatable; scatter_add_rows == "
-          f"plain == scatter_add_rows_rowwise and gather_rows == "
+          f"plain == scatter_add_rows_rowwise (also over #10's own chunk "
+          f"edges, one scatter_rowwise launch per chunk) and gather_rows == "
           f"gather_rows_rowwise == plain (bitwise); sgns_step pallas and "
           f"pallas_fused == ref route within tolerance (bf16 within two bf16 "
           f"steps)")
@@ -1435,7 +1501,8 @@ def main() -> int:
           f"|kernel - plain| f32 {err['flash_attention float32']:.3g}, bf16 "
           f"{err['flash_attention bfloat16']:.3g}")
     err["flash_attention"] = err["flash_attention float32"]
-    rec["flash_attention"] = time_flash(torch, fa, dev, time_ms, wall_ms)
+    rec["flash_attention"] = time_flash(torch, fa, dev, time_ms, wall_ms,
+                                        profiled_calls)
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 9

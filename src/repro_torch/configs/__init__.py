@@ -5,7 +5,7 @@ names every arch of the JAX registry, so a JAX command line parses
 unchanged, and holds copies of the configs of the families the port runs:
 the dense LMs and the paper's embedding workload. :func:`get_config` on an
 arch of a family not ported yet (MoE, MLA, SSM, hybrid, enc-dec, VLM)
-raises ``NotImplementedError``; ``ROADMAP.md`` Queue 1 item 3 lists them.
+raises ``NotImplementedError``; ``ROADMAP.md`` Queue 1 item 8 lists them.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ def get_config(name: str):
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r}: the {NOT_PORTED[name]} family is not ported to "
-            f"PyTorch yet (ROADMAP.md, Queue 1 item 3)")
+            f"PyTorch yet (ROADMAP.md, Queue 1 item 8)")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {list_archs()}")
     return ARCHS[name]

@@ -71,8 +71,9 @@ SIGNATURES = {
         # dtype, upd_f32, table, idx, upd, B, d, positions per chunk,
         # stream
         "scatter_add_rows": [_I, _I, _P, _P, _P, _I, _I, _I, _P],
-        # dtype, upd_f32, table, idx, upd, B, d, stream
-        "scatter_add_rows_rowwise": [_I, _I, _P, _P, _P, _I, _I, _P],
+        # dtype, upd_f32, table, idx, upd, B, d, positions per chunk,
+        # stream
+        "scatter_add_rows_rowwise": [_I, _I, _P, _P, _P, _I, _I, _I, _P],
     },
     "flash_attention": {
         # dtype, hd, q, k, v, out, B, H, Hkv, Sq, Skv, causal, window,

@@ -21,7 +21,8 @@
 // device-memory round trips, and the longest run of one row (a Zipf hub
 // row's tens of positions), whose adds are serial by the semantics.
 //
-// Hopper blocks run in no order, so the order comes from a sort:
+// Hopper blocks run in no order, so each kernel gives every row of a chunk
+// one owner that applies the row's positions in order:
 //
 //   scatter_sorted    B is cut into consecutive chunks of at most P =
 //                     1024 positions (the wrapper's plan); the chunks are
@@ -41,25 +42,40 @@
 //                     position) order out of shared memory and writes the
 //                     row once. Each row has one owner: no atomics, and
 //                     the result is that of the plain version bit for bit.
-//   scatter_rowwise   no sort: each block owns 32 columns, one thread per
-//                     column, and walks all B positions in order. No two
-//                     threads touch one element, so position order is exact
-//                     with no synchronisation. Slow by design (B dependent
-//                     steps per thread): it is the reference scatter_sorted
-//                     is held against.
+//   scatter_rowwise   no sort and no run walk: each output column is still
+//                     produced by one thread that walks every position in
+//                     order, rounding once per position, which is the
+//                     semantics; only how the walk is fed differs from a
+//                     plain loop. B is cut into consecutive chunks of at
+//                     most P positions (the wrapper's plan from shared
+//                     memory), launched one after another on the stream.
+//                     One block of 512 threads per 8 columns loads the
+//                     chunk's ids, update slices and the table slice of
+//                     every position's row into shared memory, all loads in
+//                     flight at once and every table read before any write.
+//                     While the rows arrive, each position p finds prev[p],
+//                     the latest earlier position of the chunk with the same
+//                     id (or -1), by an equality scan of the earlier ids in
+//                     shared memory: the duplicate test of the JAX fused
+//                     update's equality matrix, not a sort. Then the column's
+//                     thread walks p = 0 .. n-1:
+//                       r[p] = add(prev[p] < 0 ? staged[p] : r[prev[p]], u[p])
+//                     with r in shared memory (in place of staged), so no
+//                     step waits on device memory; positions that are the
+//                     last of their row write r[p] back, each row once, with
+//                     no atomics. It is the reference scatter_sorted is held
+//                     against, and shares only add_rounded with it.
 //
-// What held the earlier design back (measured by chip_smoke.py on an H100
-// 80GB HBM3 at 700 W, the per-card minibatch: 0.0401 device ms against
-// index_add_'s 0.0060): the host sorted the ids with torch.sort (its own
-// launches), and the warp at a run's head walked the run through a chain
-// of dependent device-memory loads (sorted id for the run's end, then
-// perm[p], then upd[perm[p]]), a round trip per step with L2 cold. Here
-// the sort is on chip and every load is independent of the others, so a
+// Why chunks staged in shared memory: a walk that loads a row from device
+// memory, adds, stores, and only then loads the next position's row (it
+// may be the row just stored) pays a cold round trip per position, about
+// 390 ns on an H100 at the trainer's sizes; a sort on the host adds
+// launches. In both kernels every load is independent of the others, so a
 // chunk costs two round trips (ids and updates; then table rows, with the
-// sort hidden under them), and a run's serial adds read shared memory, a
-// few ns per step. Blocks of 8 columns rather than 32 spread the loads
-// over four times the SMs, and the shuffle stages spare the sort most of
-// its barriers.
+// sort or the equality scan hidden under them), and the serial adds read
+// shared memory, a few ns per step. Blocks of 8 columns spread the loads
+// over 16 SMs at d = 128, and the shuffle stages spare the sort most of its
+// barriers.
 //
 // Row offsets are 64-bit: a 26.25 M x 128 f32 table is 13.4 GB. No index
 // bounds are checked (as on the TPU). __fadd_rn keeps the compiler from
@@ -70,10 +86,13 @@
 
 namespace {
 
-constexpr int COLS = 32;            // columns per block of scatter_rowwise
-constexpr int SLICE = 8;            // columns per block of scatter_sorted
-constexpr int THREADS = 1024;       // positions per chunk, at most
+constexpr int SLICE = 8;            // columns per block, both kernels
+constexpr int THREADS = 1024;       // scatter_sorted: positions per chunk
 constexpr int WARPS = THREADS / 32;
+constexpr int RW_THREADS = 512;     // threads of a scatter_rowwise block
+constexpr int RW_POSITIONS = 2048;  // scatter_rowwise: positions per chunk
+constexpr int RW_CELLS = RW_POSITIONS * SLICE / RW_THREADS;  // per thread
+constexpr int WALK = 8;             // positions per step of the walk
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -233,20 +252,144 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// table is not __restrict__: a thread reads back rows it wrote itself
+// Shared memory of a row-wise chunk of n positions: the update and row
+// slices, the ids, the previous occurrences and the last-occurrence flags.
 template <typename T, typename U>
-__global__ void __launch_bounds__(COLS)
-    scatter_rowwise(T* table, const int* __restrict__ idx,
-                    const U* __restrict__ upd, int B, int d) {
-  const int k = blockIdx.x * COLS + threadIdx.x;
-  if (k >= d) return;
-  const long long dd = d;
-  for (int p = 0; p < B; ++p) {
-    T* dst = table + static_cast<long long>(idx[p]) * dd + k;
-    *dst = add_rounded(*dst, upd[static_cast<long long>(p) * dd + k]);
-  }
+__host__ __device__ constexpr size_t rowwise_smem(int n) {
+  return static_cast<size_t>(n) *
+         (SLICE * (sizeof(U) + sizeof(T)) + 3 * sizeof(int));
 }
 
+// One chunk of n <= RW_POSITIONS positions, SLICE columns per block. table
+// is not __restrict__: it is read and written in one launch.
+template <typename T, typename U>
+__global__ void __launch_bounds__(RW_THREADS)
+    scatter_rowwise(T* table, const int* __restrict__ idx,
+                    const U* __restrict__ upd, int n, int d) {
+  extern __shared__ __align__(16) unsigned char rw_smem[];
+  U* su = reinterpret_cast<U*>(rw_smem);           // (n, SLICE) updates
+  T* sr = reinterpret_cast<T*>(su + n * SLICE);    // (n, SLICE) rows
+  int* sid = reinterpret_cast<int*>(sr + n * SLICE);   // (n,) ids
+  int* prv = sid + n;                              // (n,) previous occurrence
+  int* last = prv + n;                             // (n,) 1: last of its row
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.x * SLICE;
+  const int cols = min(SLICE, d - c0);
+  const long long dd = d;
+  const int cells = n * SLICE;
+
+  // 1. the ids and the update slice, every load in flight at once
+  for (int p = tid; p < n; p += RW_THREADS) {
+    sid[p] = idx[p];
+    last[p] = 1;
+  }
+  U uv[RW_CELLS];
+#pragma unroll
+  for (int b = 0; b < RW_CELLS; ++b) {
+    const int e = b * RW_THREADS + tid;
+    if (e < cells && e % SLICE < cols)
+      uv[b] = upd[(e / SLICE) * dd + c0 + e % SLICE];
+  }
+#pragma unroll
+  for (int b = 0; b < RW_CELLS; ++b) {
+    const int e = b * RW_THREADS + tid;
+    if (e < cells && e % SLICE < cols) su[e] = uv[b];
+  }
+  __syncthreads();
+
+  // 2. every position's table slice in flight (read before any write of the
+  // chunk) while each position finds its previous occurrence: the lanes of
+  // a warp read the same earlier id at each step (a broadcast) and keep the
+  // latest equal one
+  T tv[RW_CELLS];
+#pragma unroll
+  for (int b = 0; b < RW_CELLS; ++b) {
+    const int e = b * RW_THREADS + tid;
+    if (e < cells && e % SLICE < cols)
+      tv[b] = table[sid[e / SLICE] * dd + c0 + e % SLICE];
+  }
+  for (int p0 = 0; p0 < n; p0 += RW_THREADS) {
+    const int p = p0 + tid;
+    const int w0 = p0 + (tid & ~31);               // the warp's first position
+    if (w0 >= n) break;
+    const int id = p < n ? sid[p] : 0;
+    int pr = -1;
+    const int4* s4 = reinterpret_cast<const int4*>(sid);
+    for (int q = 0; q < w0; q += 4) {              // earlier than every lane's
+      const int4 v = s4[q / 4];
+      if (v.x == id) pr = q;
+      if (v.y == id) pr = q + 1;
+      if (v.z == id) pr = q + 2;
+      if (v.w == id) pr = q + 3;
+    }
+    for (int q = w0; q < min(w0 + 31, n); ++q)
+      if (q < p && sid[q] == id) pr = q;
+    if (p < n) prv[p] = pr;
+  }
+#pragma unroll
+  for (int b = 0; b < RW_CELLS; ++b) {
+    const int e = b * RW_THREADS + tid;
+    if (e < cells && e % SLICE < cols) sr[e] = tv[b];
+  }
+  __syncthreads();
+
+  // 3. a position that a later one follows on its row writes nothing back
+  for (int p = tid; p < n; p += RW_THREADS)
+    if (prv[p] >= 0) last[prv[p]] = 0;
+
+  // 4. the walk: one thread per column, every position in order, out of
+  // shared memory; r[p] takes the place of the staged row slice. It goes
+  // in steps of WALK positions whose shared-memory reads are all issued
+  // first (the links and updates one step ahead): a position whose row an
+  // earlier position of the same step wrote takes that result from a
+  // register, any other its staged slice or the final r of an earlier step,
+  // so the serial part of a step is its adds.
+  if (tid < cols) {
+    T* r = sr + tid;
+    const U* u = su + tid;
+    int pr[WALK];
+    U up[WALK];
+#pragma unroll
+    for (int i = 0; i < WALK; ++i) {
+      const int p = min(i, n - 1);
+      pr[i] = prv[p];
+      up[i] = u[p * SLICE];
+    }
+    for (int p0 = 0; p0 < n; p0 += WALK) {
+      T base[WALK];
+#pragma unroll
+      for (int i = 0; i < WALK; ++i) {
+        const int p = min(p0 + i, n - 1);
+        base[i] = r[(pr[i] >= 0 && pr[i] < p0 ? pr[i] : p) * SLICE];
+      }
+      T res[WALK];
+#pragma unroll
+      for (int i = 0; i < WALK; ++i) {
+        T x = base[i];
+#pragma unroll
+        for (int j = 0; j < i; ++j)
+          if (pr[i] == p0 + j) x = res[j];
+        res[i] = add_rounded(x, up[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < WALK; ++i) {           // the next step's links
+        const int p = min(p0 + WALK + i, n - 1);
+        pr[i] = prv[p];
+        up[i] = u[p * SLICE];
+      }
+#pragma unroll
+      for (int i = 0; i < WALK; ++i)
+        if (p0 + i < n) r[(p0 + i) * SLICE] = res[i];
+    }
+  }
+  __syncthreads();
+
+  // 5. each row once, from its last position
+  for (int e = tid; e < cells; e += RW_THREADS) {
+    const int p = e / SLICE, c = e % SLICE;
+    if (c < cols && last[p]) table[sid[p] * dd + c0 + c] = sr[e];
+  }
+}
 
 template <typename T, typename U>
 int launch_sorted(void* table, const void* idx, const void* upd, int B,
@@ -271,11 +414,21 @@ int launch_sorted(void* table, const void* idx, const void* upd, int B,
 
 template <typename T, typename U>
 int launch_rowwise(void* table, const void* idx, const void* upd, int B,
-                   int d, cudaStream_t st) {
-  scatter_rowwise<T, U><<<(d + COLS - 1) / COLS, COLS, 0, st>>>(
-      static_cast<T*>(table), static_cast<const int*>(idx),
-      static_cast<const U*>(upd), B, d);
-  return static_cast<int>(cudaGetLastError());
+                   int d, int P, cudaStream_t st) {
+  for (int p0 = 0; p0 < B; p0 += P) {
+    const int n = min(P, B - p0);
+    const size_t smem = rowwise_smem<T, U>(n);
+    cudaError_t e = cudaFuncSetAttribute(
+        scatter_rowwise<T, U>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    scatter_rowwise<T, U><<<(d + SLICE - 1) / SLICE, RW_THREADS, smem, st>>>(
+        static_cast<T*>(table), static_cast<const int*>(idx) + p0,
+        static_cast<const U*>(upd) + static_cast<size_t>(p0) * d, n, d);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -302,18 +455,23 @@ extern "C" int scatter_add_rows(int dtype, int upd_f32, void* table,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The same function in the reference's order; idx (B,) int32 unsorted.
+// The same function with no sort: one thread per column walks every
+// position in order. idx (B,) int32 unsorted; P positions per chunk, one
+// launch per chunk (the wrapper's plan; the launch fails if its shared
+// memory does not fit).
 extern "C" int scatter_add_rows_rowwise(int dtype, int upd_f32, void* table,
                                         const void* idx, const void* upd,
-                                        int B, int d, void* stream) {
+                                        int B, int d, int P, void* stream) {
   if (B == 0) return 0;
+  if (P < 1 || P > RW_POSITIONS)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && upd_f32)
-    return launch_rowwise<float, float>(table, idx, upd, B, d, st);
+    return launch_rowwise<float, float>(table, idx, upd, B, d, P, st);
   if (dtype == 1 && upd_f32)
-    return launch_rowwise<__nv_bfloat16, float>(table, idx, upd, B, d, st);
+    return launch_rowwise<__nv_bfloat16, float>(table, idx, upd, B, d, P, st);
   if (dtype == 1)
     return launch_rowwise<__nv_bfloat16, __nv_bfloat16>(table, idx, upd, B, d,
-                                                         st);
+                                                         P, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,17 +3,21 @@
 Counterpart of the JAX package's ``kernels/flash_attention.py``.
 :func:`flash_attention` replaces the TPU kernel ``flash_attention``
 (``flash_attention.py:80``) and launches ``kernels/csrc/flash_attention.cu``:
-one block per (batch, head, 64 query rows) walking the keys in tiles of 32
-through shared memory, with the running max, denominator and accumulator
-in f32 registers. :func:`mha_plain` is the counterpart of ``mha_ref``: the
-whole score matrix, masked, softmaxed.
+one block of 4 warps per (batch, head, 128 query rows; 64 at hd 128)
+walking the keys in tiles of 64 through a double-buffered ring in shared
+memory, both products
+on the tensor cores in 3xTF32 (f32 accuracy), the running max, denominator
+and accumulator in f32 registers. :func:`mha_plain` is the counterpart of
+``mha_ref``: the whole score matrix, masked, softmaxed.
 
 Layout as in the JAX package: q (B, H, Sq, hd), k and v (B, Hkv, Skv, hd),
 the kv head of head h being ``h // (H // Hkv)``. Positions count from 0 in
 q and in k, so ``Sq != Skv`` is aligned top-left. Masked scores are -1e30
 (finite), so a row with no valid key comes out as the mean of v. The
-kernel reads any strides whose last one is 1, so ``x.transpose(1, 2)`` of a
-(B, S, H, hd) tensor goes in without a copy; the output has q's strides.
+kernel reads any strides whose last one is 1 and whose others, like the
+pointers, are multiples of 16 bytes (its copies move 16 bytes), so
+``x.transpose(1, 2)`` of a (B, S, H, hd) tensor goes in without a copy; the
+output has q's strides.
 
 A tensor on the CPU takes :func:`mha_plain`; a tensor on the card goes to
 the kernel or the call raises.
@@ -78,7 +82,20 @@ def _check_args(q, k, v, window):
                          f"{k.device}, {v.device}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head dim must be contiguous")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not _aligned(t):
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             f"aligned (pointer {t.data_ptr():#x}, strides "
+                             f"{t.stride()} of {t.element_size()} bytes)")
     return B, H, Hkv, Sq, Skv, hd
+
+
+def _aligned(t) -> bool:
+    """The pointer and the batch, head and row strides (of dims longer than
+    1) are multiples of 16 bytes, as the kernel's 16-byte copies need."""
+    return t.data_ptr() % 16 == 0 and all(
+        t.stride(i) * t.element_size() % 16 == 0
+        for i in range(3) if t.shape[i] > 1)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):

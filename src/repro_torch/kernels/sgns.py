@@ -24,10 +24,13 @@ three CUDA sources:
 * :func:`scatter_add_rows` replaces ``scatter_add_rows`` (``table[idx[p]]
   += upd[p]`` in position order, in place) and
   :func:`scatter_add_rows_rowwise` its one-row-per-grid-step reference
-  ``scatter_add_rows_rowwise``. Both launch ``csrc/scatter_rows.cu``: a
-  block per 8 columns that sorts a chunk's ids on chip and gives each run
-  of equal ids to one group of lanes (:func:`plan_scatter` cuts the
-  chunks), or one thread per column walking every position in order.
+  ``scatter_add_rows_rowwise``. Both launch ``csrc/scatter_rows.cu``, a
+  block per 8 columns over chunks of positions staged in shared memory:
+  one sorts a chunk's ids on chip and gives each run of equal ids to one
+  group of lanes (:func:`plan_scatter` cuts the chunks); the other links
+  each position to its row's previous one by an equality scan and walks
+  every position in order, one thread per column
+  (:func:`plan_scatter_rowwise`).
 
 A tensor on the CPU takes the plain version (``*_plain``); a tensor on the
 card goes to the kernel or the call raises. The plain versions compute the
@@ -52,8 +55,10 @@ LAUNCHES = {"gather_rows": 0, "gather_rows_rowwise": 0, "sgns_grads": 0,
 
 SMEM_PER_BLOCK = 232_448          # H100: 227 KB of dynamic shared memory
 GRAD_TILE_ROWS = 16               # minibatch rows per tile-gradients block
-SCATTER_COLS = 8                  # columns per sorted-scatter block
+SCATTER_COLS = 8                  # columns per scatter block (#9, #10)
 SCATTER_MAX_POSITIONS = 1024      # positions per chunk: one per thread
+SCATTER_ROWWISE_SMEM = 96 << 10   # shared memory of a full row-wise chunk
+SCATTER_ROWWISE_MAX_POSITIONS = 2048   # the row-wise kernel's staging
 _TABLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -479,6 +484,20 @@ def plan_scatter(B: int, d: int, table_itemsize: int,
                            P, table_itemsize, upd_itemsize))
 
 
+def plan_scatter_rowwise(table_itemsize: int, upd_itemsize: int) -> int:
+    """Positions per chunk of the row-wise scatter: as many as fit
+    ``SCATTER_ROWWISE_SMEM``, a multiple of 32, at most
+    ``SCATTER_ROWWISE_MAX_POSITIONS`` (the kernel's staging limit): 1280 at
+    f32, 1632 for a bf16 table with f32 updates, 2048 at bf16. A position
+    takes ``SCATTER_COLS`` columns of the update and of the table, and its
+    id, previous occurrence and last-occurrence flag (``rowwise_smem`` in
+    ``csrc/scatter_rows.cu``, which cuts B into these chunks and launches
+    one after another; one at the trainer's sizes)."""
+    per = SCATTER_COLS * (table_itemsize + upd_itemsize) + 12
+    return min(SCATTER_ROWWISE_MAX_POSITIONS,
+               SCATTER_ROWWISE_SMEM // per // 32 * 32)
+
+
 def scatter_add_rows(table, idx, upd):
     """``table[idx[p]] += upd[p]`` in place, in position order.
 
@@ -510,9 +529,11 @@ def scatter_add_rows(table, idx, upd):
 
 
 def scatter_add_rows_rowwise(table, idx, upd):
-    """:func:`scatter_add_rows` with no sort: one thread per column walks
-    every position in order. Slow by design; the reference the sorted
-    scatter is held against bitwise. Arguments as there."""
+    """:func:`scatter_add_rows` with no sort and no run walk: one thread per
+    column walks every position in order, each position linked to its
+    row's previous one by an equality scan of the chunk's ids
+    (:func:`plan_scatter_rowwise`). The reference the sorted scatter is
+    held against bitwise. Arguments as there."""
     if table.device.type == "cpu":
         return scatter_add_rows_rowwise_plain(table, idx, upd)
     B, d, upd_f32 = _check_scatter_args("scatter_add_rows_rowwise", table,
@@ -520,12 +541,13 @@ def scatter_add_rows_rowwise(table, idx, upd):
     if B == 0:
         return table
     idx = idx.contiguous()
+    P = plan_scatter_rowwise(table.element_size(), upd.element_size())
     lib = build.library("scatter_rows")
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         rc = lib.scatter_add_rows_rowwise(_TABLE_DTYPES[table.dtype], upd_f32,
                                           table.data_ptr(), idx.data_ptr(),
-                                          upd.data_ptr(), B, d, stream)
+                                          upd.data_ptr(), B, d, P, stream)
     build.check(rc, "scatter_add_rows_rowwise")
     LAUNCHES["scatter_add_rows_rowwise"] += 1
     return table

@@ -69,7 +69,7 @@ def check_family(cfg: ModelConfig) -> None:
     if other:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(other)} not ported to PyTorch yet "
-            f"(ROADMAP.md, Queue 1 item 3)")
+            f"(ROADMAP.md, Queue 1 item 8)")
 
 
 # --------------------------------------------------------------------------

@@ -414,6 +414,37 @@ def test_scatter_kernel_over_several_chunks(card, dtype, upd_dtype):
         assert sgns.LAUNCHES[name] == before[name] + 1
 
 
+@pytest.mark.parametrize("dtype,upd_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)], ids=["f32", "bf16-f32upd", "bf16"])
+def test_scatter_rowwise_kernel_over_its_own_chunks(card, dtype, upd_dtype):
+    """#10 with B = 3 P + 7 positions for its own planned chunk P (four of
+    its launches in one call) and a 100-position hub run across those chunk
+    edges, bitwise against plain and the sorted kernel (#9)."""
+    d = 128
+    sizes = (torch.empty(0, dtype=dtype).element_size(),
+             torch.empty(0, dtype=upd_dtype).element_size())
+    P = sgns.plan_scatter_rowwise(*sizes)
+    B = 3 * P + 7
+    rng = np.random.default_rng(43)
+    idx = rng.integers(0, 700, B)
+    idx[rng.choice(B, 100, replace=False)] = 9      # the hub row's run
+    idx = torch.from_numpy(idx.astype(np.int32)).to(card)
+    table = torch.from_numpy(rng.normal(0, 1, (700, d)).astype(np.float32)
+                             ).to(card, dtype)
+    upd = torch.from_numpy(rng.normal(0, 3e-3, (B, d)).astype(np.float32)
+                           ).to(card, upd_dtype)
+    before = dict(sgns.LAUNCHES)
+    ref = sgns.scatter_add_rows_rowwise(table.clone(), idx, upd)
+    got = sgns.scatter_add_rows(table.clone(), idx, upd)
+    want = sgns.scatter_add_rows_plain(table.clone(), idx, upd)
+    torch.cuda.synchronize()
+    assert torch.equal(ref, want) and torch.equal(got, want)
+    assert not torch.equal(ref[9], table[9])
+    for name in ("scatter_add_rows", "scatter_add_rows_rowwise"):
+        assert sgns.LAUNCHES[name] == before[name] + 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_gather_rowwise_matches_blocked_bitwise(card, dtype):
@@ -491,6 +522,10 @@ FLASH_CASES = [  # B, H, Hkv, Sq, Skv, hd, causal, window
     (1, 2, 1, 100, 40, 64, True, 8),     # rows with no valid key, ragged
     (1, 4, 2, 33, 97, 128, True, 0),     # GQA, Sq < Skv, ragged, hd 128
     (2, 8, 2, 300, 300, 64, True, 50),   # granite's grouping, window
+    # hd 128 and hd 8 with Sq, Skv not multiples of the 64-row/64-key tiles
+    (2, 4, 2, 201, 77, 128, False, 0), (1, 4, 1, 150, 230, 128, True, 0),
+    (1, 2, 2, 190, 190, 128, True, 70), (2, 4, 2, 131, 259, 8, False, 0),
+    (1, 8, 4, 257, 257, 8, True, 0), (1, 2, 1, 100, 40, 8, True, 8),
 ]
 
 
@@ -528,6 +563,24 @@ def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(card):
         args = {"q": q, "k": k, **bad}
         with pytest.raises(ValueError):
             fa.flash_attention(args["q"], args["k"], args["k"])
+
+
+def test_flash_wrapper_raises_on_unaligned_views(card):
+    """The kernel copies 16 bytes at a time: a view whose pointer or row
+    stride is not a multiple of 16 bytes raises before any launch."""
+    from repro_torch.kernels import flash_attention as fa
+
+    k = torch.zeros((1, 2, 8, 64), device=card)
+    before = fa.LAUNCHES["flash_attention"]
+    for q in (torch.zeros((1, 4, 8, 68), device=card)[..., 1:65],  # pointer
+              torch.zeros((1, 4, 8, 65), device=card)[..., :64]):  # rows
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention(q, k, k)
+    kb = torch.zeros((1, 2, 8, 68), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(kb[..., :64].new_zeros((1, 4, 8, 64)), kb[..., :64],
+                           kb[..., :64])                       # 136-byte rows
+    assert fa.LAUNCHES["flash_attention"] == before
 
 
 def test_lm_prefill_routes_agree_on_card(card):

@@ -187,6 +187,104 @@ def test_scatter_chunked_matches_jax_kernels_bitwise(dtype, upd_dtype, cuts,
         np.testing.assert_array_equal(_bits(tt), _bits(want))
 
 
+def _bf16_round(x):
+    """f32 -> the nearest bf16 value (ties to even), as f32."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7fff) + ((u >> 16) & np.uint32(1))) & np.uint32(
+        0xffff0000)
+    return u.view(np.float32)
+
+
+def _rowwise_feed_model(table, idx, upd, P, bf16):
+    """#10's kernel on numpy f32 arrays (bf16 values held as f32): per chunk
+    of P positions, every row slice staged before any write, ``prev[p]``
+    (the latest earlier position with the same id, or -1) from an equality
+    scan of the chunk's ids, the walk ``r[p] = add(prev[p] < 0 ? staged[p]
+    : r[prev[p]], u[p])`` in position order with one rounding to the
+    table's dtype per position, and each row written back once, from its
+    last position."""
+    rnd = _bf16_round if bf16 else (lambda x: x)
+    t = table.copy()
+    for lo in range(0, len(idx), P):
+        ids, u = idx[lo:lo + P], rnd(upd[lo:lo + P])
+        n = len(ids)
+        earlier = np.tril(ids[:, None] == ids[None, :], -1)   # q < p, same id
+        prev = np.where(earlier.any(axis=1),
+                        n - 1 - np.argmax(earlier[:, ::-1], axis=1), -1)
+        r = t[ids]                                 # staged: a copy
+        for p in range(n):
+            r[p] = rnd((r[p] if prev[p] < 0 else r[prev[p]]) + u[p])
+        last = np.ones(n, bool)
+        last[prev[prev >= 0]] = False
+        t[ids[last]] = r[last]
+    return t
+
+
+def _plain_scatter_case(dtype, upd_dtype, idx, N, d, seed):
+    """(numpy f32 table, numpy f32 updates, the plain version's result as
+    f32): one numpy-seeded case in the given dtypes."""
+    rng = np.random.default_rng(seed)
+    tt = torch.from_numpy(rng.normal(0, 1, (N, d)).astype(np.float32)).to(
+        TDT[dtype])
+    tu = torch.from_numpy(rng.normal(0, 3e-3, (len(idx), d)).astype(
+        np.float32)).to(TDT[upd_dtype])
+    table, upd = tt.float().numpy().copy(), tu.float().numpy().copy()
+    want = sgns.scatter_add_rows_plain(tt, torch.from_numpy(idx), tu)
+    return table, upd, want.float().numpy()
+
+
+@pytest.mark.parametrize("dtype,upd_dtype", [
+    ("float32", "float32"), ("bfloat16", "float32"),
+    ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("case", ["nodup", "same", "dup", "hub", "plan"])
+def test_rowwise_feed_model_matches_plain_bitwise(dtype, upd_dtype, case):
+    """#10's new feed (chunks, ``prev`` links, the in-order walk over staged
+    rows, last-occurrence write-back) is the plain version bit for bit: the
+    route cases in 8-position chunks; a 100-position hub run across the
+    edges of 64-position chunks (B = 3 * 64 + 7); and B = 3 P + 7 at the
+    chunk the plan gives for these dtypes, with a hub run of 100."""
+    rng = np.random.default_rng(23)
+    if case in ("nodup", "same", "dup"):
+        N, d, P = 40, 64, 8
+        idx = _scatter_ids(case, 30, N, rng)
+    else:
+        N, d = 500, 16
+        P = 64 if case == "hub" else sgns.plan_scatter_rowwise(
+            _itemsize(dtype), _itemsize(upd_dtype))
+        B = 3 * P + 7
+        idx = rng.integers(0, N, B)
+        idx[rng.choice(B, 100, replace=False)] = 7
+    idx = idx.astype(np.int32)
+    table, upd, want = _plain_scatter_case(dtype, upd_dtype, idx, N, d,
+                                           seed=len(case))
+    got = _rowwise_feed_model(table, idx, upd, P, bf16=dtype == "bfloat16")
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert not np.array_equal(got, table)
+
+
+@pytest.mark.parametrize("dtype,upd_dtype", [
+    ("float32", "float32"), ("bfloat16", "float32"),
+    ("bfloat16", "bfloat16")])
+def test_scatter_rowwise_plan_covers_each_position_once_and_fits(dtype,
+                                                                 upd_dtype):
+    """#10's chunk of P positions: a multiple of 32 within the kernel's
+    position limit, a full chunk's block (P rows of 8 update and 8 table
+    columns, three ints a position) within its shared-memory budget and
+    the next multiple of 32 over it, and one chunk (one launch) at the
+    trainer's B = 256 + 5. The chunks the kernel cuts from it cover each
+    position once, in order: ``test_rowwise_feed_model_matches_plain_bitwise``
+    walks them."""
+    ti, ui = _itemsize(dtype), _itemsize(upd_dtype)
+    P = sgns.plan_scatter_rowwise(ti, ui)
+    per = sgns.SCATTER_COLS * (ti + ui) + 12
+    assert P % 32 == 0
+    assert 261 <= P <= sgns.SCATTER_ROWWISE_MAX_POSITIONS
+    assert P * per <= sgns.SCATTER_ROWWISE_SMEM
+    assert (P == sgns.SCATTER_ROWWISE_MAX_POSITIONS
+            or (P + 32) * per > sgns.SCATTER_ROWWISE_SMEM)
+    assert P == {(4, 4): 1280, (2, 4): 1632, (2, 2): 2048}[ti, ui]
+
+
 def test_scatter_add_rows_plain_rounds_each_position():
     """Two bf16 adds of half a step each leave the row where it was (each
     rounds back to even); one add of their f32 sum would move it."""
