@@ -16,8 +16,15 @@ failure ends the run with a non-zero exit:
    seeded continuous 26,250,000 x 128 bf16 table (one
    card's share of the paper's 1.05 B nodes over 40 GPUs) served through
    ``ShardedEmbeddingStore.topk``, exact and int8, checked at recall 1.0
-   against the plain scan; kernel, plain and library times beside the
-   bound;
+   against the plain scan; the exact scan's tensor-core scores (its
+   test-only export) within a quarter of their error bound on the first
+   1,048,576 rows and on adversarial rows, and the share of pairs its
+   filter passes on to the exact score; kernel, plain and library times
+   beside the bound (for the exact scan the bf16 tensor-core and bytes
+   bounds it runs at, the f32 CUDA-core one beside them), and the exact
+   scan at the launcher's batch shape (1,048,576 rows, 8 queries) beside
+   ``torch.topk``, and with those 8 padded by zero queries to the 256 rows
+   the launcher sends;
 3. the serving main path: a seeded 1,048,576 x 128 bf16 checkpoint written
    with the port's ``save_checkpoint``; every serving kernel against its
    plain version on that table and the launcher's own queries, at the
@@ -47,7 +54,8 @@ failure ends the run with a non-zero exit:
    touches, and the full-table launch bitwise against that copy), a few
    episodes timed per route (edges/s) and one of each kernel route under
    the profiler, and one launch of each kernel timed beside its bound,
-   its plain version and its library call;
+   its plain version and its library call; ``sgns_fused_update`` checked
+   to be one device kernel per call;
 6. the training main path: ``repro_torch.launch.train.main`` on the CI
    gate schedule at d = 128 (an SBM graph, AUC >= 0.62) and at the
    config's geometry (a 262,144-node power-law graph, minibatch 256, 5
@@ -673,6 +681,14 @@ def per_card_training(torch, sgns, dev, time_ms, wall_ms, call_kernels,
     library = time_ms(lambda: ctx.index_add_(0, icn.long(), upd), 50)
     # one launch per call and nothing else on the device: the ids are
     # sorted on chip, not by torch.sort
+    calls = call_kernels(lambda: sgns.sgns_fused_update(
+        vj, ctx, iv, ic, idx_n, mask, lr))
+    if len(calls) != 1 or len(next(iter(calls))) != 1 or (
+            "sgns_update_fused" not in next(iter(calls))[0]):
+        raise AssertionError(f"sgns_fused_update at the per-card minibatch "
+                             f"launched {calls}, not one sgns_update_fused")
+    print(f"sgns_fused_update at the per-card minibatch: one device kernel "
+          f"per call ({next(iter(calls))[0][:60]})")
     calls = call_kernels(lambda: sgns.scatter_add_rows(ctx, icn, upd))
     if len(calls) != 1 or len(next(iter(calls))) != 1 or (
             "scatter_sorted" not in next(iter(calls))[0]):
@@ -711,6 +727,48 @@ def per_card_training(torch, sgns, dev, time_ms, wall_ms, call_kernels,
           f"ms/launch, {wall_ms(lambda: sgns.gather_rows(vj, iv), 50):.4f} "
           f"ms wall")
     return recs
+
+
+def check_filter_bound(torch, tk, shard, q, dev):
+    """#1's tensor-core scores (the kernel's test-only export) within a
+    quarter of their error bound of the exact scores: on the first
+    1,048,576 rows of the per-card table against its queries, and on rows
+    built against each term of the bound (cancellation, magnitudes over
+    2^-30..2^30, rows along the queries' bf16 rounding error, f32 entries
+    halfway between bf16 values)."""
+    def worst(tbl, qq, what):
+        a, eps = tk.topk_filter_bounds(tbl, qq)
+        exact = qq @ tbl.float().T
+        ratio = ((a - exact).abs() / eps).max().item()
+        del a, eps, exact
+        torch.cuda.empty_cache()
+        if not ratio <= 0.25:
+            raise AssertionError(f"topk_scan_exact filter {what}: |a - s| "
+                                 f"reaches {ratio:.3g} eps (limit 0.25)")
+        return ratio
+
+    first = worst(shard[:CKPT_ROWS], q, f"{CKPT_ROWS} rows Q={q.shape[0]}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    qa = torch.randn((64, DIM), generator=g, device=dev)
+    qa[0] = (2.0 ** torch.randint(-4, 4, (DIM,), generator=g, device=dev)
+             ) * (1 + 2.0 ** -8 - 2.0 ** -20)          # the worst split
+    err = qa - qa.bfloat16().float()
+    alt = torch.where(torch.arange(DIM, device=dev) % 2 == 0, 1.0, -1.0)
+    sign = torch.randint(0, 2, (64, DIM), generator=g, device=dev) * 2.0 - 1
+    mid = (2.0 ** torch.randint(-6, 6, (64, DIM), generator=g, device=dev)
+           ) * (1 + 2.0 ** -8 - 2.0 ** -22)
+    rows = torch.cat([
+        (alt * 3e3).expand(64, DIM), alt * 1e4 * torch.sign(qa),
+        sign * 2.0 ** (60 * torch.rand((64, DIM), generator=g, device=dev)
+                       - 30),
+        torch.sign(err) * 7.0,
+        5.0 * err / err.norm(dim=1, keepdim=True).clamp_min(1e-30),
+        mid * sign, mid * torch.sign(qa)]).contiguous()
+    adv = [worst(rows.to(dt), qa, f"adversarial rows {dt}")
+           for dt in (torch.float32, torch.bfloat16)]
+    print(f"topk_scan_exact filter bound: max |a - s| / eps {first:.4g} on "
+          f"{CKPT_ROWS} rows x {q.shape[0]} queries, {max(adv):.4g} on "
+          f"adversarial rows (f32 and bf16 tables); limit 0.25")
 
 
 def attention_pairs(Sq, Skv, causal, window) -> int:
@@ -1246,6 +1304,22 @@ def main() -> int:
         return total / reps
 
     n_rows, Qn, d = SERVE_ROWS, BATCH, DIM
+    # #1's filter: the pairs it passes on to the exact chain at this shape
+    survivors = torch.zeros(1, dtype=torch.int64, device=dev)
+    check_pair("topk_scan_exact",
+               tk.topk_mips(shard, q, K, survivors=survivors), (pv, pi),
+               f"{SERVE_ROWS} rows Q={BATCH} (counted)")
+    n_surv = survivors.item()
+    print(f"topk_scan_exact filter at {SERVE_ROWS} x {DIM} bf16, Q={BATCH}, "
+          f"k={K}: {n_surv} of {Qn * n_rows} pairs rescored exactly "
+          f"({100 * n_surv / (Qn * n_rows):.4f} %)")
+    check_filter_bound(torch, tk, shard, q, dev)
+    # the bounds #1 runs at: its products once on the bf16 tensor cores,
+    # the survivors' chains on the f32 CUDA cores, the table read once
+    nbytes = n_rows * d * 2 + Qn * d * 4 + Qn * K * 8
+    tc_ms = 1e3 * (2.0 * Qn * n_rows * d / BF16_FLOP_PER_S
+                   + 2.0 * n_surv * d / FP32_FLOP_PER_S)
+    f32_bound = bound_ms(nbytes, 2.0 * Qn * n_rows * d)
     results = []
     rec = {
         "topk_scan_exact": dict(
@@ -1253,8 +1327,8 @@ def main() -> int:
             replaces="src/repro/embed_serve/topk.py:264",
             ms=time_ms(lambda: tk.topk_mips(shard, q, K), 5),
             plain_ms=time_ms(lambda: tk.topk_mips_plain(shard, q, K), 1),
-            bound=bound_ms(n_rows * d * 2 + Qn * d * 4 + Qn * K * 8,
-                           2.0 * Qn * n_rows * d)),
+            bound=max((1e3 * nbytes / HBM_BYTES_PER_S, "bytes"),
+                      (tc_ms, "operations"))),
         "topk_scan_int8": dict(
             source="src/repro_torch/kernels/csrc/topk_scan.cu",
             replaces="src/repro/embed_serve/topk.py:300",
@@ -1284,6 +1358,37 @@ def main() -> int:
         lambda: torch.topk(q @ tf.T, K), 2)
     del tf
     torch.cuda.empty_cache()
+    r = rec["topk_scan_exact"]
+    print(f"topk_scan_exact bounds at {SERVE_ROWS} x {DIM} bf16, Q={BATCH}: "
+          f"{r['bound'][0]:.4f} ms ({r['bound'][1]}; table bytes once "
+          f"{1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms, bf16 tensor cores "
+          f"{tc_ms:.4f} ms for one pass and the survivors), "
+          f"{f32_bound[0]:.4f} ms at the f32 CUDA-core rate; kernel "
+          f"{r['ms']:.3f} ms = {100 * r['bound'][0] / r['ms']:.1f} % of its "
+          f"bound")
+    # the launcher's batch shape: a 1,048,576-row table, 8 queries
+    small, q8b = shard[:CKPT_ROWS], q[:8].contiguous()
+    check_pair("topk_scan_exact", tk.topk_mips(small, q8b, K),
+               [t[:8] for t in tk.topk_mips_plain(small, q, K)],
+               f"{CKPT_ROWS} rows Q=8")
+    # and as the launcher sends it: padded with zero queries to its 256
+    qpad = torch.zeros((BATCH, DIM), device=dev)
+    qpad[:8] = q8b
+    check_pair("topk_scan_exact", tk.topk_mips(small, qpad, K),
+               tk.topk_mips_plain(small, qpad, K),
+               f"{CKPT_ROWS} rows Q=8 padded to {BATCH}")
+    tf = small.float()
+    launcher_ms = (time_ms(lambda: tk.topk_mips(small, q8b, K), 20),
+                   time_ms(lambda: torch.topk(q8b @ tf.T, K), 20),
+                   time_ms(lambda: tk.topk_mips(small, qpad, K), 10))
+    del tf
+    torch.cuda.empty_cache()
+    print(f"topk_scan_exact at the launcher's batch ({CKPT_ROWS} x {DIM} "
+          f"bf16, Q=8, k={K}): {launcher_ms[0]:.4f} device ms/launch, "
+          f"library (torch.topk(q @ T.float().T)) {launcher_ms[1]:.4f} ms, "
+          f"bytes bound {1e3 * CKPT_ROWS * DIM * 2 / HBM_BYTES_PER_S:.4f} "
+          f"ms; padded with zero queries to {BATCH} as the launcher sends "
+          f"it: {launcher_ms[2]:.4f} ms")
     qf = q8.float()
     rec["topk_scan_int8"]["library_ms"] = time_ms(
         lambda: torch.topk((q @ qf.T) * sc, m), 2)

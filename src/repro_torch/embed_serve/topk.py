@@ -1,10 +1,11 @@
-"""Exact MIPS top-k over one table shard: the CUDA scan and its plain versions.
+"""Exact MIPS top-k over one table shard: CUDA scans and their plain versions.
 
 Counterpart of the JAX package's ``embed_serve/topk.py``. Two wrappers
 launch one CUDA source, ``kernels/csrc/topk_scan.cu``:
 
 * :func:`topk_mips` replaces the TPU kernel ``topk_mips`` (f32 or bf16
-  table);
+  table): approximate scores on the tensor cores filter the pairs, and
+  only the survivors are scored exactly (:func:`plan_topk_filter`);
 * :func:`topk_mips_quant` replaces ``topk_mips_quant`` (int8 table with
   per-row scales, the first pass of the two-tier scan in ``quant``).
 
@@ -26,11 +27,16 @@ Exactness: scores are f32 (tables widened before the dot, queries kept in
 f32), and selection follows one total order, score descending and then row
 ascending, the order of the numpy oracle's stable argsort. Invalid
 positions (rows >= ``valid``, unfilled slots) carry ``(-inf, int32 max)``.
+The filter of :func:`topk_mips` drops a pair only when its approximate
+score plus the error bound of :func:`topk_filter_bounds_plain` is below the
+k-th exact score found so far, so the result stays the exact one bit for
+bit.
 
-Bound on an H100 (the kernel's own note has the design): the scan does
-2*Q*N*d f32 FMA-operations on the CUDA cores against N*d*itemsize table
-bytes, so at the serving widths it is bound by operations (67 TFLOP/s f32)
-rather than bytes (3.35 TB/s).
+Bound on an H100 (the kernel's own note has the design): 2*Q*N*d
+operations against N*d*itemsize table bytes. At the serving widths the
+exact scan is bound by the table's bytes (3.35 TB/s) once its products run
+on the bf16 tensor cores (989 TFLOP/s); the int8 scan still runs them on
+the f32 CUDA cores (67 TFLOP/s).
 """
 from __future__ import annotations
 
@@ -47,8 +53,12 @@ IDX_SENTINEL = 2**31 - 1          # int32 max
 LAUNCHES = {"topk_scan_exact": 0, "topk_scan_int8": 0, "topk_rowwise": 0}
 
 SMEM_PER_BLOCK = 232_448          # H100: 227 KB of dynamic shared memory
-SCAN_THREADS = 256                # rows per tile == threads per scan block
-QUERY_BLOCKS = (8, 16, 32, 64)    # compiled query-block sizes (BQ)
+SCAN_THREADS = 256                # rows per tile == threads per int8 block
+QUERY_BLOCKS = (8, 16, 32, 64)    # compiled int8 query-block sizes (BQ)
+FILTER_WARPS = 8                  # warps of a filter-scan block
+FILTER_WIDTHS = (32, 64, 128, 256)   # compiled widths d is padded to
+FILTER_QUEUE = 32                 # survivors a filter warp queues
+FILTER_SEED = 16                  # lower bounds a warp seeds a query from
 MERGE_WARPS = 4                   # queries per merge block
 SMEM_STATIC = 49_152              # static shared memory of one block
 ROWWISE_ROW_TILE = 128            # rows per rowwise score block
@@ -59,7 +69,7 @@ ROWWISE_SELECT_CAP = 2048         # candidates a selection block sorts
 ROWWISE_SELECT_BINS = 2048        # radix histogram bins (11-bit digits)
 ROWWISE_K_MAX = ROWWISE_SELECT_CAP // 2
 PLAIN_CHUNK_ELEMS = 1 << 26       # (Q, chunk) scores per plain-scan step
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # --------------------------------------------------------------------------
@@ -113,6 +123,77 @@ def plan_topk_scan(Q: int, d: int, k: int, valid: int, *,
     rows = -(-per_split // SCAN_THREADS) * SCAN_THREADS
     return ScanPlan(bq=bq, splits=-(-valid // rows), rows_per_split=rows,
                     smem_bytes=smem)
+
+
+@dataclasses.dataclass(frozen=True)
+class FilterPlan:
+    """Launch geometry of one filter scan (:func:`topk_mips`): d padded to
+    ``width``; ``query_tiles`` 8-query MMA tiles per warp; ``qw`` query
+    groups per block of ``FILTER_WARPS`` warps (``bq`` queries a block,
+    ``qblocks`` blocks across the queries); row tiles of ``tile_rows``;
+    ``splits`` row ranges of ``rows_per_split`` rows; ``row_groups`` warps
+    that see each query in a block (they share its list); whether the
+    block's lists fit in shared memory (``lists_on_chip``, else they live
+    in the partial output); the dynamic shared memory of a block."""
+
+    width: int
+    query_tiles: int
+    qw: int
+    bq: int
+    tile_rows: int
+    qblocks: int
+    splits: int
+    rows_per_split: int
+    row_groups: int
+    lists_on_chip: bool
+    smem_bytes: int
+
+
+def plan_topk_filter(Q: int, d: int, k: int, valid: int, itemsize: int, *,
+                     sm_count: int = 132) -> FilterPlan:
+    """Geometry from the shapes alone.
+
+    d is padded to the smallest compiled width; a warp holds 8 * NT
+    queries (NT = min(8, 32 / (width / 16)), so their fragments take at
+    most 64 registers) and a block as few query groups (1, 2, 4, 8) as
+    hold Q, the other warps splitting each tile's rows. One block per SM:
+    the rows are cut into as many splits as leave one block per SM, each a
+    whole number of tiles. Raises ``ValueError`` for d past the widest
+    compiled width or k past what the merge's shared memory holds.
+    """
+    if d % 8:
+        raise ValueError(f"the scan kernel needs d % 8 == 0, got d={d}")
+    if k < 1 or valid < 1 or Q < 1:
+        raise ValueError(f"need k, valid, Q >= 1 (got {k}, {valid}, {Q})")
+    if d > FILTER_WIDTHS[-1]:
+        raise ValueError(f"the filter scan takes d <= {FILTER_WIDTHS[-1]}, "
+                         f"got d={d}")
+    if 8 * MERGE_WARPS * k > SMEM_PER_BLOCK:
+        raise ValueError(f"k={k} does not fit the merge's shared memory "
+                         f"(largest k: {SMEM_PER_BLOCK // (8 * MERGE_WARPS)})")
+    width = next(w for w in FILTER_WIDTHS if w >= d)
+    nt = min(8, 32 // (width // 16))
+    per_warp = 8 * nt
+    qw = 1
+    while qw < FILTER_WARPS and qw * per_warp < Q:
+        qw *= 2
+    bq = qw * per_warp
+    tile = 64 if itemsize * width > 512 else 128
+    qblocks = -(-Q // bq)
+    splits = max(1, min(-(-valid // tile), sm_count // qblocks))
+    rows = -(-(-(-valid // splits)) // tile) * tile
+    splits = -(-valid // rows)
+    smem = (2 * tile * (width + 16 // itemsize) * itemsize + 8 * bq
+            + 4 * (3 * bq + FILTER_WARPS * per_warp * (FILTER_SEED + 1)
+                   + tile)
+            + 8 * FILTER_WARPS * FILTER_QUEUE + 4 * FILTER_WARPS)
+    lists = 8 * bq * k
+    on_chip = smem + lists <= SMEM_PER_BLOCK
+    return FilterPlan(width=width, query_tiles=nt, qw=qw, bq=bq,
+                      tile_rows=tile, qblocks=qblocks, splits=splits,
+                      rows_per_split=rows, row_groups=FILTER_WARPS // qw,
+                      lists_on_chip=on_chip,
+                      smem_bytes=smem + lists * on_chip)
 
 
 # --------------------------------------------------------------------------
@@ -179,6 +260,40 @@ def topk_mips_plain(table, queries, k: int, valid: int | None = None):
 # the rowwise kernel computes the same function as the scan
 topk_mips_rowwise_plain = topk_mips_plain
 
+# the error allowance of the filter's bound (topk_scan.cu's note): the
+# safety factor, the tensor cores' accumulation (d 2^-20) and the exact
+# chain's (2 d 2^-24) per unit of d, and the floors of E'_q and n'_r
+FILTER_SAFETY = 8.0
+FILTER_ACC_PER_D = 2.0 ** -20 + 2.0 * 2.0 ** -24
+FILTER_FLOOR = 2.0 ** -40
+
+
+def topk_filter_bounds_plain(table, queries):
+    """The filter's approximate scores and error bounds, plainly.
+
+    Returns ``(a, eps)``, each (Q, N) f32: ``a`` the split-operand dot
+    ``bf16(q) . bf16(row)`` (exact in f64, then rounded), ``eps`` the
+    bound E'_q * n'_r of the kernel's note, with E_q = 8 (||q - bf16(q)||
+    + ||q|| (rho_t + 2 d 2^-24 + d 2^-20)), rho_t = 0 for a bf16 table and
+    2^-8 for an f32 one, n_r the norm of the row's bf16 values (of its f32
+    values for an f32 table) and 2^-40 added to both (E' = 0 for a zero
+    query, whose scores are exactly 0). The exact score
+    differs from ``a`` by at most ``eps`` (by at most ``eps / 4`` as the
+    card checks it)."""
+    q = queries.double()
+    qb = queries.float().bfloat16().double()
+    tb = table.float().bfloat16().double()
+    d = table.shape[1]
+    rho_t = 0.0 if table.dtype == torch.bfloat16 else 2.0 ** -8
+    nq = torch.linalg.vector_norm(q, dim=1)
+    e = FILTER_SAFETY * (torch.linalg.vector_norm(q - qb, dim=1)
+                         + nq * (rho_t + d * FILTER_ACC_PER_D)) + FILTER_FLOOR
+    # a zero query scores every finite row +0 exactly, both ways
+    e = torch.where(nq > 0, e, 0.0)
+    rows = tb if table.dtype == torch.bfloat16 else table.double()
+    n = torch.linalg.vector_norm(rows, dim=1) + FILTER_FLOOR
+    return (qb @ tb.T).float(), (e[:, None] * n[None, :]).float()
+
 
 def topk_mips_quant_plain(qtable, scales, queries, m: int,
                           valid: int | None = None):
@@ -219,13 +334,14 @@ def _check_cuda_scan(table, queries, scales, quant: bool) -> None:
                          f"float32 tensor on {table.device}")
 
 
-def _launch_scan(kind: str, table, scales, queries, k: int, valid: int):
-    """Run the two-phase scan kernel; returns ((Q, k) f32, (Q, k) i32)."""
-    N, d = table.shape
+def _launch_scan_int8(qtable, scales, queries, k: int, valid: int):
+    """Run the int8 scan kernel and the merge; returns ((Q, k) f32, (Q, k)
+    i32)."""
+    N, d = qtable.shape
     if not 0 < valid <= N:
         raise ValueError(f"valid={valid} outside (0, {N}]")
     Q = queries.shape[0]
-    dev = table.device
+    dev = qtable.device
     out_v = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
@@ -238,36 +354,113 @@ def _launch_scan(kind: str, table, scales, queries, k: int, valid: int):
     lib = build.library("topk_scan")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.topk_scan_partials(
-            _DTYPE_CODES[table.dtype], plan.bq, table.data_ptr(),
-            None if scales is None else scales.data_ptr(),
+        rc = lib.topk_scan_int8(
+            plan.bq, qtable.data_ptr(), scales.data_ptr(),
             queries.data_ptr(), Q, d, valid, k, plan.rows_per_split,
             plan.splits, part_v.data_ptr(), part_i.data_ptr(), stream)
-        build.check(rc, f"{kind} (partials)")
+        build.check(rc, "topk_scan_int8 (partials)")
         rc = lib.topk_scan_merge(part_v.data_ptr(), part_i.data_ptr(), Q,
                                  plan.splits, k, out_v.data_ptr(),
                                  out_i.data_ptr(), stream)
-        build.check(rc, f"{kind} (merge)")
-    LAUNCHES[kind] += 1
+        build.check(rc, "topk_scan_int8 (merge)")
+    LAUNCHES["topk_scan_int8"] += 1
     return out_v, out_i
 
 
-def topk_mips(table, queries, k: int, valid: int | None = None):
+def _filter_plan(table, queries, k: int, valid: int) -> FilterPlan:
+    N, d = table.shape
+    if not 0 < valid <= N:
+        raise ValueError(f"valid={valid} outside (0, {N}]")
+    if queries.data_ptr() % 16:
+        raise ValueError("topk_mips: queries must be 16-byte aligned")
+    return plan_topk_filter(
+        queries.shape[0], d, k, valid, table.element_size(),
+        sm_count=torch.cuda.get_device_properties(
+            table.device).multi_processor_count)
+
+
+def topk_mips(table, queries, k: int, valid: int | None = None, *,
+              survivors: torch.Tensor | None = None):
     """Exact-MIPS top-k of ``queries`` against one table shard.
 
-    table: (N, d) f32 or bf16 (scored in f32); queries: (Q, d) f32 on the
-    same device; rows >= ``valid`` are never returned. Returns ((Q, k) f32
-    scores, (Q, k) i32 shard-local row ids), sorted by (score desc, row
-    asc); when valid < k the tail is (-inf, int32 max). Replaces the TPU
-    kernel ``repro/embed_serve/topk.py::topk_mips``.
+    table: (N, d) f32 or bf16 (scored in f32; on the card d <= 256);
+    queries: (Q, d) f32 on the same device; rows >= ``valid`` are never
+    returned. Returns ((Q, k) f32 scores, (Q, k) i32 shard-local row ids),
+    sorted by (score desc, row asc); when valid < k the tail is (-inf,
+    int32 max). ``survivors``, a (1,) int64 tensor on the table's device,
+    receives the number of (query, row) pairs scored exactly (on the card
+    the filter's survivors, on the CPU every pair); it is for measurement,
+    and nothing waits on it. Replaces the TPU kernel
+    ``repro/embed_serve/topk.py::topk_mips``.
     """
     valid = table.shape[0] if valid is None else valid
     if table.device.type == "cpu":
+        if survivors is not None:
+            survivors.fill_(queries.shape[0] * valid)
         return topk_mips_plain(table, queries, k, valid)
     if table.device.type != "cuda":
         raise ValueError(f"topk_mips: unsupported device {table.device}")
     _check_cuda_scan(table, queries, None, quant=False)
-    return _launch_scan("topk_scan_exact", table, None, queries, k, valid)
+    Q, d = queries.shape
+    dev = table.device
+    out_v = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    if Q == 0:
+        if not 0 < valid <= table.shape[0]:
+            raise ValueError(f"valid={valid} outside (0, {table.shape[0]}]")
+        return out_v, out_i
+    plan = _filter_plan(table, queries, k, valid)
+    part_v = torch.empty((Q, plan.splits, k), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((Q, plan.splits, k), dtype=torch.int32, device=dev)
+    # int32: the pairs each block rescored, then each query's threshold
+    counts = torch.empty(plan.qblocks * plan.splits + Q, dtype=torch.int32,
+                         device=dev)
+    gtau = counts[plan.qblocks * plan.splits:]
+    lib = build.library("topk_scan")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.topk_filter_partials(
+            _DTYPE_CODES[table.dtype], plan.width, plan.qw, table.data_ptr(),
+            queries.data_ptr(), Q, d, valid, k, plan.rows_per_split,
+            plan.splits, part_v.data_ptr(), part_i.data_ptr(),
+            counts.data_ptr(), gtau.data_ptr(), stream)
+        build.check(rc, "topk_scan_exact (filter)")
+        rc = lib.topk_filter_merge(part_v.data_ptr(), part_i.data_ptr(),
+                                   gtau.data_ptr(), Q, plan.splits, k,
+                                   out_v.data_ptr(), out_i.data_ptr(), stream)
+        build.check(rc, "topk_scan_exact (merge)")
+    LAUNCHES["topk_scan_exact"] += 1
+    if survivors is not None:
+        survivors.copy_(counts[:plan.qblocks * plan.splits].sum(
+            dtype=torch.int64).reshape(1))
+    return out_v, out_i
+
+
+def topk_filter_bounds(table, queries, n: int | None = None):
+    """The filter's approximate scores and error bounds of rows [0, n)
+    against every query, as the kernel computes them: ((Q, n) f32 a,
+    (Q, n) f32 eps). For checking the bound on the card; a CPU table takes
+    :func:`topk_filter_bounds_plain`. Not a serving path."""
+    n = table.shape[0] if n is None else n
+    if table.device.type == "cpu":
+        return topk_filter_bounds_plain(table[:n], queries)
+    _check_cuda_scan(table, queries, None, quant=False)
+    plan = _filter_plan(table, queries, 1, n)
+    if -(-n // plan.tile_rows) > 65_535:
+        raise ValueError(f"topk_filter_bounds: n={n} rows need more than "
+                         f"65,535 row tiles of {plan.tile_rows}")
+    Q, d = queries.shape
+    a = torch.empty((Q, n), dtype=torch.float32, device=table.device)
+    eps = torch.empty_like(a)
+    lib = build.library("topk_scan")
+    with torch.cuda.device(table.device):
+        rc = lib.topk_filter_export(
+            _DTYPE_CODES[table.dtype], plan.width, plan.qw, table.data_ptr(),
+            queries.data_ptr(), Q, d, n, a.data_ptr(), eps.data_ptr(),
+            torch.cuda.current_stream(table.device).cuda_stream)
+    build.check(rc, "topk_filter_export")
+    return a, eps
 
 
 def topk_mips_quant(qtable, scales, queries, m: int,
@@ -285,7 +478,7 @@ def topk_mips_quant(qtable, scales, queries, m: int,
     if qtable.device.type != "cuda":
         raise ValueError(f"topk_mips_quant: unsupported device {qtable.device}")
     _check_cuda_scan(qtable, queries, scales, quant=True)
-    return _launch_scan("topk_scan_int8", qtable, scales, queries, m, valid)
+    return _launch_scan_int8(qtable, scales, queries, m, valid)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -34,10 +34,18 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # source name -> {C function: argtypes}; every function returns an int
 SIGNATURES = {
     "topk_scan": {
-        # dtype, bq, table, scales, queries, Q, d, valid, k,
-        # rows_per_split, splits, part_v, part_i, stream
-        "topk_scan_partials": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _P, _P, _P],
+        # dtype, width, qw, table, queries, Q, d, valid, k, rows_per_split,
+        # splits, part_v, part_i, counts, gtau, stream
+        "topk_filter_partials": [_I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _P, _P, _P, _P, _P],
+        # part_v, part_i, gtau, Q, splits, k, out_v, out_i, stream
+        "topk_filter_merge": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+        # dtype, width, qw, table, queries, Q, d, n, a, eps, stream
+        "topk_filter_export": [_I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
+        # bq, table, scales, queries, Q, d, valid, k, rows_per_split,
+        # splits, part_v, part_i, stream
+        "topk_scan_int8": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                           _P],
         # part_v, part_i, Q, splits, k, out_v, out_i, stream
         "topk_scan_merge": [_P, _P, _I, _I, _I, _P, _P, _P],
     },
@@ -53,11 +61,9 @@ SIGNATURES = {
     },
     "sgns_update": {
         # dtype, mask_bf16, vert, ctx, idx_v, idx_c, idx_n, mask, B, S, d,
-        # lr, bb, smem, ivs, perm_v, icns, perm_c, dv, dc, dn_part,
-        # loss_part, loss, stream
+        # lr, bb, blocks, smem, f32 scratch, int32 scratch, stream
         "sgns_fused_update": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _F, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _P, _P],
+                              _F, _I, _I, _I, _P, _P, _P],
         # dtype, mask_bf16, vert, ctx, idx_v, idx_c, idx_n, mask, B, S, d,
         # bb, smem, dv, dc, dn_part, loss_part, dn, loss, stream
         "sgns_fused_grads": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -17,23 +17,45 @@
 //
 // The TPU kernel is one sequential grid over a VMEM scratch: dn and the loss
 // accumulate from tile to tile and the apply runs at the last step. Hopper
-// blocks run in no order, so the work is two kernels on one stream:
+// blocks run in no order. The update is one cooperative launch,
+// sgns_update_fused, of nblk + 2 blocks or more (one warp per position for
+// the combine, as far as the SMs allow):
 //
-//   sgns_tile_grads      one block per bb minibatch rows: gathers its v and
-//                        c rows and all S negative rows into shared memory
-//                        as f32, computes the tile's scores and gradients,
-//                        writes dv and dc for its rows and its own (S, d) dn
-//                        partial and loss partial (no float atomics).
-//   sgns_combine_apply   one warp per run of equal indices in the sorted
-//                        index vectors (the host sorts them, stably, as the
-//                        JAX wrapper argsorts them outside the kernel). The
-//                        warp sums its run's gradients in sorted-position
-//                        order, reducing the dn partials of a negative
-//                        position in block order, reads the row (nothing has
-//                        written it yet: the pre-update value) and writes
-//                        the new value once. Each unique row has exactly one
-//                        owner, so there are no races and no atomics and a
-//                        run repeats bitwise.
+//   blocks [0, nblk)  the tile gradients (fused_tile_grads): one block per
+//                     bb minibatch rows gathers its v and c rows and all S
+//                     negative rows into shared memory as f32, computes the
+//                     tile's scores and gradients, writes dv and dc for its
+//                     rows and its own (S, d) dn partial and loss partial
+//                     (no float atomics). bb is half the unfused kernels'
+//                     (more blocks, less time each). The dot products'
+//                     reductions and sigmoid/softplus tails, and the
+//                     gather's loads, are issued several at a time.
+//   blocks nblk and   meanwhile sort the ids on chip, one side each (the
+//   nblk + 1          blocks past them wait): the B vertex positions; the
+//                     B + S context positions (idx_c ++ idx_n); each side
+//                     as keys id << 32 | position, bitonic-sorted in shared
+//                     memory, so equal ids keep their position order
+//                     (stable, as the JAX wrapper's argsort); a block scan
+//                     of the run heads gives each run of equal ids its
+//                     (start, end, id, first position).
+//   grid.sync()       one grid-wide barrier, which is why the launch is
+//                     cooperative: every block must be resident at once
+//                     (checked before the launch; the error is returned).
+//                     A "last block to arrive" counter would need a zeroed
+//                     word kept between calls and shared by every stream.
+//   all blocks        the combine: every warp of the grid takes runs in
+//                     turn. For each column a run's gradients are summed in
+//                     sorted-position order, a negative position's dn
+//                     partials in block order; 32 positions are fetched at
+//                     once and AHEAD positions' gradients are in flight at
+//                     once, so a hub row's run costs a round trip per AHEAD
+//                     positions, not per position; a negative's partials
+//                     are loaded PARTS at a time. The warp reads the row
+//                     (nothing has written it yet: the pre-update value)
+//                     and writes the new value once. Each unique row has
+//                     exactly one owner, so there are no races and no
+//                     atomics and a run repeats bitwise. Scratch written
+//                     before the barrier is read with __ldcg (at L2).
 //
 // sgns_fused_grads is sgns_tile_grads (gradients in the table's dtype) plus
 // sgns_reduce_partials, the fixed-order sum of the dn and loss partials.
@@ -45,13 +67,15 @@
 // Bound on an H100: bytes. A minibatch reads (2B + S) rows and writes the
 // unique ones (B = 256, S = 5, d = 128 f32: about 0.5 MB, 0.15 us at
 // 3.35 TB/s) and does about 6BSd + 4Bd operations (1.1 MFLOP, 0.02 us at the
-// 67 TFLOP/s f32 rate); sgns_grads reads and writes (2B + S) rows. Launch
-// and the host's sort dominate at that size; this design keeps every row
-// read once from device memory and the gradients in f32 scratch, and
-// leaves batching several minibatches into one launch to later work.
+// 67 TFLOP/s f32 rate); sgns_grads reads and writes (2B + S) rows. At that
+// size latency sets the time: a launch and the dependent round trips of the
+// update (ids, then rows, before the barrier; sorted positions, then
+// gradient rows, then table rows after it) put a floor of a few us under
+// it, far above the bytes bound.
 //
 // Row offsets are 64-bit: a 26.25 M x 128 f32 table is 13.4 GB, past 2^31
 // bytes. The kernels check no index bounds (as on the TPU).
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -213,58 +237,350 @@ __global__ void __launch_bounds__(THREADS)
   if (i == 0) *loss = sum_loss(loss_part, nblk);
 }
 
-// One warp per sorted position; the warp at the first position of a run
-// owns the run. Warps [0, B) cover the vertex side, [B, 2B + S) the
-// context side (idx_c ++ idx_n).
+// ---------------------------------------------------------------------------
+// sgns_fused_update: one cooperative launch
+// ---------------------------------------------------------------------------
+constexpr int AHEAD = 16;          // positions of a run loaded at once
+constexpr int PARTS = 16;          // dn partials of a negative loaded at once
+constexpr int COLS = 4;            // columns per lane per 128-column step
+constexpr int GATHER = 8;          // elements a thread gathers at once
+constexpr int DOTS = 8;            // dot products a warp reduces at once
+
+struct UpdateArgs {
+  void* vert;
+  void* ctx;
+  const int* idx_v;
+  const int* idx_c;
+  const int* idx_n;
+  const void* mask;
+  int mask_bf16, B, S, d, bb, nblk;
+  float neg_lr;
+  // scratch: f32 dv, dc (B, d), dn partials (nblk, S, d), loss partials
+  // (nblk,), the loss; int32 (start, end, id, first position) of each run,
+  // the sorted positions (2B + S), and the two sides' run counts
+  float* dv;
+  float* dc;
+  float* dn_part;
+  float* loss_part;
+  float* loss;
+  int4* info;
+  int* pos;
+  int* runs;
+};
+
+// sgns_tile_grads for block blk of the fused launch, gradients in f32: a
+// copy of that kernel's body (kept apart, so sgns_grads and
+// sgns_fused_grads keep their code), the same arithmetic in the same order.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    sgns_combine_apply(T* __restrict__ vert, T* __restrict__ ctx,
-                       const int* __restrict__ ivs,
-                       const long long* __restrict__ perm_v,
-                       const int* __restrict__ icns,
-                       const long long* __restrict__ perm_c,
-                       const float* __restrict__ dv,
-                       const float* __restrict__ dc,
-                       const float* __restrict__ dn_part,
-                       const float* __restrict__ loss_part, int nblk, int B,
-                       int S, int d, float neg_lr, float* __restrict__ loss) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) *loss = sum_loss(loss_part, nblk);
-  const int w = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  const int L = B + S;
-  if (w >= B + L) return;
-  const bool vside = w < B;
-  const int n = vside ? B : L;
-  const int j = vside ? w : w - B;
-  const int* sidx = vside ? ivs : icns;
-  const long long* perm = vside ? perm_v : perm_c;
-  const int row = sidx[j];
-  if (j > 0 && sidx[j - 1] == row) return;       // not the start of its run
-  int e = j + 1;
-  while (e < n && sidx[e] == row) ++e;
+__device__ void fused_tile_grads(const UpdateArgs& a, int blk, float* smem) {
+  const T* vsrc = static_cast<const T*>(a.vert);
+  const T* csrc = static_cast<const T*>(a.ctx);
+  const int S = a.S, d = a.d, bb = a.bb, B = a.B;
+  const int T1 = S + 1;
+  float* v_s = smem;
+  float* c_s = v_s + bb * d;
+  float* n_s = c_s + bb * d;
+  float* g_s = n_s + S * d;
+  float* l_s = g_s + bb * T1;
+  float* m_s = l_s + bb * T1;
+  const int row0 = blk * bb;
+  const int rows = min(bb, B - row0);
+  const long long dd = d;
+
+  // the gather: GATHER elements of v, c and n a thread at a time, every
+  // load of a step in flight at once (two round trips: ids, then rows)
+  for (int i0 = 0; i0 < bb * d || i0 < S * d; i0 += GATHER * THREADS) {
+    float v[GATHER], c[GATHER], n[GATHER];
+#pragma unroll
+    for (int u = 0; u < GATHER; ++u) {
+      const int i = i0 + u * THREADS + threadIdx.x;
+      const int r = i / d, k = i - r * d;
+      v[u] = c[u] = n[u] = 0.0f;
+      if (i < bb * d && r < rows) {
+        v[u] = to_f32(
+            vsrc[static_cast<long long>(a.idx_v[row0 + r]) * dd + k]);
+        c[u] = to_f32(
+            csrc[static_cast<long long>(a.idx_c[row0 + r]) * dd + k]);
+      }
+      if (i < S * d)
+        n[u] = to_f32(csrc[static_cast<long long>(a.idx_n[r]) * dd + k]);
+    }
+#pragma unroll
+    for (int u = 0; u < GATHER; ++u) {
+      const int i = i0 + u * THREADS + threadIdx.x;
+      if (i < bb * d) {
+        v_s[i] = v[u];
+        c_s[i] = c[u];
+      }
+      if (i < S * d) n_s[i] = n[u];
+    }
+  }
+  for (int r = threadIdx.x; r < bb; r += THREADS)
+    m_s[r] = r < rows ? load_mask(a.mask, a.mask_bf16, row0 + r) : 0.0f;
+  __syncthreads();
+
+  // scores: one warp per dot product, a fixed shuffle tree per dot (as in
+  // sgns_tile_grads), DOTS of a warp's dots reduced together; every lane
+  // then holds each total, and lane i computes dot i's sigmoid and softplus
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int q0 = warp; q0 < rows * T1; q0 += WARPS * DOTS) {
+    float acc[DOTS];
+#pragma unroll
+    for (int i = 0; i < DOTS; ++i) {
+      const int q = q0 + i * WARPS;
+      acc[i] = 0.0f;
+      if (q < rows * T1) {
+        const int r = q / T1, t = q - r * T1;
+        const float* x = v_s + r * d;
+        const float* y = t == 0 ? c_s + r * d : n_s + (t - 1) * d;
+        for (int k = lane; k < d; k += 32) acc[i] += x[k] * y[k];
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int i = 0; i < DOTS; ++i)
+        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+    }
+    float mine = acc[0];
+#pragma unroll
+    for (int i = 1; i < DOTS; ++i) mine = lane == i ? acc[i] : mine;
+    const int q = q0 + lane * WARPS;
+    if (lane < DOTS && q < rows * T1) {
+      const int r = q / T1, t = q - r * T1;
+      const float m = m_s[r];
+      if (t == 0) {
+        g_s[q] = (sigmoid_f32(mine) - 1.0f) * m;
+        l_s[q] = m * softplus_f32(-mine);
+      } else {
+        g_s[q] = sigmoid_f32(mine) * m;
+        l_s[q] = m * softplus_f32(mine);
+      }
+    }
+  }
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < rows * d; i += THREADS) {
+    const int r = i / d, k = i - r * d;
+    const float* g = g_s + r * T1;
+    float acc = g[0] * c_s[i];
+    for (int s = 0; s < S; ++s) acc += g[1 + s] * n_s[s * d + k];
+    const long long o = static_cast<long long>(row0 + r) * dd + k;
+    a.dv[o] = acc;
+    a.dc[o] = g[0] * v_s[i];
+  }
+  float* dn = a.dn_part + static_cast<long long>(blk) * S * dd;
+  for (int i = threadIdx.x; i < S * d; i += THREADS) {
+    const int s = i / d, k = i - s * d;
+    float acc = 0.0f;
+    for (int r = 0; r < rows; ++r) acc += g_s[r * T1 + 1 + s] * v_s[r * d + k];
+    dn[i] = acc;
+  }
+  if (threadIdx.x == 0) {
+    float acc = 0.0f;
+    for (int q = 0; q < rows * T1; ++q) acc += l_s[q];
+    a.loss_part[blk] = acc;
+  }
+}
+
+// A sorting block, one per side: side 0 sorts the B vertex positions,
+// side 1 the B + S context positions (idx_c ++ idx_n), as keys id << 32 |
+// position, bitonic-sorted ascending in shared memory: by id, equal ids by
+// position (stable). Writes the side's sorted positions at pos[base + i]
+// (base 0 for the vertex side, B for the context side) and, for each run
+// of equal ids, (base + start, base + end, id, first position) at
+// info[base + r], and its run count at runs[side].
+__device__ void sort_runs(const UpdateArgs& a, int side,
+                          unsigned long long* keys) {
+  __shared__ int wtotal[WARPS];
+  __shared__ int nruns;
+  const int B = a.B;
+  const int n = side ? B + a.S : B, base = side ? B : 0;
+  const int n2 = n > 1 ? 1 << (32 - __clz(n - 1)) : 1;
+  int* starts = reinterpret_cast<int*>(keys + n2);      // (n + 1,)
+  const int tid = threadIdx.x;
+  for (int i = tid; i < n2; i += THREADS) {
+    unsigned long long key = ~0ull;
+    if (i < n) {
+      const unsigned id = static_cast<unsigned>(
+          side == 0 ? a.idx_v[i] : i < B ? a.idx_c[i] : a.idx_n[i - B]);
+      key = static_cast<unsigned long long>(id) << 32 |
+            static_cast<unsigned>(i);
+    }
+    keys[i] = key;
+  }
+  __syncthreads();
+  for (int size = 2; size <= n2; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < n2 / 2; i += THREADS) {
+        // (i / stride) * 2 * stride + i % stride, stride a power of two
+        const int lo = 2 * i - (i & (stride - 1));
+        const unsigned long long x = keys[lo], y = keys[lo + stride];
+        if ((x > y) == ((lo & size) == 0)) {
+          keys[lo] = y;
+          keys[lo + stride] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  // run starts: thread t takes positions [t * pt, (t + 1) * pt); a block
+  // scan of the head counts places each thread's starts
+  const int pt = (n + THREADS - 1) / THREADS;
+  const int i0 = min(tid * pt, n);
+  const int i1 = min(i0 + pt, n);
+  int heads = 0;
+  for (int i = i0; i < i1; ++i) {
+    const unsigned long long k = keys[i];
+    heads += i == 0 || (keys[i - 1] >> 32) != (k >> 32);
+    a.pos[base + i] = static_cast<int>(k & 0xffffffffu);
+  }
+  const int warp = tid >> 5, lane = tid & 31;
+  int incl = heads;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) wtotal[warp] = incl;
+  __syncthreads();
+  int before = incl - heads;
+  for (int w = 0; w < warp; ++w) before += wtotal[w];
+  for (int i = i0; i < i1; ++i) {
+    if (i == 0 || (keys[i - 1] >> 32) != (keys[i] >> 32))
+      starts[before++] = i;
+  }
+  if (tid == THREADS - 1) {
+    starts[before] = n;        // the last thread's count is the total
+    nruns = before;
+    a.runs[side] = before;
+  }
+  __syncthreads();
+  for (int r = tid; r < nruns; r += THREADS) {
+    const int j = starts[r];
+    const unsigned long long k = keys[j];
+    a.info[base + r] = make_int4(base + j, base + starts[r + 1],
+                                 static_cast<int>(k >> 32),
+                                 static_cast<int>(k & 0xffffffffu));
+  }
+}
+
+// Blocks [0, nblk) compute the tile gradients while blocks nblk and nblk +
+// 1 sort (the blocks past them, there to give the combine a warp per run,
+// wait); one
+// grid-wide barrier; then every warp of the grid takes runs of the sorted
+// positions in turn and applies each run's summed update to its row once.
+template <typename T>
+__global__ void __launch_bounds__(THREADS) sgns_update_fused(
+    const UpdateArgs a) {
+  extern __shared__ __align__(16) unsigned char fsmem[];
+  const int nblk = a.nblk;
+  if (blockIdx.x < nblk)
+    fused_tile_grads<T>(a, blockIdx.x, reinterpret_cast<float*>(fsmem));
+  else if (blockIdx.x < nblk + 2)
+    sort_runs(a, blockIdx.x - nblk,
+              reinterpret_cast<unsigned long long*>(fsmem));
+  cooperative_groups::this_grid().sync();
+
+  // scratch written before the barrier is read at L2 (__ldcg), never
+  // through a possibly stale L1 line
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    float acc = __ldcg(a.loss_part);
+    for (int b = 1; b < nblk; ++b) acc += __ldcg(a.loss_part + b);
+    *a.loss = acc;
+  }
+  const int B = a.B, S = a.S, d = a.d;
   const long long dd = d;
   const long long sd = static_cast<long long>(S) * d;
-  T* dst = (vside ? vert : ctx) + static_cast<long long>(row) * dd;
-  for (int k = lane; k < d; k += 32) {
-    float acc = 0.0f;
-    for (int p = j; p < e; ++p) {
-      const long long q = perm[p];
-      float g;
-      if (vside) {
-        g = dv[q * dd + k];
-      } else if (q < B) {
-        g = dc[q * dd + k];
-      } else {
-        const float* src = dn_part + (q - B) * dd + k;
-        g = src[0];
-        for (int b = 1; b < nblk; ++b) g += src[b * sd];
+  const int runs_v = __ldcg(a.runs), runs = runs_v + __ldcg(a.runs + 1);
+  const int lane = threadIdx.x & 31;
+  for (int r = blockIdx.x * WARPS + (threadIdx.x >> 5); r < runs;
+       r += gridDim.x * WARPS) {
+    // the vertex side's runs, then the context side's (from info[B] on)
+    const int4 run = __ldcg(a.info + (r < runs_v ? r : B + r - runs_v));
+    const int j = run.x, e = run.y;
+    const bool vside = j < B;
+    T* dst = static_cast<T*>(vside ? a.vert : a.ctx) +
+             static_cast<long long>(run.z) * dd;
+    for (int k0 = 0; k0 < d; k0 += 32 * COLS) {
+      // the row's old value, loaded while the gradients are summed
+      float old[COLS];
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) {
+        const int k = k0 + 32 * c + lane;
+        old[c] = k < d ? to_f32(dst[k]) : 0.0f;
       }
-      acc = p == j ? g : acc + g;
+      float acc[COLS];
+      for (int p32 = j; p32 < e; p32 += 32) {
+        // 32 sorted positions at once, one a lane, then AHEAD positions'
+        // gradients in flight at a time, added in order
+        const int mine = e - j == 1 ? run.w
+                         : p32 + lane < e ? __ldcg(a.pos + p32 + lane) : 0;
+        const int e32 = min(e, p32 + 32);
+        for (int p0 = p32; p0 < e32; p0 += AHEAD) {
+          int q[AHEAD];
+#pragma unroll
+          for (int i = 0; i < AHEAD; ++i)
+            q[i] = __shfl_sync(0xffffffffu, mine, (p0 - p32 + i) & 31);
+          float g[AHEAD][COLS];
+#pragma unroll
+          for (int i = 0; i < AHEAD; ++i) {
+            const long long qi = q[i];
+            const bool neg = p0 + i < e32 && !vside && qi >= B;
+            const float* src =
+                vside ? a.dv + qi * dd
+                      : qi < B ? a.dc + qi * dd : a.dn_part + (qi - B) * dd;
+#pragma unroll
+            for (int c = 0; c < COLS; ++c) {
+              const int k = k0 + 32 * c + lane;
+              g[i][c] = p0 + i < e32 && k < d ? __ldcg(src + k) : 0.0f;
+            }
+            if (neg) {
+              // a negative's partials of the other blocks, summed in block
+              // order, PARTS blocks' partials of every column loaded at once
+              for (int b0 = 1; b0 < nblk; b0 += PARTS) {
+                float part[PARTS][COLS];
+#pragma unroll
+                for (int u = 0; u < PARTS; ++u) {
+#pragma unroll
+                  for (int c = 0; c < COLS; ++c) {
+                    const int k = k0 + 32 * c + lane;
+                    part[u][c] = b0 + u < nblk && k < d
+                                     ? __ldcg(src + (b0 + u) * sd + k)
+                                     : 0.0f;
+                  }
+                }
+#pragma unroll
+                for (int u = 0; u < PARTS; ++u) {
+                  if (b0 + u < nblk) {
+#pragma unroll
+                    for (int c = 0; c < COLS; ++c) g[i][c] += part[u][c];
+                  }
+                }
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < AHEAD; ++i) {
+            if (p0 + i < e32) {
+#pragma unroll
+              for (int c = 0; c < COLS; ++c)
+                acc[c] = p0 + i == j ? g[i][c] : acc[c] + g[i][c];
+            }
+          }
+        }
+      }
+      // the update rounded to the table's dtype, then one add rounded to
+      // it; the _rn intrinsics keep the compiler from fusing them into an
+      // FMA
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) {
+        const int k = k0 + 32 * c + lane;
+        if (k < d) {
+          const float upd = to_f32(from_f32<T>(__fmul_rn(a.neg_lr, acc[c])));
+          dst[k] = from_f32<T>(__fadd_rn(old[c], upd));
+        }
+      }
     }
-    // the update rounded to the table's dtype, then one add rounded to it;
-    // the _rn intrinsics keep the compiler from fusing them into an FMA
-    const float upd = to_f32(from_f32<T>(__fmul_rn(neg_lr, acc)));
-    dst[k] = from_f32<T>(__fadd_rn(to_f32(dst[k]), upd));
   }
 }
 
@@ -292,27 +608,34 @@ int launch_tile_grads(const void* vsrc, const void* csrc, const void* nsrc,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One cooperative launch of nblk + 1 blocks, refused (with the error
+// returned) unless every block can be resident at once: the grid-wide
+// barrier needs them all.
 template <typename T>
-int launch_update(void* vert, void* ctx, const void* idx_v, const void* idx_c,
-                  const void* idx_n, const void* mask, int mask_bf16, int B,
-                  int S, int d, float lr, int bb, int smem, const void* ivs,
-                  const void* perm_v, const void* icns, const void* perm_c,
-                  void* dv, void* dc, void* dn_part, void* loss_part,
-                  void* loss, cudaStream_t st) {
-  int rc = launch_tile_grads<T, float>(vert, ctx, ctx, idx_v, idx_c, idx_n,
-                                       mask, mask_bf16, B, S, d, bb, smem, dv,
-                                       dc, dn_part, loss_part, st);
-  if (rc != 0) return rc;
-  const int nblk = (B + bb - 1) / bb;
-  const int warps = 2 * B + S;
-  sgns_combine_apply<T><<<(warps + WARPS - 1) / WARPS, THREADS, 0, st>>>(
-      static_cast<T*>(vert), static_cast<T*>(ctx),
-      static_cast<const int*>(ivs), static_cast<const long long*>(perm_v),
-      static_cast<const int*>(icns), static_cast<const long long*>(perm_c),
-      static_cast<const float*>(dv), static_cast<const float*>(dc),
-      static_cast<const float*>(dn_part),
-      static_cast<const float*>(loss_part), nblk, B, S, d, -lr,
-      static_cast<float*>(loss));
+int launch_fused(const UpdateArgs& a, int grid, int smem, cudaStream_t st) {
+  cudaError_t e;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(sgns_update_fused<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sgns_update_fused<T>, THREADS, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm * sms < grid)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  UpdateArgs args = a;
+  void* params[] = {&args};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(sgns_update_fused<T>), dim3(grid),
+      dim3(THREADS), params, static_cast<size_t>(smem), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -338,30 +661,37 @@ int launch_grads(const void* vsrc, const void* csrc, const void* nsrc,
 }  // namespace
 
 // dtype: 0 = f32 tables, 1 = bf16. mask: (B,) f32, or bf16 when mask_bf16.
-// Tables are updated in place; ivs/icns are the stably sorted idx_v and
-// idx_c ++ idx_n (int32), perm_v/perm_c their int64 sort permutations;
-// dv, dc: (B, d) f32, dn_part: (ceil(B / bb), S, d) f32 and loss_part:
-// (ceil(B / bb),) f32 are scratch; loss: (1,) f32 out.
+// Tables are updated in place. bb rows per gradient block (nblk = ceil(B /
+// bb) of them), then the two sorting blocks, then more up to `blocks` for
+// the combine; smem: the dynamic shared memory of a block, the larger of a
+// gradient tile's and a sort's 12 n2 + 4 bytes, n2 being B + S rounded up
+// to a power of two. fscratch: f32 dv, dc (B, d), dn partials (nblk, S,
+// d), loss partials (nblk,), then the loss (its last element, the output);
+// iscratch: 5 (2B + S) + 2 int32, 16-byte aligned.
 extern "C" int sgns_fused_update(int dtype, int mask_bf16, void* vert,
                                  void* ctx, const void* idx_v,
                                  const void* idx_c, const void* idx_n,
                                  const void* mask, int B, int S, int d,
-                                 float lr, int bb, int smem, const void* ivs,
-                                 const void* perm_v, const void* icns,
-                                 const void* perm_c, void* dv, void* dc,
-                                 void* dn_part, void* loss_part, void* loss,
+                                 float lr, int bb, int blocks, int smem,
+                                 void* fscratch, void* iscratch,
                                  void* stream) {
+  const int nblk = (B + bb - 1) / bb, n = 2 * B + S;
+  const long long bd = static_cast<long long>(B) * d;
+  float* f = static_cast<float*>(fscratch);
+  int* i = static_cast<int*>(iscratch);
+  float* dn_part = f + 2 * bd;
+  float* loss_part = dn_part + static_cast<long long>(nblk) * S * d;
+  const UpdateArgs a{vert, ctx,
+                     static_cast<const int*>(idx_v),
+                     static_cast<const int*>(idx_c),
+                     static_cast<const int*>(idx_n),
+                     mask, mask_bf16, B, S, d, bb, nblk, -lr,
+                     f, f + bd, dn_part, loss_part, loss_part + nblk,
+                     reinterpret_cast<int4*>(i), i + 4 * n, i + 5 * n};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_update<float>(vert, ctx, idx_v, idx_c, idx_n, mask,
-                                mask_bf16, B, S, d, lr, bb, smem, ivs, perm_v,
-                                icns, perm_c, dv, dc, dn_part, loss_part,
-                                loss, st);
-  if (dtype == 1)
-    return launch_update<__nv_bfloat16>(vert, ctx, idx_v, idx_c, idx_n, mask,
-                                        mask_bf16, B, S, d, lr, bb, smem, ivs,
-                                        perm_v, icns, perm_c, dv, dc, dn_part,
-                                        loss_part, loss, st);
+  if (blocks < nblk + 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) return launch_fused<float>(a, blocks, smem, st);
+  if (dtype == 1) return launch_fused<__nv_bfloat16>(a, blocks, smem, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -17,10 +17,12 @@ three CUDA sources:
   :func:`sgns_fused_grads` replaces ``sgns_fused_grads`` (gather and
   gradients only) and :func:`sgns_grads` replaces ``sgns_grads`` (the
   gradients of pre-gathered rows). All three launch ``csrc/sgns_update.cu``,
-  whose header has the design: a tile-gradients kernel with per-block
-  partials, then a combine-and-apply kernel with one warp per run of equal
-  indices (or a fixed-order reduction of the partials), so a run repeats
-  bitwise.
+  whose header has the design. The update is one cooperative launch per
+  minibatch (:func:`plan_fused_update`): tile-gradient blocks with
+  per-block partials while one block sorts the ids on chip, a grid-wide
+  barrier, then every warp combines and applies runs of equal ids, so a
+  run repeats bitwise. The other two are a tile-gradients kernel and a
+  fixed-order reduction of its partials.
 * :func:`scatter_add_rows` replaces ``scatter_add_rows`` (``table[idx[p]]
   += upd[p]`` in position order, in place) and
   :func:`scatter_add_rows_rowwise` its one-row-per-grid-step reference
@@ -55,10 +57,16 @@ LAUNCHES = {"gather_rows": 0, "gather_rows_rowwise": 0, "sgns_grads": 0,
 
 SMEM_PER_BLOCK = 232_448          # H100: 227 KB of dynamic shared memory
 GRAD_TILE_ROWS = 16               # minibatch rows per tile-gradients block
+FUSED_TILE_ROWS = 8               # the same, in the fused update
 SCATTER_COLS = 8                  # columns per scatter block (#9, #10)
 SCATTER_MAX_POSITIONS = 1024      # positions per chunk: one per thread
 SCATTER_ROWWISE_SMEM = 96 << 10   # shared memory of a full row-wise chunk
 SCATTER_ROWWISE_MAX_POSITIONS = 2048   # the row-wise kernel's staging
+FUSED_WARPS = 8                   # warps of a fused-update block
+# positions a sorting block of the fused update holds (a side's B or B + S):
+# 8-byte keys and 4-byte run starts, a power of two of each, in one
+# block's shared memory
+FUSED_SORT_CAP = 1 << ((SMEM_PER_BLOCK // 12).bit_length() - 1)
 _TABLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -231,12 +239,13 @@ def grads_tile_smem_bytes(bb: int, S: int, d: int) -> int:
     return 4 * (2 * bb * d + S * d + 2 * bb * (S + 1) + bb)
 
 
-def plan_grads_tile(B: int, S: int, d: int) -> tuple[int, int]:
+def plan_grads_tile(B: int, S: int, d: int,
+                    rows: int = GRAD_TILE_ROWS) -> tuple[int, int]:
     """(rows per block, shared bytes) of the tile-gradients kernel:
-    ``GRAD_TILE_ROWS`` rows, halved while the block would exceed the
-    card's 227 KB. Raises ``ValueError`` when one row does not fit (the S
-    negative rows alone are too wide)."""
-    bb = max(1, min(GRAD_TILE_ROWS, B))
+    ``rows`` rows, halved while the block would exceed the card's 227 KB.
+    Raises ``ValueError`` when one row does not fit (the S negative rows
+    alone are too wide)."""
+    bb = max(1, min(rows, B))
     while bb > 1 and grads_tile_smem_bytes(bb, S, d) > SMEM_PER_BLOCK:
         bb //= 2
     smem = grads_tile_smem_bytes(bb, S, d)
@@ -245,6 +254,50 @@ def plan_grads_tile(B: int, S: int, d: int) -> tuple[int, int]:
                          f"tile-gradients block's shared memory "
                          f"({smem} > {SMEM_PER_BLOCK} bytes)")
     return bb, smem
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """Geometry of one fused update: ``bb`` minibatch rows per gradient
+    block (``grad_blocks`` of them), then two sorting blocks (the vertex
+    side's B positions, the context side's B + S), then more up to
+    ``blocks`` so the combine has a warp per position; ``sort_keys`` (B +
+    S rounded up to a power of two, the larger side's keys), and the
+    dynamic shared memory of a block (the larger of a gradient tile's and
+    a sort's: the keys and the run starts)."""
+
+    bb: int
+    grad_blocks: int
+    blocks: int
+    sort_keys: int
+    smem_bytes: int
+
+
+def plan_fused_update(B: int, S: int, d: int, *,
+                      sm_count: int = 132) -> FusedPlan:
+    """The fused update's geometry (:func:`plan_grads_tile` for the
+    gradient tiles, ``FUSED_TILE_ROWS`` rows each: twice the blocks of the
+    unfused kernels, so the gradients take half the time). Raises
+    ``ValueError`` when a side's B + S positions pass ``FUSED_SORT_CAP`` (a
+    sorting block's shared memory) or when the grid has more blocks than
+    the card has SMs: the launch is cooperative, and one block per SM is
+    the residency every grid of this size is sure of (the kernel also asks
+    the card, and its launch fails rather than hang)."""
+    bb, grads_smem = plan_grads_tile(B, S, d, FUSED_TILE_ROWS)
+    if B + S > FUSED_SORT_CAP:
+        raise ValueError(f"sgns_fused_update sorts B + S = {B + S} context "
+                         f"positions on chip; a sorting block's shared "
+                         f"memory holds {FUSED_SORT_CAP}")
+    nblk = -(-B // bb)
+    if nblk + 2 > sm_count:
+        raise ValueError(f"sgns_fused_update at B={B} needs {nblk + 2} "
+                         f"blocks resident at once, more than the card's "
+                         f"{sm_count} SMs")
+    n2 = 1 << (B + S - 1).bit_length()
+    n = 2 * B + S
+    return FusedPlan(bb=bb, grad_blocks=nblk,
+                     blocks=min(sm_count, max(nblk + 2, -(-n // FUSED_WARPS))),
+                     sort_keys=n2, smem_bytes=max(grads_smem, 12 * n2 + 4))
 
 
 def _check_sgns_args(name, vert, ctx, idx_v, idx_c, idx_n, mask):
@@ -329,10 +382,10 @@ def sgns_fused_update(vert, ctx, idx_v, idx_c, idx_n, mask, lr):
     Arguments as :func:`sgns_fused_grads`, plus ``lr`` (a Python float,
     passed to the kernel as f32). ``vert`` and ``ctx`` must not overlap in
     memory: each unique row is written by one warp, which reads its old
-    value from the same table. The sort of the index vectors stays outside
-    the kernels, as the JAX wrapper's argsort does: two stable
-    ``torch.sort`` calls. Returns ``(vert, ctx, loss)``, the tables being
-    the updated inputs. A CPU table takes the plain version.
+    value from the same table. On the card the call is one kernel launch
+    and nothing else on the device: the ids are sorted on chip
+    (:func:`plan_fused_update`). Returns ``(vert, ctx, loss)``, the tables
+    being the updated inputs. A CPU table takes the plain version.
     """
     if vert.device.type == "cpu":
         return sgns_fused_update_plain(vert, ctx, idx_v, idx_c, idx_n, mask,
@@ -342,31 +395,29 @@ def sgns_fused_update(vert, ctx, idx_v, idx_c, idx_n, mask, lr):
     if _overlap(vert, ctx):
         raise ValueError("sgns_fused_update: vert and ctx overlap in memory; "
                          "the in-place update needs two distinct tables")
-    bb, smem = plan_grads_tile(B, S, d)
-    nblk = -(-B // bb)
     dev = vert.device
-    ivs, perm_v = torch.sort(idx_v, stable=True)
-    icns, perm_c = torch.sort(torch.cat([idx_c, idx_n]), stable=True)
+    plan = plan_fused_update(
+        B, S, d,
+        sm_count=torch.cuda.get_device_properties(dev).multi_processor_count)
+    nblk = plan.grad_blocks
     # f32 scratch: dv, dc (B, d), dn partials (nblk, S, d), loss partials
-    # (nblk,), loss
-    n_dn = nblk * S * d
-    scratch = torch.empty(2 * B * d + n_dn + nblk + 1, dtype=torch.float32,
-                          device=dev)
-    p = scratch.data_ptr()
-    p_dc, p_dn = p + 4 * B * d, p + 8 * B * d
-    p_lp, p_loss = p_dn + 4 * n_dn, p_dn + 4 * (n_dn + nblk)
+    # (nblk,), loss; int32: each run's (start, end, id, first position),
+    # the sorted positions and the two sides' run counts
+    fscratch = torch.empty(2 * B * d + nblk * S * d + nblk + 1,
+                           dtype=torch.float32, device=dev)
+    iscratch = torch.empty(5 * (2 * B + S) + 2, dtype=torch.int32,
+                           device=dev)
     lib = build.library("sgns_update")
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sgns_fused_update(
             _TABLE_DTYPES[vert.dtype], mask_bf16, vert.data_ptr(),
             ctx.data_ptr(), idx_v.data_ptr(), idx_c.data_ptr(),
-            idx_n.data_ptr(), mask.data_ptr(), B, S, d, float(lr), bb, smem,
-            ivs.data_ptr(), perm_v.data_ptr(), icns.data_ptr(),
-            perm_c.data_ptr(), p, p_dc, p_dn, p_lp, p_loss, stream)
+            idx_n.data_ptr(), mask.data_ptr(), B, S, d, float(lr), plan.bb,
+            plan.blocks, plan.smem_bytes, fscratch.data_ptr(),
+            iscratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "sgns_fused_update")
     LAUNCHES["sgns_fused_update"] += 1
-    return vert, ctx, scratch[-1]
+    return vert, ctx, fscratch[-1]
 
 
 def sgns_grads(v, c, n, mask):

@@ -56,6 +56,74 @@ def test_topk_kernel_matches_plain(card, dtype):
     assert tk.LAUNCHES["topk_scan_exact"] == before + len(cases)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_topk_kernel_matches_plain_on_continuous_rows(card, dtype):
+    """#1's filter and exact rescore on a continuous 200,000-row table, at
+    one query, a launcher batch and a full serving batch: bitwise the
+    rowwise kernel (#4), the other fmaf chain, and the plain version. The
+    plain version scores the queries padded to a batch of 256, where
+    cuBLAS's GEMM sums each dot in index order (for one query its GEMV
+    sums in another order, which can swap near-ties). At k = 10 the filter
+    drops most pairs (a warp's list sees a few hundred rows here, so its
+    first rows all pass)."""
+    g = torch.Generator(device=card).manual_seed(51)
+    tbl = (0.1 * torch.randn((200_000, 128), generator=g, device=card)
+           ).to(dtype)
+    tbl[150_000:150_300] = tbl[:300]           # exact ties on real data
+    for Q in (1, 8, 256):
+        rows = torch.randint(0, 200_000, (Q,), generator=g, device=card)
+        q = tbl[rows].float() + 0.05 * torch.randn((Q, 128), generator=g,
+                                                   device=card)
+        n = torch.zeros(1, dtype=torch.int64, device=card)
+        for k, valid in ((10, 200_000), (100, 199_999)):
+            got = tk.topk_mips(tbl, q, k, valid, survivors=n)
+            _same(got, tk.topk_mips_rowwise(tbl, q, k, valid))
+            qpad = torch.cat([q, q.new_zeros((256 - Q, 128))])
+            _same(got, [t[:Q] for t in tk.topk_mips_plain(tbl, qpad, k,
+                                                          valid)])
+            assert 0 < n.item() <= Q * valid
+            if k == 10:
+                assert n.item() < 0.5 * Q * valid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_topk_filter_scores_within_a_quarter_of_the_bound(card, dtype):
+    """The tensor cores' approximate scores (the test-only export) differ
+    from the exact scores by at most eps / 4: random rows and queries, and
+    rows built against each term of the bound (cancellation, a wide range
+    of magnitudes, rows along the queries' bf16 rounding error, f32 entries
+    halfway between bf16 values)."""
+    g = torch.Generator(device=card).manual_seed(52)
+    q = torch.randn((64, 128), generator=g, device=card)
+    q[0] = (2.0 ** torch.randint(-4, 4, (128,), generator=g, device=card)
+            ) * (1 + 2.0 ** -8 - 2.0 ** -20)          # the worst split
+    err = q - q.bfloat16().float()
+    alt = torch.where(torch.arange(128, device=card) % 2 == 0, 1.0, -1.0)
+    sign = torch.randint(0, 2, (128,), generator=g, device=card) * 2.0 - 1
+    mid = (2.0 ** torch.randint(-6, 6, (128,), generator=g, device=card)
+           ) * (1 + 2.0 ** -8 - 2.0 ** -22)
+    tbl = torch.cat([
+        torch.randn((20_000, 128), generator=g, device=card),
+        (alt * 3e3).expand(64, 128),
+        alt * 1e4 * torch.sign(q),
+        sign * 2.0 ** (60 * torch.rand((64, 128), generator=g,
+                                       device=card) - 30),
+        torch.sign(err) * 7.0,
+        5.0 * err / err.norm(dim=1, keepdim=True).clamp_min(1e-30),
+        (mid * sign).expand(64, 128), mid * torch.sign(q),
+    ]).to(dtype).contiguous()
+    a, eps = tk.topk_filter_bounds(tbl, q)
+    exact = q @ tbl.float().T
+    torch.cuda.synchronize()
+    assert a.shape == eps.shape == exact.shape
+    assert bool(((a - exact).abs() <= eps / 4).all())
+    # the export's bound is the plain formula's
+    _, want = tk.topk_filter_bounds_plain(tbl, q)
+    torch.testing.assert_close(eps, want, rtol=1e-4, atol=0)
+
+
 def test_quant_and_gather_kernels_match_plain(card):
     tbl = _int(5000, 128, 8).to(card).bfloat16()
     q = _int(37, 128, 9).to(card)
@@ -282,6 +350,63 @@ def test_sgns_update_kernel_matches_plain(card, dtype, case, B, d):
         _within_bf16_steps(vk, vp, x[0])
         _within_bf16_steps(ck, cp, x[1])
     assert not torch.equal(vk, x[0])          # the update happened
+
+
+def _device_kernels(fn):
+    """The names of the device kernels one call of ``fn`` launches (after a
+    warm-up call; the profiler may drop a session's first kernels, so an
+    empty session is tried again)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.events()
+                 if str(e.device_type).endswith("CUDA")]
+        if names:
+            return names
+    return names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_sgns_update_kernel_with_a_hub_run(card, dtype):
+    """#7 with one id at 200 of the vertex positions and 100 of the
+    context ones (a hub row's run, loaded AHEAD positions at a time): one
+    device kernel per call, bitwise repeatable, within the tolerances of
+    plain."""
+    x = list(_sgns_inputs(card, dtype, Nv=300, Nc=300, B=256, S=5, d=128,
+                          seed=61))
+    rng = np.random.default_rng(62)
+    iv, ic = x[2].cpu().numpy(), x[3].cpu().numpy()
+    iv[rng.choice(256, 200, replace=False)] = 17
+    ic[rng.choice(256, 100, replace=False)] = 23
+    x[2], x[3] = (torch.from_numpy(a).to(card) for a in (iv, ic))
+    x[4][1] = 23                                 # a negative in the run
+    outs = []
+    for _ in range(2):
+        vert, ctx = x[0].clone(), x[1].clone()
+        outs.append(sgns.sgns_fused_update(vert, ctx, *x[2:], 0.05))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    vp, cp, lp = sgns.sgns_fused_update_plain(x[0].clone(), x[1].clone(),
+                                              *x[2:], 0.05)
+    rtol, atol = SGNS_TOL[dtype]
+    torch.testing.assert_close(outs[0][2], lp, rtol=1e-4, atol=0)
+    _close(outs[0][0], vp, rtol, atol)
+    _close(outs[0][1], cp, rtol, atol)
+    if dtype == torch.bfloat16:
+        _within_bf16_steps(outs[0][0], vp, x[0])
+        _within_bf16_steps(outs[0][1], cp, x[1])
+    assert not torch.equal(outs[0][0][17], x[0][17])
+    vert, ctx = x[0].clone(), x[1].clone()
+    names = _device_kernels(
+        lambda: sgns.sgns_fused_update(vert, ctx, *x[2:], 0.05))
+    assert len(names) == 1 and "sgns_update_fused" in names[0], names
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
