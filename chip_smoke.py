@@ -8,7 +8,8 @@ failure ends the run with a non-zero exit:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, and the build of every CUDA kernel from
-   ``src/repro_torch/kernels/csrc`` (all sources compiled in parallel);
+   ``src/repro_torch/kernels/csrc`` (all sources compiled in parallel),
+   with each kernel's registers and spills (``NO_SPILL``'s must have none);
 2. every serving kernel against its plain PyTorch version on the card:
    integer tables (bitwise) at the JAX tests' shapes and at the full width
    d = 128 (the rowwise ``topk_rowwise`` on every case of the
@@ -16,15 +17,15 @@ failure ends the run with a non-zero exit:
    seeded continuous 26,250,000 x 128 bf16 table (one
    card's share of the paper's 1.05 B nodes over 40 GPUs) served through
    ``ShardedEmbeddingStore.topk``, exact and int8, checked at recall 1.0
-   against the plain scan; the exact scan's tensor-core scores (its
-   test-only export) within a quarter of their error bound on the first
-   1,048,576 rows and on adversarial rows, and the share of pairs its
-   filter passes on to the exact score; kernel, plain and library times
-   beside the bound (for the exact scan the bf16 tensor-core and bytes
-   bounds it runs at, the f32 CUDA-core one beside them), and the exact
-   scan at the launcher's batch shape (1,048,576 rows, 8 queries) beside
+   against the plain scan; the exact and int8 scans' tensor-core scores
+   (their test-only export) within a quarter of their error bound on the
+   first 1,048,576 rows and on adversarial rows, and the share of pairs
+   each filter passes on to the exact score; kernel, plain and library
+   times beside the bound (for both scans the bf16 tensor-core and bytes
+   bounds they run at, the f32 CUDA-core one beside them), and both scans
+   at the launcher's batch shape (1,048,576 rows, 8 queries) beside
    ``torch.topk``, and with those 8 padded by zero queries to the 256 rows
-   the launcher sends;
+   the launcher sends, with the int8 scan's survivor share there;
 3. the serving main path: a seeded 1,048,576 x 128 bf16 checkpoint written
    with the port's ``save_checkpoint``; every serving kernel against its
    plain version on that table and the launcher's own queries, at the
@@ -54,8 +55,8 @@ failure ends the run with a non-zero exit:
    touches, and the full-table launch bitwise against that copy), a few
    episodes timed per route (edges/s) and one of each kernel route under
    the profiler, and one launch of each kernel timed beside its bound,
-   its plain version and its library call; ``sgns_fused_update`` checked
-   to be one device kernel per call;
+   its plain version and its library call; ``sgns_fused_update`` and
+   ``sgns_grads`` checked to be one device kernel per call;
 6. the training main path: ``repro_torch.launch.train.main`` on the CI
    gate schedule at d = 128 (an SBM graph, AUC >= 0.62) and at the
    config's geometry (a 262,144-node power-law graph, minibatch 256, 5
@@ -93,6 +94,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -139,10 +141,38 @@ LM_ARGV = ["--arch", "granite-3-2b", "--no-reduced", "--batch", str(LM_B),
            "--device", "cuda"]
 BF16_FLOP_PER_S = 989e12           # H100 SXM, dense bf16 tensor cores
 TF32_FLOP_PER_S = 495e12           # H100 SXM, dense TF32 tensor cores
+# kernels (mangled-name parts) that must not spill registers: #2's int8
+# filter and export instantiations and #5's cooperative kernel
+NO_SPILL = ("filter_kernelIa", "filter_export_kernelIa", "sgns_grads_coop")
 # the kernels each kernel route of ops.sgns_step launches
 ROUTE_KERNELS = {"pallas_fused2": ("sgns_fused_update",),
                  "pallas_fused": ("sgns_fused_grads", "scatter_add_rows"),
                  "pallas": ("gather_rows", "sgns_grads", "scatter_add_rows")}
+
+
+def ptxas_report(log: str):
+    """(kernel, registers, spill store bytes, spill load bytes) of each
+    entry function in an ``nvcc -Xptxas -v`` log."""
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^' ]+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            # drop the anonymous namespace's mangled name
+            ns = re.match(r"_ZN(\d+)", name)
+            short = name[ns.end() + int(ns.group(1)):] if ns else name
+            out.append((short.lstrip("0123456789"), int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return out
 
 
 def card_line() -> str:
@@ -689,6 +719,17 @@ def per_card_training(torch, sgns, dev, time_ms, wall_ms, call_kernels,
                              f"launched {calls}, not one sgns_update_fused")
     print(f"sgns_fused_update at the per-card minibatch: one device kernel "
           f"per call ({next(iter(calls))[0][:60]})")
+    # #5 is one cooperative kernel per call; #6 keeps its two
+    calls = call_kernels(lambda: sgns.sgns_grads(v, c, n, mask))
+    if len(calls) != 1 or len(next(iter(calls))) != 1 or (
+            "sgns_grads_coop" not in next(iter(calls))[0]):
+        raise AssertionError(f"sgns_grads at the per-card minibatch "
+                             f"launched {calls}, not one sgns_grads_coop")
+    calls6 = call_kernels(lambda: sgns.sgns_fused_grads(
+        vj, ctx, iv, ic, idx_n, mask))
+    print(f"sgns_grads at the per-card minibatch: one device kernel per call "
+          f"({next(iter(calls))[0][:60]}); sgns_fused_grads: "
+          f"{sorted(len(c) for c in calls6)} kernels per call")
     calls = call_kernels(lambda: sgns.scatter_add_rows(ctx, icn, upd))
     if len(calls) != 1 or len(next(iter(calls))) != 1 or (
             "scatter_sorted" not in next(iter(calls))[0]):
@@ -769,6 +810,43 @@ def check_filter_bound(torch, tk, shard, q, dev):
     print(f"topk_scan_exact filter bound: max |a - s| / eps {first:.4g} on "
           f"{CKPT_ROWS} rows x {q.shape[0]} queries, {max(adv):.4g} on "
           f"adversarial rows (f32 and bf16 tables); limit 0.25")
+
+
+def check_quant_filter_bound(torch, tk, q8, q, dev):
+    """#2's tensor-core scores on int8 rows (the export, unscaled: the
+    kernel compares them times the row's positive scale) within a quarter
+    of their bound of the exact chain: on the first 1,048,576 rows of the
+    per-card int8 table against its queries, and on +-127 rows along the
+    queries' bf16 rounding error, against their signs and alternating, and
+    all-zero rows. Returns the two worst ratios."""
+    def worst(tbl, qq, what):
+        a, eps = tk.topk_filter_bounds(tbl, qq)
+        exact = qq @ tbl.float().T
+        ratio = ((a - exact).abs() / eps).max().item()
+        del a, eps, exact
+        torch.cuda.empty_cache()
+        if not ratio <= 0.25:
+            raise AssertionError(f"topk_scan_int8 filter {what}: |a - s| "
+                                 f"reaches {ratio:.3g} eps (limit 0.25)")
+        return ratio
+
+    first = worst(q8[:CKPT_ROWS], q, f"{CKPT_ROWS} int8 rows Q={q.shape[0]}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    qa = torch.randn((64, DIM), generator=g, device=dev)
+    qa[0] = (2.0 ** torch.randint(-4, 4, (DIM,), generator=g, device=dev)
+             ) * (1 + 2.0 ** -8 - 2.0 ** -20)          # the worst split
+    err = qa - qa.bfloat16().float()
+    alt = torch.where(torch.arange(DIM, device=dev) % 2 == 0, 1.0, -1.0)
+    rows = torch.cat([
+        127 * torch.sign(err), -127 * torch.sign(err),
+        (127 * alt).expand(64, DIM), 127 * alt * torch.sign(qa),
+        torch.zeros((64, DIM), device=dev),
+        torch.randint(-127, 128, (64, DIM), generator=g, device=dev),
+    ]).to(torch.int8).contiguous()
+    adv = worst(rows, qa, "adversarial int8 rows")
+    print(f"topk_scan_int8 filter bound: max |a - s| / eps {first:.4g} on "
+          f"{CKPT_ROWS} int8 rows x {q.shape[0]} queries, {adv:.4g} on "
+          f"adversarial int8 rows; limit 0.25")
 
 
 def attention_pairs(Sq, Skv, causal, window) -> int:
@@ -996,11 +1074,17 @@ def main() -> int:
           f"{sys.version.split()[0]} devices {torch.cuda.device_count()}")
     secs = build.build()
     print(f"built {sorted(build.SIGNATURES)} in {secs:.1f}s")
+    spilled = []
     for name in sorted(build.SIGNATURES):
         log = build.library_path(name).with_suffix(".log")
-        for line in log.read_text().splitlines() if log.exists() else []:
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for fn, regs, st, ld in ptxas_report(
+                log.read_text() if log.exists() else ""):
+            print(f"  ptxas {name}: {fn[:70]}: {regs} registers, {st} bytes "
+                  f"spill stores, {ld} bytes spill loads")
+            if (st or ld) and any(k in fn for k in NO_SPILL):
+                spilled.append(fn)
+    if spilled:
+        raise AssertionError(f"kernels that must not spill do: {spilled}")
 
     # ---------------------------------------------------------- phase 2
     g = torch.Generator(device="cpu").manual_seed(SEED)
@@ -1118,6 +1202,10 @@ def main() -> int:
             check_quant(tbl, q, min(m, n), n, f"m={m} N={n} Q={nq}")
             check_quant(tbl, q, min(m, n - 7), n - 7, f"m={m} valid=N-7")
             cases += 2
+    # int8 rows of d % 16 == 8 stage by 8-byte copies
+    tbl, q = int_table(1000, 40), int_table(9, 40)
+    check_quant(tbl, q, 40, 997, "d=40 m=40 valid=N-3")
+    cases += 1
     for dtype in (torch.float32, torch.bfloat16):
         for n, d, b in ((1000, DIM, 1001), (77, 20, 333), (5, 24, 7)):
             tbl = int_table(n, d).to(dtype)
@@ -1321,6 +1409,21 @@ def main() -> int:
                    + 2.0 * n_surv * d / FP32_FLOP_PER_S)
     f32_bound = bound_ms(nbytes, 2.0 * Qn * n_rows * d)
     results = []
+    # #2's filter likewise, on the int8 tier's rows and scales
+    check_pair("topk_scan_int8",
+               tk.topk_mips_quant(q8, sc, q, m, survivors=survivors),
+               tk.topk_mips_quant_plain(q8, sc, q, m),
+               f"{SERVE_ROWS} int8 rows Q={BATCH} m={m} (counted)")
+    n_surv8 = survivors.item()
+    print(f"topk_scan_int8 filter at {SERVE_ROWS} x {DIM} int8, Q={BATCH}, "
+          f"m={m}: {n_surv8} of {Qn * n_rows} pairs rescored exactly "
+          f"({100 * n_surv8 / (Qn * n_rows):.4f} %)")
+    check_quant_filter_bound(torch, tk, q8, q, dev)
+    # #2 runs at the same bounds on its N (d + 4) bytes of rows and scales
+    nbytes8 = n_rows * (d + 4) + Qn * d * 4 + Qn * m * 8
+    tc8_ms = 1e3 * (2.0 * Qn * n_rows * d / BF16_FLOP_PER_S
+                    + 2.0 * n_surv8 * d / FP32_FLOP_PER_S)
+    f32_bound8 = bound_ms(nbytes8, 2.0 * Qn * n_rows * d + Qn * n_rows)
     rec = {
         "topk_scan_exact": dict(
             source="src/repro_torch/kernels/csrc/topk_scan.cu",
@@ -1335,8 +1438,8 @@ def main() -> int:
             ms=time_ms(lambda: tk.topk_mips_quant(q8, sc, q, m), 5),
             plain_ms=time_ms(
                 lambda: tk.topk_mips_quant_plain(q8, sc, q, m), 1),
-            bound=bound_ms(n_rows * (d + 4) + Qn * d * 4 + Qn * m * 8,
-                           2.0 * Qn * n_rows * d + Qn * n_rows)),
+            bound=max((1e3 * nbytes8 / HBM_BYTES_PER_S, "bytes"),
+                      (tc8_ms, "operations"))),
         "gather_rows": dict(
             source="src/repro_torch/kernels/csrc/gather_rows.cu",
             replaces="src/repro/kernels/sgns.py:687",
@@ -1366,6 +1469,14 @@ def main() -> int:
           f"{f32_bound[0]:.4f} ms at the f32 CUDA-core rate; kernel "
           f"{r['ms']:.3f} ms = {100 * r['bound'][0] / r['ms']:.1f} % of its "
           f"bound")
+    r = rec["topk_scan_int8"]
+    print(f"topk_scan_int8 bounds at {SERVE_ROWS} x {DIM} int8, Q={BATCH}, "
+          f"m={m}: {r['bound'][0]:.4f} ms ({r['bound'][1]}; rows and scales "
+          f"once {1e3 * nbytes8 / HBM_BYTES_PER_S:.4f} ms, bf16 tensor cores "
+          f"{tc8_ms:.4f} ms for one pass and the survivors), "
+          f"{f32_bound8[0]:.4f} ms at the f32 CUDA-core rate; kernel "
+          f"{r['ms']:.3f} ms = {100 * r['bound'][0] / r['ms']:.1f} % of its "
+          f"bound")
     # the launcher's batch shape: a 1,048,576-row table, 8 queries
     small, q8b = shard[:CKPT_ROWS], q[:8].contiguous()
     check_pair("topk_scan_exact", tk.topk_mips(small, q8b, K),
@@ -1389,6 +1500,34 @@ def main() -> int:
           f"bytes bound {1e3 * CKPT_ROWS * DIM * 2 / HBM_BYTES_PER_S:.4f} "
           f"ms; padded with zero queries to {BATCH} as the launcher sends "
           f"it: {launcher_ms[2]:.4f} ms")
+    # #2 at the launcher's batch: the first 1,048,576 int8 rows, m = 40 for
+    # its 8 queries, alone and padded with zero queries to 256
+    s8, ss = q8[:CKPT_ROWS], sc[:CKPT_ROWS]
+    m_l = overfetch_m(K, DEFAULT_OVERFETCH, CKPT_ROWS)
+    shares = []
+    for qq, what in ((q8b, "Q=8"), (qpad, f"Q=8 padded to {BATCH}")):
+        check_pair("topk_scan_int8",
+                   tk.topk_mips_quant(s8, ss, qq, m_l, survivors=survivors),
+                   [t[:qq.shape[0]] for t in tk.topk_mips_quant_plain(
+                       s8, ss, qpad, m_l)],
+                   f"{CKPT_ROWS} int8 rows {what} m={m_l}")
+        shares.append(survivors.item())
+    qf = s8.float()
+    launcher8_ms = (time_ms(lambda: tk.topk_mips_quant(s8, ss, q8b, m_l), 20),
+                    time_ms(lambda: torch.topk((q8b @ qf.T) * ss, m_l), 20),
+                    time_ms(lambda: tk.topk_mips_quant(s8, ss, qpad, m_l), 10))
+    del qf
+    torch.cuda.empty_cache()
+    print(f"topk_scan_int8 at the launcher's batch ({CKPT_ROWS} x {DIM} "
+          f"int8, Q=8, m={m_l}): {launcher8_ms[0]:.4f} device ms/launch, "
+          f"library (torch.topk((q @ Q8.float().T) * s)) "
+          f"{launcher8_ms[1]:.4f} ms, bytes bound "
+          f"{1e3 * CKPT_ROWS * (DIM + 4) / HBM_BYTES_PER_S:.4f} ms; padded "
+          f"with zero queries to {BATCH}: {launcher8_ms[2]:.4f} ms; pairs "
+          f"rescored {shares[0]} of {8 * CKPT_ROWS} "
+          f"({100 * shares[0] / (8 * CKPT_ROWS):.4f} %), padded {shares[1]} "
+          f"of {BATCH * CKPT_ROWS} "
+          f"({100 * shares[1] / (BATCH * CKPT_ROWS):.4f} %)")
     qf = q8.float()
     rec["topk_scan_int8"]["library_ms"] = time_ms(
         lambda: torch.topk((q @ qf.T) * sc, m), 2)

@@ -7,7 +7,8 @@ launch one CUDA source, ``kernels/csrc/topk_scan.cu``:
   table): approximate scores on the tensor cores filter the pairs, and
   only the survivors are scored exactly (:func:`plan_topk_filter`);
 * :func:`topk_mips_quant` replaces ``topk_mips_quant`` (int8 table with
-  per-row scales, the first pass of the two-tier scan in ``quant``).
+  per-row scales, the first pass of the two-tier scan in ``quant``): the
+  same filter kernel on int8 rows, its bound times each row's scale.
 
 and a third launches ``kernels/csrc/topk_rowwise.cu``:
 
@@ -27,16 +28,15 @@ Exactness: scores are f32 (tables widened before the dot, queries kept in
 f32), and selection follows one total order, score descending and then row
 ascending, the order of the numpy oracle's stable argsort. Invalid
 positions (rows >= ``valid``, unfilled slots) carry ``(-inf, int32 max)``.
-The filter of :func:`topk_mips` drops a pair only when its approximate
-score plus the error bound of :func:`topk_filter_bounds_plain` is below the
-k-th exact score found so far, so the result stays the exact one bit for
-bit.
+The filter drops a pair only when its approximate score plus the error
+bound of :func:`topk_filter_bounds_plain` (for int8 rows, that edge times
+the row's scale: :func:`topk_filter_edges_plain`) is below the k-th exact
+score found so far, so the result stays the exact one bit for bit.
 
 Bound on an H100 (the kernel's own note has the design): 2*Q*N*d
-operations against N*d*itemsize table bytes. At the serving widths the
-exact scan is bound by the table's bytes (3.35 TB/s) once its products run
-on the bf16 tensor cores (989 TFLOP/s); the int8 scan still runs them on
-the f32 CUDA cores (67 TFLOP/s).
+operations against N*d*itemsize table bytes (int8: N*(d + 4)). At the
+serving widths both scans are bound by the table's bytes (3.35 TB/s) or
+one pass of their products on the bf16 tensor cores (989 TFLOP/s).
 """
 from __future__ import annotations
 
@@ -53,12 +53,12 @@ IDX_SENTINEL = 2**31 - 1          # int32 max
 LAUNCHES = {"topk_scan_exact": 0, "topk_scan_int8": 0, "topk_rowwise": 0}
 
 SMEM_PER_BLOCK = 232_448          # H100: 227 KB of dynamic shared memory
-SCAN_THREADS = 256                # rows per tile == threads per int8 block
-QUERY_BLOCKS = (8, 16, 32, 64)    # compiled int8 query-block sizes (BQ)
 FILTER_WARPS = 8                  # warps of a filter-scan block
 FILTER_WIDTHS = (32, 64, 128, 256)   # compiled widths d is padded to
 FILTER_QUEUE = 32                 # survivors a filter warp queues
 FILTER_SEED = 16                  # lower bounds a warp seeds a query from
+FILTER_SEED_INT8 = 40             # the same for int8 rows (m = 4k at k=10)
+FILTER_GROUPS = 8                 # int8: split groups sharing thresholds
 MERGE_WARPS = 4                   # queries per merge block
 SMEM_STATIC = 49_152              # static shared memory of one block
 ROWWISE_ROW_TILE = 128            # rows per rowwise score block
@@ -69,62 +69,12 @@ ROWWISE_SELECT_CAP = 2048         # candidates a selection block sorts
 ROWWISE_SELECT_BINS = 2048        # radix histogram bins (11-bit digits)
 ROWWISE_K_MAX = ROWWISE_SELECT_CAP // 2
 PLAIN_CHUNK_ELEMS = 1 << 26       # (Q, chunk) scores per plain-scan step
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 # --------------------------------------------------------------------------
 # shared-memory planner (replaces the TPU's VMEM planner choose_block_n)
 # --------------------------------------------------------------------------
-@dataclasses.dataclass(frozen=True)
-class ScanPlan:
-    """Launch geometry of one scan: BQ queries per block, the row range
-    of each split, and the dynamic shared memory of a scan block."""
-
-    bq: int
-    splits: int
-    rows_per_split: int
-    smem_bytes: int
-
-
-def topk_scan_smem_bytes(bq: int, d: int, k: int) -> int:
-    """Shared memory of one scan block: the (bq, d) f32 queries, the
-    (bq, SCAN_THREADS) f32 tile scores and the (bq, k) running lists."""
-    return 4 * (bq * d + bq * SCAN_THREADS) + 8 * bq * k
-
-
-def plan_topk_scan(Q: int, d: int, k: int, valid: int, *,
-                   sm_count: int = 132) -> ScanPlan:
-    """Geometry from the shapes alone.
-
-    BQ is the smallest compiled size that holds all Q queries (at most 64),
-    halved while a block's shared memory would exceed the card's 227 KB;
-    the table is read once per query block, so a larger BQ reads it fewer
-    times. The rows are split so that about four blocks per SM are in
-    flight, each split a whole number of tiles. Raises ``ValueError`` when
-    even BQ = 8 does not fit (k too large for d).
-    """
-    if d % 8:
-        raise ValueError(f"the scan kernel needs d % 8 == 0, got d={d}")
-    if k < 1 or valid < 1 or Q < 1:
-        raise ValueError(f"need k, valid, Q >= 1 (got {k}, {valid}, {Q})")
-    bq = next((b for b in QUERY_BLOCKS if b >= Q), QUERY_BLOCKS[-1])
-    while bq > QUERY_BLOCKS[0] and topk_scan_smem_bytes(bq, d, k) > SMEM_PER_BLOCK:
-        bq //= 2
-    smem = topk_scan_smem_bytes(bq, d, k)
-    if smem > SMEM_PER_BLOCK or 8 * MERGE_WARPS * k > SMEM_PER_BLOCK:
-        kmax = (SMEM_PER_BLOCK - 4 * QUERY_BLOCKS[0] * (d + SCAN_THREADS)
-                ) // (8 * QUERY_BLOCKS[0])
-        raise ValueError(f"k={k} does not fit the scan's shared memory at "
-                         f"d={d} (largest k: {max(kmax, 0)})")
-    qblocks = -(-Q // bq)
-    tiles = -(-valid // SCAN_THREADS)
-    splits = max(1, min(tiles, -(-4 * sm_count // qblocks)))
-    per_split = -(-valid // splits)
-    rows = -(-per_split // SCAN_THREADS) * SCAN_THREADS
-    return ScanPlan(bq=bq, splits=-(-valid // rows), rows_per_split=rows,
-                    smem_bytes=smem)
-
-
 @dataclasses.dataclass(frozen=True)
 class FilterPlan:
     """Launch geometry of one filter scan (:func:`topk_mips`): d padded to
@@ -134,7 +84,8 @@ class FilterPlan:
     ``splits`` row ranges of ``rows_per_split`` rows; ``row_groups`` warps
     that see each query in a block (they share its list); whether the
     block's lists fit in shared memory (``lists_on_chip``, else they live
-    in the partial output); the dynamic shared memory of a block."""
+    in the partial output); the dynamic shared memory of a block; the
+    largest k whose thresholds the first tile seeds (``seed``)."""
 
     width: int
     query_tiles: int
@@ -147,6 +98,7 @@ class FilterPlan:
     row_groups: int
     lists_on_chip: bool
     smem_bytes: int
+    seed: int
 
 
 def plan_topk_filter(Q: int, d: int, k: int, valid: int, itemsize: int, *,
@@ -158,8 +110,11 @@ def plan_topk_filter(Q: int, d: int, k: int, valid: int, itemsize: int, *,
     most 64 registers) and a block as few query groups (1, 2, 4, 8) as
     hold Q, the other warps splitting each tile's rows. One block per SM:
     the rows are cut into as many splits as leave one block per SM, each a
-    whole number of tiles. Raises ``ValueError`` for d past the widest
-    compiled width or k past what the merge's shared memory holds.
+    whole number of tiles. ``itemsize`` 1 is an int8 table: its tiles
+    stage as int8 and widen into one bf16 tile (beside the ring) with the
+    rows' scales, and its seed is deeper. Raises ``ValueError`` for d past
+    the widest compiled width or k past what the merge's shared memory
+    holds.
     """
     if d % 8:
         raise ValueError(f"the scan kernel needs d % 8 == 0, got d={d}")
@@ -183,9 +138,12 @@ def plan_topk_filter(Q: int, d: int, k: int, valid: int, itemsize: int, *,
     splits = max(1, min(-(-valid // tile), sm_count // qblocks))
     rows = -(-(-(-valid // splits)) // tile) * tile
     splits = -(-valid // rows)
-    smem = (2 * tile * (width + 16 // itemsize) * itemsize + 8 * bq
-            + 4 * (3 * bq + FILTER_WARPS * per_warp * (FILTER_SEED + 1)
-                   + tile)
+    staging = 2 * tile * (width + 16 // itemsize) * itemsize
+    if itemsize == 1:           # the widened bf16 tile, two stages' scales
+        staging += tile * (width + 8) * 2 + 2 * tile * 4
+    seed = FILTER_SEED_INT8 if itemsize == 1 else FILTER_SEED
+    smem = (staging + 8 * bq
+            + 4 * (3 * bq + FILTER_WARPS * per_warp * (seed + 1) + tile)
             + 8 * FILTER_WARPS * FILTER_QUEUE + 4 * FILTER_WARPS)
     lists = 8 * bq * k
     on_chip = smem + lists <= SMEM_PER_BLOCK
@@ -193,7 +151,7 @@ def plan_topk_filter(Q: int, d: int, k: int, valid: int, itemsize: int, *,
                       tile_rows=tile, qblocks=qblocks, splits=splits,
                       rows_per_split=rows, row_groups=FILTER_WARPS // qw,
                       lists_on_chip=on_chip,
-                      smem_bytes=smem + lists * on_chip)
+                      smem_bytes=smem + lists * on_chip, seed=seed)
 
 
 # --------------------------------------------------------------------------
@@ -274,17 +232,18 @@ def topk_filter_bounds_plain(table, queries):
     Returns ``(a, eps)``, each (Q, N) f32: ``a`` the split-operand dot
     ``bf16(q) . bf16(row)`` (exact in f64, then rounded), ``eps`` the
     bound E'_q * n'_r of the kernel's note, with E_q = 8 (||q - bf16(q)||
-    + ||q|| (rho_t + 2 d 2^-24 + d 2^-20)), rho_t = 0 for a bf16 table and
-    2^-8 for an f32 one, n_r the norm of the row's bf16 values (of its f32
-    values for an f32 table) and 2^-40 added to both (E' = 0 for a zero
-    query, whose scores are exactly 0). The exact score
-    differs from ``a`` by at most ``eps`` (by at most ``eps / 4`` as the
-    card checks it)."""
+    + ||q|| (rho_t + 2 d 2^-24 + d 2^-20)), rho_t = 0 for a bf16 or int8
+    table (bf16 holds an int8 value exactly) and 2^-8 for an f32 one, n_r
+    the norm of the row's bf16 values (of its f32 values for an f32 table)
+    and 2^-40 added to both (E' = 0 for a zero query, whose scores are
+    exactly 0). The exact score differs from ``a`` by at most ``eps`` (by
+    at most ``eps / 4`` as the card checks it); for an int8 table both are
+    unscaled (:func:`topk_filter_edges_plain` scales them)."""
     q = queries.double()
     qb = queries.float().bfloat16().double()
     tb = table.float().bfloat16().double()
     d = table.shape[1]
-    rho_t = 0.0 if table.dtype == torch.bfloat16 else 2.0 ** -8
+    rho_t = 0.0 if table.dtype in (torch.bfloat16, torch.int8) else 2.0 ** -8
     nq = torch.linalg.vector_norm(q, dim=1)
     e = FILTER_SAFETY * (torch.linalg.vector_norm(q - qb, dim=1)
                          + nq * (rho_t + d * FILTER_ACC_PER_D)) + FILTER_FLOOR
@@ -293,6 +252,21 @@ def topk_filter_bounds_plain(table, queries):
     rows = tb if table.dtype == torch.bfloat16 else table.double()
     n = torch.linalg.vector_norm(rows, dim=1) + FILTER_FLOOR
     return (qb @ tb.T).float(), (e[:, None] * n[None, :]).float()
+
+
+def topk_filter_edges_plain(qtable, scales, queries):
+    """The int8 filter's test quantities, plainly: ``(lo, hi)``, each (Q, N)
+    f32, ``hi = fl(fl(a + eps) * scale_r)`` and ``lo = fl(fl(a - eps) *
+    scale_r)`` with ``a`` and ``eps`` of :func:`topk_filter_bounds_plain`
+    on the int8 rows (``a -+ eps`` rounded once, as the kernel's fmaf
+    rounds it). For every pair ``lo <= fl(s * scale_r) <= hi``, s the
+    unscaled chain: the kernel skips a pair when ``hi`` is below the
+    threshold and seeds thresholds from ``lo``."""
+    a, eps = topk_filter_bounds_plain(qtable, queries)
+    sc = scales.float()
+    hi = (a.double() + eps.double()).float() * sc
+    lo = (a.double() - eps.double()).float() * sc
+    return lo, hi
 
 
 def topk_mips_quant_plain(qtable, scales, queries, m: int,
@@ -326,45 +300,12 @@ def _check_cuda_scan(table, queries, scales, quant: bool) -> None:
                          f"float32 tensor on {table.device}, got "
                          f"{queries.dtype} {tuple(queries.shape)} on "
                          f"{queries.device}")
-    if quant and (scales.device != table.device
+    if quant and scales is not None and (scales.device != table.device
                   or scales.dtype != torch.float32
                   or tuple(scales.shape) != (table.shape[0],)
                   or not scales.is_contiguous()):
         raise ValueError("topk scan: scales must be a contiguous (N,) "
                          f"float32 tensor on {table.device}")
-
-
-def _launch_scan_int8(qtable, scales, queries, k: int, valid: int):
-    """Run the int8 scan kernel and the merge; returns ((Q, k) f32, (Q, k)
-    i32)."""
-    N, d = qtable.shape
-    if not 0 < valid <= N:
-        raise ValueError(f"valid={valid} outside (0, {N}]")
-    Q = queries.shape[0]
-    dev = qtable.device
-    out_v = torch.empty((Q, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
-    if Q == 0:
-        return out_v, out_i
-    plan = plan_topk_scan(
-        Q, d, k, valid,
-        sm_count=torch.cuda.get_device_properties(dev).multi_processor_count)
-    part_v = torch.empty((Q, plan.splits, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((Q, plan.splits, k), dtype=torch.int32, device=dev)
-    lib = build.library("topk_scan")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.topk_scan_int8(
-            plan.bq, qtable.data_ptr(), scales.data_ptr(),
-            queries.data_ptr(), Q, d, valid, k, plan.rows_per_split,
-            plan.splits, part_v.data_ptr(), part_i.data_ptr(), stream)
-        build.check(rc, "topk_scan_int8 (partials)")
-        rc = lib.topk_scan_merge(part_v.data_ptr(), part_i.data_ptr(), Q,
-                                 plan.splits, k, out_v.data_ptr(),
-                                 out_i.data_ptr(), stream)
-        build.check(rc, "topk_scan_int8 (merge)")
-    LAUNCHES["topk_scan_int8"] += 1
-    return out_v, out_i
 
 
 def _filter_plan(table, queries, k: int, valid: int) -> FilterPlan:
@@ -377,6 +318,49 @@ def _filter_plan(table, queries, k: int, valid: int) -> FilterPlan:
         queries.shape[0], d, k, valid, table.element_size(),
         sm_count=torch.cuda.get_device_properties(
             table.device).multi_processor_count)
+
+
+def _launch_filter(name, table, scales, queries, k: int, valid: int,
+                   survivors):
+    """Run the filter kernel and the merge on a checked CUDA table (scales
+    for an int8 one, else None); returns ((Q, k) f32, (Q, k) i32)."""
+    Q, d = queries.shape
+    dev = table.device
+    out_v = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    if Q == 0:
+        if not 0 < valid <= table.shape[0]:
+            raise ValueError(f"valid={valid} outside (0, {table.shape[0]}]")
+        return out_v, out_i
+    plan = _filter_plan(table, queries, k, valid)
+    part_v = torch.empty((Q, plan.splits, k), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((Q, plan.splits, k), dtype=torch.int32, device=dev)
+    # int32: the pairs each block rescored, then each query's threshold
+    # (and for int8 its FILTER_GROUPS group words)
+    words = Q * (1 + FILTER_GROUPS if scales is not None else 1)
+    counts = torch.empty(plan.qblocks * plan.splits + words,
+                         dtype=torch.int32, device=dev)
+    gtau = counts[plan.qblocks * plan.splits:]
+    lib = build.library("topk_scan")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.topk_filter_partials(
+            _DTYPE_CODES[table.dtype], plan.width, plan.qw, table.data_ptr(),
+            None if scales is None else scales.data_ptr(),
+            queries.data_ptr(), Q, d, valid, k, plan.rows_per_split,
+            plan.splits, part_v.data_ptr(), part_i.data_ptr(),
+            counts.data_ptr(), gtau.data_ptr(), stream)
+        build.check(rc, f"{name} (filter)")
+        rc = lib.topk_filter_merge(part_v.data_ptr(), part_i.data_ptr(),
+                                   gtau.data_ptr(), Q, plan.splits, k,
+                                   out_v.data_ptr(), out_i.data_ptr(), stream)
+        build.check(rc, f"{name} (merge)")
+    LAUNCHES[name] += 1
+    if survivors is not None:
+        survivors.copy_(counts[:plan.qblocks * plan.splits].sum(
+            dtype=torch.int64).reshape(1))
+    return out_v, out_i
 
 
 def topk_mips(table, queries, k: int, valid: int | None = None, *,
@@ -401,51 +385,20 @@ def topk_mips(table, queries, k: int, valid: int | None = None, *,
     if table.device.type != "cuda":
         raise ValueError(f"topk_mips: unsupported device {table.device}")
     _check_cuda_scan(table, queries, None, quant=False)
-    Q, d = queries.shape
-    dev = table.device
-    out_v = torch.empty((Q, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
-    if Q == 0:
-        if not 0 < valid <= table.shape[0]:
-            raise ValueError(f"valid={valid} outside (0, {table.shape[0]}]")
-        return out_v, out_i
-    plan = _filter_plan(table, queries, k, valid)
-    part_v = torch.empty((Q, plan.splits, k), dtype=torch.float32,
-                         device=dev)
-    part_i = torch.empty((Q, plan.splits, k), dtype=torch.int32, device=dev)
-    # int32: the pairs each block rescored, then each query's threshold
-    counts = torch.empty(plan.qblocks * plan.splits + Q, dtype=torch.int32,
-                         device=dev)
-    gtau = counts[plan.qblocks * plan.splits:]
-    lib = build.library("topk_scan")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.topk_filter_partials(
-            _DTYPE_CODES[table.dtype], plan.width, plan.qw, table.data_ptr(),
-            queries.data_ptr(), Q, d, valid, k, plan.rows_per_split,
-            plan.splits, part_v.data_ptr(), part_i.data_ptr(),
-            counts.data_ptr(), gtau.data_ptr(), stream)
-        build.check(rc, "topk_scan_exact (filter)")
-        rc = lib.topk_filter_merge(part_v.data_ptr(), part_i.data_ptr(),
-                                   gtau.data_ptr(), Q, plan.splits, k,
-                                   out_v.data_ptr(), out_i.data_ptr(), stream)
-        build.check(rc, "topk_scan_exact (merge)")
-    LAUNCHES["topk_scan_exact"] += 1
-    if survivors is not None:
-        survivors.copy_(counts[:plan.qblocks * plan.splits].sum(
-            dtype=torch.int64).reshape(1))
-    return out_v, out_i
+    return _launch_filter("topk_scan_exact", table, None, queries, k, valid,
+                          survivors)
 
 
 def topk_filter_bounds(table, queries, n: int | None = None):
     """The filter's approximate scores and error bounds of rows [0, n)
     against every query, as the kernel computes them: ((Q, n) f32 a,
-    (Q, n) f32 eps). For checking the bound on the card; a CPU table takes
-    :func:`topk_filter_bounds_plain`. Not a serving path."""
+    (Q, n) f32 eps; an int8 table's unscaled). For checking the bound on
+    the card; a CPU table takes :func:`topk_filter_bounds_plain`. Not a
+    serving path."""
     n = table.shape[0] if n is None else n
     if table.device.type == "cpu":
         return topk_filter_bounds_plain(table[:n], queries)
-    _check_cuda_scan(table, queries, None, quant=False)
+    _check_cuda_scan(table, queries, None, quant=table.dtype == torch.int8)
     plan = _filter_plan(table, queries, 1, n)
     if -(-n // plan.tile_rows) > 65_535:
         raise ValueError(f"topk_filter_bounds: n={n} rows need more than "
@@ -464,21 +417,30 @@ def topk_filter_bounds(table, queries, n: int | None = None):
 
 
 def topk_mips_quant(qtable, scales, queries, m: int,
-                    valid: int | None = None):
+                    valid: int | None = None, *,
+                    survivors: torch.Tensor | None = None):
     """Int8 first pass: approximate top-``m`` candidates per query.
 
-    qtable: (N, d) int8 (``quant.quantize_rows``); scales: (N,) f32;
-    queries: (Q, d) f32. Scores are ``(q . row) * scale`` in f32. Returns
-    ((Q, m) f32, (Q, m) i32 shard-local ids) for ``quant.rescore_exact``.
-    Replaces the TPU kernel ``repro/embed_serve/topk.py::topk_mips_quant``.
+    qtable: (N, d) int8 (``quant.quantize_rows``); scales: (N,) f32,
+    positive (as ``quantize_rows`` gives them: the filter's bound is
+    monotone only in a positive scale); queries: (Q, d) f32. Scores are
+    ``(q . row) * scale`` in f32. Returns ((Q, m) f32, (Q, m) i32
+    shard-local ids) for ``quant.rescore_exact``. ``survivors`` as for
+    :func:`topk_mips`. On the card the filter kernel of :func:`topk_mips`
+    on int8 rows: bf16 tensor-core scores, their bound times the row's
+    scale, the survivors' exact chains. Replaces the TPU kernel
+    ``repro/embed_serve/topk.py::topk_mips_quant``.
     """
     valid = qtable.shape[0] if valid is None else valid
     if qtable.device.type == "cpu":
+        if survivors is not None:
+            survivors.fill_(queries.shape[0] * valid)
         return topk_mips_quant_plain(qtable, scales, queries, m, valid)
     if qtable.device.type != "cuda":
         raise ValueError(f"topk_mips_quant: unsupported device {qtable.device}")
     _check_cuda_scan(qtable, queries, scales, quant=True)
-    return _launch_scan_int8(qtable, scales, queries, m, valid)
+    return _launch_filter("topk_scan_int8", qtable, scales, queries, m, valid,
+                          survivors)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -34,20 +34,14 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # source name -> {C function: argtypes}; every function returns an int
 SIGNATURES = {
     "topk_scan": {
-        # dtype, width, qw, table, queries, Q, d, valid, k, rows_per_split,
-        # splits, part_v, part_i, counts, gtau, stream
-        "topk_filter_partials": [_I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 _P, _P, _P, _P, _P],
+        # dtype, width, qw, table, scales, queries, Q, d, valid, k,
+        # rows_per_split, splits, part_v, part_i, counts, gtau, stream
+        "topk_filter_partials": [_I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _P, _P, _P, _P, _P],
         # part_v, part_i, gtau, Q, splits, k, out_v, out_i, stream
         "topk_filter_merge": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
         # dtype, width, qw, table, queries, Q, d, n, a, eps, stream
         "topk_filter_export": [_I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
-        # bq, table, scales, queries, Q, d, valid, k, rows_per_split,
-        # splits, part_v, part_i, stream
-        "topk_scan_int8": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                           _P],
-        # part_v, part_i, Q, splits, k, out_v, out_i, stream
-        "topk_scan_merge": [_P, _P, _I, _I, _I, _P, _P, _P],
     },
     "topk_rowwise": {
         # dtype, table, queries, Q, d, valid, k, chunk_rows, scratch,

@@ -59,10 +59,21 @@
 //
 // sgns_fused_grads is sgns_tile_grads (gradients in the table's dtype) plus
 // sgns_reduce_partials, the fixed-order sum of the dn and loss partials.
-// sgns_grads is the same pair with the gather taken out: its index
-// pointers are null, so row r of a tile is row row0 + r of v and c, and
-// negative s is row s of n. dn is summed in f32 and cast once, as the TPU
-// kernel accumulates it in an f32 output (sgns.py:105, 127).
+// (sgns_tile_grads also takes null index pointers, rows gathered
+// beforehand; nothing passes them since sgns_grads has its own kernel.)
+//
+// sgns_grads, the gradients of rows gathered beforehand, is one
+// cooperative launch, sgns_grads_coop, of nblk = ceil(B / bb) blocks (bb =
+// 8 at the trainer's minibatches, so 32 blocks at B = 256): each block
+// loads its v and c rows (contiguous) and all S negatives with 16-byte
+// loads all in flight at once, reduces DOTS dot products a warp together
+// with their tails on DOTS lanes, writes dv and dc a vector a thread and its
+// dn and loss partials (the loss summed by one warp in a fixed order); one
+// grid.sync(); then the grid sums each dn element's partials in block
+// order (__ldcg, PARTS in flight) and casts once, as the TPU kernel
+// accumulates dn in an f32 output (sgns.py:105, 127). Its floor is one
+// launch and three dependent round trips (rows in; partials out, across
+// the barrier, and in again): a few us.
 //
 // Bound on an H100: bytes. A minibatch reads (2B + S) rows and writes the
 // unique ones (B = 256, S = 5, d = 128 f32: about 0.5 MB, 0.15 us at
@@ -584,6 +595,273 @@ __global__ void __launch_bounds__(THREADS) sgns_update_fused(
   }
 }
 
+// ---------------------------------------------------------------------------
+// sgns_grads: one cooperative launch
+// ---------------------------------------------------------------------------
+struct GradsArgs {
+  const void* v;
+  const void* c;
+  const void* n;
+  const void* mask;
+  int mask_bf16, B, S, d, bb, nblk;
+  void* dv;          // (B, d), the rows' dtype
+  void* dc;
+  void* dn;          // (S, d), the rows' dtype
+  float* dn_part;    // (nblk, S, d) f32 scratch
+  float* loss_part;  // (nblk,) f32 scratch
+  float* loss;       // the loss
+};
+
+// VEC consecutive elements at p as f32 (16 bytes: 4 f32 or 8 bf16).
+__device__ __forceinline__ void load_vec(const float* p, float* x) {
+  const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+  x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* x) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+// VEC f32 values to p in T, rounded once each (16 or 8 bytes).
+__device__ __forceinline__ void store_vec(float* p, const float* x) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* x) {
+  uint4 u;
+  unsigned* w = reinterpret_cast<unsigned*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    w[i] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// Block blk takes rows [blk bb, blk bb + rows) of v and c (contiguous: the
+// rows were gathered beforehand) and all S negatives: every load in flight
+// at once (16-byte vectors when the rows allow), DOTS dot products a warp
+// reduced together with their tails on DOTS lanes, dv and dc written a
+// vector a thread, its (S, d) dn partial and its loss (summed by one warp
+// in a fixed order) to scratch. One grid-wide barrier, then the grid sums
+// each dn element's partials in block order and casts once; block 0 sums
+// the loss partials. No float atomics: a call repeats bitwise.
+template <typename T>
+__global__ void __launch_bounds__(THREADS) sgns_grads_coop(const GradsArgs a) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ float gsmem[];
+  const int S = a.S, d = a.d, bb = a.bb, T1 = S + 1;
+  float* v_s = gsmem;
+  float* c_s = v_s + bb * d;
+  float* n_s = c_s + bb * d;
+  float* g_s = n_s + S * d;
+  float* l_s = g_s + bb * T1;
+  float* m_s = l_s + bb * T1;
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * bb;
+  const int rows = min(bb, a.B - row0);
+  const long long off = static_cast<long long>(row0) * d;
+  const T* vsrc = static_cast<const T*>(a.v) + off;
+  const T* csrc = static_cast<const T*>(a.c) + off;
+  const T* nsrc = static_cast<const T*>(a.n);
+  const int nr = rows * d, nn = S * d;
+  // one test for the whole grid: every row slab starts at a multiple of
+  // bb d elements from a 16-byte aligned base
+  const bool vec = d % VEC == 0 &&
+                   ((reinterpret_cast<uintptr_t>(a.v) |
+                     reinterpret_cast<uintptr_t>(a.c) |
+                     reinterpret_cast<uintptr_t>(a.n) |
+                     reinterpret_cast<uintptr_t>(a.dv) |
+                     reinterpret_cast<uintptr_t>(a.dc)) & 15) == 0;
+
+  // the rows, gathered beforehand: v, c and n, a vector of each per thread
+  // per step, every load of a step (and the mask, bb <= THREADS) issued
+  // before any store
+  const float m = tid < rows ? load_mask(a.mask, a.mask_bf16, row0 + tid)
+                             : 0.0f;
+  if (vec) {
+    for (int i0 = 0; i0 < max(nr, nn); i0 += THREADS * VEC) {
+      const int i = i0 + tid * VEC;
+      float x[VEC], y[VEC], z[VEC];
+      if (i < nr) {
+        load_vec(vsrc + i, x);
+        load_vec(csrc + i, y);
+      }
+      if (i < nn) load_vec(nsrc + i, z);
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) {
+        if (i < nr) {
+          v_s[i + u] = x[u];
+          c_s[i + u] = y[u];
+        }
+        if (i < nn) n_s[i + u] = z[u];
+      }
+    }
+  } else {
+    for (int i = tid; i < max(nr, nn); i += THREADS) {
+      if (i < nr) {
+        v_s[i] = to_f32(vsrc[i]);
+        c_s[i] = to_f32(csrc[i]);
+      }
+      if (i < nn) n_s[i] = to_f32(nsrc[i]);
+    }
+  }
+  if (tid < bb) m_s[tid] = m;
+  __syncthreads();
+
+  // scores: one warp per dot product, DOTS of a warp's dots reduced
+  // together by one fixed shuffle tree each; lane i takes dot i's sigmoid
+  // and softplus
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ndots = rows * T1;
+  for (int q0 = warp; q0 < ndots; q0 += WARPS * DOTS) {
+    float acc[DOTS];
+#pragma unroll
+    for (int i = 0; i < DOTS; ++i) {
+      const int q = q0 + i * WARPS;
+      acc[i] = 0.0f;
+      if (q < ndots) {
+        const int r = q / T1, t = q - r * T1;
+        const float* x = v_s + r * d;
+        const float* y = t == 0 ? c_s + r * d : n_s + (t - 1) * d;
+        for (int k = lane; k < d; k += 32) acc[i] = fmaf(x[k], y[k], acc[i]);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int i = 0; i < DOTS; ++i)
+        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+    }
+    float mine = acc[0];
+#pragma unroll
+    for (int i = 1; i < DOTS; ++i) mine = lane == i ? acc[i] : mine;
+    const int q = q0 + lane * WARPS;
+    if (lane < DOTS && q < ndots) {
+      const int r = q / T1, t = q - r * T1;
+      const float mr = m_s[r];
+      if (t == 0) {
+        g_s[q] = (sigmoid_f32(mine) - 1.0f) * mr;
+        l_s[q] = mr * softplus_f32(-mine);
+      } else {
+        g_s[q] = sigmoid_f32(mine) * mr;
+        l_s[q] = mr * softplus_f32(mine);
+      }
+    }
+  }
+  __syncthreads();
+
+  // dv = g_pos c + sum_s g_neg n_s and dc = g_pos v, VEC columns a thread
+  T* dv = static_cast<T*>(a.dv) + off;
+  T* dc = static_cast<T*>(a.dc) + off;
+  if (vec) {
+    for (int i = tid * VEC; i < nr; i += THREADS * VEC) {
+      const int r = i / d, k = i - r * d;
+      const float* g = g_s + r * T1;
+      float x[VEC], y[VEC];
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) {
+        x[u] = g[0] * c_s[i + u];
+        y[u] = g[0] * v_s[i + u];
+      }
+      for (int s = 0; s < S; ++s) {
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) x[u] += g[1 + s] * n_s[s * d + k + u];
+      }
+      store_vec(dv + i, x);
+      store_vec(dc + i, y);
+    }
+  } else {
+    for (int i = tid; i < nr; i += THREADS) {
+      const int r = i / d, k = i - r * d;
+      const float* g = g_s + r * T1;
+      float acc = g[0] * c_s[i];
+      for (int s = 0; s < S; ++s) acc += g[1 + s] * n_s[s * d + k];
+      dv[i] = from_f32<T>(acc);
+      dc[i] = from_f32<T>(g[0] * v_s[i]);
+    }
+  }
+  // the block's dn partial, its rows in order
+  float* part = a.dn_part + static_cast<long long>(blockIdx.x) * nn;
+  for (int i = tid; i < nn; i += THREADS) {
+    const int s = i / d, k = i - s * d;
+    float acc = 0.0f;
+    for (int r = 0; r < rows; ++r) acc += g_s[r * T1 + 1 + s] * v_s[r * d + k];
+    part[i] = acc;
+  }
+  // the block's loss: warp 0, lane j the terms j, j + 32, ... in order,
+  // then one shuffle tree
+  if (warp == 0) {
+    float acc = 0.0f;
+    for (int q = lane; q < ndots; q += 32) acc += l_s[q];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) a.loss_part[blockIdx.x] = acc;
+  }
+  cooperative_groups::this_grid().sync();
+
+  // dn[i] = the partials of blocks 0, 1, ... added in order (read at L2:
+  // other blocks wrote them), PARTS loads in flight at a time; then cast
+  const int nblk = a.nblk;
+  T* dn = static_cast<T*>(a.dn);
+  for (int i = blockIdx.x * THREADS + tid; i < nn; i += gridDim.x * THREADS) {
+    float acc = 0.0f;
+    for (int b0 = 0; b0 < nblk; b0 += PARTS) {
+      float p[PARTS];
+#pragma unroll
+      for (int u = 0; u < PARTS; ++u)
+        p[u] = b0 + u < nblk
+                   ? __ldcg(a.dn_part + static_cast<long long>(b0 + u) * nn + i)
+                   : 0.0f;
+#pragma unroll
+      for (int u = 0; u < PARTS; ++u) {
+        if (b0 + u < nblk) acc = b0 + u == 0 ? p[u] : acc + p[u];
+      }
+    }
+    dn[i] = from_f32<T>(acc);
+  }
+  // the loss partials in block order, by the last thread of block 0 (the
+  // dn elements go to the lowest threads first)
+  if (blockIdx.x == 0 && tid == THREADS - 1) {
+    float acc = 0.0f;
+    for (int b0 = 0; b0 < nblk; b0 += PARTS) {
+      float p[PARTS];
+#pragma unroll
+      for (int u = 0; u < PARTS; ++u)
+        p[u] = b0 + u < nblk ? __ldcg(a.loss_part + b0 + u) : 0.0f;
+#pragma unroll
+      for (int u = 0; u < PARTS; ++u) {
+        if (b0 + u < nblk) acc = b0 + u == 0 ? p[u] : acc + p[u];
+      }
+    }
+    *a.loss = acc;
+  }
+}
+
+// One cooperative launch of nblk blocks (at most one per SM: the planner's
+// rows per block keep nblk within the SMs, so every block is resident at
+// once; cudaLaunchCooperativeKernel refuses a grid that is not).
+template <typename T>
+int launch_grads_coop(const GradsArgs& a, int smem, cudaStream_t st) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sgns_grads_coop<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  GradsArgs args = a;
+  void* params[] = {&args};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(sgns_grads_coop<T>), dim3(a.nblk),
+      dim3(THREADS), params, static_cast<size_t>(smem), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, typename OutT>
 int launch_tile_grads(const void* vsrc, const void* csrc, const void* nsrc,
                       const void* idx_v, const void* idx_c,
@@ -718,20 +996,20 @@ extern "C" int sgns_fused_grads(int dtype, int mask_bf16, const void* vert,
 }
 
 // The gradients of rows gathered beforehand: v, c (B, d) and n (S, d) in
-// one dtype; outputs and scratch as sgns_fused_grads.
+// one dtype; dv, dc (B, d), dn (S, d) in that dtype, loss (1,) f32;
+// dn_part (nblk, S, d) and loss_part (nblk,) f32 scratch, nblk = ceil(B /
+// bb) <= the SMs and bb <= 256 (plan_sgns_grads). One cooperative launch.
 extern "C" int sgns_grads(int dtype, int mask_bf16, const void* v,
                           const void* c, const void* n, const void* mask,
                           int B, int S, int d, int bb, int smem, void* dv,
                           void* dc, void* dn_part, void* loss_part, void* dn,
                           void* loss, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_grads<float>(v, c, n, nullptr, nullptr, nullptr, mask,
-                               mask_bf16, B, S, d, bb, smem, dv, dc, dn_part,
-                               loss_part, dn, loss, st);
-  if (dtype == 1)
-    return launch_grads<__nv_bfloat16>(v, c, n, nullptr, nullptr, nullptr,
-                                       mask, mask_bf16, B, S, d, bb, smem, dv,
-                                       dc, dn_part, loss_part, dn, loss, st);
+  if (bb < 1 || bb > THREADS) return static_cast<int>(cudaErrorInvalidValue);
+  const GradsArgs a{v, c, n, mask, mask_bf16, B, S, d, bb, (B + bb - 1) / bb,
+                    dv, dc, dn, static_cast<float*>(dn_part),
+                    static_cast<float*>(loss_part), static_cast<float*>(loss)};
+  if (dtype == 0) return launch_grads_coop<float>(a, smem, st);
+  if (dtype == 1) return launch_grads_coop<__nv_bfloat16>(a, smem, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

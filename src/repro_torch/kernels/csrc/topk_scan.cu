@@ -1,7 +1,8 @@
 // Exact MIPS top-k scans for Hopper: the port of the JAX package's
 // embed_serve/topk.py::topk_mips (f32 and bf16 tables) and
 // topk_mips_quant (int8 tables with per-row scales), both launched there
-// by _launch_topk_scan.
+// by _launch_topk_scan. One kernel serves both: filter_kernel, instantiated
+// per table dtype and width.
 //
 // What they compute: for every query q and every table row r < valid, the
 // f32 score s = q . row (an int8 row: s = (q . row) * scale[r], the scale
@@ -17,8 +18,8 @@
 // lists, (Q, lists, k), and a merge kernel takes the top-k of each query's
 // lists under the same order (one warp per query).
 //
-// f32 and bf16 tables (topk_mips): a filter on the tensor cores in front of
-// the exact chain (filter_kernel).
+// A filter on the tensor cores in front of the exact chain (filter_kernel;
+// int8 tables below the error bound).
 //
 //   Bound on an H100 at the serving shape (26.25 M x 128 bf16 rows, 256
 //   queries): 2*Q*N*d = 1.7 TFLOP, which the bf16 tensor cores do in 1.7 ms
@@ -88,22 +89,51 @@
 //   past Q are zero and never pass. The host plans one block per SM over
 //   the rows.
 //
-// int8 tables (topk_mips_quant): scan_kernel<int8_t, BQ>. A block stages BQ
-// queries in shared memory as f32, walks its own row range in tiles of TN
-// rows (one row per thread, f32 FMA over the widened row), and folds each
-// tile into a running top-k per query held in shared memory: one warp folds
-// one query at a time, a ballot finding the tile rows that beat the k-th
-// entry. Bound like the exact scan's (operations on the CUDA cores, plus
-// Q*N scale multiplies); tensor cores are not used yet.
+// int8 tables (topk_mips_quant, filter_kernel<int8_t, KS>): the score is
+// s_r * scale_r, s_r the chain over the row widened to f32, scale_r > 0
+// (quantize_rows gives an all-zero row 1.0). An int8 value has at most 8
+// significant bits, so bf16(row) = row: rho_t = 0 and n'_r = ||row|| +
+// 2^-40 exactly as above (the sum of squares is an exact int32). The
+// lists hold scaled scores, and a pair is skipped only when
+//   fl(fl(a + eps) * scale_r) < tau_q
+// (with the same tie rule at equality). Sound: s_r <= a + eps, and s_r is
+// a float, so fl(a + eps) >= s_r (rounding is monotone); multiplying by
+// scale_r > 0 and rounding is monotone too, so fl(fl(a + eps) scale_r) >=
+// fl(s_r scale_r), the exact scaled score. The seed's lower bounds are
+// fl(fl(a - eps) scale_r) <= fl(s_r scale_r) the same way. Survivors get
+// the chain over the int8 row from the table, then the one multiply by
+// scale_r. The ring stages int8 tiles (half a bf16 tile's bytes); each is
+// widened once per block into a bf16 tile (exact bit arithmetic: widen4),
+// the row norms taken on the way, and the fragments load from that, so the
+// eight warps that share a tile at Q = 256 do not each convert it. Bound:
+// the table's N (d + 4) bytes (1.03 ms at the serving shape), or one bf16
+// tensor-core pass (1.74 ms) plus the survivors' chains. The seed keeps 5
+// lower bounds per lane and query (40 a query), so the two-tier scan's m =
+// 40 is seeded from the first tile.
+//
+// At m = 40 the survivors are the cost, not the products or the widening:
+// each split's list of m takes about m ln(n / m) exact inserts over its n
+// rows, and the max of the splits' m-th scores (gtau) is little above one
+// split's. So the int8 scan also shares a threshold across splits by
+// groups: split s belongs to group s % GROUPS and raises the group's word
+// of query q (atomicMax of an order key) to its list's r-th score, r =
+// ceil(m / GROUPS); a warp takes the least of the GROUPS words (read with
+// gtau at the end of each tile). Sound: group g's word is the r-th score
+// of some list of a split in g, lists only improve, and the splits of
+// different groups hold different rows, so at least GROUPS r >= m distinct
+// pairs score at least the least word, and so does the final m-th. (Until
+// every group has a word the least is key 0, a NaN, and gtau alone
+// counts.) The least word is close to the m-th best of every row scanned
+// so far, not of one split's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int TN = 256;              // rows per tile == threads per block
-constexpr int WARPS = TN / 32;
 constexpr int MERGE_WARPS = 4;       // queries per merge block
 constexpr int IDX_SENTINEL = 0x7fffffff;
 constexpr unsigned FULL = 0xffffffffu;
@@ -142,22 +172,13 @@ __device__ __forceinline__ bool goes_on(float x, float tau,
            r > static_cast<int>(w & 0xffffffffu));
 }
 
-// Eight consecutive int8 row elements as f32.
-template <typename T>
-struct Row8;
-
-template <>
-struct Row8<int8_t> {
-  static __device__ __forceinline__ void load(const int8_t* p, float* x) {
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-    const unsigned w[2] = {u.x, u.y};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      x[i] = static_cast<float>(
-          static_cast<signed char>((w[i / 4] >> (8 * (i % 4))) & 0xffu));
-    }
-  }
-};
+// A pair's edge fl(a +- eps) on the lists' scale: times the row's scale
+// for an int8 table (rounded once; monotone, as the note's proof needs).
+template <bool Q8>
+__device__ __forceinline__ float scaled(float x, float s) {
+  if constexpr (Q8) return __fmul_rn(x, s);
+  return x;
+}
 
 // Insert (cv, ci) into the sorted list (Lv, Li) of length k; the caller has
 // checked that it beats the last entry. All 32 lanes call this together.
@@ -214,128 +235,6 @@ __device__ unsigned warp_offer(float* Lv, int* Li, int k, float v, int gi,
   return first;
 }
 
-template <typename T, int BQ>
-__global__ void __launch_bounds__(TN)
-    scan_kernel(const T* __restrict__ table, const float* __restrict__ scales,
-                const float* __restrict__ queries, int Q, int d, int valid,
-                int k, int rows_per_split, float* __restrict__ part_v,
-                int* __restrict__ part_i) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);   // (BQ, d) queries
-  float* sc = qs + BQ * d;                       // (BQ, TN) tile scores
-  float* Lv = sc + BQ * TN;                      // (BQ, k) running scores
-  int* Li = reinterpret_cast<int*>(Lv + BQ * k); // (BQ, k) running rows
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * BQ;
-  const int split = blockIdx.y, splits = gridDim.y;
-
-  for (int e = tid; e < BQ * d; e += TN) {
-    const int q = e / d;
-    qs[e] = q0 + q < Q ? queries[static_cast<size_t>(q0 + q) * d + e % d]
-                       : 0.f;
-  }
-  for (int e = tid; e < BQ * k; e += TN) {
-    Lv[e] = -INFINITY;
-    Li[e] = IDX_SENTINEL;
-  }
-  __syncthreads();
-
-  const long long begin = static_cast<long long>(split) * rows_per_split;
-  const long long end =
-      min(begin + rows_per_split, static_cast<long long>(valid));
-  for (long long t0 = begin; t0 < end; t0 += TN) {
-    const long long row = t0 + tid;
-    float acc[BQ];
-#pragma unroll
-    for (int q = 0; q < BQ; ++q) acc[q] = 0.f;
-    if (row < end) {
-      const T* p = table + row * d;
-      for (int j = 0; j < d; j += 8) {
-        float x[8];
-        Row8<T>::load(p + j, x);
-#pragma unroll
-        for (int q = 0; q < BQ; ++q) {
-          const float4* qq = reinterpret_cast<const float4*>(qs + q * d + j);
-          const float4 a = qq[0], b = qq[1];
-          float s = acc[q];
-          s = fmaf(a.x, x[0], s);
-          s = fmaf(a.y, x[1], s);
-          s = fmaf(a.z, x[2], s);
-          s = fmaf(a.w, x[3], s);
-          s = fmaf(b.x, x[4], s);
-          s = fmaf(b.y, x[5], s);
-          s = fmaf(b.z, x[6], s);
-          s = fmaf(b.w, x[7], s);
-          acc[q] = s;
-        }
-      }
-      if (scales != nullptr) {
-        const float s = scales[row];
-#pragma unroll
-        for (int q = 0; q < BQ; ++q) acc[q] = acc[q] * s;
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < BQ; ++q) sc[q * TN + tid] = acc[q];
-    __syncthreads();
-    const int n = static_cast<int>(min(static_cast<long long>(TN), end - t0));
-    for (int q = warp; q < BQ; q += WARPS) {
-      if (q0 + q >= Q) continue;
-      for (int c = 0; c < n; c += 32) {
-        const int r = c + lane;
-        const bool live = r < n;
-        warp_offer(Lv + q * k, Li + q * k, k, live ? sc[q * TN + r] : 0.f,
-                   static_cast<int>(t0) + r, live, lane);
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int q = warp; q < BQ; q += WARPS) {
-    if (q0 + q >= Q) continue;
-    const size_t base = (static_cast<size_t>(q0 + q) * splits + split) * k;
-    for (int i = lane; i < k; i += 32) {
-      part_v[base + i] = Lv[q * k + i];
-      part_i[base + i] = Li[q * k + i];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(MERGE_WARPS * 32)
-    merge_kernel(const float* __restrict__ part_v,
-                 const int* __restrict__ part_i, int Q, int splits, int k,
-                 float* __restrict__ out_v, int* __restrict__ out_i) {
-  extern __shared__ float4 smem4[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q = blockIdx.x * MERGE_WARPS + warp;
-  if (q >= Q) return;  // whole warp; no block-wide barrier follows
-  float* Lv = reinterpret_cast<float*>(smem4) + warp * k;
-  int* Li = reinterpret_cast<int*>(reinterpret_cast<float*>(smem4) +
-                                   MERGE_WARPS * k) + warp * k;
-  for (int i = lane; i < k; i += 32) {
-    Lv[i] = -INFINITY;
-    Li[i] = IDX_SENTINEL;
-  }
-  __syncwarp();
-  for (int s = 0; s < splits; ++s) {
-    const size_t base = (static_cast<size_t>(q) * splits + s) * k;
-    for (int c = 0; c < k; c += 32) {
-      const int r = c + lane;
-      const bool live = r < k;
-      const float v = live ? part_v[base + r] : -INFINITY;
-      const int gi = live ? part_i[base + r] : IDX_SENTINEL;
-      const unsigned took = warp_offer(Lv, Li, k, v, gi, live, lane);
-      // each partial list is sorted: once one candidate loses, the rest of
-      // the list loses too (the k-th entry only gets better)
-      if (took != __ballot_sync(FULL, live)) break;
-    }
-  }
-  for (int i = lane; i < k; i += 32) {
-    out_v[static_cast<size_t>(q) * k + i] = Lv[i];
-    out_i[static_cast<size_t>(q) * k + i] = Li[i];
-  }
-}
-
 // The filter scan's merge: one warp per query over its (lists, k) entries,
 // 32 at a time in memory order, so the loads need not wait for the
 // inserts; an entry below gtau[q] (the largest k-th score of any list, at
@@ -375,60 +274,13 @@ __global__ void __launch_bounds__(MERGE_WARPS * 32)
   }
 }
 
-template <typename T, int BQ>
-int launch_scan(const void* table, const void* scales, const void* queries,
-                int Q, int d, int valid, int k, int rows_per_split,
-                int splits, void* part_v, void* part_i, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(BQ) * d +
-                                       static_cast<size_t>(BQ) * TN) +
-                      static_cast<size_t>(BQ) * k * (sizeof(float) +
-                                                     sizeof(int));
-  cudaError_t e = cudaFuncSetAttribute(
-      scan_kernel<T, BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((Q + BQ - 1) / BQ, splits);
-  scan_kernel<T, BQ><<<grid, TN, smem, stream>>>(
-      static_cast<const T*>(table), static_cast<const float*>(scales),
-      static_cast<const float*>(queries), Q, d, valid, k, rows_per_split,
-      static_cast<float*>(part_v), static_cast<int*>(part_i));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_bq(int bq, const void* table, const void* scales,
-                const void* queries, int Q, int d, int valid, int k,
-                int rows_per_split, int splits, void* part_v, void* part_i,
-                cudaStream_t stream) {
-  switch (bq) {
-    case 64:
-      return launch_scan<T, 64>(table, scales, queries, Q, d, valid, k,
-                                rows_per_split, splits, part_v, part_i,
-                                stream);
-    case 32:
-      return launch_scan<T, 32>(table, scales, queries, Q, d, valid, k,
-                                rows_per_split, splits, part_v, part_i,
-                                stream);
-    case 16:
-      return launch_scan<T, 16>(table, scales, queries, Q, d, valid, k,
-                                rows_per_split, splits, part_v, part_i,
-                                stream);
-    case 8:
-      return launch_scan<T, 8>(table, scales, queries, Q, d, valid, k,
-                               rows_per_split, splits, part_v, part_i,
-                               stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 // --------------------------------------------------------------------------
-// the filter scan (f32 and bf16 tables)
+// the filter scan (f32, bf16 and int8 tables)
 // --------------------------------------------------------------------------
 constexpr int FW = 8;                // warps of a filter block
 constexpr int FT = FW * 32;
 constexpr int QCAP = 32;             // survivors queued per warp
-constexpr int SEED = 16;             // a lower bound per (lane, query) x 2
+constexpr int GROUPS = 8;            // int8: split groups of the thresholds
 constexpr size_t kSmemPerBlock = 232448;   // H100: 227 KB per block
 // 2^-40: the floors of E'_q and n'_r (the kernel's note)
 constexpr float FLOOR = 9.094947017729282e-13f;
@@ -450,10 +302,53 @@ __host__ __device__ constexpr size_t tile_bytes() {
   return static_cast<size_t>(tile_rows<T, KS>()) * row_stride<T, KS>() *
          sizeof(T);
 }
+template <typename T>
+constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+// The type the tensor cores read a staged row in: an int8 tile is widened
+// to bf16 (exactly) once per block before its fragments load.
+template <typename T>
+struct Frag {
+  using type = T;
+};
+template <>
+struct Frag<int8_t> {
+  using type = __nv_bfloat16;
+};
+// The row staging of a block: the two stages of the tile ring; for int8
+// also the bf16 tile the fragments load from and the stages' row scales.
+template <typename T, int KS>
+__host__ __device__ constexpr size_t staging_bytes() {
+  return 2 * tile_bytes<T, KS>() +
+         (kInt8<T> ? tile_bytes<__nv_bfloat16, KS>() +
+                         2 * tile_rows<T, KS>() * sizeof(float)
+                   : 0);
+}
+// Lower bounds a lane keeps per query slot for the first-tile seed: the 8
+// lane groups' values of a query are 8 SD distinct pairs, so the seed
+// covers k <= 8 SD (16 for f32 and bf16; 40 for int8, the two-tier scan's
+// m = 4k at k = 10).
+template <typename T>
+__host__ __device__ constexpr int seed_depth() {
+  return kInt8<T> ? 5 : 2;
+}
+template <typename T>
+__host__ __device__ constexpr int seed_slots() {
+  return 8 * seed_depth<T>();
+}
+
 __device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 8 and 4 bytes (int8 rows of d % 16 == 8; one row scale), through L1
+template <int N>
+__device__ __forceinline__ void cp_small(void* dst, const void* src,
+                                         bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"(N), "r"(valid ? N : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_commit() {
@@ -503,6 +398,74 @@ __device__ __forceinline__ void row8(const float* p, float* x) {
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+// (an int8 row in the table, for the exact rescore: widened exactly)
+__device__ __forceinline__ void row8(const int8_t* p, float* x) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const unsigned w[2] = {u.x, u.y};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    x[i] = static_cast<float>(
+        static_cast<signed char>((w[i / 4] >> (8 * (i % 4))) & 0xffu));
+  }
+}
+
+// Four int8 values (one word) as four bf16 (two words), exactly: byte b
+// becomes the float with bits 0x4B0000 | (b + 128), 2^23 + b + 128, minus
+// 2^23 + 128; a float of magnitude <= 128 has 8 significant bits at most,
+// so its bf16 is its top half.
+__device__ __forceinline__ uint2 widen4(unsigned w) {
+  const unsigned u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440u + i)),
+                     8388736.0f);
+  return make_uint2(
+      __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632u),
+      __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632u));
+}
+
+// A staged int8 tile (row stride D + 16 bytes) widened to the bf16 tile the
+// fragments load from (row stride D + 8), and each row's n'_r = ||x_r|| +
+// 2^-40: the sum of squares in int32 (__dp4a; exact, at most 256 * 127^2
+// < 2^24, so its float is too). FT / TR adjacent threads a row, 16 bytes a
+// step.
+template <int KS>
+__device__ void widen_tile(const int8_t* src, __nv_bfloat16* dst,
+                           float* nrm) {
+  constexpr int D = KS * 16, TR = tile_rows<int8_t, KS>(), TPR = FT / TR;
+  constexpr int RS8 = row_stride<int8_t, KS>();
+  constexpr int RSB = row_stride<__nv_bfloat16, KS>();
+  const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
+  int ss = 0;
+#pragma unroll
+  for (int j = 16 * part; j < D; j += 16 * TPR) {
+    const uint4 u = *reinterpret_cast<const uint4*>(src + r * RS8 + j);
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+    uint2 h[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ss = __dp4a(static_cast<int>(w[i]), static_cast<int>(w[i]), ss);
+      h[i] = widen4(w[i]);
+    }
+    uint4* out = reinterpret_cast<uint4*>(dst + r * RSB + j);
+    out[0] = make_uint4(h[0].x, h[0].y, h[1].x, h[1].y);
+    out[1] = make_uint4(h[2].x, h[2].y, h[3].x, h[3].y);
+  }
+#pragma unroll
+  for (int o = 1; o < TPR; o <<= 1) ss += __shfl_xor_sync(FULL, ss, o);
+  if (part == 0) nrm[r] = sqrtf(static_cast<float>(ss)) + FLOOR;
+}
+
+// The scales of rows [r0, r0 + TR) into a stage (0 at or past `end`).
+template <int TR>
+__device__ __forceinline__ void load_scales(float* dst, const float* scales,
+                                            long long r0, long long end) {
+  for (int i = threadIdx.x; i < TR; i += FT) {
+    const bool ok = r0 + i < end;
+    cp_small<4>(dst + i, scales + (ok ? r0 + i : 0), ok);
+  }
 }
 
 // The contract's score: the fmaf chain over j = 0..d-1 from 0.0.
@@ -604,6 +567,18 @@ struct Filter {
   // rows [r0, r0 + TR) into a stage; rows at or past `end` zero-filled
   static __device__ void load_tile(T* dst, const T* table, int d,
                                    long long r0, long long end) {
+    if constexpr (kInt8<T>) {
+      if (d % 16) {                           // 8-byte rows' copies
+        const int ch = d / 8;
+        for (int i = threadIdx.x; i < TR * ch; i += FT) {
+          const int r = i / ch, c = i - r * ch;
+          const bool ok = r0 + r < end;
+          cp_small<8>(dst + r * RS + c * 8,
+                      table + (ok ? (r0 + r) * d : 0) + c * 8, ok);
+        }
+        return;
+      }
+    }
     constexpr int EPC = 16 / sizeof(T);       // elements per 16-byte copy
     const int ch = d / EPC;                   // copies per row
     for (int i = threadIdx.x; i < TR * ch; i += FT) {
@@ -655,20 +630,21 @@ struct Filter {
   }
 };
 
-// Shared memory of a filter block after its two tile stages: the lists'
-// k-th (score, row) words, E, the threshold keys and the list locks (bq
-// each), each warp's float copy of its thresholds (FW x 8 NT), the seeds'
-// candidates (FW x
-// 8 NT x SEED floats), the survivor queues (FW x QCAP (query, row) pairs),
-// the warps' survivor counts (FW ints) and a tile's n'_r (TR floats); then,
-// when they are kept on chip, the block's lists (bq x k entries).
+// Shared memory of a filter block after its row staging (staging_bytes):
+// the lists' k-th (score, row) words, E, the threshold keys and the list
+// locks (bq each), each warp's float copy of its thresholds (FW x 8 NT),
+// the seeds' candidates (FW x 8 NT x seed_slots floats), the survivor
+// queues (FW x QCAP (query, row) pairs), the warps' survivor counts (FW
+// ints) and a tile's n'_r (TR floats); then, when they are kept on chip,
+// the block's lists (bq x k entries).
 template <typename T, int KS>
 size_t filter_smem(int qw, int k, bool lists_on_chip) {
   const int per_warp = 8 * query_tiles(KS);
   const size_t bq = static_cast<size_t>(qw) * per_warp;
-  return 2 * tile_bytes<T, KS>() + sizeof(unsigned long long) * bq +
+  return staging_bytes<T, KS>() + sizeof(unsigned long long) * bq +
          sizeof(float) * 3 * bq +
-         sizeof(float) * (FW * per_warp * (SEED + 1) + tile_rows<T, KS>()) +
+         sizeof(float) * (FW * per_warp * (seed_slots<T>() + 1) +
+                          tile_rows<T, KS>()) +
          sizeof(int2) * FW * QCAP + sizeof(int) * FW +
          (lists_on_chip ? (sizeof(float) + sizeof(int)) * bq *
                               static_cast<size_t>(k)
@@ -686,22 +662,35 @@ size_t filter_smem(int qw, int k, bool lists_on_chip) {
 // row) and are rescored when 32 have gathered (and at the end), the rows
 // read again from the table (recently streamed, so mostly from L2). The
 // merge kernel reads (Q, splits, k); counts[block] gets the pairs the block
-// rescored.
+// rescored. An int8 table (scales given) keeps its lists in scaled scores:
+// a pair's bound is fl(fl(a + eps) * scale_r), its exact score the chain
+// times scale_r (the note), the tile widened to bf16 before its fragments
+// load.
 template <typename T, int KS>
 __global__ void __launch_bounds__(FT, 1)
     filter_kernel(const T* __restrict__ table,
+                  const float* __restrict__ scales,
                   const float* __restrict__ queries, int Q, int d, int valid,
                   int k, int qw, int rows_per_split, float rho_t,
                   float* part_v, int* part_i, int* __restrict__ counts,
                   unsigned* gtau, int lists_on_chip) {
-  using F = Filter<T, KS>;
-  constexpr int NT = F::NT, PER_WARP = F::PER_WARP, TR = F::TR, RS = F::RS;
+  using FragT = typename Frag<T>::type;
+  using R = Filter<T, KS>;                    // the ring of staged tiles
+  using F = Filter<FragT, KS>;                // the fragments' tiles
+  constexpr bool Q8 = kInt8<T>;
+  constexpr int NT = F::NT, PER_WARP = F::PER_WARP, TR = R::TR, RS = R::RS;
+  constexpr int SD = seed_depth<T>(), SEED = seed_slots<T>();
   constexpr int GW = (PER_WARP + 31) / 32;    // threshold words a lane reads
+  static_assert(TR == F::TR, "an int8 tile widens into one bf16 tile");
   extern __shared__ __align__(16) unsigned char smem[];
   const int bq = qw * PER_WARP;
   T* tiles = reinterpret_cast<T*>(smem);
+  // int8: the widened tile, then the two stages' row scales
+  FragT* wide = reinterpret_cast<FragT*>(smem + 2 * tile_bytes<T, KS>());
+  float* scale_st = reinterpret_cast<float*>(
+      smem + 2 * tile_bytes<T, KS>() + tile_bytes<FragT, KS>());
   unsigned long long* kth_all = reinterpret_cast<unsigned long long*>(
-      smem + 2 * tile_bytes<T, KS>());
+      smem + staging_bytes<T, KS>());
   float* E = reinterpret_cast<float*>(kth_all + bq);
   unsigned* tkey_all = reinterpret_cast<unsigned*>(E + bq);
   int* lock_all = reinterpret_cast<int*>(tkey_all + bq);
@@ -742,14 +731,20 @@ __global__ void __launch_bounds__(FT, 1)
   };
   float* Ew = E + (qw0 - q0);
   int2* queue = queue_all + w * QCAP;
+  // int8: this split's group word of each query (the note), and the rank r
+  // of the list entry it takes: r GROUPS >= k
+  unsigned* ggrp =
+      gtau + static_cast<size_t>(1 + blockIdx.y % GROUPS) * Q;
+  const int r_grp = (k + GROUPS - 1) / GROUPS;
 
   const long long begin = static_cast<long long>(blockIdx.y) * rows_per_split;
   const long long end =
       min(begin + rows_per_split, static_cast<long long>(valid));
-  F::load_tile(tiles, table, d, begin, end);
+  R::load_tile(tiles, table, d, begin, end);
+  if constexpr (Q8) load_scales<TR>(scale_st, scales, begin, end);
   cp_commit();
 
-  F::zero_pad(tiles, d);
+  R::zero_pad(tiles, d);
   F::query_bounds(queries, Q, d, q0, bq, rho_t, E);
   for (int i = threadIdx.x; i < bq; i += FT) {
     tkey_all[i] = order_key(q0 + i < Q ? -INFINITY : INFINITY);
@@ -789,6 +784,7 @@ __global__ void __launch_bounds__(FT, 1)
       gi = e.y;
       s = exact_score(queries + static_cast<size_t>(qw0 + ql) * d,
                       table + static_cast<long long>(gi) * d, d);
+      if constexpr (Q8) s = __fmul_rn(s, __ldg(scales + gi));
       // without the lock, by value alone (one word, and it only rises)
       pass = !(s < lists_v[list_at(qw0 + ql) + k - 1]);
     }
@@ -815,6 +811,11 @@ __global__ void __launch_bounds__(FT, 1)
           const unsigned key = order_key(Lv[k - 1]);
           atomicMax(tkey + ql, key);
           atomicMax(gtau + qw0 + ql, key);
+          // int8: the split's group word takes the list's r-th score
+          if constexpr (Q8) {
+            if (j < r_grp)
+              atomicMax(ggrp + qw0 + ql, order_key(Lv[r_grp - 1]));
+          }
         }
         __threadfence_block();
         atomicExch(lock + ql, 0);
@@ -836,15 +837,25 @@ __global__ void __launch_bounds__(FT, 1)
   int stage = 0;
   for (long long r0 = begin; r0 < end; r0 += TR, stage ^= 1) {
     if (r0 + TR < end) {
-      F::load_tile(tiles + (stage ^ 1) * TR * RS, table, d, r0 + TR, end);
+      R::load_tile(tiles + (stage ^ 1) * TR * RS, table, d, r0 + TR, end);
+      if constexpr (Q8)
+        load_scales<TR>(scale_st + (stage ^ 1) * TR, scales, r0 + TR, end);
       cp_commit();
       cp_wait<1>();
     } else {
       cp_wait<0>();
     }
     __syncthreads();
-    const T* tile = tiles + stage * TR * RS;
-    F::row_norms(tile, nrm);
+    const FragT* tile;
+    const float* sc = nullptr;                // int8: the tile's row scales
+    if constexpr (Q8) {
+      widen_tile<KS>(tiles + stage * TR * RS, wide, nrm);
+      tile = wide;
+      sc = scale_st + stage * TR;
+    } else {
+      tile = tiles + stage * TR * RS;
+      F::row_norms(tile, nrm);
+    }
 #pragma unroll
     for (int i = 0; i < GW; ++i) {
       const int j = 32 * i + lane;
@@ -856,19 +867,26 @@ __global__ void __launch_bounds__(FT, 1)
       // Seed tau before any exact score: s >= a - eps for every pair, so
       // the k-th largest a - eps of k distinct pairs is at most the k-th
       // largest exact score, itself at most the final k-th. A lane keeps
-      // the two largest a - eps of each of its queries over its rows of the
-      // first tile; the 16 lanes' values of a query are distinct pairs.
-      float top[NT][2][2];
+      // the SD largest a - eps of each of its queries over its rows of the
+      // first tile; the 8 SD values of a query are distinct pairs. (int8:
+      // fl(fl(a - eps) scale_r), at most the scaled exact score.)
+      float top[NT][2][SD];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        top[nt][0][0] = top[nt][0][1] = top[nt][1][0] = top[nt][1][1] =
-            -INFINITY;
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int i = 0; i < SD; ++i) top[nt][0][i] = top[nt][1][i] = -INFINITY;
+      }
       for (int mt = rw; mt < TR / 16; mt += rws) {
         float acc[NT][4];
         F::scores(tile, mt, lane, b, acc);
         const float n_g = nrm[16 * mt + g], n_g8 = nrm[16 * mt + g + 8];
         const bool ok_g = r0 + 16 * mt + g < end;
         const bool ok_g8 = r0 + 16 * mt + g + 8 < end;
+        float s_g = 1.f, s_g8 = 1.f;
+        if constexpr (Q8) {
+          s_g = sc[16 * mt + g];
+          s_g8 = sc[16 * mt + g + 8];
+        }
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
@@ -876,14 +894,28 @@ __global__ void __launch_bounds__(FT, 1)
             const float e = Ew[8 * nt + 2 * t + (c & 1)];
             const bool ok = c >> 1 ? ok_g8 : ok_g;
             // a - eps rounded once: eps is 4x the error, far above an ulp
-            const float lb = ok ? fmaf(-e, c >> 1 ? n_g8 : n_g, acc[nt][c])
-                                : -INFINITY;
-            float(&tp)[2] = top[nt][c & 1];
-            if (lb > tp[0]) {
-              tp[1] = tp[0];
-              tp[0] = lb;
-            } else if (lb > tp[1]) {
-              tp[1] = lb;
+            const float lb =
+                ok ? scaled<Q8>(fmaf(-e, c >> 1 ? n_g8 : n_g, acc[nt][c]),
+                                c >> 1 ? s_g8 : s_g)
+                   : -INFINITY;
+            float(&tp)[SD] = top[nt][c & 1];
+            if constexpr (SD == 2) {
+              if (lb > tp[0]) {
+                tp[1] = tp[0];
+                tp[0] = lb;
+              } else if (lb > tp[1]) {
+                tp[1] = lb;
+              }
+            } else {
+              float x = lb;           // insertion, largest first
+#pragma unroll
+              for (int i = 0; i < SD; ++i) {
+                if (x > tp[i]) {
+                  const float y = tp[i];
+                  tp[i] = x;
+                  x = y;
+                }
+              }
             }
           }
         }
@@ -893,14 +925,14 @@ __global__ void __launch_bounds__(FT, 1)
       for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          float* sq = seed + (8 * nt + 2 * t + h) * SEED + 2 * g;
-          sq[0] = top[nt][h][0];
-          sq[1] = top[nt][h][1];
+          float* sq = seed + (8 * nt + 2 * t + h) * SEED + SD * g;
+#pragma unroll
+          for (int i = 0; i < SD; ++i) sq[i] = top[nt][h][i];
         }
       }
       __syncwarp();
       for (int j = lane; j < PER_WARP; j += 32) {
-        // the k-th largest of the query's 16 values (a NaN never counts)
+        // the k-th largest of the query's SEED values (a NaN never counts)
         const float* sq = seed + j * SEED;
         float kth = -INFINITY;
         for (int i = 0; i < SEED; ++i) {
@@ -920,6 +952,11 @@ __global__ void __launch_bounds__(FT, 1)
       float acc[NT][4];
       F::scores(tile, mt, lane, b, acc);
       const float n_g = nrm[16 * mt + g], n_g8 = nrm[16 * mt + g + 8];
+      float s_g = 1.f, s_g8 = 1.f;
+      if constexpr (Q8) {
+        s_g = sc[16 * mt + g];
+        s_g8 = sc[16 * mt + g + 8];
+      }
       // !(a + eps < tau): a non-finite a or eps passes
       bool any = false;
 #pragma unroll
@@ -928,10 +965,10 @@ __global__ void __launch_bounds__(FT, 1)
                                                            2 * t);
         const float2 eq = *reinterpret_cast<const float2*>(Ew + 8 * nt +
                                                            2 * t);
-        any |= !(fmaf(eq.x, n_g, acc[nt][0]) < tq.x);
-        any |= !(fmaf(eq.y, n_g, acc[nt][1]) < tq.y);
-        any |= !(fmaf(eq.x, n_g8, acc[nt][2]) < tq.x);
-        any |= !(fmaf(eq.y, n_g8, acc[nt][3]) < tq.y);
+        any |= !(scaled<Q8>(fmaf(eq.x, n_g, acc[nt][0]), s_g) < tq.x);
+        any |= !(scaled<Q8>(fmaf(eq.y, n_g, acc[nt][1]), s_g) < tq.y);
+        any |= !(scaled<Q8>(fmaf(eq.x, n_g8, acc[nt][2]), s_g8) < tq.x);
+        any |= !(scaled<Q8>(fmaf(eq.y, n_g8, acc[nt][3]), s_g8) < tq.y);
       }
       if (!__any_sync(FULL, any)) continue;
       // rare: which pairs, of real rows and queries. A pair whose bound
@@ -948,14 +985,18 @@ __global__ void __launch_bounds__(FT, 1)
         const float2 eq = *reinterpret_cast<const float2*>(Ew + 8 * nt +
                                                            2 * t);
         const unsigned long long* k0 = kth + 8 * nt + 2 * t;
-        const bool p0 = ok_g && goes_on(fmaf(eq.x, n_g, acc[nt][0]), tq.x,
-                                        k0, rg);
-        const bool p1 = ok_g && goes_on(fmaf(eq.y, n_g, acc[nt][1]), tq.y,
-                                        k0 + 1, rg);
-        const bool p2 = ok_g8 && goes_on(fmaf(eq.x, n_g8, acc[nt][2]), tq.x,
-                                         k0, rg + 8);
-        const bool p3 = ok_g8 && goes_on(fmaf(eq.y, n_g8, acc[nt][3]), tq.y,
-                                         k0 + 1, rg + 8);
+        const bool p0 =
+            ok_g && goes_on(scaled<Q8>(fmaf(eq.x, n_g, acc[nt][0]), s_g),
+                            tq.x, k0, rg);
+        const bool p1 =
+            ok_g && goes_on(scaled<Q8>(fmaf(eq.y, n_g, acc[nt][1]), s_g),
+                            tq.y, k0 + 1, rg);
+        const bool p2 =
+            ok_g8 && goes_on(scaled<Q8>(fmaf(eq.x, n_g8, acc[nt][2]), s_g8),
+                             tq.x, k0, rg + 8);
+        const bool p3 =
+            ok_g8 && goes_on(scaled<Q8>(fmaf(eq.y, n_g8, acc[nt][3]), s_g8),
+                             tq.y, k0 + 1, rg + 8);
         bits |= static_cast<unsigned>(p0 | p1 << 1 | p2 << 2 | p3 << 3)
                 << (4 * nt);
       }
@@ -979,6 +1020,18 @@ __global__ void __launch_bounds__(FT, 1)
     for (int i = 0; i < GW; ++i) {
       const int j = 32 * i + lane;
       gnext[i] = j < PER_WARP && qw0 + j < Q ? __ldcg(gtau + qw0 + j) : 0u;
+      if constexpr (Q8) {
+        // and the least of the groups' words (0, a NaN, while a group has
+        // no r-th score yet, so the max keeps gtau's)
+        if (j < PER_WARP && qw0 + j < Q) {
+          unsigned low = 0xffffffffu;
+#pragma unroll
+          for (int grp = 0; grp < GROUPS; ++grp)
+            low = min(low, __ldcg(gtau + static_cast<size_t>(grp + 1) * Q +
+                                  qw0 + j));
+          gnext[i] = max(gnext[i], low);
+        }
+      }
     }
     __syncthreads();                  // the stage is refilled next
   }
@@ -1006,7 +1059,8 @@ __global__ void __launch_bounds__(FT, 1)
 
 // The filter's approximate scores a and bounds eps of rows [0, n) against
 // every query (test-only): out_a and out_eps are (Q, n) f32. One block per
-// (query block, row tile), the same fragments, norms and E'_q as the scan.
+// (query block, row tile), the same fragments, norms and E'_q as the scan
+// (an int8 table's unscaled: the scan compares them times the row's scale).
 template <typename T, int KS>
 __global__ void __launch_bounds__(FT, 1)
     filter_export_kernel(const T* __restrict__ table,
@@ -1014,11 +1068,14 @@ __global__ void __launch_bounds__(FT, 1)
                          int n, int qw, float rho_t,
                          float* __restrict__ out_a,
                          float* __restrict__ out_eps) {
-  using F = Filter<T, KS>;
-  constexpr int NT = F::NT, PER_WARP = F::PER_WARP, TR = F::TR;
+  using FragT = typename Frag<T>::type;
+  using R = Filter<T, KS>;
+  using F = Filter<FragT, KS>;
+  constexpr int NT = F::NT, PER_WARP = F::PER_WARP, TR = R::TR;
   extern __shared__ __align__(16) unsigned char smem[];
   T* tiles = reinterpret_cast<T*>(smem);
-  float* E = reinterpret_cast<float*>(smem + 2 * tile_bytes<T, KS>());
+  FragT* wide = reinterpret_cast<FragT*>(smem + 2 * tile_bytes<T, KS>());
+  float* E = reinterpret_cast<float*>(smem + staging_bytes<T, KS>());
   float* nrm = E + qw * PER_WARP;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -1026,20 +1083,27 @@ __global__ void __launch_bounds__(FT, 1)
   const int q0 = blockIdx.x * qw * PER_WARP;
   const int qw0 = q0 + (w % qw) * PER_WARP;
   const long long r0 = static_cast<long long>(blockIdx.y) * TR;
-  F::load_tile(tiles, table, d, r0, n);
+  R::load_tile(tiles, table, d, r0, n);
   cp_commit();
-  F::zero_pad(tiles, d);
+  R::zero_pad(tiles, d);
   F::query_bounds(queries, Q, d, q0, qw * PER_WARP, rho_t, E);
   uint32_t b[KS][NT][2];
   F::query_frags(queries, Q, d, qw0, lane, b);
   cp_wait<0>();
   __syncthreads();
-  F::row_norms(tiles, nrm);
+  const FragT* tile;
+  if constexpr (kInt8<T>) {
+    widen_tile<KS>(tiles, wide, nrm);
+    tile = wide;
+  } else {
+    tile = tiles;
+    F::row_norms(tile, nrm);
+  }
   __syncthreads();
   const float* Ew = E + (w % qw) * PER_WARP;
   for (int mt = rw; mt < TR / 16; mt += rws) {
     float acc[NT][4];
-    F::scores(tiles, mt, lane, b, acc);
+    F::scores(tile, mt, lane, b, acc);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
@@ -1057,15 +1121,17 @@ __global__ void __launch_bounds__(FT, 1)
 }
 
 template <typename T, int KS>
-int launch_filter(bool export_only, const void* table, const void* queries,
-                  int Q, int d, int valid, int k, int qw, int rows_per_split,
-                  int splits, void* part_v, void* part_i, void* counts,
-                  void* gtau, void* out_a, void* out_eps, cudaStream_t st) {
+int launch_filter(bool export_only, const void* table, const void* scales,
+                  const void* queries, int Q, int d, int valid, int k, int qw,
+                  int rows_per_split, int splits, void* part_v, void* part_i,
+                  void* counts, void* gtau, void* out_a, void* out_eps,
+                  cudaStream_t st) {
   const bool on_chip = !export_only &&
                        filter_smem<T, KS>(qw, k, true) <= kSmemPerBlock;
   const size_t smem = filter_smem<T, KS>(qw, k, on_chip);
   const int per_block = qw * 8 * query_tiles(KS);
-  const float rho_t = sizeof(T) == 4 ? 0.00390625f : 0.f;   // 2^-8 or 0
+  // 2^-8 for an f32 table rounded to bf16; 0 for bf16 and int8 rows
+  const float rho_t = sizeof(T) == 4 ? 0.00390625f : 0.f;
   if (export_only) {
     cudaError_t e = cudaFuncSetAttribute(
         filter_export_kernel<T, KS>,
@@ -1082,86 +1148,96 @@ int launch_filter(bool export_only, const void* table, const void* queries,
   cudaError_t e = cudaFuncSetAttribute(
       filter_kernel<T, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
+  // gtau, then for int8 the GROUPS group words of each query
   if (e == cudaSuccess)
-    e = cudaMemsetAsync(gtau, 0, sizeof(unsigned) * static_cast<size_t>(Q),
-                        st);
+    e = cudaMemsetAsync(
+        gtau, 0,
+        sizeof(unsigned) * static_cast<size_t>(Q) * (kInt8<T> ? 1 + GROUPS : 1),
+        st);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Q + per_block - 1) / per_block, splits);
   filter_kernel<T, KS><<<grid, FT, smem, st>>>(
-      static_cast<const T*>(table), static_cast<const float*>(queries), Q, d,
-      valid, k, qw, rows_per_split, rho_t, static_cast<float*>(part_v),
-      static_cast<int*>(part_i), static_cast<int*>(counts),
-      static_cast<unsigned*>(gtau), on_chip ? 1 : 0);
+      static_cast<const T*>(table), static_cast<const float*>(scales),
+      static_cast<const float*>(queries), Q, d, valid, k, qw, rows_per_split,
+      rho_t, static_cast<float*>(part_v), static_cast<int*>(part_i),
+      static_cast<int*>(counts), static_cast<unsigned*>(gtau),
+      on_chip ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The arguments of one filter launch, passed down by width and dtype.
+struct FilterCall {
+  bool export_only;
+  const void* table;
+  const void* scales;
+  const void* queries;
+  int Q, d, valid, k, qw, rows_per_split, splits;
+  void* part_v;
+  void* part_i;
+  void* counts;
+  void* gtau;
+  void* out_a;
+  void* out_eps;
+  cudaStream_t st;
+};
+
+template <typename T, int KS>
+int launch_call(const FilterCall& c) {
+  return launch_filter<T, KS>(c.export_only, c.table, c.scales, c.queries,
+                              c.Q, c.d, c.valid, c.k, c.qw, c.rows_per_split,
+                              c.splits, c.part_v, c.part_i, c.counts, c.gtau,
+                              c.out_a, c.out_eps, c.st);
+}
+
 template <typename T>
-int dispatch_width(int width, bool export_only, const void* table,
-                   const void* queries, int Q, int d, int valid, int k,
-                   int qw, int rows_per_split, int splits, void* part_v,
-                   void* part_i, void* counts, void* gtau, void* out_a,
-                   void* out_eps, cudaStream_t st) {
+int dispatch_width(int width, const FilterCall& c) {
   switch (width) {
     case 32:
-      return launch_filter<T, 2>(export_only, table, queries, Q, d, valid, k,
-                                 qw, rows_per_split, splits, part_v, part_i,
-                                 counts, gtau, out_a, out_eps, st);
+      return launch_call<T, 2>(c);
     case 64:
-      return launch_filter<T, 4>(export_only, table, queries, Q, d, valid, k,
-                                 qw, rows_per_split, splits, part_v, part_i,
-                                 counts, gtau, out_a, out_eps, st);
+      return launch_call<T, 4>(c);
     case 128:
-      return launch_filter<T, 8>(export_only, table, queries, Q, d, valid, k,
-                                 qw, rows_per_split, splits, part_v, part_i,
-                                 counts, gtau, out_a, out_eps, st);
+      return launch_call<T, 8>(c);
     case 256:
-      return launch_filter<T, 16>(export_only, table, queries, Q, d, valid,
-                                  k, qw, rows_per_split, splits, part_v,
-                                  part_i, counts, gtau, out_a, out_eps, st);
+      return launch_call<T, 16>(c);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-int dispatch_dtype(int dtype, int width, bool export_only, const void* table,
-                   const void* queries, int Q, int d, int valid, int k,
-                   int qw, int rows_per_split, int splits, void* part_v,
-                   void* part_i, void* counts, void* gtau, void* out_a,
-                   void* out_eps, cudaStream_t st) {
-  if (qw != 1 && qw != 2 && qw != 4 && qw != 8)
+int dispatch_dtype(int dtype, int width, const FilterCall& c) {
+  if (c.qw != 1 && c.qw != 2 && c.qw != 4 && c.qw != 8)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return dispatch_width<float>(width, export_only, table, queries, Q, d,
-                                 valid, k, qw, rows_per_split, splits, part_v,
-                                 part_i, counts, gtau, out_a, out_eps, st);
-  if (dtype == 1)
-    return dispatch_width<__nv_bfloat16>(width, export_only, table, queries,
-                                         Q, d, valid, k, qw, rows_per_split,
-                                         splits, part_v, part_i, counts, gtau,
-                                         out_a, out_eps, st);
+  if (dtype == 0) return dispatch_width<float>(width, c);
+  if (dtype == 1) return dispatch_width<__nv_bfloat16>(width, c);
+  if (dtype == 2) return dispatch_width<int8_t>(width, c);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// The filter scan. dtype: 0 = f32, 1 = bf16; width: d padded to 32, 64,
-// 128 or 256; qw in {1, 2, 4, 8} query groups per block. The table is
+// The filter scan. dtype: 0 = f32, 1 = bf16, 2 = int8 (scales: (rows,) f32,
+// positive, required; scores are (q . row) * scale); width: d padded to 32,
+// 64, 128 or 256; qw in {1, 2, 4, 8} query groups per block. The table is
 // (rows, d) row-major with d % 8 == 0 and 16-byte rows aligned, queries
 // (Q, d) f32 16-byte aligned; rows >= valid are never read. Grid: one
 // block per (query block, split); part_v/part_i: (Q, splits, k), each
 // block's lists for topk_filter_merge; counts: (query blocks * splits)
-// ints, the pairs each block rescored; gtau: (Q,) unsigned, zeroed here,
-// the grid's threshold.
+// ints, the pairs each block rescored; gtau: (Q,) unsigned (int8: (1 +
+// GROUPS, Q)), zeroed here, the grid's thresholds.
 extern "C" int topk_filter_partials(int dtype, int width, int qw,
-                                    const void* table, const void* queries,
-                                    int Q, int d, int valid, int k,
-                                    int rows_per_split, int splits,
-                                    void* part_v, void* part_i, void* counts,
-                                    void* gtau, void* stream) {
-  return dispatch_dtype(dtype, width, false, table, queries, Q, d, valid, k,
-                        qw, rows_per_split, splits, part_v, part_i, counts,
-                        gtau, nullptr, nullptr,
-                        static_cast<cudaStream_t>(stream));
+                                    const void* table, const void* scales,
+                                    const void* queries, int Q, int d,
+                                    int valid, int k, int rows_per_split,
+                                    int splits, void* part_v, void* part_i,
+                                    void* counts, void* gtau, void* stream) {
+  if ((dtype == 2) != (scales != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_dtype(
+      dtype, width,
+      FilterCall{false, table, scales, queries, Q, d, valid, k, qw,
+                 rows_per_split, splits, part_v, part_i, counts, gtau,
+                 nullptr, nullptr, static_cast<cudaStream_t>(stream)});
 }
 
 // (Q, splits, k) lists of the filter scan -> (Q, k), skipping entries below
@@ -1185,43 +1261,15 @@ extern "C" int topk_filter_merge(const void* part_v, const void* part_i,
 }
 
 // The filter's approximate scores and error bounds of rows [0, n) against
-// every query, each (Q, n) f32 (test-only; arguments as above).
+// every query, each (Q, n) f32 (test-only; arguments as above; an int8
+// table's unscaled).
 extern "C" int topk_filter_export(int dtype, int width, int qw,
                                   const void* table, const void* queries,
                                   int Q, int d, int n, void* out_a,
                                   void* out_eps, void* stream) {
-  return dispatch_dtype(dtype, width, true, table, queries, Q, d, n, 0, qw, 0,
-                        0, nullptr, nullptr, nullptr, nullptr, out_a, out_eps,
-                        static_cast<cudaStream_t>(stream));
-}
-
-// The int8 scan (scales required); bq in {8,16,32,64}. The table is
-// (rows, d) row-major with d % 8 == 0 and 16-byte rows aligned; rows >=
-// valid are never read. part_v/part_i: (Q, splits, k).
-extern "C" int topk_scan_int8(int bq, const void* table, const void* scales,
-                              const void* queries, int Q, int d, int valid,
-                              int k, int rows_per_split, int splits,
-                              void* part_v, void* part_i, void* stream) {
-  if (scales == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_bq<int8_t>(bq, table, scales, queries, Q, d, valid, k,
-                             rows_per_split, splits, part_v, part_i,
-                             static_cast<cudaStream_t>(stream));
-}
-
-// (Q, splits, k) partial lists -> (Q, k) under the same order.
-extern "C" int topk_scan_merge(const void* part_v, const void* part_i, int Q,
-                               int splits, int k, void* out_v, void* out_i,
-                               void* stream) {
-  const size_t smem =
-      static_cast<size_t>(MERGE_WARPS) * k * (sizeof(float) + sizeof(int));
-  cudaError_t e = cudaFuncSetAttribute(
-      merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (Q + MERGE_WARPS - 1) / MERGE_WARPS;
-  merge_kernel<<<blocks, MERGE_WARPS * 32, smem,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part_v), static_cast<const int*>(part_i), Q,
-      splits, k, static_cast<float*>(out_v), static_cast<int*>(out_i));
-  return static_cast<int>(cudaGetLastError());
+  return dispatch_dtype(
+      dtype, width,
+      FilterCall{true, table, nullptr, queries, Q, d, n, 0, qw, 0, 0,
+                 nullptr, nullptr, nullptr, nullptr, out_a, out_eps,
+                 static_cast<cudaStream_t>(stream)});
 }

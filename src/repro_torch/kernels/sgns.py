@@ -21,8 +21,10 @@ three CUDA sources:
   minibatch (:func:`plan_fused_update`): tile-gradient blocks with
   per-block partials while one block sorts the ids on chip, a grid-wide
   barrier, then every warp combines and applies runs of equal ids, so a
-  run repeats bitwise. The other two are a tile-gradients kernel and a
-  fixed-order reduction of its partials.
+  run repeats bitwise. ``sgns_grads`` is one cooperative launch too
+  (:func:`plan_sgns_grads`): 8-row gradient blocks, a grid-wide barrier,
+  then the dn partials summed in block order. ``sgns_fused_grads`` is a
+  tile-gradients kernel and a fixed-order reduction of its partials.
 * :func:`scatter_add_rows` replaces ``scatter_add_rows`` (``table[idx[p]]
   += upd[p]`` in position order, in place) and
   :func:`scatter_add_rows_rowwise` its one-row-per-grid-step reference
@@ -58,6 +60,8 @@ LAUNCHES = {"gather_rows": 0, "gather_rows_rowwise": 0, "sgns_grads": 0,
 SMEM_PER_BLOCK = 232_448          # H100: 227 KB of dynamic shared memory
 GRAD_TILE_ROWS = 16               # minibatch rows per tile-gradients block
 FUSED_TILE_ROWS = 8               # the same, in the fused update
+GRADS_ROWS = 8                    # the same, in sgns_grads (at least)
+GRADS_THREADS = 256               # threads of an sgns_grads block
 SCATTER_COLS = 8                  # columns per scatter block (#9, #10)
 SCATTER_MAX_POSITIONS = 1024      # positions per chunk: one per thread
 SCATTER_ROWWISE_SMEM = 96 << 10   # shared memory of a full row-wise chunk
@@ -257,6 +261,42 @@ def plan_grads_tile(B: int, S: int, d: int,
 
 
 @dataclasses.dataclass(frozen=True)
+class GradsPlan:
+    """Geometry of one :func:`sgns_grads`: ``bb`` minibatch rows per block,
+    ``blocks`` blocks (one cooperative launch, at most one per SM) and the
+    dynamic shared memory of a block (:func:`grads_tile_smem_bytes`)."""
+
+    bb: int
+    blocks: int
+    smem_bytes: int
+
+
+def plan_sgns_grads(B: int, S: int, d: int, *,
+                    sm_count: int = 132) -> GradsPlan:
+    """``GRADS_ROWS`` rows per block, more when B needs more blocks than
+    the card has SMs (the launch is cooperative, and one block per SM is
+    the residency every grid of this size is sure of). Raises
+    ``ValueError`` when the S negative rows of width d do not fit a
+    block's shared memory, or when the rows per block do not (past
+    ``GRADS_THREADS`` rows, or with the negatives)."""
+    if B < 1 or S < 1:
+        raise ValueError(f"sgns_grads: need B, S >= 1, got {B}, {S}")
+    if grads_tile_smem_bytes(1, S, d) > SMEM_PER_BLOCK:
+        raise ValueError(f"S={S} negatives of width d={d} do not fit the "
+                         f"sgns_grads block's shared memory "
+                         f"({grads_tile_smem_bytes(1, S, d)} > "
+                         f"{SMEM_PER_BLOCK} bytes)")
+    bb = max(min(GRADS_ROWS, B), -(-B // sm_count))
+    smem = grads_tile_smem_bytes(bb, S, d)
+    if bb > GRADS_THREADS or smem > SMEM_PER_BLOCK:
+        raise ValueError(f"sgns_grads at B={B} needs {bb} rows per block on "
+                         f"{sm_count} SMs; with S={S} negatives of width "
+                         f"d={d} they do not fit one block's shared memory "
+                         f"and threads")
+    return GradsPlan(bb=bb, blocks=-(-B // bb), smem_bytes=smem)
+
+
+@dataclasses.dataclass(frozen=True)
 class FusedPlan:
     """Geometry of one fused update: ``bb`` minibatch rows per gradient
     block (``grad_blocks`` of them), then two sorting blocks (the vertex
@@ -426,7 +466,8 @@ def sgns_grads(v, c, n, mask):
     v, c: (B, d) and n: (S, d), one dtype (f32 or bf16); mask: (B,) f32 or
     that dtype. Returns ``(loss, dv, dc, dn)``: loss a 0-d f32 tensor, dv
     and dc in the rows' dtype, dn summed in f32 over the tiles in a fixed
-    order and cast once. A CPU tensor takes the plain version.
+    order and cast once. On the card the call is one cooperative kernel
+    launch (:func:`plan_sgns_grads`). A CPU tensor takes the plain version.
     """
     if v.device.type == "cpu":
         return sgns_grads_plain(v, c, n, mask)
@@ -450,8 +491,10 @@ def sgns_grads(v, c, n, mask):
         raise ValueError(f"sgns_grads: mask must be a contiguous ({B},) "
                          f"float32 or {v.dtype} tensor on {dev}, got "
                          f"{mask.dtype} {tuple(mask.shape)}")
-    bb, smem = plan_grads_tile(B, S, d)
-    nblk = -(-B // bb)
+    plan = plan_sgns_grads(
+        B, S, d,
+        sm_count=torch.cuda.get_device_properties(dev).multi_processor_count)
+    nblk = plan.blocks
     dv, dc = torch.empty_like(v), torch.empty_like(c)
     dn = torch.empty_like(n)
     # f32 scratch: dn partials (nblk, S, d), loss partials (nblk,), loss
@@ -465,8 +508,8 @@ def sgns_grads(v, c, n, mask):
         rc = lib.sgns_grads(
             _TABLE_DTYPES[v.dtype], int(mask.dtype == torch.bfloat16),
             v.data_ptr(), c.data_ptr(), n.data_ptr(), mask.data_ptr(), B, S,
-            d, bb, smem, dv.data_ptr(), dc.data_ptr(), p, p_lp, dn.data_ptr(),
-            p_loss, stream)
+            d, plan.bb, plan.smem_bytes, dv.data_ptr(), dc.data_ptr(), p,
+            p_lp, dn.data_ptr(), p_loss, stream)
     build.check(rc, "sgns_grads")
     LAUNCHES["sgns_grads"] += 1
     return scratch[-1], dv, dc, dn

@@ -131,10 +131,65 @@ def test_quant_and_gather_kernels_match_plain(card):
     for m, valid in ((40, 5000), (400, 4993)):
         _same(tk.topk_mips_quant(q8, sc, q, m, valid),
               tk.topk_mips_quant_plain(q8, sc, q, m, valid))
+    # d % 16 == 8: the int8 rows stage by 8-byte copies
+    q8, sc = qz.quantize_rows(_int(1000, 40, 10).to(card))
+    q = _int(9, 40, 11).to(card)
+    _same(tk.topk_mips_quant(q8, sc, q, 40, 997),
+          tk.topk_mips_quant_plain(q8, sc, q, 40, 997))
     for t in (tbl, tbl.float(), tbl[:, :20].contiguous()):
         idx = torch.randint(0, 5000, (1001,), device=card, dtype=torch.int32)
         assert torch.equal(sgns.gather_rows(t, idx),
                            sgns.gather_rows_plain(t, idx))
+
+
+def test_quant_kernel_matches_plain_on_continuous_rows(card):
+    """#2, the filter kernel on int8 rows: a continuous 200,000-row table
+    quantized as the store does it, at one query, a launcher batch and a
+    full serving batch, m = 40 (the seeded case) and m = 400, bitwise the
+    plain version (the queries padded to a batch of 256 for it, as in #1's
+    test), and the filter dropping most pairs at m = 40."""
+    g = torch.Generator(device=card).manual_seed(53)
+    tbl = 0.1 * torch.randn((200_000, 128), generator=g, device=card)
+    tbl[150_000:150_300] = tbl[:300]
+    q8, sc = qz.quantize_rows(tbl)
+    before = tk.LAUNCHES["topk_scan_int8"]
+    for Q in (1, 8, 256):
+        rows = torch.randint(0, 200_000, (Q,), generator=g, device=card)
+        q = tbl[rows] + 0.05 * torch.randn((Q, 128), generator=g, device=card)
+        qpad = torch.cat([q, q.new_zeros((256 - Q, 128))])
+        n = torch.zeros(1, dtype=torch.int64, device=card)
+        for m, valid in ((40, 200_000), (400, 199_993)):
+            got = tk.topk_mips_quant(q8, sc, q, m, valid, survivors=n)
+            _same(got, [t[:Q] for t in tk.topk_mips_quant_plain(
+                q8, sc, qpad, m, valid)])
+            assert 0 < n.item() <= Q * valid
+            if m == 40:
+                assert n.item() < 0.5 * Q * valid
+    assert tk.LAUNCHES["topk_scan_int8"] == before + 6
+
+
+def test_quant_filter_scores_within_a_quarter_of_the_bound(card):
+    """The export of #2's tensor-core scores on int8 rows (unscaled) within
+    eps / 4 of the exact chain: random rows and +-127 rows along the
+    queries' bf16 rounding error, against their signs, alternating."""
+    g = torch.Generator(device=card).manual_seed(54)
+    q = torch.randn((64, 128), generator=g, device=card)
+    q[0] = (2.0 ** torch.randint(-4, 4, (128,), generator=g, device=card)
+            ) * (1 + 2.0 ** -8 - 2.0 ** -20)
+    err = q - q.bfloat16().float()
+    alt = torch.where(torch.arange(128, device=card) % 2 == 0, 1.0, -1.0)
+    tbl = torch.cat([
+        torch.randint(-127, 128, (20_000, 128), generator=g, device=card),
+        127 * torch.sign(err), -127 * torch.sign(err),
+        (127 * alt).expand(64, 128), 127 * alt * torch.sign(q),
+        torch.zeros((64, 128), device=card),
+    ]).to(torch.int8).contiguous()
+    a, eps = tk.topk_filter_bounds(tbl, q)
+    exact = q @ tbl.float().T
+    torch.cuda.synchronize()
+    assert bool(((a - exact).abs() <= eps / 4).all())
+    _, want = tk.topk_filter_bounds_plain(tbl, q)
+    torch.testing.assert_close(eps, want, rtol=1e-4, atol=0)
 
 
 def test_store_on_card_matches_cpu(card):
@@ -449,7 +504,8 @@ def test_sgns_wrappers_raise_on_what_the_kernels_do_not_take(card):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("case,B,S,d", [("nodup", 64, 8, 64),
                                         ("odd", 37, 4, 32),
-                                        ("dup", 256, 5, 128)])
+                                        ("dup", 256, 5, 128),
+                                        ("odd", 1000, 1, 128)])
 def test_sgns_grads_kernel_matches_plain(card, dtype, case, B, S, d):
     vert, ctx, iv, ic, inn, mask = _sgns_inputs(card, dtype, B=B, S=S, d=d,
                                                 case=case)
@@ -468,6 +524,28 @@ def test_sgns_grads_kernel_matches_plain(card, dtype, case, B, S, d):
             assert g.dtype == dtype and g.shape == w.shape
             _close(g, w, rtol, atol)
     assert sgns.LAUNCHES["sgns_grads"] == before + 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_sgns_grads_is_one_launch_and_fused_grads_two(card, dtype):
+    """#5 is one cooperative kernel per call at the trainer's minibatch,
+    bitwise repeatable; #6 keeps its two kernels (tile gradients, then the
+    fixed-order reduction of their partials)."""
+    vert, ctx, iv, ic, inn, mask = _sgns_inputs(card, dtype, B=256, S=5,
+                                                d=128, case="dup")
+    x = (vert[iv.long()], ctx[ic.long()], ctx[inn.long()])
+    names = _device_kernels(lambda: sgns.sgns_grads(*x, mask))
+    assert len(names) == 1 and "sgns_grads_coop" in names[0], names
+    runs = [sgns.sgns_grads(*x, mask) for _ in range(3)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for a, b in zip(runs[0], run):
+            assert torch.equal(a, b)
+    names = _device_kernels(
+        lambda: sgns.sgns_fused_grads(vert, ctx, iv, ic, inn, mask))
+    assert len(names) == 2 and "sgns_tile_grads" in names[0] and (
+        "sgns_reduce_partials" in names[1]), names
 
 
 def _scatter_case(card, case, N=40, B=30, seed=0):

@@ -173,3 +173,51 @@ def test_grads_tile_plan():
     assert bb < sgns.GRAD_TILE_ROWS and smem <= sgns.SMEM_PER_BLOCK
     with pytest.raises(ValueError, match="shared memory"):
         sgns.plan_grads_tile(256, 100, 1024)
+
+
+def test_sgns_grads_plan():
+    """#5's one cooperative launch: 8 rows a block (32 blocks at the
+    trainer's B = 256), more rows once B needs more blocks than SMs, and a
+    ValueError when the S negatives (or the rows) do not fit a block."""
+    p = sgns.plan_sgns_grads(256, 5, 128)
+    assert (p.bb, p.blocks) == (sgns.GRADS_ROWS, 32)
+    assert p.smem_bytes == sgns.grads_tile_smem_bytes(8, 5, 128)
+    for B in (1, 5, 37, 256, 1000, 1056, 1057, 5000):
+        for S, d in ((1, 8), (5, 128), (32, 256)):
+            p = sgns.plan_sgns_grads(B, S, d, sm_count=132)
+            assert p.blocks == -(-B // p.bb) <= 132
+            assert p.bb == max(min(8, B), -(-B // 132))
+            assert (p.blocks - 1) * p.bb < B <= p.blocks * p.bb
+            assert p.smem_bytes <= sgns.SMEM_PER_BLOCK
+    assert sgns.plan_sgns_grads(37, 5, 128).blocks == 5     # a ragged tail
+    with pytest.raises(ValueError, match="negatives of width"):
+        sgns.plan_sgns_grads(256, 100, 1024)
+    with pytest.raises(ValueError, match="rows per block"):
+        sgns.plan_sgns_grads(256 * 132 + 1, 5, 128)
+    with pytest.raises(ValueError, match="rows per block"):
+        sgns.plan_sgns_grads(100 * 132, 32, 256)
+
+
+@pytest.mark.parametrize("B,S,d,dtype,block_b", [
+    (37, 5, 32, "float32", 37),       # B not a multiple of 8 rows a block
+    (64, 1, 64, "float32", 16),       # one negative
+    (29, 4, 64, "bfloat16", 29),      # bf16 rows and mask, ragged
+])
+def test_sgns_grads_plain_matches_jax_pallas(B, S, d, dtype, block_b):
+    """The plain version #5's kernel is held to, against the JAX Pallas
+    kernel in interpret mode (one tile of B rows where B is ragged), the
+    mask in the rows' dtype; test_kernels.py's tolerances."""
+    rng = np.random.default_rng(B + S + d)
+    v, c = rng.normal(0, 0.3, (2, B, d)).astype(np.float32)
+    n = rng.normal(0, 0.3, (S, d)).astype(np.float32)
+    m = (rng.random(B) > 0.2).astype(np.float32)
+    jx = [jnp.asarray(x).astype(JDT[dtype]) for x in (v, c, n, m)]
+    tx = [torch.tensor(x).to(TDT[dtype]) for x in (v, c, n, m)]
+    got = sgns.sgns_grads(*tx)
+    want = jsgns.sgns_grads(*jx, block_b=block_b, interpret=True)
+    np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=3e-5,
+                               atol=3e-5)
+    rtol = 1e-4 if dtype == "float32" else 1e-4 + 2.0 ** -8
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == TDT[dtype] and g.shape == w.shape
+        _close(g, w, rtol, 1e-5)

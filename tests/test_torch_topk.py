@@ -157,22 +157,27 @@ def test_select_and_merge_match_jax():
 
 
 def test_plan_fits_shared_memory():
+    """The int8 first pass's plan (the filter kernel on int8 rows): its
+    staging (int8 ring, the widened bf16 tile, the scales) and seed fit a
+    block, the splits cover every valid row, and m = 40 keeps the lists on
+    chip at the serving shape."""
     for Q, d, k in [(256, 128, 10), (256, 128, 400), (5, 32, 100),
-                    (1, 1024, 512), (300, 128, 100)]:
+                    (1, 256, 512), (300, 128, 100)]:
         for valid in (1, 255, 257, 26_250_000):
-            p = tk.plan_topk_scan(Q, d, k, valid)
+            p = tk.plan_topk_filter(Q, d, k, valid, 1)
             assert p.smem_bytes <= tk.SMEM_PER_BLOCK
-            assert p.bq in tk.QUERY_BLOCKS
-            assert p.rows_per_split % tk.SCAN_THREADS == 0
+            assert p.tile_rows == 128 and p.seed == tk.FILTER_SEED_INT8
+            assert p.rows_per_split % p.tile_rows == 0
             # the splits cover every valid row, and none is empty
             assert (p.splits - 1) * p.rows_per_split < valid
             assert p.splits * p.rows_per_split >= valid
-    assert tk.plan_topk_scan(256, 128, 10, 26_250_000).bq == 64
-    assert tk.plan_topk_scan(256, 128, 400, 26_250_000).bq == 32
-    with pytest.raises(ValueError, match="does not fit"):
-        tk.plan_topk_scan(16, 128, 5000, 10_000)
+    p = tk.plan_topk_filter(256, 128, 40, 26_250_000, 1)
+    assert (p.qw, p.qblocks, p.splits, p.lists_on_chip) == (8, 1, 132, True)
+    assert not tk.plan_topk_filter(256, 128, 400, 26_250_000, 1).lists_on_chip
+    with pytest.raises(ValueError, match="d <= 256"):
+        tk.plan_topk_filter(16, 1024, 10, 10_000, 1)
     with pytest.raises(ValueError, match="d % 8"):
-        tk.plan_topk_scan(16, 30, 10, 10_000)
+        tk.plan_topk_filter(16, 30, 10, 10_000, 1)
 
 
 @pytest.mark.parametrize("Q,d,k", [(256, 128, 10), (256, 128, 400),

@@ -1,5 +1,6 @@
-"""The tensor-core filter of the port's exact top-k scan (``topk_mips`` on
-the card), modelled on the CPU.
+"""The tensor-core filter of the port's exact top-k scans (``topk_mips``
+and, on int8 rows times per-row scales, ``topk_mips_quant`` on the card),
+modelled on the CPU.
 
 The filter kernel cannot run here, so three things are held instead:
 
@@ -10,10 +11,14 @@ The filter kernel cannot run here, so three things are held instead:
   warp a tile late, a 32-entry survivor queue rescored only when full or
   at the split's end, the final merge that skips entries below the
   threshold), fed approximate scores pushed to the edge of the error
-  bound, equals ``topk_mips_plain`` bit for bit;
+  bound, equals ``topk_mips_plain`` bit for bit; for int8 rows the edges
+  are scaled (``fl(fl(a +- eps) * scale)``) and the model equals
+  ``topk_mips_quant_plain``;
 * the error bound of ``topk_filter_bounds_plain`` (the formula the kernel
   computes) holds with a factor 4 to spare on adversarial inputs: the
-  split-operand dot, exact in f64, against the f32 fmaf chain;
+  split-operand dot, exact in f64, against the f32 fmaf chain; for int8
+  rows its scaled edges (``topk_filter_edges_plain``) enclose the scaled
+  exact score;
 * the planner's geometry.
 
 The kernel itself is held against the plain version, and its exported
@@ -26,6 +31,7 @@ import pytest
 import torch
 
 from repro_torch.embed_serve import topk as tk
+from repro_torch.embed_serve.quant import quantize_rows
 
 
 def _int(n, d, seed, lo=-4, hi=5):
@@ -33,41 +39,65 @@ def _int(n, d, seed, lo=-4, hi=5):
     return rng.integers(lo, hi, size=(n, d)).astype(np.float32)
 
 
-def _filter_model(s, a, eps, k, valid, plan):
+def _filter_model(s, a, eps, k, valid, plan, scales=None):
     """The filter kernel's control over exact scores ``s`` (Q, valid) and
-    approximate scores ``a`` with bounds ``eps``. Returns ((Q, k) f32,
-    (Q, k) i32) and the number of pairs rescored."""
+    approximate scores ``a`` with bounds ``eps``; with int8 ``scales``,
+    ``s`` is scaled and ``a``, ``eps`` are not, each edge is multiplied
+    by its row's scale after its one rounding, and the splits' lists also
+    publish their r-th score (r = ceil(k / FILTER_GROUPS)) to their group
+    of splits (split % FILTER_GROUPS), the threshold taking the least of
+    the groups' largest. Returns ((Q, k) f32, (Q, k) i32) and the number
+    of pairs rescored."""
     Q = s.shape[0]
     per_warp = 8 * plan.query_tiles
     rws = plan.row_groups
     tr = plan.tile_rows
+    sd = plan.seed // 8             # lower bounds a lane group keeps
+    hi = (a + eps).astype(np.float32)
+    lo = (a - eps).astype(np.float32)
+    if scales is not None:
+        hi = hi * scales[None, :valid]
+        lo = lo * scales[None, :valid]
     final = {q: [] for q in range(Q)}
     gtau = {q: -np.inf for q in range(Q)}       # the grid's threshold
+    ngrp = tk.FILTER_GROUPS if scales is not None else 0
+    r_grp = -(-k // tk.FILTER_GROUPS)
+    ggrp = [{q: -np.inf for q in range(Q)} for _ in range(ngrp)]
     rescored = 0
 
     def offer(lst, tau, q, v, r):
         key = (-v, r)
         if len(lst) == k and not key < lst[-1]:
             return
-        bisect.insort(lst, key)
+        pos = bisect.bisect_left(lst, key)
+        lst.insert(pos, key)
         del lst[k:]
         if len(lst) == k:
             tau[q] = max(tau[q], -lst[-1][0])
             gtau[q] = max(gtau[q], -lst[-1][0])
+        if ngrp and pos < r_grp and len(lst) >= r_grp:
+            grp = ggrp[split % ngrp]
+            grp[q] = max(grp[q], -lst[r_grp - 1][0])
+
+    def grid_tau(q):
+        """What a warp reads at a tile's end: gtau, and (int8) the least of
+        the groups' words, an empty group's being -inf."""
+        if not ngrp:
+            return gtau[q]
+        return max(gtau[q], min(grp[q] for grp in ggrp))
 
     def seed(qs, tau, r0, end, rw):
-        """The kernel's seed: lane group g of the warp keeps the two
-        largest a - eps of rows 16 mt + g and 16 mt + g + 8 over the warp's
-        m-tiles of the first tile; the k-th largest of a query's 16 is a
-        threshold."""
+        """The kernel's seed: lane group g of the warp keeps the sd
+        largest lower edges of rows 16 mt + g and 16 mt + g + 8 over the
+        warp's m-tiles of the first tile; the k-th largest of a query's
+        8 sd is a threshold."""
         for q in qs:
             vals = []
             for g in range(8):
-                lb = [np.float32(a[q, r] - eps[q, r])
-                      for mt in range(rw, tr // 16, rws)
+                lb = [lo[q, r] for mt in range(rw, tr // 16, rws)
                       for r in (r0 + 16 * mt + g, r0 + 16 * mt + g + 8)
                       if r < end]
-                vals += (sorted(lb, reverse=True) + [-np.inf] * 2)[:2]
+                vals += (sorted(lb, reverse=True) + [-np.inf] * sd)[:sd]
             kth = sorted(vals, reverse=True)[k - 1]
             if kth > -np.inf:
                 tau[q] = max(tau[q], kth)
@@ -96,7 +126,7 @@ def _filter_model(s, a, eps, k, valid, plan):
                 for r0 in range(begin, end, tr):
                     for q in qs:                # read a tile ago, folded in
                         tau[q] = max(tau[q], gnext[q])
-                    if r0 == begin and k <= tk.FILTER_SEED:
+                    if r0 == begin and k <= plan.seed:
                         seed(qs, tau, r0, end, rw)
                     for mt in range(rw, tr // 16, rws):
                         rows = [r for r in range(r0 + 16 * mt,
@@ -112,14 +142,14 @@ def _filter_model(s, a, eps, k, valid, plan):
                                else (-np.inf, tk.IDX_SENTINEL) for q in qs}
                         for q in qs:
                             for r in rows:
-                                edge = np.float32(a[q, r] + eps[q, r])
+                                edge = hi[q, r]
                                 tie = edge <= kth[q][0] and r > kth[q][1]
                                 if not edge < seen[q] and not tie:
                                     if len(queue) == tk.FILTER_QUEUE:
                                         rescored += len(queue)
                                         flush()
                                     queue.append((q, r))
-                    gnext = {q: gtau[q] for q in qs}
+                    gnext = {q: grid_tau(q) for q in qs}
                 rescored += len(queue)
                 flush()
             for q, lst in lists.items():
@@ -185,6 +215,63 @@ def test_filter_model_equals_plain(case, k, N, valid, Q, dtype, how):
     if case in ("normal", "zero") and how == "down":
         # on continuous data, or on a zero query's ties, the filter drops
         # most pairs
+        assert rescored < 0.5 * Q * valid
+
+
+def _int8_case(case, N, Q, rng):
+    """(int8 rows, positive f32 scales, f32 queries) for the int8 model."""
+    if case == "ties":
+        # six distinct rows and scales: heavy ties in the scaled scores
+        pick = rng.integers(0, 6, N)
+        q8 = rng.integers(-127, 128, (6, 64)).astype(np.int8)[pick]
+        sc = (2.0 ** rng.uniform(-20, 10, 6)).astype(np.float32)[pick]
+        q = _int(Q, 64, 2)
+    elif case in ("int", "zero"):
+        q8 = rng.integers(-127, 128, (N, 64)).astype(np.int8)
+        sc = (2.0 ** rng.uniform(-20, 10, N)).astype(np.float32)
+        q = _int(Q, 64, 4)
+        if case == "zero":
+            q[5:] = 0.0                 # a padded batch: every row ties at 0
+    else:
+        # the serving pipeline: continuous rows quantized, queries near rows
+        tbl = rng.normal(0, 0.1, (N, 64)).astype(np.float32)
+        tbl[N // 2:N // 2 + 40] = tbl[:40]
+        q8, sc = (t.numpy() for t in quantize_rows(torch.from_numpy(tbl)))
+        q = (tbl[rng.integers(0, N, Q)]
+             + rng.normal(0, 0.05, (Q, 64))).astype(np.float32)
+    return q8, sc, q
+
+
+@pytest.mark.parametrize("how", ["down", "either"])
+@pytest.mark.parametrize("case,m,N,valid,Q", [
+    ("int", 40, 3000, 3000, 9),         # the two-tier m, seeded
+    ("ties", 400, 2000, 1993, 9),       # heavy ties, valid < N, unseeded
+    ("zero", 40, 2000, 2000, 40),       # padded zero queries
+    ("normal", 1, 3000, 2999, 13),
+    ("normal", 40, 6000, 5999, 70),     # two query groups
+])
+def test_quant_filter_model_equals_plain(case, m, N, valid, Q, how):
+    """The int8 filter's control: edges fl(fl(a +- eps) * scale_r) against
+    scaled thresholds, the seed 40 deep, the splits' groups sharing their
+    lists' r-th scores, equals topk_mips_quant_plain bit for bit."""
+    rng = np.random.default_rng(N + m + Q)
+    q8, sc, q = _int8_case(case, N, Q, rng)
+    qtable, scales = torch.from_numpy(q8), torch.from_numpy(sc)
+    queries = torch.from_numpy(q)
+    want = tk.topk_mips_quant_plain(qtable, scales, queries, m, valid)
+    s_u = (queries @ qtable[:valid].float().T).numpy()
+    s = (torch.from_numpy(s_u) * scales[:valid]).numpy()
+    _, eps = tk.topk_filter_bounds_plain(qtable[:valid], queries)
+    eps = eps.numpy()
+    a = _pushed(s_u, eps, how, seed=m)
+    # enough SMs for more splits than groups, so every group has splits
+    plan = tk.plan_topk_filter(Q, 64, m, valid, 1, sm_count=16)
+    assert plan.seed == tk.FILTER_SEED_INT8 >= 40
+    assert plan.splits >= tk.FILTER_GROUPS
+    got_v, got_i, rescored = _filter_model(s, a, eps, m, valid, plan, sc)
+    np.testing.assert_array_equal(got_i, want[1].numpy())
+    np.testing.assert_array_equal(got_v, want[0].numpy())
+    if case in ("normal", "zero") and how == "down" and m < 400:
         assert rescored < 0.5 * Q * valid
 
 
@@ -259,6 +346,55 @@ def test_error_bound_holds_on_adversarial_inputs(dtype, d):
     s = _chain(q, table.float().numpy())
     A = (_bf16(q).double() @ table.float().bfloat16().double().T).numpy()
     _, eps = tk.topk_filter_bounds_plain(table, torch.from_numpy(q[None]))
+    assert np.abs(A - s)[0] >= eps.numpy()[0, 0] / 64
+
+
+@pytest.mark.parametrize("d", [8, 64, 128, 256])
+def test_quant_error_bound_holds_on_adversarial_int8_rows(d):
+    """int8 rows (rho_t = 0): the split-operand dot stays within eps / 4 of
+    the f32 chain over the widened row, and the scaled edges enclose the
+    scaled exact score, for rows of +-127 along q - bf16(q), against the
+    query's signs and alternating (cancellation), all-zero rows (scale 1.0)
+    and random rows, with scales from 2^-20 to 2^10."""
+    rng = np.random.default_rng(100 + d)
+    queries = [
+        (2.0 ** rng.integers(-4, 4, d)) * (1 + 2.0 ** -8 - 2.0 ** -20)
+        * rng.choice([-1, 1], d),                       # worst split
+        rng.normal(0, 1, d) * 2.0 ** rng.uniform(-20, 20, d),
+        rng.normal(0, 1, d),
+        np.ones(d),
+    ]
+    for qi, q in enumerate(queries):
+        q = q.astype(np.float32)
+        err = q - _bf16(q).float().numpy()
+        alt = np.where(np.arange(d) % 2 == 0, 1, -1)
+        rows = np.stack([
+            127 * np.sign(err), -127 * np.sign(err),    # along q - bf16(q)
+            127 * alt, 127 * np.sign(q), 127 * alt * np.sign(q),
+            np.zeros(d), np.zeros(d),
+            *rng.integers(-127, 128, (9, d)),
+        ]).astype(np.int8)
+        scales = (2.0 ** rng.uniform(-20, 10, len(rows))).astype(np.float32)
+        scales[5:7] = 1.0                               # quantize_rows' zeros
+        scales[0], scales[1] = 2.0 ** -20, 2.0 ** 10
+        qt, sc = torch.from_numpy(rows), torch.from_numpy(scales)
+        s = _chain(q, rows.astype(np.float32))
+        A = (_bf16(q).double() @ qt.double().T).numpy()
+        _, eps = tk.topk_filter_bounds_plain(qt, torch.from_numpy(q[None]))
+        eps64 = eps.numpy()[0].astype(np.float64)
+        assert np.all(np.abs(A - s) <= eps64 / 4), (qi, np.abs(A - s) / eps64)
+        assert np.all(eps64[5:7] > 0)                    # the floors
+        lo, hi = tk.topk_filter_edges_plain(qt, sc, torch.from_numpy(q[None]))
+        exact = s * scales                               # f32: one rounding
+        assert np.all(lo.numpy()[0] <= exact), qi
+        assert np.all(exact <= hi.numpy()[0]), qi
+    # not vacuous: the row along q - bf16(q) uses a good share of the bound
+    q = queries[0].astype(np.float32)
+    row = (127 * np.sign(q - _bf16(q).float().numpy())).astype(np.int8)[None]
+    s = _chain(q, row.astype(np.float32))
+    A = (_bf16(q).double() @ torch.from_numpy(row).double().T).numpy()
+    _, eps = tk.topk_filter_bounds_plain(torch.from_numpy(row),
+                                         torch.from_numpy(q[None]))
     assert np.abs(A - s)[0] >= eps.numpy()[0, 0] / 64
 
 
