@@ -21,7 +21,7 @@ failure ends the run with a non-zero exit:
    (their test-only export) within a quarter of their error bound on the
    first 1,048,576 rows and on adversarial rows, and the share of pairs
    each filter passes on to the exact score; kernel, plain and library
-   times beside the bound (for both scans the bf16 tensor-core and bytes
+   times beside the bound (the gather also with a warm L2; for both scans the bf16 tensor-core and bytes
    bounds they run at, the f32 CUDA-core one beside them), and both scans
    at the launcher's batch shape (1,048,576 rows, 8 queries) beside
    ``torch.topk``, and with those 8 padded by zero queries to the 256 rows
@@ -39,10 +39,13 @@ failure ends the run with a non-zero exit:
    heavy duplicates, an odd B and one index per table, at the JAX kernel
    tests' tolerances, and each run twice for bitwise repeatability; the
    bf16 tables also to within two bf16 steps of plain, so that no row's
-   update can go missing; the row kernels of the unfused routes
-   (``scatter_add_rows``, its row-wise reference, and ``gather_rows_rowwise``)
-   bitwise against their plain versions and the blocked kernels bitwise
-   against their row-wise references, the scatter also over several
+   update can go missing, and ``sgns_fused_grads`` bitwise against
+   ``sgns_grads`` on the rows it gathers; the row kernels of the unfused
+   routes (``scatter_add_rows``, its row-wise reference, and
+   ``gather_rows_rowwise``) bitwise against their plain versions and the
+   blocked kernels bitwise against their row-wise references (the gather
+   also at every vector width, from bases off 16-byte alignment, and past
+   one wave of blocks), the scatter also over several
    position chunks with a 100-position hub run, for each kernel's own
    chunk size (the row-wise scatter also checked to launch one kernel per
    chunk and nothing else); one ``ops.sgns_step`` per kernel route against
@@ -55,8 +58,10 @@ failure ends the run with a non-zero exit:
    touches, and the full-table launch bitwise against that copy), a few
    episodes timed per route (edges/s) and one of each kernel route under
    the profiler, and one launch of each kernel timed beside its bound,
-   its plain version and its library call; ``sgns_fused_update`` and
-   ``sgns_grads`` checked to be one device kernel per call;
+   its plain version and its library call; ``sgns_fused_update``,
+   ``sgns_grads`` and ``sgns_fused_grads`` checked to be one device kernel
+   per call, the last bitwise the second on its gathered rows; the launch
+   floor (a one-element ``fill_``) beside ``gather_rows`` at this shape;
 6. the training main path: ``repro_torch.launch.train.main`` on the CI
    gate schedule at d = 128 (an SBM graph, AUC >= 0.62) and at the
    config's geometry (a 262,144-node power-law graph, minibatch 256, 5
@@ -142,8 +147,10 @@ LM_ARGV = ["--arch", "granite-3-2b", "--no-reduced", "--batch", str(LM_B),
 BF16_FLOP_PER_S = 989e12           # H100 SXM, dense bf16 tensor cores
 TF32_FLOP_PER_S = 495e12           # H100 SXM, dense TF32 tensor cores
 # kernels (mangled-name parts) that must not spill registers: #2's int8
-# filter and export instantiations and #5's cooperative kernel
-NO_SPILL = ("filter_kernelIa", "filter_export_kernelIa", "sgns_grads_coop")
+# filter and export instantiations, #5's and #6's cooperative kernel and
+# #3's gather
+NO_SPILL = ("filter_kernelIa", "filter_export_kernelIa", "sgns_grads_coop",
+            "gather_kernel")
 # the kernels each kernel route of ops.sgns_step launches
 ROUTE_KERNELS = {"pallas_fused2": ("sgns_fused_update",),
                  "pallas_fused": ("sgns_fused_grads", "scatter_add_rows"),
@@ -173,6 +180,23 @@ def ptxas_report(log: str):
             out.append((short.lstrip("0123456789"), int(m.group(1)), *spills))
             name, spills = None, (0, 0)
     return out
+
+
+def warm_kernel_ms(torch, fn, name_part, reps=40):
+    """Device ms of the kernels whose name holds ``name_part`` over ``reps``
+    calls of ``fn`` back to back under the profiler, L2 warm (each call
+    finds what the last one read); None when the profiler kept none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if str(e.device_type).endswith("CUDA") and name_part in e.key]
+    return sum(us) / len(us) / 1e3 if us else None
 
 
 def card_line() -> str:
@@ -286,6 +310,13 @@ def check_sgns_kernels(torch, sgns, dev, err):
             for got_t, want_t in zip(runs[0][1:], want[1:]):
                 close("sgns_fused_grads", got_t, want_t, g_rtol, g_atol,
                       what)
+            # one kernel on the same rows: bitwise #5 on the gathered rows
+            rows = (x[0][x[2].long()], x[1][x[3].long()], x[1][x[4].long()])
+            five = sgns.sgns_grads(*rows, x[5])
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(runs[0], five)):
+                raise AssertionError(f"sgns_fused_grads {what}: != "
+                                     f"sgns_grads on the gathered rows")
             cases += 1
     return cases
 
@@ -441,6 +472,32 @@ def check_route_kernels(torch, sgns, ops, dev, err, call_kernels):
                  what)
             same("gather_rows vs gather_rows_rowwise",
                  sgns.gather_rows(table, idx), got, what)
+            cases += 1
+    # #3 at every vector width (16, 8, 4, 2 and 1 bytes: rows of f32 d =
+    # 128, 6, 3, bf16 d = 7, 1, int8 d = 12, 7) and from bases 1 and 2
+    # elements into a buffer (no longer 16-byte aligned); rows wider than
+    # 32 vectors; B past one wave (the grid striding)
+    for dtype, d, B in ((torch.float32, DIM, 1001), (torch.float32, 6, 333),
+                        (torch.float32, 3, 333), (torch.bfloat16, 7, 333),
+                        (torch.bfloat16, 1, 333), (torch.int8, 12, 333),
+                        (torch.int8, 7, 333), (torch.uint8, DIM, 1001),
+                        (torch.float32, 1026, 77),
+                        (torch.bfloat16, 1, 300_000),
+                        (torch.bfloat16, 1, 3_000_000)):
+        for offset in (0, 1, 2):
+            rng = np.random.default_rng(d + B + offset)
+            N = 300
+            flat = torch.from_numpy(rng.integers(
+                -100, 100, offset + N * d).astype(np.float32)).to(dev, dtype)
+            table = flat[offset:].view(N, d)
+            idx = torch.from_numpy(rng.integers(0, N, B).astype(
+                np.int32)).to(dev)
+            what = (f"{dtype} d={d} B={B} base {offset} elements in "
+                    f"({table.data_ptr() % 16} mod 16)")
+            got = sgns.gather_rows(table, idx)
+            same("gather_rows", got, sgns.gather_rows_plain(table, idx), what)
+            same("gather_rows vs gather_rows_rowwise", got,
+                 sgns.gather_rows_rowwise(table, idx), what)
             cases += 1
 
     # one step per kernel route against the ref route on the same tensors
@@ -719,17 +776,27 @@ def per_card_training(torch, sgns, dev, time_ms, wall_ms, call_kernels,
                              f"launched {calls}, not one sgns_update_fused")
     print(f"sgns_fused_update at the per-card minibatch: one device kernel "
           f"per call ({next(iter(calls))[0][:60]})")
-    # #5 is one cooperative kernel per call; #6 keeps its two
-    calls = call_kernels(lambda: sgns.sgns_grads(v, c, n, mask))
-    if len(calls) != 1 or len(next(iter(calls))) != 1 or (
-            "sgns_grads_coop" not in next(iter(calls))[0]):
-        raise AssertionError(f"sgns_grads at the per-card minibatch "
-                             f"launched {calls}, not one sgns_grads_coop")
-    calls6 = call_kernels(lambda: sgns.sgns_fused_grads(
-        vj, ctx, iv, ic, idx_n, mask))
-    print(f"sgns_grads at the per-card minibatch: one device kernel per call "
-          f"({next(iter(calls))[0][:60]}); sgns_fused_grads: "
-          f"{sorted(len(c) for c in calls6)} kernels per call")
+    # #5 and #6 are each one cooperative kernel per call, and #6 is #5 on
+    # the rows it gathers, bitwise
+    for name, fn in (("sgns_grads", lambda: sgns.sgns_grads(v, c, n, mask)),
+                     ("sgns_fused_grads", lambda: sgns.sgns_fused_grads(
+                         vj, ctx, iv, ic, idx_n, mask))):
+        calls = call_kernels(fn)
+        if len(calls) != 1 or len(next(iter(calls))) != 1 or (
+                "sgns_grads_coop" not in next(iter(calls))[0]):
+            raise AssertionError(f"{name} at the per-card minibatch "
+                                 f"launched {calls}, not one sgns_grads_coop")
+        print(f"{name} at the per-card minibatch: one device kernel per call "
+              f"({next(iter(calls))[0][:60]})")
+    g6 = sgns.sgns_fused_grads(vj, ctx, iv, ic, idx_n, mask)
+    g5 = sgns.sgns_grads(vj[iv.long()], ctx[ic.long()], ctx[idx_n.long()],
+                         mask)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(g6, g5)):
+        raise AssertionError("sgns_fused_grads at the per-card minibatch != "
+                             "sgns_grads on the gathered rows")
+    print("sgns_fused_grads at the per-card minibatch == sgns_grads on the "
+          "gathered rows (bitwise)")
     calls = call_kernels(lambda: sgns.scatter_add_rows(ctx, icn, upd))
     if len(calls) != 1 or len(next(iter(calls))) != 1 or (
             "scatter_sorted" not in next(iter(calls))[0]):
@@ -763,10 +830,20 @@ def per_card_training(torch, sgns, dev, time_ms, wall_ms, call_kernels,
         library_ms=time_ms(lambda: vj.index_select(0, iv), 50),
         # the unique rows read, B rows written, the ids read
         bound=bound_ms((uv.numel() + B) * row_bytes + 4 * B, 0.0))
-    print(f"gather_rows at the same shape (B={B} f32 rows): "
-          f"{time_ms(lambda: sgns.gather_rows(vj, iv), 50):.4f} device "
-          f"ms/launch, {wall_ms(lambda: sgns.gather_rows(vj, iv), 50):.4f} "
-          f"ms wall")
+    # #3 at the pallas route's shape, beside the launch floor: a
+    # one-element fill_ timed the same two ways
+    one = torch.zeros(1, device=dev)
+    floor = (time_ms(lambda: one.fill_(1.0), 50),
+             wall_ms(lambda: one.fill_(1.0), 50))
+    g3 = (time_ms(lambda: sgns.gather_rows(vj, iv), 50),
+          wall_ms(lambda: sgns.gather_rows(vj, iv), 50),
+          time_ms(lambda: vj.index_select(0, iv), 50))
+    print(f"launch floor (a one-element fill_): {floor[0]:.4f} device ms, "
+          f"{floor[1]:.4f} ms wall")
+    bound8 = recs["gather_rows_rowwise"]["bound"][0]
+    print(f"gather_rows minibatch shape (B={B} f32 rows of {row_bytes} B): "
+          f"{g3[0]:.4f} device ms/launch, {g3[1]:.4f} ms wall, index_select "
+          f"{g3[2]:.4f} ms, bound {bound8:.6f} ms (bytes)")
     return recs
 
 
@@ -1376,8 +1453,10 @@ def main() -> int:
         return {tuple(key for _, key in c) for c in calls}
 
     def wall_ms(fn, reps):
-        """Ms between CUDA events around one call of ``fn`` (the host's
-        enqueue included), cold L2, averaged over ``reps`` calls."""
+        """Ms between CUDA events around one call of ``fn`` just after an L2
+        flush, averaged over ``reps`` calls: the card's launch latency and
+        the call's device time (the host has enqueued the call while the
+        flush runs)."""
         fn()
         total = 0.0
         for _ in range(reps):
@@ -1456,6 +1535,14 @@ def main() -> int:
         lambda: tk.topk_mips_quant(q8, sc, q, m), 5)
     rec["gather_rows"]["wall_ms"] = wall_ms(
         lambda: sgns.gather_rows(shard, gidx), 50)
+    r = rec["gather_rows"]
+    warm = warm_kernel_ms(torch, lambda: sgns.gather_rows(shard, gidx),
+                          "gather_kernel")
+    print(f"gather_rows serving shape (B={gidx.numel()} bf16 rows of "
+          f"{2 * d} B): {r['ms']:.4f} device ms/launch, {r['wall_ms']:.4f} ms "
+          f"wall, index_select {r['library_ms']:.4f} ms, bound "
+          f"{r['bound'][0]:.6f} ms ({r['bound'][1]}); L2 warm (the same rows "
+          f"again) " + (f"{warm:.4f} ms" if warm else "not measured"))
     tf = shard.float()
     rec["topk_scan_exact"]["library_ms"] = time_ms(
         lambda: torch.topk(q @ tf.T, K), 2)

@@ -49,8 +49,10 @@ SIGNATURES = {
         "topk_rowwise": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     },
     "gather_rows": {
+        # table, idx, B, row_bytes, vec_bytes, lanes_log2, blocks, out,
+        # stream
+        "gather_rows": [_P, _P, _I, _LL, _I, _I, _I, _P, _P],
         # table, idx, B, row_bytes, out, stream
-        "gather_rows": [_P, _P, _I, _LL, _P, _P],
         "gather_rows_rowwise": [_P, _P, _I, _LL, _P, _P],
     },
     "sgns_update": {
@@ -59,13 +61,13 @@ SIGNATURES = {
         "sgns_fused_update": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _F, _I, _I, _I, _P, _P, _P],
         # dtype, mask_bf16, vert, ctx, idx_v, idx_c, idx_n, mask, B, S, d,
-        # bb, smem, dv, dc, dn_part, loss_part, dn, loss, stream
+        # bb, blocks, smem, dv, dc, dn_part, loss_part, dn, loss, stream
         "sgns_fused_grads": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _P, _P, _P, _P, _P, _P, _P],
-        # dtype, mask_bf16, v, c, n, mask, B, S, d, bb, smem, dv, dc,
-        # dn_part, loss_part, dn, loss, stream
-        "sgns_grads": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                       _P, _P, _P, _P, _P],
+                             _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        # dtype, mask_bf16, v, c, n, mask, B, S, d, bb, blocks, smem, dv,
+        # dc, dn_part, loss_part, dn, loss, stream
+        "sgns_grads": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                       _P, _P, _P, _P, _P, _P],
     },
     "scatter_rows": {
         # dtype, upd_f32, table, idx, upd, B, d, positions per chunk,

@@ -26,8 +26,7 @@
 //                     negative rows into shared memory as f32, computes the
 //                     tile's scores and gradients, writes dv and dc for its
 //                     rows and its own (S, d) dn partial and loss partial
-//                     (no float atomics). bb is half the unfused kernels'
-//                     (more blocks, less time each). The dot products'
+//                     (no float atomics), bb = 8 rows. The dot products'
 //                     reductions and sigmoid/softplus tails, and the
 //                     gather's loads, are issued several at a time.
 //   blocks nblk and   meanwhile sort the ids on chip, one side each (the
@@ -57,23 +56,25 @@
 //                     atomics and a run repeats bitwise. Scratch written
 //                     before the barrier is read with __ldcg (at L2).
 //
-// sgns_fused_grads is sgns_tile_grads (gradients in the table's dtype) plus
-// sgns_reduce_partials, the fixed-order sum of the dn and loss partials.
-// (sgns_tile_grads also takes null index pointers, rows gathered
-// beforehand; nothing passes them since sgns_grads has its own kernel.)
-//
-// sgns_grads, the gradients of rows gathered beforehand, is one
-// cooperative launch, sgns_grads_coop, of nblk = ceil(B / bb) blocks (bb =
-// 8 at the trainer's minibatches, so 32 blocks at B = 256): each block
-// loads its v and c rows (contiguous) and all S negatives with 16-byte
-// loads all in flight at once, reduces DOTS dot products a warp together
-// with their tails on DOTS lanes, writes dv and dc a vector a thread and its
-// dn and loss partials (the loss summed by one warp in a fixed order); one
-// grid.sync(); then the grid sums each dn element's partials in block
-// order (__ldcg, PARTS in flight) and casts once, as the TPU kernel
-// accumulates dn in an f32 output (sgns.py:105, 127). Its floor is one
-// launch and three dependent round trips (rows in; partials out, across
-// the barrier, and in again): a few us.
+// sgns_grads, the gradients of rows gathered beforehand, and sgns_fused_grads,
+// the same with the gather inside, are one kernel, sgns_grads_coop,
+// instantiated with and without ids: one cooperative launch over tiles of bb =
+// 8 rows (fewer when the S negatives leave no room), one block a tile up to
+// one block an SM (32 blocks at the trainer's B = 256), each block taking
+// every blocks-th tile past that, so any B runs. For a tile a fused-grads
+// block first loads the ids of its bb vertex and context rows and of the S
+// negatives (one round trip); then it loads the v and c rows and all S
+// negatives, 16-byte loads all in flight at once (contiguous slabs, or rows of
+// the tables through the ids), reduces DOTS dot products a warp together with
+// their tails on DOTS lanes, writes dv and dc a vector a thread and adds the
+// tile's dn and loss (summed by one warp in a fixed order) to the block's
+// partials in tile order; one grid.sync(); then the grid sums each dn
+// element's block partials in block order (__ldcg, PARTS in flight) and casts
+// once, as the TPU kernels accumulate dn in an f32 output (sgns.py:105, 127,
+// 172). The same rows give the same bits either way, so sgns_fused_grads(vert,
+// ctx, iv, ic, in) == sgns_grads(vert[iv], ctx[ic], ctx[in]) bitwise. Its
+// floor is one launch and three dependent round trips (rows in; partials out,
+// across the barrier, and in again), four with the ids: a few us.
 //
 // Bound on an H100: bytes. A minibatch reads (2B + S) rows and writes the
 // unique ones (B = 256, S = 5, d = 128 f32: about 0.5 MB, 0.15 us at
@@ -118,134 +119,11 @@ __device__ __forceinline__ float softplus_f32(float x) {
   return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
 }
 
-// Row i of a table addressed through idx, or row i itself when idx is null
-// (rows gathered beforehand).
-__device__ __forceinline__ long long row_of(const int* idx, int i) {
-  return idx != nullptr ? static_cast<long long>(idx[i])
-                        : static_cast<long long>(i);
-}
-
 __device__ __forceinline__ float load_mask(const void* mask, int mask_bf16,
                                            int b) {
   return mask_bf16
              ? __bfloat162float(static_cast<const __nv_bfloat16*>(mask)[b])
              : static_cast<const float*>(mask)[b];
-}
-
-// Shared memory (floats): v (bb, d), c (bb, d), n (S, d), g and l
-// (bb, S + 1) each (column 0 the positive pair, 1 + s negative s), m (bb).
-// v, c and n rows come from vsrc, csrc and nsrc through idx_v, idx_c and
-// idx_n, each null when its rows were gathered beforehand.
-template <typename T, typename OutT>
-__global__ void __launch_bounds__(THREADS)
-    sgns_tile_grads(const T* __restrict__ vsrc, const T* __restrict__ csrc,
-                    const T* __restrict__ nsrc,
-                    const int* __restrict__ idx_v,
-                    const int* __restrict__ idx_c,
-                    const int* __restrict__ idx_n,
-                    const void* __restrict__ mask, int mask_bf16, int B,
-                    int S, int d, int bb, OutT* __restrict__ dv,
-                    OutT* __restrict__ dc, float* __restrict__ dn_part,
-                    float* __restrict__ loss_part) {
-  extern __shared__ float smem[];
-  const int T1 = S + 1;
-  float* v_s = smem;
-  float* c_s = v_s + bb * d;
-  float* n_s = c_s + bb * d;
-  float* g_s = n_s + S * d;
-  float* l_s = g_s + bb * T1;
-  float* m_s = l_s + bb * T1;
-  const int row0 = blockIdx.x * bb;
-  const int rows = min(bb, B - row0);
-  const long long dd = d;
-
-  // gather: neighbouring threads read neighbouring columns of a row
-  for (int i = threadIdx.x; i < bb * d; i += THREADS) {
-    const int r = i / d, k = i - r * d;
-    float v = 0.0f, c = 0.0f;
-    if (r < rows) {
-      v = to_f32(vsrc[row_of(idx_v, row0 + r) * dd + k]);
-      c = to_f32(csrc[row_of(idx_c, row0 + r) * dd + k]);
-    }
-    v_s[i] = v;
-    c_s[i] = c;
-  }
-  for (int i = threadIdx.x; i < S * d; i += THREADS) {
-    const int s = i / d, k = i - s * d;
-    n_s[i] = to_f32(nsrc[row_of(idx_n, s) * dd + k]);
-  }
-  for (int r = threadIdx.x; r < bb; r += THREADS)
-    m_s[r] = r < rows ? load_mask(mask, mask_bf16, row0 + r) : 0.0f;
-  __syncthreads();
-
-  // scores: one warp per dot product, a fixed shuffle tree per warp
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int q = warp; q < rows * T1; q += WARPS) {
-    const int r = q / T1, t = q - r * T1;
-    const float* a = v_s + r * d;
-    const float* b = t == 0 ? c_s + r * d : n_s + (t - 1) * d;
-    float acc = 0.0f;
-    for (int k = lane; k < d; k += 32) acc += a[k] * b[k];
-    for (int o = 16; o > 0; o >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) {
-      const float m = m_s[r];
-      if (t == 0) {
-        g_s[q] = (sigmoid_f32(acc) - 1.0f) * m;
-        l_s[q] = m * softplus_f32(-acc);
-      } else {
-        g_s[q] = sigmoid_f32(acc) * m;
-        l_s[q] = m * softplus_f32(acc);
-      }
-    }
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < rows * d; i += THREADS) {
-    const int r = i / d, k = i - r * d;
-    const float* g = g_s + r * T1;
-    float acc = g[0] * c_s[i];
-    for (int s = 0; s < S; ++s) acc += g[1 + s] * n_s[s * d + k];
-    const long long o = static_cast<long long>(row0 + r) * dd + k;
-    dv[o] = from_f32<OutT>(acc);
-    dc[o] = from_f32<OutT>(g[0] * v_s[i]);
-  }
-  float* dn = dn_part + static_cast<long long>(blockIdx.x) * S * dd;
-  for (int i = threadIdx.x; i < S * d; i += THREADS) {
-    const int s = i / d, k = i - s * d;
-    float acc = 0.0f;
-    for (int r = 0; r < rows; ++r) acc += g_s[r * T1 + 1 + s] * v_s[r * d + k];
-    dn[i] = acc;
-  }
-  if (threadIdx.x == 0) {
-    float acc = 0.0f;
-    for (int q = 0; q < rows * T1; ++q) acc += l_s[q];
-    loss_part[blockIdx.x] = acc;
-  }
-}
-
-__device__ __forceinline__ float sum_loss(const float* loss_part, int nblk) {
-  float acc = loss_part[0];
-  for (int b = 1; b < nblk; ++b) acc += loss_part[b];
-  return acc;
-}
-
-// dn[s, k] = sum over blocks, in block order, of the partials; and the loss.
-template <typename OutT>
-__global__ void __launch_bounds__(THREADS)
-    sgns_reduce_partials(const float* __restrict__ dn_part,
-                         const float* __restrict__ loss_part, int nblk, int S,
-                         int d, OutT* __restrict__ dn,
-                         float* __restrict__ loss) {
-  const long long n = static_cast<long long>(S) * d;
-  const long long i = static_cast<long long>(blockIdx.x) * THREADS +
-                      threadIdx.x;
-  if (i < n) {
-    float acc = dn_part[i];
-    for (int b = 1; b < nblk; ++b) acc += dn_part[b * n + i];
-    dn[i] = from_f32<OutT>(acc);
-  }
-  if (i == 0) *loss = sum_loss(loss_part, nblk);
 }
 
 // ---------------------------------------------------------------------------
@@ -279,9 +157,10 @@ struct UpdateArgs {
   int* runs;
 };
 
-// sgns_tile_grads for block blk of the fused launch, gradients in f32: a
-// copy of that kernel's body (kept apart, so sgns_grads and
-// sgns_fused_grads keep their code), the same arithmetic in the same order.
+// The tile gradients of block blk of the fused launch, gradients in f32:
+// bb rows gathered through the ids into shared memory as f32, with all S
+// negatives, the scores and gradients of the tile, dv and dc for its rows
+// and its own (S, d) dn partial and loss partial.
 template <typename T>
 __device__ void fused_tile_grads(const UpdateArgs& a, int blk, float* smem) {
   const T* vsrc = static_cast<const T*>(a.vert);
@@ -330,8 +209,8 @@ __device__ void fused_tile_grads(const UpdateArgs& a, int blk, float* smem) {
     m_s[r] = r < rows ? load_mask(a.mask, a.mask_bf16, row0 + r) : 0.0f;
   __syncthreads();
 
-  // scores: one warp per dot product, a fixed shuffle tree per dot (as in
-  // sgns_tile_grads), DOTS of a warp's dots reduced together; every lane
+  // scores: one warp per dot product, a fixed shuffle tree per dot, DOTS
+  // of a warp's dots reduced together; every lane
   // then holds each total, and lane i computes dot i's sigmoid and softplus
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int q0 = warp; q0 < rows * T1; q0 += WARPS * DOTS) {
@@ -596,19 +475,22 @@ __global__ void __launch_bounds__(THREADS) sgns_update_fused(
 }
 
 // ---------------------------------------------------------------------------
-// sgns_grads: one cooperative launch
+// sgns_grads and sgns_fused_grads: one cooperative launch
 // ---------------------------------------------------------------------------
 struct GradsArgs {
-  const void* v;
-  const void* c;
-  const void* n;
+  const void* v;     // (B, d) rows gathered beforehand, or the vertex table
+  const void* c;     // (B, d), or the context table
+  const void* n;     // (S, d), or the context table
+  const int* idx_v;  // the ids of v, c and n rows in their tables (fused
+  const int* idx_c;  // grads), null when the rows were gathered beforehand
+  const int* idx_n;
   const void* mask;
-  int mask_bf16, B, S, d, bb, nblk;
+  int mask_bf16, B, S, d, bb;
   void* dv;          // (B, d), the rows' dtype
   void* dc;
   void* dn;          // (S, d), the rows' dtype
-  float* dn_part;    // (nblk, S, d) f32 scratch
-  float* loss_part;  // (nblk,) f32 scratch
+  float* dn_part;    // (blocks, S, d) f32 scratch
+  float* loss_part;  // (blocks,) f32 scratch
   float* loss;       // the loss
 };
 
@@ -641,15 +523,30 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* x) {
   *reinterpret_cast<uint4*>(p) = u;
 }
 
-// Block blk takes rows [blk bb, blk bb + rows) of v and c (contiguous: the
-// rows were gathered beforehand) and all S negatives: every load in flight
-// at once (16-byte vectors when the rows allow), DOTS dot products a warp
-// reduced together with their tails on DOTS lanes, dv and dc written a
-// vector a thread, its (S, d) dn partial and its loss (summed by one warp
-// in a fixed order) to scratch. One grid-wide barrier, then the grid sums
-// each dn element's partials in block order and casts once; block 0 sums
-// the loss partials. No float atomics: a call repeats bitwise.
-template <typename T>
+// Element i of a block's (rows, d) slab: at src + i when the rows were
+// gathered beforehand (src the slab), else of row ids[i / d] of the table
+// src.
+template <bool GATHER, typename T>
+__device__ __forceinline__ const T* slab_elem(const T* src, const int* ids,
+                                              int i, int d) {
+  if (!GATHER) return src + i;
+  const int r = i / d;
+  return src + static_cast<long long>(ids[r]) * d + (i - r * d);
+}
+
+// Tile t takes rows [t bb, t bb + rows) of v and c and all S negatives:
+// contiguous slabs gathered beforehand, or (GATHER) rows of the tables
+// through their ids, which the block loads first. Block blk takes tiles
+// blk, blk + blocks, ... in order (one tile a block at the trainer's
+// minibatches). Every row load of a tile in flight at once (16-byte vectors
+// when the rows allow), DOTS dot products a warp reduced together with
+// their tails on DOTS lanes, dv and dc written a vector a thread, the
+// tile's (S, d) dn partial and its loss (summed by one warp in a fixed
+// order) added to the block's, in scratch. One grid-wide barrier, then the
+// grid sums each dn element's block partials in block order and casts once;
+// block 0 sums the loss partials. No float atomics: a call repeats bitwise, and the two
+// instantiations give the same bits on the same rows.
+template <typename T, bool GATHER>
 __global__ void __launch_bounds__(THREADS) sgns_grads_coop(const GradsArgs a) {
   constexpr int VEC = 16 / sizeof(T);
   extern __shared__ float gsmem[];
@@ -660,14 +557,8 @@ __global__ void __launch_bounds__(THREADS) sgns_grads_coop(const GradsArgs a) {
   float* g_s = n_s + S * d;
   float* l_s = g_s + bb * T1;
   float* m_s = l_s + bb * T1;
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * bb;
-  const int rows = min(bb, a.B - row0);
-  const long long off = static_cast<long long>(row0) * d;
-  const T* vsrc = static_cast<const T*>(a.v) + off;
-  const T* csrc = static_cast<const T*>(a.c) + off;
-  const T* nsrc = static_cast<const T*>(a.n);
-  const int nr = rows * d, nn = S * d;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nn = S * d;
   // one test for the whole grid: every row slab starts at a multiple of
   // bb d elements from a 16-byte aligned base
   const bool vec = d % VEC == 0 &&
@@ -676,137 +567,170 @@ __global__ void __launch_bounds__(THREADS) sgns_grads_coop(const GradsArgs a) {
                      reinterpret_cast<uintptr_t>(a.n) |
                      reinterpret_cast<uintptr_t>(a.dv) |
                      reinterpret_cast<uintptr_t>(a.dc)) & 15) == 0;
-
-  // the rows, gathered beforehand: v, c and n, a vector of each per thread
-  // per step, every load of a step (and the mask, bb <= THREADS) issued
-  // before any store
-  const float m = tid < rows ? load_mask(a.mask, a.mask_bf16, row0 + tid)
-                             : 0.0f;
-  if (vec) {
-    for (int i0 = 0; i0 < max(nr, nn); i0 += THREADS * VEC) {
-      const int i = i0 + tid * VEC;
-      float x[VEC], y[VEC], z[VEC];
-      if (i < nr) {
-        load_vec(vsrc + i, x);
-        load_vec(csrc + i, y);
-      }
-      if (i < nn) load_vec(nsrc + i, z);
-#pragma unroll
-      for (int u = 0; u < VEC; ++u) {
-        if (i < nr) {
-          v_s[i + u] = x[u];
-          c_s[i + u] = y[u];
-        }
-        if (i < nn) n_s[i + u] = z[u];
-      }
-    }
-  } else {
-    for (int i = tid; i < max(nr, nn); i += THREADS) {
-      if (i < nr) {
-        v_s[i] = to_f32(vsrc[i]);
-        c_s[i] = to_f32(csrc[i]);
-      }
-      if (i < nn) n_s[i] = to_f32(nsrc[i]);
-    }
-  }
-  if (tid < bb) m_s[tid] = m;
-  __syncthreads();
-
-  // scores: one warp per dot product, DOTS of a warp's dots reduced
-  // together by one fixed shuffle tree each; lane i takes dot i's sigmoid
-  // and softplus
-  const int warp = tid >> 5, lane = tid & 31;
-  const int ndots = rows * T1;
-  for (int q0 = warp; q0 < ndots; q0 += WARPS * DOTS) {
-    float acc[DOTS];
-#pragma unroll
-    for (int i = 0; i < DOTS; ++i) {
-      const int q = q0 + i * WARPS;
-      acc[i] = 0.0f;
-      if (q < ndots) {
-        const int r = q / T1, t = q - r * T1;
-        const float* x = v_s + r * d;
-        const float* y = t == 0 ? c_s + r * d : n_s + (t - 1) * d;
-        for (int k = lane; k < d; k += 32) acc[i] = fmaf(x[k], y[k], acc[i]);
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-      for (int i = 0; i < DOTS; ++i)
-        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
-    }
-    float mine = acc[0];
-#pragma unroll
-    for (int i = 1; i < DOTS; ++i) mine = lane == i ? acc[i] : mine;
-    const int q = q0 + lane * WARPS;
-    if (lane < DOTS && q < ndots) {
-      const int r = q / T1, t = q - r * T1;
-      const float mr = m_s[r];
-      if (t == 0) {
-        g_s[q] = (sigmoid_f32(mine) - 1.0f) * mr;
-        l_s[q] = mr * softplus_f32(-mine);
-      } else {
-        g_s[q] = sigmoid_f32(mine) * mr;
-        l_s[q] = mr * softplus_f32(mine);
-      }
-    }
-  }
-  __syncthreads();
-
-  // dv = g_pos c + sum_s g_neg n_s and dc = g_pos v, VEC columns a thread
-  T* dv = static_cast<T*>(a.dv) + off;
-  T* dc = static_cast<T*>(a.dc) + off;
-  if (vec) {
-    for (int i = tid * VEC; i < nr; i += THREADS * VEC) {
-      const int r = i / d, k = i - r * d;
-      const float* g = g_s + r * T1;
-      float x[VEC], y[VEC];
-#pragma unroll
-      for (int u = 0; u < VEC; ++u) {
-        x[u] = g[0] * c_s[i + u];
-        y[u] = g[0] * v_s[i + u];
-      }
-      for (int s = 0; s < S; ++s) {
-#pragma unroll
-        for (int u = 0; u < VEC; ++u) x[u] += g[1 + s] * n_s[s * d + k + u];
-      }
-      store_vec(dv + i, x);
-      store_vec(dc + i, y);
-    }
-  } else {
-    for (int i = tid; i < nr; i += THREADS) {
-      const int r = i / d, k = i - r * d;
-      const float* g = g_s + r * T1;
-      float acc = g[0] * c_s[i];
-      for (int s = 0; s < S; ++s) acc += g[1 + s] * n_s[s * d + k];
-      dv[i] = from_f32<T>(acc);
-      dc[i] = from_f32<T>(g[0] * v_s[i]);
-    }
-  }
-  // the block's dn partial, its rows in order
+  int* id_v = reinterpret_cast<int*>(g_s);
+  int* id_c = id_v + bb;
+  int* id_n = id_c + bb;
+  // the block's dn partial and loss, over its tiles in order
   float* part = a.dn_part + static_cast<long long>(blockIdx.x) * nn;
-  for (int i = tid; i < nn; i += THREADS) {
-    const int s = i / d, k = i - s * d;
-    float acc = 0.0f;
-    for (int r = 0; r < rows; ++r) acc += g_s[r * T1 + 1 + s] * v_s[r * d + k];
-    part[i] = acc;
-  }
-  // the block's loss: warp 0, lane j the terms j, j + 32, ... in order,
-  // then one shuffle tree
-  if (warp == 0) {
-    float acc = 0.0f;
-    for (int q = lane; q < ndots; q += 32) acc += l_s[q];
+  float loss = 0.0f;
+  const int tiles = (a.B + bb - 1) / bb;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const bool first = tile == static_cast<int>(blockIdx.x);
+    const int row0 = tile * bb;
+    const int rows = min(bb, a.B - row0);
+    const long long off = static_cast<long long>(row0) * d;
+    const T* vsrc = static_cast<const T*>(a.v) + (GATHER ? 0 : off);
+    const T* csrc = static_cast<const T*>(a.c) + (GATHER ? 0 : off);
+    const T* nsrc = static_cast<const T*>(a.n);
+    const int nr = rows * d;
+
+    // the ids of the v, c and n rows (GATHER), one round trip, kept where
+    // the scores go later: g_s and l_s hold 2 bb (S + 1) >= 2 bb + S words
+    const float m = tid < rows ? load_mask(a.mask, a.mask_bf16, row0 + tid)
+                               : 0.0f;
+    if (GATHER) {
+      for (int t = tid; t < 2 * bb + S; t += THREADS) {
+        int id = 0;
+        if (t < rows)
+          id = a.idx_v[row0 + t];
+        else if (t >= bb && t - bb < rows)
+          id = a.idx_c[row0 + t - bb];
+        else if (t >= 2 * bb)
+          id = a.idx_n[t - 2 * bb];
+        id_v[t] = id;
+      }
+      __syncthreads();
+    }
+    // the rows: v, c and n, a vector of each per thread per step, every load
+    // of a step (and the mask, bb <= THREADS) issued before any store
+    if (vec) {
+      for (int i0 = 0; i0 < max(nr, nn); i0 += THREADS * VEC) {
+        const int i = i0 + tid * VEC;
+        float x[VEC], y[VEC], z[VEC];
+        if (i < nr) {
+          load_vec(slab_elem<GATHER>(vsrc, id_v, i, d), x);
+          load_vec(slab_elem<GATHER>(csrc, id_c, i, d), y);
+        }
+        if (i < nn) load_vec(slab_elem<GATHER>(nsrc, id_n, i, d), z);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) a.loss_part[blockIdx.x] = acc;
+        for (int u = 0; u < VEC; ++u) {
+          if (i < nr) {
+            v_s[i + u] = x[u];
+            c_s[i + u] = y[u];
+          }
+          if (i < nn) n_s[i + u] = z[u];
+        }
+      }
+    } else {
+      for (int i = tid; i < max(nr, nn); i += THREADS) {
+        if (i < nr) {
+          v_s[i] = to_f32(*slab_elem<GATHER>(vsrc, id_v, i, d));
+          c_s[i] = to_f32(*slab_elem<GATHER>(csrc, id_c, i, d));
+        }
+        if (i < nn) n_s[i] = to_f32(*slab_elem<GATHER>(nsrc, id_n, i, d));
+      }
+    }
+    if (tid < bb) m_s[tid] = m;
+    __syncthreads();
+
+    // scores: one warp per dot product, DOTS of a warp's dots reduced
+    // together by one fixed shuffle tree each; lane i takes dot i's sigmoid
+    // and softplus
+    const int ndots = rows * T1;
+    for (int q0 = warp; q0 < ndots; q0 += WARPS * DOTS) {
+      float acc[DOTS];
+#pragma unroll
+      for (int i = 0; i < DOTS; ++i) {
+        const int q = q0 + i * WARPS;
+        acc[i] = 0.0f;
+        if (q < ndots) {
+          const int r = q / T1, t = q - r * T1;
+          const float* x = v_s + r * d;
+          const float* y = t == 0 ? c_s + r * d : n_s + (t - 1) * d;
+          for (int k = lane; k < d; k += 32) acc[i] = fmaf(x[k], y[k], acc[i]);
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+        for (int i = 0; i < DOTS; ++i)
+          acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+      }
+      float mine = acc[0];
+#pragma unroll
+      for (int i = 1; i < DOTS; ++i) mine = lane == i ? acc[i] : mine;
+      const int q = q0 + lane * WARPS;
+      if (lane < DOTS && q < ndots) {
+        const int r = q / T1, t = q - r * T1;
+        const float mr = m_s[r];
+        if (t == 0) {
+          g_s[q] = (sigmoid_f32(mine) - 1.0f) * mr;
+          l_s[q] = mr * softplus_f32(-mine);
+        } else {
+          g_s[q] = sigmoid_f32(mine) * mr;
+          l_s[q] = mr * softplus_f32(mine);
+        }
+      }
+    }
+    __syncthreads();
+
+    // dv = g_pos c + sum_s g_neg n_s and dc = g_pos v, VEC columns a thread
+    T* dv = static_cast<T*>(a.dv) + off;
+    T* dc = static_cast<T*>(a.dc) + off;
+    if (vec) {
+      for (int i = tid * VEC; i < nr; i += THREADS * VEC) {
+        const int r = i / d, k = i - r * d;
+        const float* g = g_s + r * T1;
+        float x[VEC], y[VEC];
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) {
+          x[u] = g[0] * c_s[i + u];
+          y[u] = g[0] * v_s[i + u];
+        }
+        for (int s = 0; s < S; ++s) {
+#pragma unroll
+          for (int u = 0; u < VEC; ++u) x[u] += g[1 + s] * n_s[s * d + k + u];
+        }
+        store_vec(dv + i, x);
+        store_vec(dc + i, y);
+      }
+    } else {
+      for (int i = tid; i < nr; i += THREADS) {
+        const int r = i / d, k = i - r * d;
+        const float* g = g_s + r * T1;
+        float acc = g[0] * c_s[i];
+        for (int s = 0; s < S; ++s) acc += g[1 + s] * n_s[s * d + k];
+        dv[i] = from_f32<T>(acc);
+        dc[i] = from_f32<T>(g[0] * v_s[i]);
+      }
+    }
+    // the tile's dn partial, its rows in order, added to the block's (each
+    // element by the same thread every tile)
+    for (int i = tid; i < nn; i += THREADS) {
+      const int s = i / d, k = i - s * d;
+      float acc = 0.0f;
+      for (int r = 0; r < rows; ++r)
+        acc += g_s[r * T1 + 1 + s] * v_s[r * d + k];
+      part[i] = first ? acc : part[i] + acc;
+    }
+    // the tile's loss: warp 0, lane j the terms j, j + 32, ... in order,
+    // then one shuffle tree
+    if (warp == 0) {
+      float acc = 0.0f;
+      for (int q = lane; q < ndots; q += 32) acc += l_s[q];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      loss = first ? acc : loss + acc;
+    }
+    __syncthreads();        // the next tile reuses the shared memory
   }
+  if (warp == 0 && lane == 0) a.loss_part[blockIdx.x] = loss;
   cooperative_groups::this_grid().sync();
 
   // dn[i] = the partials of blocks 0, 1, ... added in order (read at L2:
   // other blocks wrote them), PARTS loads in flight at a time; then cast
-  const int nblk = a.nblk;
+  const int nblk = gridDim.x;
   T* dn = static_cast<T*>(a.dn);
   for (int i = blockIdx.x * THREADS + tid; i < nn; i += gridDim.x * THREADS) {
     float acc = 0.0f;
@@ -842,47 +766,24 @@ __global__ void __launch_bounds__(THREADS) sgns_grads_coop(const GradsArgs a) {
   }
 }
 
-// One cooperative launch of nblk blocks (at most one per SM: the planner's
-// rows per block keep nblk within the SMs, so every block is resident at
-// once; cudaLaunchCooperativeKernel refuses a grid that is not).
-template <typename T>
-int launch_grads_coop(const GradsArgs& a, int smem, cudaStream_t st) {
+// One cooperative launch of `blocks` blocks (at most one per SM, so every
+// block is resident at once; cudaLaunchCooperativeKernel refuses a grid
+// that is not).
+template <typename T, bool GATHER>
+int launch_grads_coop(const GradsArgs& a, int blocks, int smem,
+                      cudaStream_t st) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sgns_grads_coop<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        sgns_grads_coop<T, GATHER>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   GradsArgs args = a;
   void* params[] = {&args};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(sgns_grads_coop<T>), dim3(a.nblk),
-      dim3(THREADS), params, static_cast<size_t>(smem), st);
+      reinterpret_cast<const void*>(sgns_grads_coop<T, GATHER>),
+      dim3(blocks), dim3(THREADS), params, static_cast<size_t>(smem), st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, typename OutT>
-int launch_tile_grads(const void* vsrc, const void* csrc, const void* nsrc,
-                      const void* idx_v, const void* idx_c,
-                      const void* idx_n, const void* mask,
-                      int mask_bf16, int B, int S, int d, int bb, int smem,
-                      void* dv, void* dc, void* dn_part, void* loss_part,
-                      cudaStream_t st) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sgns_tile_grads<T, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int nblk = (B + bb - 1) / bb;
-  sgns_tile_grads<T, OutT><<<nblk, THREADS, smem, st>>>(
-      static_cast<const T*>(vsrc), static_cast<const T*>(csrc),
-      static_cast<const T*>(nsrc), static_cast<const int*>(idx_v),
-      static_cast<const int*>(idx_c), static_cast<const int*>(idx_n), mask,
-      mask_bf16, B, S, d, bb,
-      static_cast<OutT*>(dv), static_cast<OutT*>(dc),
-      static_cast<float*>(dn_part), static_cast<float*>(loss_part));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -914,25 +815,6 @@ int launch_fused(const UpdateArgs& a, int grid, int smem, cudaStream_t st) {
       reinterpret_cast<const void*>(sgns_update_fused<T>), dim3(grid),
       dim3(THREADS), params, static_cast<size_t>(smem), st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_grads(const void* vsrc, const void* csrc, const void* nsrc,
-                 const void* idx_v, const void* idx_c, const void* idx_n,
-                 const void* mask, int mask_bf16, int B, int S, int d, int bb,
-                 int smem, void* dv, void* dc, void* dn_part, void* loss_part,
-                 void* dn, void* loss, cudaStream_t st) {
-  int rc = launch_tile_grads<T, T>(vsrc, csrc, nsrc, idx_v, idx_c, idx_n,
-                                   mask, mask_bf16, B, S, d, bb, smem, dv, dc,
-                                   dn_part, loss_part, st);
-  if (rc != 0) return rc;
-  const int nblk = (B + bb - 1) / bb;
-  const long long n = static_cast<long long>(S) * d;
-  const int blocks = static_cast<int>((n + THREADS - 1) / THREADS);
-  sgns_reduce_partials<T><<<blocks > 0 ? blocks : 1, THREADS, 0, st>>>(
-      static_cast<const float*>(dn_part), static_cast<const float*>(loss_part),
-      nblk, S, d, static_cast<T*>(dn), static_cast<float*>(loss));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -973,43 +855,54 @@ extern "C" int sgns_fused_update(int dtype, int mask_bf16, void* vert,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The same gather and gradients without the update: dv, dc (B, d) and
-// dn (S, d) in the table's dtype, loss (1,) f32; dn_part and loss_part are
-// scratch as above.
+// The gradients of rows gathered beforehand (sgns_grads: v, c (B, d) and n
+// (S, d), idx_* null) or of table rows through their ids (sgns_fused_grads:
+// vert, ctx and idx_v, idx_c (B,), idx_n (S,) int32): dv, dc (B, d), dn (S,
+// d) in the rows' dtype, loss (1,) f32; tiles of bb <= 256 rows over
+// `blocks` blocks, at most one per SM; dn_part (blocks, S, d) and loss_part
+// (blocks,) f32 scratch (plan_sgns_grads). One cooperative launch.
+static int launch_grads(int dtype, const GradsArgs& a, int blocks, int smem,
+                        void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool gather = a.idx_v != nullptr;
+  if (a.bb < 1 || a.bb > THREADS || blocks < 1 ||
+      (gather && (a.idx_c == nullptr || a.idx_n == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return gather ? launch_grads_coop<float, true>(a, blocks, smem, st)
+                  : launch_grads_coop<float, false>(a, blocks, smem, st);
+  if (dtype == 1)
+    return gather
+               ? launch_grads_coop<__nv_bfloat16, true>(a, blocks, smem, st)
+               : launch_grads_coop<__nv_bfloat16, false>(a, blocks, smem, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 extern "C" int sgns_fused_grads(int dtype, int mask_bf16, const void* vert,
                                 const void* ctx, const void* idx_v,
                                 const void* idx_c, const void* idx_n,
                                 const void* mask, int B, int S, int d, int bb,
-                                int smem, void* dv, void* dc, void* dn_part,
-                                void* loss_part, void* dn, void* loss,
-                                void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_grads<float>(vert, ctx, ctx, idx_v, idx_c, idx_n, mask,
-                               mask_bf16, B, S, d, bb, smem, dv, dc, dn_part,
-                               loss_part, dn, loss, st);
-  if (dtype == 1)
-    return launch_grads<__nv_bfloat16>(vert, ctx, ctx, idx_v, idx_c, idx_n,
-                                       mask, mask_bf16, B, S, d, bb, smem, dv,
-                                       dc, dn_part, loss_part, dn, loss, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The gradients of rows gathered beforehand: v, c (B, d) and n (S, d) in
-// one dtype; dv, dc (B, d), dn (S, d) in that dtype, loss (1,) f32;
-// dn_part (nblk, S, d) and loss_part (nblk,) f32 scratch, nblk = ceil(B /
-// bb) <= the SMs and bb <= 256 (plan_sgns_grads). One cooperative launch.
-extern "C" int sgns_grads(int dtype, int mask_bf16, const void* v,
-                          const void* c, const void* n, const void* mask,
-                          int B, int S, int d, int bb, int smem, void* dv,
-                          void* dc, void* dn_part, void* loss_part, void* dn,
-                          void* loss, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bb < 1 || bb > THREADS) return static_cast<int>(cudaErrorInvalidValue);
-  const GradsArgs a{v, c, n, mask, mask_bf16, B, S, d, bb, (B + bb - 1) / bb,
+                                int blocks, int smem, void* dv, void* dc,
+                                void* dn_part, void* loss_part, void* dn,
+                                void* loss, void* stream) {
+  const GradsArgs a{vert, ctx, ctx,
+                    static_cast<const int*>(idx_v),
+                    static_cast<const int*>(idx_c),
+                    static_cast<const int*>(idx_n),
+                    mask, mask_bf16, B, S, d, bb,
                     dv, dc, dn, static_cast<float*>(dn_part),
                     static_cast<float*>(loss_part), static_cast<float*>(loss)};
-  if (dtype == 0) return launch_grads_coop<float>(a, smem, st);
-  if (dtype == 1) return launch_grads_coop<__nv_bfloat16>(a, smem, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_grads(dtype, a, blocks, smem, stream);
+}
+
+extern "C" int sgns_grads(int dtype, int mask_bf16, const void* v,
+                          const void* c, const void* n, const void* mask,
+                          int B, int S, int d, int bb, int blocks, int smem,
+                          void* dv, void* dc, void* dn_part, void* loss_part,
+                          void* dn, void* loss, void* stream) {
+  const GradsArgs a{v, c, n, nullptr, nullptr, nullptr, mask, mask_bf16, B,
+                    S, d, bb,
+                    dv, dc, dn, static_cast<float*>(dn_part),
+                    static_cast<float*>(loss_part), static_cast<float*>(loss)};
+  return launch_grads(dtype, a, blocks, smem, stream);
 }

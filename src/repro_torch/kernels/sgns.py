@@ -7,9 +7,10 @@ three CUDA sources:
 * :func:`gather_rows` replaces the TPU kernel ``gather_rows`` (blocked row
   DMAs); the two-tier retrieval scan uses it to fetch its survivors, and
   the trainer's ``pallas`` route its minibatch rows. Its source is
-  ``csrc/gather_rows.cu``: one warp per output row, 16-byte loads when the
-  row allows. Bound by bytes; at serving sizes the launch is most of its
-  time. :func:`gather_rows_rowwise` replaces ``gather_rows_rowwise``, the
+  ``csrc/gather_rows.cu``: a group of lanes per row, the widest vector the
+  row and the bases allow, one wave of blocks (:func:`plan_gather`). Bound
+  by bytes; at serving sizes latency and the launch are most of its time.
+  :func:`gather_rows_rowwise` replaces ``gather_rows_rowwise``, the
   one-row-per-grid-step reference the blocked gather is held against: one
   block per output row, in the same source.
 * :func:`sgns_fused_update` replaces ``sgns_fused_update`` (the training
@@ -21,10 +22,11 @@ three CUDA sources:
   minibatch (:func:`plan_fused_update`): tile-gradient blocks with
   per-block partials while one block sorts the ids on chip, a grid-wide
   barrier, then every warp combines and applies runs of equal ids, so a
-  run repeats bitwise. ``sgns_grads`` is one cooperative launch too
-  (:func:`plan_sgns_grads`): 8-row gradient blocks, a grid-wide barrier,
-  then the dn partials summed in block order. ``sgns_fused_grads`` is a
-  tile-gradients kernel and a fixed-order reduction of its partials.
+  run repeats bitwise. ``sgns_grads`` and ``sgns_fused_grads`` are one
+  cooperative launch of one kernel (:func:`plan_sgns_grads`), with the
+  rows gathered beforehand or read through the ids: 8-row gradient tiles,
+  up to one block an SM (a block takes several tiles past that), a
+  grid-wide barrier, then the blocks' dn partials summed in block order.
 * :func:`scatter_add_rows` replaces ``scatter_add_rows`` (``table[idx[p]]
   += upd[p]`` in position order, in place) and
   :func:`scatter_add_rows_rowwise` its one-row-per-grid-step reference
@@ -58,10 +60,9 @@ LAUNCHES = {"gather_rows": 0, "gather_rows_rowwise": 0, "sgns_grads": 0,
             "scatter_add_rows": 0, "scatter_add_rows_rowwise": 0}
 
 SMEM_PER_BLOCK = 232_448          # H100: 227 KB of dynamic shared memory
-GRAD_TILE_ROWS = 16               # minibatch rows per tile-gradients block
+GRAD_TILE_ROWS = 16               # plan_grads_tile's rows per block
 FUSED_TILE_ROWS = 8               # the same, in the fused update
-GRADS_ROWS = 8                    # the same, in sgns_grads (at least)
-GRADS_THREADS = 256               # threads of an sgns_grads block
+GRADS_ROWS = 8                    # the same, a tile of (fused) sgns_grads
 SCATTER_COLS = 8                  # columns per scatter block (#9, #10)
 SCATTER_MAX_POSITIONS = 1024      # positions per chunk: one per thread
 SCATTER_ROWWISE_SMEM = 96 << 10   # shared memory of a full row-wise chunk
@@ -79,8 +80,58 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, idx.long())
 
 
-def _gather(name, table, idx):
-    """Launch C function ``name`` of ``gather_rows.cu`` on a CUDA table."""
+# --------------------------------------------------------------------------
+# launching on the card: the wrappers' shared host path
+# --------------------------------------------------------------------------
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _launch(dev: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` on ``dev``'s current stream, with ``dev`` the
+    current device. Returns ``fn``'s CUDA error code."""
+    with torch.cuda.device(dev):
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
+GATHER_THREADS = 256              # threads of a gather block
+GATHER_BLOCKS_PER_SM = 8          # blocks an SM holds (__launch_bounds__)
+GATHER_VECTORS = (16, 8, 4, 2, 1)     # bytes a lane may move at once
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """Geometry of one :func:`gather_rows`: each lane moves ``vec_bytes``
+    at once, a row is ``units`` such vectors and takes ``lanes`` lanes (a
+    power of two up to 32: a warp copies ``32 // lanes`` rows a step, and a
+    row wider than 32 vectors loops within its lanes), over ``blocks``
+    blocks of ``GATHER_THREADS``."""
+
+    vec_bytes: int
+    units: int
+    lanes: int
+    blocks: int
+
+
+def plan_gather(B: int, row_bytes: int, sm_count: int = 132,
+                align: int = 16) -> GatherPlan:
+    """The gather's geometry for B rows of ``row_bytes``, table and output
+    bases both ``align``-byte aligned (a power of two): the widest vector
+    of ``GATHER_VECTORS`` that divides the row and the alignment, and as
+    many blocks as B needs, at most one wave of ``sm_count *
+    GATHER_BLOCKS_PER_SM`` (the kernel strides past it)."""
+    vec = next(v for v in GATHER_VECTORS
+               if row_bytes % v == 0 and align % v == 0)
+    units = row_bytes // vec
+    lanes = min(32, 1 << max(units - 1, 0).bit_length())
+    per_block = GATHER_THREADS // lanes               # rows a block a step
+    return GatherPlan(vec_bytes=vec, units=units, lanes=lanes,
+                      blocks=max(1, min(sm_count * GATHER_BLOCKS_PER_SM,
+                                        -(-B // per_block))))
+
+
+def _check_gather(name, table, idx):
+    """Validate what the gather kernels take; returns the ids contiguous."""
     if table.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {table.device}")
     if table.dim() != 2 or not table.is_contiguous():
@@ -90,32 +141,34 @@ def _gather(name, table, idx):
         raise ValueError(f"{name}: idx must be a (B,) int32 tensor on "
                          f"{table.device}, got {idx.dtype} {tuple(idx.shape)} "
                          f"on {idx.device}")
-    idx = idx.contiguous()
-    B, d = idx.shape[0], table.shape[1]
-    out = torch.empty((B, d), dtype=table.dtype, device=table.device)
-    if B == 0:
-        return out
-    lib = build.library("gather_rows")
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        rc = getattr(lib, name)(table.data_ptr(), idx.data_ptr(), B,
-                                d * table.element_size(), out.data_ptr(),
-                                stream)
-    build.check(rc, name)
-    LAUNCHES[name] += 1
-    return out
+    return idx.contiguous()
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(N, d) table, (B,) int32 ids -> (B, d) rows in the table's dtype.
 
-    A CUDA table goes to the kernel; a CPU table takes the plain version.
-    Ids are not bounds-checked on the card (as on the TPU): the caller
-    keeps them in [0, N).
+    A CUDA table goes to the kernel (:func:`plan_gather`); a CPU table
+    takes the plain version. Ids are not bounds-checked on the card (as on
+    the TPU): the caller keeps them in [0, N).
     """
     if table.device.type == "cpu":
         return gather_rows_plain(table, idx)
-    return _gather("gather_rows", table, idx)
+    idx = _check_gather("gather_rows", table, idx)
+    B, d = idx.shape[0], table.shape[1]
+    dev = table.device
+    out = torch.empty((B, d), dtype=table.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    row_bytes = d * table.element_size()
+    base = table.data_ptr() | out.data_ptr() | 16
+    plan = plan_gather(B, row_bytes, _sm_count(dev), base & -base)
+    rc = _launch(dev, build.library("gather_rows").gather_rows,
+                 table.data_ptr(), idx.data_ptr(), B, row_bytes,
+                 plan.vec_bytes, plan.lanes.bit_length() - 1, plan.blocks,
+                 out.data_ptr())
+    build.check(rc, "gather_rows")
+    LAUNCHES["gather_rows"] += 1
+    return out
 
 
 # the row-wise reference computes the blocked gather's function
@@ -127,7 +180,18 @@ def gather_rows_rowwise(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     blocked gather is held against bitwise. Arguments as there."""
     if table.device.type == "cpu":
         return gather_rows_rowwise_plain(table, idx)
-    return _gather("gather_rows_rowwise", table, idx)
+    idx = _check_gather("gather_rows_rowwise", table, idx)
+    B, d = idx.shape[0], table.shape[1]
+    dev = table.device
+    out = torch.empty((B, d), dtype=table.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    rc = _launch(dev, build.library("gather_rows").gather_rows_rowwise,
+                 table.data_ptr(), idx.data_ptr(), B,
+                 d * table.element_size(), out.data_ptr())
+    build.check(rc, "gather_rows_rowwise")
+    LAUNCHES["gather_rows_rowwise"] += 1
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -262,38 +326,30 @@ def plan_grads_tile(B: int, S: int, d: int,
 
 @dataclasses.dataclass(frozen=True)
 class GradsPlan:
-    """Geometry of one :func:`sgns_grads`: ``bb`` minibatch rows per block,
-    ``blocks`` blocks (one cooperative launch, at most one per SM) and the
-    dynamic shared memory of a block (:func:`grads_tile_smem_bytes`)."""
+    """Geometry of one :func:`sgns_grads`: ``bb`` minibatch rows per tile,
+    ``tiles`` tiles, ``blocks`` blocks (one cooperative launch, at most one
+    per SM, each taking tiles ``blockIdx``, ``blockIdx + blocks``, ...) and
+    the dynamic shared memory of a block (:func:`grads_tile_smem_bytes`)."""
 
     bb: int
+    tiles: int
     blocks: int
     smem_bytes: int
 
 
 def plan_sgns_grads(B: int, S: int, d: int, *,
                     sm_count: int = 132) -> GradsPlan:
-    """``GRADS_ROWS`` rows per block, more when B needs more blocks than
-    the card has SMs (the launch is cooperative, and one block per SM is
-    the residency every grid of this size is sure of). Raises
-    ``ValueError`` when the S negative rows of width d do not fit a
-    block's shared memory, or when the rows per block do not (past
-    ``GRADS_THREADS`` rows, or with the negatives)."""
+    """:func:`plan_grads_tile` with ``GRADS_ROWS`` rows a tile, and as many
+    blocks as tiles, at most one per SM (the launch is cooperative, and one
+    block per SM is the residency every grid of this size is sure of);
+    past that each block takes several tiles. Raises ``ValueError`` when
+    the S negative rows of width d do not fit a block's shared memory."""
     if B < 1 or S < 1:
         raise ValueError(f"sgns_grads: need B, S >= 1, got {B}, {S}")
-    if grads_tile_smem_bytes(1, S, d) > SMEM_PER_BLOCK:
-        raise ValueError(f"S={S} negatives of width d={d} do not fit the "
-                         f"sgns_grads block's shared memory "
-                         f"({grads_tile_smem_bytes(1, S, d)} > "
-                         f"{SMEM_PER_BLOCK} bytes)")
-    bb = max(min(GRADS_ROWS, B), -(-B // sm_count))
-    smem = grads_tile_smem_bytes(bb, S, d)
-    if bb > GRADS_THREADS or smem > SMEM_PER_BLOCK:
-        raise ValueError(f"sgns_grads at B={B} needs {bb} rows per block on "
-                         f"{sm_count} SMs; with S={S} negatives of width "
-                         f"d={d} they do not fit one block's shared memory "
-                         f"and threads")
-    return GradsPlan(bb=bb, blocks=-(-B // bb), smem_bytes=smem)
+    bb, smem = plan_grads_tile(B, S, d, GRADS_ROWS)
+    tiles = -(-B // bb)
+    return GradsPlan(bb=bb, tiles=tiles, blocks=min(tiles, sm_count),
+                     smem_bytes=smem)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -316,8 +372,7 @@ class FusedPlan:
 def plan_fused_update(B: int, S: int, d: int, *,
                       sm_count: int = 132) -> FusedPlan:
     """The fused update's geometry (:func:`plan_grads_tile` for the
-    gradient tiles, ``FUSED_TILE_ROWS`` rows each: twice the blocks of the
-    unfused kernels, so the gradients take half the time). Raises
+    gradient tiles, ``FUSED_TILE_ROWS`` rows each). Raises
     ``ValueError`` when a side's B + S positions pass ``FUSED_SORT_CAP`` (a
     sorting block's shared memory) or when the grid has more blocks than
     the card has SMs: the launch is cooperative, and one block per SM is
@@ -379,41 +434,51 @@ def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
             and b0 < a0 + a.numel() * a.element_size())
 
 
+def _grads_launch(dev, dtype, B, S, d):
+    """The plan of one cooperative gradients launch (:func:`plan_sgns_grads`)
+    and its outputs: ``(plan, (loss, dv, dc, dn), pointers)``, dv and dc (B,
+    d) and dn (S, d) in ``dtype``, the loss the last element of an f32
+    scratch that first holds the blocks' dn partials (blocks, S, d) and loss
+    partials (blocks,); ``pointers`` are the C entries' last six arguments
+    (dv, dc, dn partials, loss partials, dn, loss)."""
+    plan = plan_sgns_grads(B, S, d, sm_count=_sm_count(dev))
+    nblk = plan.blocks
+    dv = torch.empty((B, d), dtype=dtype, device=dev)
+    dc = torch.empty((B, d), dtype=dtype, device=dev)
+    dn = torch.empty((S, d), dtype=dtype, device=dev)
+    scratch = torch.empty(nblk * S * d + nblk + 1, dtype=torch.float32,
+                          device=dev)
+    p = scratch.data_ptr()
+    ptrs = (dv.data_ptr(), dc.data_ptr(), p, p + 4 * nblk * S * d,
+            dn.data_ptr(), p + 4 * (nblk * S * d + nblk))
+    return plan, (scratch[-1], dv, dc, dn), ptrs
+
+
 def sgns_fused_grads(vert, ctx, idx_v, idx_c, idx_n, mask):
     """Fused gather + SGNS gradients of one minibatch.
 
     vert: (Nv, d), ctx: (Nc, d), f32 or bf16; idx_v, idx_c: (B,) and
     idx_n: (S,) int32; mask: (B,) f32 or the tables' dtype. Returns
     ``(loss, dv, dc, dn)``: loss a 0-d f32 tensor, the gradients in the
-    tables' dtype. A CPU table takes the plain version.
+    tables' dtype. On the card the call is one cooperative kernel launch,
+    :func:`sgns_grads`'s kernel with the rows read through the ids, so it
+    equals ``sgns_grads(vert[idx_v], ctx[idx_c], ctx[idx_n], mask)``
+    bitwise. A CPU table takes the plain version.
     """
     if vert.device.type == "cpu":
         return sgns_fused_grads_plain(vert, ctx, idx_v, idx_c, idx_n, mask)
     B, S, d, mask_bf16 = _check_sgns_args("sgns_fused_grads", vert, ctx,
                                           idx_v, idx_c, idx_n, mask)
-    bb, smem = plan_grads_tile(B, S, d)
-    nblk = -(-B // bb)
     dev = vert.device
-    dv = torch.empty((B, d), dtype=vert.dtype, device=dev)
-    dc = torch.empty((B, d), dtype=vert.dtype, device=dev)
-    dn = torch.empty((S, d), dtype=vert.dtype, device=dev)
-    # f32 scratch: dn partials (nblk, S, d), loss partials (nblk,), loss
-    scratch = torch.empty(nblk * S * d + nblk + 1, dtype=torch.float32,
-                          device=dev)
-    p = scratch.data_ptr()
-    p_lp, p_loss = p + 4 * nblk * S * d, p + 4 * (nblk * S * d + nblk)
-    lib = build.library("sgns_update")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sgns_fused_grads(
-            _TABLE_DTYPES[vert.dtype], mask_bf16, vert.data_ptr(),
-            ctx.data_ptr(), idx_v.data_ptr(), idx_c.data_ptr(),
-            idx_n.data_ptr(), mask.data_ptr(), B, S, d, bb, smem,
-            dv.data_ptr(), dc.data_ptr(), p, p_lp, dn.data_ptr(), p_loss,
-            stream)
+    plan, out, ptrs = _grads_launch(dev, vert.dtype, B, S, d)
+    rc = _launch(dev, build.library("sgns_update").sgns_fused_grads,
+                 _TABLE_DTYPES[vert.dtype], mask_bf16, vert.data_ptr(),
+                 ctx.data_ptr(), idx_v.data_ptr(), idx_c.data_ptr(),
+                 idx_n.data_ptr(), mask.data_ptr(), B, S, d, plan.bb,
+                 plan.blocks, plan.smem_bytes, *ptrs)
     build.check(rc, "sgns_fused_grads")
     LAUNCHES["sgns_fused_grads"] += 1
-    return scratch[-1], dv, dc, dn
+    return out
 
 
 def sgns_fused_update(vert, ctx, idx_v, idx_c, idx_n, mask, lr):
@@ -436,9 +501,7 @@ def sgns_fused_update(vert, ctx, idx_v, idx_c, idx_n, mask, lr):
         raise ValueError("sgns_fused_update: vert and ctx overlap in memory; "
                          "the in-place update needs two distinct tables")
     dev = vert.device
-    plan = plan_fused_update(
-        B, S, d,
-        sm_count=torch.cuda.get_device_properties(dev).multi_processor_count)
+    plan = plan_fused_update(B, S, d, sm_count=_sm_count(dev))
     nblk = plan.grad_blocks
     # f32 scratch: dv, dc (B, d), dn partials (nblk, S, d), loss partials
     # (nblk,), loss; int32: each run's (start, end, id, first position),
@@ -447,14 +510,12 @@ def sgns_fused_update(vert, ctx, idx_v, idx_c, idx_n, mask, lr):
                            dtype=torch.float32, device=dev)
     iscratch = torch.empty(5 * (2 * B + S) + 2, dtype=torch.int32,
                            device=dev)
-    lib = build.library("sgns_update")
-    with torch.cuda.device(dev):
-        rc = lib.sgns_fused_update(
-            _TABLE_DTYPES[vert.dtype], mask_bf16, vert.data_ptr(),
-            ctx.data_ptr(), idx_v.data_ptr(), idx_c.data_ptr(),
-            idx_n.data_ptr(), mask.data_ptr(), B, S, d, float(lr), plan.bb,
-            plan.blocks, plan.smem_bytes, fscratch.data_ptr(),
-            iscratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    rc = _launch(dev, build.library("sgns_update").sgns_fused_update,
+                 _TABLE_DTYPES[vert.dtype], mask_bf16, vert.data_ptr(),
+                 ctx.data_ptr(), idx_v.data_ptr(), idx_c.data_ptr(),
+                 idx_n.data_ptr(), mask.data_ptr(), B, S, d, float(lr),
+                 plan.bb, plan.blocks, plan.smem_bytes, fscratch.data_ptr(),
+                 iscratch.data_ptr())
     build.check(rc, "sgns_fused_update")
     LAUNCHES["sgns_fused_update"] += 1
     return vert, ctx, fscratch[-1]
@@ -491,28 +552,14 @@ def sgns_grads(v, c, n, mask):
         raise ValueError(f"sgns_grads: mask must be a contiguous ({B},) "
                          f"float32 or {v.dtype} tensor on {dev}, got "
                          f"{mask.dtype} {tuple(mask.shape)}")
-    plan = plan_sgns_grads(
-        B, S, d,
-        sm_count=torch.cuda.get_device_properties(dev).multi_processor_count)
-    nblk = plan.blocks
-    dv, dc = torch.empty_like(v), torch.empty_like(c)
-    dn = torch.empty_like(n)
-    # f32 scratch: dn partials (nblk, S, d), loss partials (nblk,), loss
-    scratch = torch.empty(nblk * S * d + nblk + 1, dtype=torch.float32,
-                          device=dev)
-    p = scratch.data_ptr()
-    p_lp, p_loss = p + 4 * nblk * S * d, p + 4 * (nblk * S * d + nblk)
-    lib = build.library("sgns_update")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sgns_grads(
-            _TABLE_DTYPES[v.dtype], int(mask.dtype == torch.bfloat16),
-            v.data_ptr(), c.data_ptr(), n.data_ptr(), mask.data_ptr(), B, S,
-            d, plan.bb, plan.smem_bytes, dv.data_ptr(), dc.data_ptr(), p,
-            p_lp, dn.data_ptr(), p_loss, stream)
+    plan, out, ptrs = _grads_launch(dev, v.dtype, B, S, d)
+    rc = _launch(dev, build.library("sgns_update").sgns_grads,
+                 _TABLE_DTYPES[v.dtype], int(mask.dtype == torch.bfloat16),
+                 v.data_ptr(), c.data_ptr(), n.data_ptr(), mask.data_ptr(),
+                 B, S, d, plan.bb, plan.blocks, plan.smem_bytes, *ptrs)
     build.check(rc, "sgns_grads")
     LAUNCHES["sgns_grads"] += 1
-    return scratch[-1], dv, dc, dn
+    return out
 
 
 def _check_scatter_args(name, table, idx, upd):
@@ -610,13 +657,10 @@ def scatter_add_rows(table, idx, upd):
         return table
     idx = idx.contiguous()
     plan = plan_scatter(B, d, table.element_size(), upd.element_size())
-    lib = build.library("scatter_rows")
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        rc = lib.scatter_add_rows(_TABLE_DTYPES[table.dtype], upd_f32,
-                                  table.data_ptr(), idx.data_ptr(),
-                                  upd.data_ptr(), B, d, plan.positions,
-                                  stream)
+    rc = _launch(table.device,
+                 build.library("scatter_rows").scatter_add_rows,
+                 _TABLE_DTYPES[table.dtype], upd_f32, table.data_ptr(),
+                 idx.data_ptr(), upd.data_ptr(), B, d, plan.positions)
     build.check(rc, "scatter_add_rows")
     LAUNCHES["scatter_add_rows"] += 1
     return table
@@ -636,12 +680,10 @@ def scatter_add_rows_rowwise(table, idx, upd):
         return table
     idx = idx.contiguous()
     P = plan_scatter_rowwise(table.element_size(), upd.element_size())
-    lib = build.library("scatter_rows")
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        rc = lib.scatter_add_rows_rowwise(_TABLE_DTYPES[table.dtype], upd_f32,
-                                          table.data_ptr(), idx.data_ptr(),
-                                          upd.data_ptr(), B, d, P, stream)
+    rc = _launch(table.device,
+                 build.library("scatter_rows").scatter_add_rows_rowwise,
+                 _TABLE_DTYPES[table.dtype], upd_f32, table.data_ptr(),
+                 idx.data_ptr(), upd.data_ptr(), B, d, P)
     build.check(rc, "scatter_add_rows_rowwise")
     LAUNCHES["scatter_add_rows_rowwise"] += 1
     return table

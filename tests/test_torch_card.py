@@ -140,6 +140,29 @@ def test_quant_and_gather_kernels_match_plain(card):
         idx = torch.randint(0, 5000, (1001,), device=card, dtype=torch.int32)
         assert torch.equal(sgns.gather_rows(t, idx),
                            sgns.gather_rows_plain(t, idx))
+    # #3 at every vector width (rows of 16-, 8-, 4-, 2- and 1-byte
+    # multiples), from bases 1 and 2 elements into a buffer, rows wider
+    # than 32 vectors, and past one wave of blocks (the grid striding);
+    # bitwise plain and the row-wise reference (#8)
+    rng = np.random.default_rng(12)
+    before = sgns.LAUNCHES["gather_rows"]
+    cases = ((torch.float32, 128, 1001), (torch.float32, 6, 333),
+             (torch.float32, 3, 333), (torch.bfloat16, 7, 333),
+             (torch.bfloat16, 1, 333), (torch.int8, 12, 333),
+             (torch.int8, 7, 333), (torch.uint8, 128, 1001),
+             (torch.float32, 1026, 77), (torch.bfloat16, 1, 3_000_000))
+    for dtype, d, B in cases:
+        for offset in (0, 1, 2):
+            flat = torch.from_numpy(rng.integers(
+                -100, 100, offset + 300 * d).astype(np.float32)).to(card,
+                                                                    dtype)
+            t = flat[offset:].view(300, d)
+            idx = torch.from_numpy(rng.integers(0, 300, B).astype(
+                np.int32)).to(card)
+            got = sgns.gather_rows(t, idx)
+            assert torch.equal(got, sgns.gather_rows_plain(t, idx))
+            assert torch.equal(got, sgns.gather_rows_rowwise(t, idx))
+    assert sgns.LAUNCHES["gather_rows"] == before + 3 * len(cases)
 
 
 def test_quant_kernel_matches_plain_on_continuous_rows(card):
@@ -466,9 +489,17 @@ def test_sgns_update_kernel_with_a_hub_run(card, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", ["nodup", "dup"])
-def test_sgns_fused_grads_kernel_matches_plain(card, dtype, case):
-    x = _sgns_inputs(card, dtype, seed=40, case=case)
+@pytest.mark.parametrize("case,B,S,d", [("nodup", 64, 8, 64),
+                                        ("dup", 64, 8, 64),
+                                        ("odd", 37, 4, 32),
+                                        ("dup", 256, 5, 128),
+                                        ("odd", 1000, 1, 128),
+                                        ("dup", 64, 300, 128)])
+def test_sgns_fused_grads_kernel_matches_plain(card, dtype, case, B, S, d):
+    """#6 against plain: a ragged last block, one negative, B past 8 rows
+    a block on 132 SMs, and 300 negatives (most of a block's shared
+    memory); the mask in the tables' dtype."""
+    x = _sgns_inputs(card, dtype, B=B, S=S, d=d, seed=40, case=case)
     got = sgns.sgns_fused_grads(*x)
     again = sgns.sgns_fused_grads(*x)
     torch.cuda.synchronize()
@@ -528,24 +559,75 @@ def test_sgns_grads_kernel_matches_plain(card, dtype, case, B, S, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_sgns_grads_is_one_launch_and_fused_grads_two(card, dtype):
-    """#5 is one cooperative kernel per call at the trainer's minibatch,
-    bitwise repeatable; #6 keeps its two kernels (tile gradients, then the
-    fixed-order reduction of their partials)."""
+def test_sgns_grads_and_fused_grads_are_one_launch(card, dtype):
+    """#5 and #6 are each one cooperative kernel per call at the trainer's
+    minibatch, bitwise repeatable, and #6 is #5 on the rows it gathers,
+    bitwise (one kernel, the same rows)."""
     vert, ctx, iv, ic, inn, mask = _sgns_inputs(card, dtype, B=256, S=5,
                                                 d=128, case="dup")
     x = (vert[iv.long()], ctx[ic.long()], ctx[inn.long()])
-    names = _device_kernels(lambda: sgns.sgns_grads(*x, mask))
-    assert len(names) == 1 and "sgns_grads_coop" in names[0], names
-    runs = [sgns.sgns_grads(*x, mask) for _ in range(3)]
-    torch.cuda.synchronize()
-    for run in runs[1:]:
-        for a, b in zip(runs[0], run):
+    for fn in (lambda: sgns.sgns_grads(*x, mask),
+               lambda: sgns.sgns_fused_grads(vert, ctx, iv, ic, inn, mask)):
+        names = _device_kernels(fn)
+        assert len(names) == 1 and "sgns_grads_coop" in names[0], names
+        runs = [fn() for _ in range(3)]
+        torch.cuda.synchronize()
+        for run in runs[1:]:
+            for a, b in zip(runs[0], run):
+                assert torch.equal(a, b)
+    for case, B, S, d in (("dup", 256, 5, 128), ("odd", 37, 4, 32),
+                          ("same", 128, 8, 32)):
+        vert, ctx, iv, ic, inn, mask = _sgns_inputs(card, dtype, B=B, S=S,
+                                                    d=d, case=case)
+        got = sgns.sgns_fused_grads(vert, ctx, iv, ic, inn, mask)
+        want = sgns.sgns_grads(vert[iv.long()], ctx[ic.long()],
+                               ctx[inn.long()], mask)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
             assert torch.equal(a, b)
-    names = _device_kernels(
-        lambda: sgns.sgns_fused_grads(vert, ctx, iv, ic, inn, mask))
-    assert len(names) == 2 and "sgns_tile_grads" in names[0] and (
-        "sgns_reduce_partials" in names[1]), names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_sgns_grads_kernels_take_any_B(card, dtype):
+    """#5 and #6 past one 8-row tile a block on every SM (B = 40,001: 5,001
+    tiles, each block taking about 38): one kernel per call, bitwise
+    repeatable, #6 bitwise #5 on the gathered rows, and both against
+    plain. dn sums 40,001 rows in f32, so in f32 it is held to the exact
+    sum (f64) within the recursive-summation bound, n u times the sum of
+    the terms' magnitudes, n the adds of its three levels (a tile's 8
+    rows, a block's tiles, the blocks in order) plus d for each term's own
+    error (g_neg behind a d-term dot, whose magnitudes sum below 1 here);
+    the rest within 1e-4 / 1e-6 (f32) and SGNS_TOL (bf16) of plain."""
+    B, S, d = 40_001, 5, 128
+    vert, ctx, iv, ic, inn, mask = _sgns_inputs(card, dtype, B=B, S=S, d=d,
+                                                case="dup")
+    x = (vert[iv.long()], ctx[ic.long()], ctx[inn.long()])
+    plan = sgns.plan_sgns_grads(B, S, d, sm_count=sgns._sm_count(vert.device))
+    assert plan.blocks < plan.tiles
+    fused = lambda: sgns.sgns_fused_grads(vert, ctx, iv, ic, inn, mask)
+    for fn in (lambda: sgns.sgns_grads(*x, mask), fused):
+        names = _device_kernels(fn)
+        assert len(names) == 1 and "sgns_grads_coop" in names[0], names
+    got, again, five = fused(), fused(), sgns.sgns_grads(*x, mask)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, again, five):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    want = sgns.sgns_grads_plain(*x, mask)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0)
+    rtol, atol = (1e-4, 1e-6) if dtype == torch.float32 else SGNS_TOL[dtype]
+    for g, w in zip(got[1:3], want[1:3]):
+        _close(g, w, rtol, atol)
+    if dtype == torch.bfloat16:
+        _close(got[3], want[3], rtol, atol)
+        return
+    v, n, m = x[0].double(), x[2].double(), mask.double()[:, None]
+    g_neg = torch.sigmoid(v @ n.T) * m                          # (B, S)
+    exact, mag = g_neg.T @ v, g_neg.abs().T @ v.abs()           # (S, d)
+    depth = (sgns.GRADS_ROWS + -(-plan.tiles // plan.blocks) + plan.blocks
+             + d)
+    err = (got[3].double() - exact).abs()
+    assert (err <= depth * 2.0 ** -24 * mag + 1e-6).all(), err.max()
 
 
 def _scatter_case(card, case, N=40, B=30, seed=0):

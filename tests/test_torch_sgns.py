@@ -106,14 +106,36 @@ def test_fused_update_plain_all_same_index():
     _check_update(jx, tx, 0.05, 1e-3, 1e-5, block_b=32)
 
 
-@pytest.mark.parametrize("dup", [False, True], ids=["nodup", "dup"])
-def test_fused_grads_plain_matches_jax(dup):
-    jx, tx = _inputs(70, 90, 64, 8, 64, seed=40, dup=dup)
+# the fused gradients' tolerances: f32 as test_kernels.py; bf16 as the
+# card's SGNS_TOL (each side rounds its own f32 sums to bf16)
+GRADS_TOL = {"float32": (1e-4, 1e-6), "bfloat16": (3e-2, 3e-3)}
+
+
+@pytest.mark.parametrize("B,S,dtype,dup", [
+    pytest.param(64, 8, "float32", False, id="nodup"),
+    pytest.param(64, 8, "float32", True, id="dup"),
+    *(pytest.param(B, S, dtype, dup,
+                   id=f"B{B}-S{S}-{dtype}-{'dup' if dup else 'nodup'}")
+      for B in (8, 37, 256) for S in (1, 5)
+      for dtype in ("float32", "bfloat16") for dup in (False, True)),
+])
+def test_fused_grads_plain_matches_jax(B, S, dtype, dup):
+    """The plain fused gradients against the JAX kernel in interpret mode
+    (one tile where B is ragged): one and five negatives, bf16 tables and
+    mask, duplicate rows."""
+    jx, tx = _inputs(70, 90, B, S, 64, dtype, seed=40 if B == 64 else B + S,
+                     dup=dup)
+    if dtype == "bfloat16":     # the mask in the tables' dtype, as trained
+        jx = (*jx[:5], jx[5].astype(jnp.bfloat16))
+        tx = (*tx[:5], tx[5].bfloat16())
     got = sgns.sgns_fused_grads(*tx)
-    want = jsgns.sgns_fused_grads(*jx, block_b=16, interpret=True)
+    want = jsgns.sgns_fused_grads(*jx, block_b={64: 16, 256: 64}.get(B, B),
+                                  interpret=True)
     np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-4)
+    rtol, atol = GRADS_TOL[dtype]
     for g, w in zip(got[1:], want[1:]):
-        _close(g, w, 1e-4, 1e-6)
+        assert g.dtype == TDT[dtype] and g.shape == w.shape
+        _close(g, w, rtol, atol)
 
 
 def test_tile_grads_plain_matches_ref_grads():
@@ -176,26 +198,26 @@ def test_grads_tile_plan():
 
 
 def test_sgns_grads_plan():
-    """#5's one cooperative launch: 8 rows a block (32 blocks at the
-    trainer's B = 256), more rows once B needs more blocks than SMs, and a
-    ValueError when the S negatives (or the rows) do not fit a block."""
+    """#5's and #6's one cooperative launch: tiles of 8 rows (fewer when
+    the S negatives leave no room), a block a tile up to one block an SM
+    (32 blocks at the trainer's B = 256), past that each block takes
+    several tiles, so any B plans; a ValueError when one row and the S
+    negatives do not fit a block."""
     p = sgns.plan_sgns_grads(256, 5, 128)
-    assert (p.bb, p.blocks) == (sgns.GRADS_ROWS, 32)
+    assert (p.bb, p.tiles, p.blocks) == (sgns.GRADS_ROWS, 32, 32)
     assert p.smem_bytes == sgns.grads_tile_smem_bytes(8, 5, 128)
-    for B in (1, 5, 37, 256, 1000, 1056, 1057, 5000):
-        for S, d in ((1, 8), (5, 128), (32, 256)):
+    for B in (1, 5, 37, 256, 1000, 1056, 1057, 5000, 256 * 132 + 1):
+        for S, d in ((1, 8), (5, 128), (32, 256), (300, 128), (400, 128)):
             p = sgns.plan_sgns_grads(B, S, d, sm_count=132)
-            assert p.blocks == -(-B // p.bb) <= 132
-            assert p.bb == max(min(8, B), -(-B // 132))
-            assert (p.blocks - 1) * p.bb < B <= p.blocks * p.bb
+            assert (p.bb, p.smem_bytes) == sgns.plan_grads_tile(
+                B, S, d, sgns.GRADS_ROWS)
+            assert (p.tiles - 1) * p.bb < B <= p.tiles * p.bb
+            assert p.blocks == min(p.tiles, 132)
             assert p.smem_bytes <= sgns.SMEM_PER_BLOCK
     assert sgns.plan_sgns_grads(37, 5, 128).blocks == 5     # a ragged tail
+    assert sgns.plan_sgns_grads(400, 400, 128).bb < sgns.GRADS_ROWS
     with pytest.raises(ValueError, match="negatives of width"):
         sgns.plan_sgns_grads(256, 100, 1024)
-    with pytest.raises(ValueError, match="rows per block"):
-        sgns.plan_sgns_grads(256 * 132 + 1, 5, 128)
-    with pytest.raises(ValueError, match="rows per block"):
-        sgns.plan_sgns_grads(100 * 132, 32, 256)
 
 
 @pytest.mark.parametrize("B,S,d,dtype,block_b", [
