@@ -14,8 +14,11 @@ with the CUDA gather and an exact rescore; on a CPU shard each of them
 runs its plain version. ``xla`` and ``quant_xla`` run the plain versions
 on the shard's own device, because the caller asked for them by name.
 ``auto`` and ``quant`` pick the kernel routes on a CUDA shard and the plain
-ones on a CPU shard. Shards are not padded: the kernels mask their ragged
-edge themselves.
+ones on a CPU shard. Shards' rows are not padded: the kernels mask their
+ragged edge themselves. On a card, the copies the scan kernels read (the
+exact shard and the int8 one) have their columns padded with zeros to a
+multiple of 8 once, at load (``topk.pad_columns``), when the width is not
+one already; the rescore and the plain routes read the real columns.
 
 ``quant="int8"`` also builds a per-row int8 copy of every shard for the
 two-tier scan. ``enable_hot_tier(budget, counts=...)`` splits every shard
@@ -58,6 +61,12 @@ QUANT_TIERS = (None, "int8")
 _UNSET = object()   # "use the store's shard_timeout_s" vs an explicit None
 
 
+def _scan_layout(t: torch.Tensor) -> torch.Tensor:
+    """A table as the scan kernels read it: on a card, its columns padded
+    to a multiple of 8 (``topk.pad_columns``); on the CPU as it is."""
+    return tk.pad_columns(t) if t.device.type == "cuda" else t
+
+
 @dataclasses.dataclass(frozen=True)
 class TopKMeta:
     """Per-query-batch serving outcome (``topk(return_meta=True)``)."""
@@ -72,7 +81,8 @@ class _HotShard:
     """One shard's hot/cold physical split (``enable_hot_tier``): the hot
     rows exactly (served dtype), the compacted cold rows (the rescore
     source) and their int8 scan copy, and each tier's compact-row ->
-    global-id map, all on the shard's device. Nothing is padded."""
+    global-id map, all on the shard's device. On a card the hot rows and
+    the int8 copy are in the scan layout (:func:`_scan_layout`)."""
 
     hot_shard: torch.Tensor
     hot_map: torch.Tensor
@@ -98,6 +108,7 @@ class ShardedEmbeddingStore:
                  overfetch: float = qz.DEFAULT_OVERFETCH,
                  shard_timeout_s: float | None = None):
         self.shards = shards                  # per-device (valid_s, d) tensors
+        self.scan_shards = [_scan_layout(sh) for sh in shards]
         self.part = part
         self.valid = tuple(valid)             # real rows per shard
         self.devices = tuple(devices)
@@ -153,7 +164,8 @@ class ShardedEmbeddingStore:
             shards.append(sh)
             valid.append(sh.shape[0])
             if quant == "int8":
-                qshards.append(qz.quantize_rows(sh))
+                q8, sc = qz.quantize_rows(sh)
+                qshards.append((_scan_layout(q8), sc))
         host = table.cpu() if keep_host_table else None
         return cls(shards, part, valid, devices, host_table=host, step=step,
                    qshards=qshards if quant else None, quant=quant,
@@ -187,9 +199,9 @@ class ShardedEmbeddingStore:
             return self._scan_shard_tiered(s, q, k, ov)
         shard, valid = self.shards[s], self.valid[s]
         if impl == "pallas":
-            v, i = tk.topk_mips(shard, q, k, valid)
+            v, i = tk.topk_mips(self.scan_shards[s], q, k, valid)
         elif impl == "rowwise":
-            v, i = tk.topk_mips_rowwise(shard, q, k, valid)
+            v, i = tk.topk_mips_rowwise(self.scan_shards[s], q, k, valid)
         elif impl == "xla":
             v, i = tk.topk_mips_plain(shard, q, k, valid)
         else:
@@ -243,8 +255,9 @@ class ShardedEmbeddingStore:
             hot_tbl, hot_map = _compact(np.flatnonzero(loc_mask))
             cold_tbl, cold_map = _compact(np.flatnonzero(~loc_mask))
             q8, sc = qz.quantize_rows(cold_tbl)
-            tiers.append(_HotShard(hot_shard=hot_tbl, hot_map=hot_map,
-                                   cold_shard=cold_tbl, cold_q8=q8,
+            tiers.append(_HotShard(hot_shard=_scan_layout(hot_tbl),
+                                   hot_map=hot_map, cold_shard=cold_tbl,
+                                   cold_q8=_scan_layout(q8),
                                    cold_sc=sc, cold_map=cold_map))
         self.hot_tiers = tiers
         self._hot_mask = mask

@@ -18,6 +18,13 @@ and a third launches ``kernels/csrc/topk_rowwise.cu``:
   carries the k best from chunk to chunk (:func:`plan_topk_rowwise`); no
   per-split lists, no merge, no code shared with the scan.
 
+Any width and depth: on the card the kernels read a table whose columns
+are padded with zeros to a multiple of 8 (:func:`pad_columns`; the store
+pads once at load, a wrapper pads what it is given), which scores every
+pair as the real columns do up to the sign of a zero; the filter scores
+rows past 256 columns in 256-column slices; past what shared memory holds
+the merge's and #4's selection's lists live in device memory.
+
 A tensor on the CPU takes the plain version (:func:`topk_mips_plain`,
 :func:`topk_mips_quant_plain`, :func:`topk_mips_rowwise_plain`); a tensor
 on the card goes to the kernel or the call raises. The plain versions scan
@@ -55,6 +62,7 @@ LAUNCHES = {"topk_scan_exact": 0, "topk_scan_int8": 0, "topk_rowwise": 0}
 SMEM_PER_BLOCK = 232_448          # H100: 227 KB of dynamic shared memory
 FILTER_WARPS = 8                  # warps of a filter-scan block
 FILTER_WIDTHS = (32, 64, 128, 256)   # compiled widths d is padded to
+FILTER_SLICE = FILTER_WIDTHS[-1]     # past it: slices of this many columns
 FILTER_QUEUE = 32                 # survivors a filter warp queues
 FILTER_SEED = 16                  # lower bounds a warp seeds a query from
 FILTER_SEED_INT8 = 40             # the same for int8 rows (m = 4k at k=10)
@@ -67,7 +75,7 @@ ROWWISE_K_TILE = 32               # depth per staged step of a score block
 ROWWISE_SCRATCH_BYTES = 256 << 20 # cap on the (Q, chunk) f32 score scratch
 ROWWISE_SELECT_CAP = 2048         # candidates a selection block sorts
 ROWWISE_SELECT_BINS = 2048        # radix histogram bins (11-bit digits)
-ROWWISE_K_MAX = ROWWISE_SELECT_CAP // 2
+ROWWISE_K_MAX = ROWWISE_SELECT_CAP // 2   # past it: candidates in memory
 PLAIN_CHUNK_ELEMS = 1 << 26       # (Q, chunk) scores per plain-scan step
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -85,7 +93,10 @@ class FilterPlan:
     that see each query in a block (they share its list); whether the
     block's lists fit in shared memory (``lists_on_chip``, else they live
     in the partial output); the dynamic shared memory of a block; the
-    largest k whose thresholds the first tile seeds (``seed``)."""
+    largest k whose thresholds the first tile seeds (``seed``); whether the
+    merge keeps its lists in shared memory (``merge_on_chip``, else in the
+    output rows). ``width`` past ``FILTER_SLICE`` is d rounded up to a
+    multiple of it: the kernel scores such rows slice by slice."""
 
     width: int
     query_tiles: int
@@ -99,59 +110,60 @@ class FilterPlan:
     lists_on_chip: bool
     smem_bytes: int
     seed: int
+    merge_on_chip: bool = True
 
 
 def plan_topk_filter(Q: int, d: int, k: int, valid: int, itemsize: int, *,
                      sm_count: int = 132) -> FilterPlan:
     """Geometry from the shapes alone.
 
-    d is padded to the smallest compiled width; a warp holds 8 * NT
-    queries (NT = min(8, 32 / (width / 16)), so their fragments take at
-    most 64 registers) and a block as few query groups (1, 2, 4, 8) as
-    hold Q, the other warps splitting each tile's rows. One block per SM:
-    the rows are cut into as many splits as leave one block per SM, each a
-    whole number of tiles. ``itemsize`` 1 is an int8 table: its tiles
-    stage as int8 and widen into one bf16 tile (beside the ring) with the
-    rows' scales, and its seed is deeper. Raises ``ValueError`` for d past
-    the widest compiled width or k past what the merge's shared memory
-    holds.
+    d, rounded up to a multiple of 8 (:func:`pad_columns`: the kernel's
+    operands), is padded to the smallest compiled width, or past
+    ``FILTER_SLICE`` scored in slices of it; a warp holds 8 * NT queries
+    (NT = min(8, 32 / (slice / 16)), so their fragments take at most 64
+    registers) and a block as few query groups (1, 2, 4, 8) as hold Q, the
+    other warps splitting each tile's rows. One block per SM: the rows are
+    cut into as many splits as leave one block per SM, each a whole number
+    of tiles. ``itemsize`` 1 is an int8 table: its tiles stage as int8 and
+    widen into one bf16 tile (beside the ring) with the rows' scales, and
+    its seed is deeper. A wide table's block also keeps its tile's scores
+    (tile rows x bq f32). Any d >= 1 and k >= 1.
     """
-    if d % 8:
-        raise ValueError(f"the scan kernel needs d % 8 == 0, got d={d}")
-    if k < 1 or valid < 1 or Q < 1:
-        raise ValueError(f"need k, valid, Q >= 1 (got {k}, {valid}, {Q})")
-    if d > FILTER_WIDTHS[-1]:
-        raise ValueError(f"the filter scan takes d <= {FILTER_WIDTHS[-1]}, "
-                         f"got d={d}")
-    if 8 * MERGE_WARPS * k > SMEM_PER_BLOCK:
-        raise ValueError(f"k={k} does not fit the merge's shared memory "
-                         f"(largest k: {SMEM_PER_BLOCK // (8 * MERGE_WARPS)})")
-    width = next(w for w in FILTER_WIDTHS if w >= d)
-    nt = min(8, 32 // (width // 16))
+    if k < 1 or valid < 1 or Q < 1 or d < 1:
+        raise ValueError(f"need k, valid, Q, d >= 1 (got {k}, {valid}, {Q}, "
+                         f"{d})")
+    d = -(-d // 8) * 8
+    wide = d > FILTER_SLICE
+    width = (-(-d // FILTER_SLICE) * FILTER_SLICE if wide
+             else next(w for w in FILTER_WIDTHS if w >= d))
+    cols = min(width, FILTER_SLICE)           # columns of a staged tile
+    nt = min(8, 32 // (cols // 16))
     per_warp = 8 * nt
     qw = 1
     while qw < FILTER_WARPS and qw * per_warp < Q:
         qw *= 2
     bq = qw * per_warp
-    tile = 64 if itemsize * width > 512 else 128
+    tile = 64 if itemsize * cols > 512 else 128
     qblocks = -(-Q // bq)
     splits = max(1, min(-(-valid // tile), sm_count // qblocks))
     rows = -(-(-(-valid // splits)) // tile) * tile
     splits = -(-valid // rows)
-    staging = 2 * tile * (width + 16 // itemsize) * itemsize
+    staging = 2 * tile * (cols + 16 // itemsize) * itemsize
     if itemsize == 1:           # the widened bf16 tile, two stages' scales
-        staging += tile * (width + 8) * 2 + 2 * tile * 4
+        staging += tile * (cols + 8) * 2 + 2 * tile * 4
     seed = FILTER_SEED_INT8 if itemsize == 1 else FILTER_SEED
     smem = (staging + 8 * bq
             + 4 * (3 * bq + FILTER_WARPS * per_warp * (seed + 1) + tile)
-            + 8 * FILTER_WARPS * FILTER_QUEUE + 4 * FILTER_WARPS)
+            + 8 * FILTER_WARPS * FILTER_QUEUE + 4 * FILTER_WARPS
+            + 4 * tile * bq * wide)
     lists = 8 * bq * k
     on_chip = smem + lists <= SMEM_PER_BLOCK
     return FilterPlan(width=width, query_tiles=nt, qw=qw, bq=bq,
                       tile_rows=tile, qblocks=qblocks, splits=splits,
                       rows_per_split=rows, row_groups=FILTER_WARPS // qw,
                       lists_on_chip=on_chip,
-                      smem_bytes=smem + lists * on_chip, seed=seed)
+                      smem_bytes=smem + lists * on_chip, seed=seed,
+                      merge_on_chip=8 * MERGE_WARPS * k <= SMEM_PER_BLOCK)
 
 
 # --------------------------------------------------------------------------
@@ -272,17 +284,48 @@ def topk_filter_edges_plain(qtable, scales, queries):
 def topk_mips_quant_plain(qtable, scales, queries, m: int,
                           valid: int | None = None):
     """Plain int8 first pass: top-m of ``(queries @ qtable.T) * scales``,
-    the scale applied after the dot as in the kernel."""
+    the scale applied after the dot as in the kernel. A ``qtable`` padded
+    by :func:`pad_columns` is read over the queries' real columns."""
     valid = qtable.shape[0] if valid is None else valid
     q = queries.float()
     sc = scales.float()
+    dq = q.shape[1]
     return _scan_plain(
-        lambda lo, hi: (q @ qtable[lo:hi].float().T) * sc[lo:hi], valid, q, m)
+        lambda lo, hi: (q @ qtable[lo:hi, :dq].float().T) * sc[lo:hi],
+        valid, q, m)
 
 
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
+def pad_columns(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with zero columns appended up to a multiple of 8 (itself when
+    it has such a width): the width the scan kernels read whole rows of in
+    16-byte copies. A zero column adds an exact 0 to every fmaf chain, so a
+    score changes at most in the sign of a zero (-0 + 0 = +0), and -0 and
+    +0 tie in every selection here (they compare equal; the smaller row
+    goes first). The store pads each table once at load."""
+    d = t.shape[1]
+    dp = -(-d // 8) * 8
+    if dp == d:
+        return t
+    out = t.new_zeros((t.shape[0], dp))
+    out[:, :d] = t
+    return out
+
+
+def _scan_operands(table, queries):
+    """The scan kernels' operands: a table of any width padded to a
+    multiple of 8 columns (a copy, unless the caller padded it, as the store
+    does), and queries padded to the table's width when they are the
+    unpadded width of its real columns."""
+    table = pad_columns(table)
+    dq = queries.shape[1]
+    if dq != table.shape[1] and -(-dq // 8) * 8 == table.shape[1]:
+        queries = pad_columns(queries)
+    return table, queries
+
+
 def _check_cuda_scan(table, queries, scales, quant: bool) -> None:
     if table.dim() != 2 or not table.is_contiguous():
         raise ValueError("topk scan: table must be a contiguous (N, d) "
@@ -367,9 +410,10 @@ def topk_mips(table, queries, k: int, valid: int | None = None, *,
               survivors: torch.Tensor | None = None):
     """Exact-MIPS top-k of ``queries`` against one table shard.
 
-    table: (N, d) f32 or bf16 (scored in f32; on the card d <= 256);
-    queries: (Q, d) f32 on the same device; rows >= ``valid`` are never
-    returned. Returns ((Q, k) f32 scores, (Q, k) i32 shard-local row ids),
+    table: (N, d) f32 or bf16 (scored in f32), any d; on the card it may
+    also be the table padded by :func:`pad_columns`, queries keeping the
+    real width; queries: (Q, d) f32 on the same device; rows >= ``valid``
+    are never returned. Returns ((Q, k) f32 scores, (Q, k) i32 shard-local row ids),
     sorted by (score desc, row asc); when valid < k the tail is (-inf,
     int32 max). ``survivors``, a (1,) int64 tensor on the table's device,
     receives the number of (query, row) pairs scored exactly (on the card
@@ -384,6 +428,7 @@ def topk_mips(table, queries, k: int, valid: int | None = None, *,
         return topk_mips_plain(table, queries, k, valid)
     if table.device.type != "cuda":
         raise ValueError(f"topk_mips: unsupported device {table.device}")
+    table, queries = _scan_operands(table, queries)
     _check_cuda_scan(table, queries, None, quant=False)
     return _launch_filter("topk_scan_exact", table, None, queries, k, valid,
                           survivors)
@@ -398,6 +443,7 @@ def topk_filter_bounds(table, queries, n: int | None = None):
     n = table.shape[0] if n is None else n
     if table.device.type == "cpu":
         return topk_filter_bounds_plain(table[:n], queries)
+    table, queries = _scan_operands(table, queries)
     _check_cuda_scan(table, queries, None, quant=table.dtype == torch.int8)
     plan = _filter_plan(table, queries, 1, n)
     if -(-n // plan.tile_rows) > 65_535:
@@ -438,6 +484,7 @@ def topk_mips_quant(qtable, scales, queries, m: int,
         return topk_mips_quant_plain(qtable, scales, queries, m, valid)
     if qtable.device.type != "cuda":
         raise ValueError(f"topk_mips_quant: unsupported device {qtable.device}")
+    qtable, queries = _scan_operands(qtable, queries)
     _check_cuda_scan(qtable, queries, scales, quant=True)
     return _launch_filter("topk_scan_int8", qtable, scales, queries, m, valid,
                           survivors)
@@ -455,23 +502,25 @@ class RowwisePlan:
     scratch_bytes: int
     score_smem_bytes: int
     select_smem_bytes: int
+    select_cap: int = ROWWISE_SELECT_CAP
+    candidate_bytes: int = 0
 
 
 def plan_topk_rowwise(Q: int, d: int, k: int, valid: int) -> RowwisePlan:
     """Chunks from the shapes alone: as many row tiles per chunk as keep
     the (Q, chunk) f32 scores under ``ROWWISE_SCRATCH_BYTES`` (at least one
-    tile), and no more than the valid rows need. Raises ``ValueError`` for
-    k past
-    ``ROWWISE_K_MAX``: the selection sorts at most ``ROWWISE_SELECT_CAP``
-    candidates, which holds the k - 1 better ones and the ties at the k-th
-    key only while 2k - 1 <= the cap."""
-    if d % 8:
-        raise ValueError(f"topk_mips_rowwise needs d % 8 == 0, got d={d}")
-    if k < 1 or valid < 1 or Q < 1:
-        raise ValueError(f"need k, valid, Q >= 1 (got {k}, {valid}, {Q})")
-    if k > ROWWISE_K_MAX:
-        raise ValueError(f"k={k} does not fit the rowwise kernel's "
-                         f"shared memory (largest k: {ROWWISE_K_MAX})")
+    tile), and no more than the valid rows need. Any d >= 1 (the kernel
+    reads the table padded to a multiple of 8 columns) and k >= 1: the
+    selection sorts at most ``select_cap`` candidates, which holds the
+    k - 1 better ones and the ties at the k-th key while 2k - 1 <= the
+    cap: ``ROWWISE_SELECT_CAP`` in shared memory up to ``ROWWISE_K_MAX``,
+    past it the power of two >= 2k in a device buffer of
+    ``candidate_bytes`` ((Q, cap) 64-bit keys and f32 values)."""
+    if k < 1 or valid < 1 or Q < 1 or d < 1:
+        raise ValueError(f"need k, valid, Q, d >= 1 (got {k}, {valid}, {Q}, "
+                         f"{d})")
+    cap = (ROWWISE_SELECT_CAP if k <= ROWWISE_K_MAX
+           else 1 << (2 * k - 1).bit_length())
     tile = ROWWISE_ROW_TILE
     tiles = max(1, ROWWISE_SCRATCH_BYTES // (4 * Q * tile))
     chunk = min(tiles, -(-valid // tile)) * tile
@@ -480,7 +529,9 @@ def plan_topk_rowwise(Q: int, d: int, k: int, valid: int) -> RowwisePlan:
         scratch_bytes=4 * Q * chunk,
         score_smem_bytes=4 * ROWWISE_K_TILE * (tile + ROWWISE_QUERY_TILE),
         select_smem_bytes=(4 * ROWWISE_SELECT_BINS + 12 * ROWWISE_SELECT_CAP
-                           + 4 * 16 + 16))
+                           * (k <= ROWWISE_K_MAX) + 4 * 16 + 16),
+        select_cap=cap,
+        candidate_bytes=0 if k <= ROWWISE_K_MAX else 12 * Q * cap)
 
 
 def topk_mips_rowwise(table, queries, k: int, valid: int | None = None):
@@ -489,8 +540,8 @@ def topk_mips_rowwise(table, queries, k: int, valid: int | None = None):
     design (the reference the split-and-merge scan is held to). Rows are
     scored in chunks whose (Q, chunk) f32 scores fit
     ``ROWWISE_SCRATCH_BYTES``; each chunk's selection carries the k best
-    into the next. Same arguments and results as :func:`topk_mips`; k at
-    most ``ROWWISE_K_MAX``. Replaces the TPU kernel
+    into the next. Same arguments and results as :func:`topk_mips`; any d
+    and k. Replaces the TPU kernel
     ``repro/embed_serve/topk.py::topk_mips_rowwise``.
     """
     N = table.shape[0]
@@ -500,6 +551,7 @@ def topk_mips_rowwise(table, queries, k: int, valid: int | None = None):
     if table.device.type != "cuda":
         raise ValueError(f"topk_mips_rowwise: unsupported device "
                          f"{table.device}")
+    table, queries = _scan_operands(table, queries)
     _check_cuda_scan(table, queries, None, quant=False)
     d = table.shape[1]
     if not 0 < valid <= N:
@@ -515,12 +567,15 @@ def topk_mips_rowwise(table, queries, k: int, valid: int | None = None):
         return out_v, out_i
     scratch = torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
                           device=dev)
+    cand = (torch.empty(plan.candidate_bytes, dtype=torch.uint8, device=dev)
+            if plan.candidate_bytes else None)
     lib = build.library("topk_rowwise")
     with torch.cuda.device(dev):
         rc = lib.topk_rowwise(
             _DTYPE_CODES[table.dtype], table.data_ptr(), queries.data_ptr(),
             Q, d, valid, k, plan.chunk_rows, scratch.data_ptr(),
             out_v.data_ptr(), out_i.data_ptr(),
+            None if cand is None else cand.data_ptr(), plan.select_cap,
             torch.cuda.current_stream(dev).cuda_stream)
         build.check(rc, "topk_rowwise")
     LAUNCHES["topk_rowwise"] += 1

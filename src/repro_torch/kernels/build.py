@@ -45,8 +45,9 @@ SIGNATURES = {
     },
     "topk_rowwise": {
         # dtype, table, queries, Q, d, valid, k, chunk_rows, scratch,
-        # out_v, out_i, stream
-        "topk_rowwise": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        # out_v, out_i, candidates, candidate cap, stream
+        "topk_rowwise": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+                         _P],
     },
     "gather_rows": {
         # table, idx, B, row_bytes, vec_bytes, lanes_log2, blocks, out,
@@ -57,17 +58,21 @@ SIGNATURES = {
     },
     "sgns_update": {
         # dtype, mask_bf16, vert, ctx, idx_v, idx_c, idx_n, mask, B, S, d,
-        # lr, bb, blocks, smem, f32 scratch, int32 scratch, stream
+        # lr, bb, nblk, blocks, smem, nc, work_floats, sort_chunk,
+        # sort_keys, f32 scratch, int32 scratch, stream
         "sgns_fused_update": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _F, _I, _I, _I, _P, _P, _P],
+                              _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                              _P],
         # dtype, mask_bf16, vert, ctx, idx_v, idx_c, idx_n, mask, B, S, d,
-        # bb, blocks, smem, dv, dc, dn_part, loss_part, dn, loss, stream
+        # bb, blocks, smem, nc, work_floats, work, dv, dc, dn_part,
+        # loss_part, dn, loss, stream
         "sgns_fused_grads": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-        # dtype, mask_bf16, v, c, n, mask, B, S, d, bb, blocks, smem, dv,
-        # dc, dn_part, loss_part, dn, loss, stream
-        "sgns_grads": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
-                       _P, _P, _P, _P, _P, _P],
+                             _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                             _P],
+        # dtype, mask_bf16, v, c, n, mask, B, S, d, bb, blocks, smem, nc,
+        # work_floats, work, dv, dc, dn_part, loss_part, dn, loss, stream
+        "sgns_grads": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "scatter_rows": {
         # dtype, upd_f32, table, idx, upd, B, d, positions per chunk,

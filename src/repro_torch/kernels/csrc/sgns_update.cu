@@ -56,6 +56,31 @@
 //                     atomics and a run repeats bitwise. Scratch written
 //                     before the barrier is read with __ldcg (at L2).
 //
+// Any B and S: past one tile a block beside the two sorting blocks (B >
+// 1,040 at 8-row tiles) or past a sorting block's shared memory (B + S >
+// 16,384), the update is sgns_update_sorted, one cooperative launch of one
+// block an SM: the blocks take tiles blockIdx.x, + gridDim.x, ... (each
+// block's dn and loss partials summed over its tiles in order); then all
+// 2B + S positions, as 64-bit keys side << 63 | id << 32 | position (the
+// vertex side first, so the layout is sort_runs'), are bitonic-sorted in
+// device memory: each 8,192-key chunk in one block's shared memory, the
+// strides of a merge that cross chunks as grid-wide steps with a barrier
+// each, the rest chunk by chunk again (about a dozen barriers at B =
+// 8,192); a warp finds the runs that start among 32 sorted positions (a
+// key whose side and id differ from the one before it) and combines each
+// exactly as above. Below both limits the launch is the one above, its
+// geometry unchanged, so every minibatch the trainer issues computes what
+// it did bit for bit.
+//
+// Any S and d: when one tile row and all S negatives do not fit a block's
+// 227 KB, tile_grads_chunked keeps the v and c rows and a dv accumulator
+// beside nc negatives at a time (the largest nc that fits), dv summing the
+// negatives' terms chunk after chunk in order of s and each chunk's dn
+// rows written as they come; past d of about 14,500 (not one row and one
+// negative in 227 KB) the same code runs on a workspace in device memory.
+// sgns_grads and sgns_fused_grads take the same routine (CHUNK), so #6
+// stays bitwise #5 on its gathered rows.
+//
 // sgns_grads, the gradients of rows gathered beforehand, and sgns_fused_grads,
 // the same with the gather inside, are one kernel, sgns_grads_coop,
 // instantiated with and without ids: one cooperative launch over tiles of bb =
@@ -144,25 +169,35 @@ struct UpdateArgs {
   const void* mask;
   int mask_bf16, B, S, d, bb, nblk;
   float neg_lr;
-  // scratch: f32 dv, dc (B, d), dn partials (nblk, S, d), loss partials
-  // (nblk,), the loss; int32 (start, end, id, first position) of each run,
-  // the sorted positions (2B + S), and the two sides' run counts
+  // nc > 0: the negatives are staged nc rows at a time (tile_grads_chunked),
+  // in a workspace of work_floats per block at `work` (null: shared memory)
+  int nc, work_floats;
+  // sort_chunk > 0: the grid-wide sort of sort_keys keys (sgns_update_sorted)
+  int sort_chunk, sort_keys;
+  // scratch: f32 dv, dc (B, d), dn partials (nblk, S, d), the workspaces,
+  // loss partials (nblk,), the loss; int32 (start, end, id, first position)
+  // of each run, the sorted positions (2B + S), and the two sides' run
+  // counts (the grid-wide sort: its 64-bit keys, then the positions)
   float* dv;
   float* dc;
   float* dn_part;
+  float* work;
   float* loss_part;
   float* loss;
   int4* info;
   int* pos;
   int* runs;
+  unsigned long long* keys;
 };
 
-// The tile gradients of block blk of the fused launch, gradients in f32:
-// bb rows gathered through the ids into shared memory as f32, with all S
-// negatives, the scores and gradients of the tile, dv and dc for its rows
-// and its own (S, d) dn partial and loss partial.
+// The gradients of tile `tile` of the fused launch, in f32: bb rows
+// gathered through the ids into shared memory as f32, with all S
+// negatives, the scores and gradients of the tile, dv and dc for its rows,
+// and its (S, d) dn partial and loss partial, which are block blk's (the
+// block's first tile writes them, a later one adds to them).
 template <typename T>
-__device__ void fused_tile_grads(const UpdateArgs& a, int blk, float* smem) {
+__device__ void fused_tile_grads(const UpdateArgs& a, int tile, int blk,
+                                 bool first, float* smem) {
   const T* vsrc = static_cast<const T*>(a.vert);
   const T* csrc = static_cast<const T*>(a.ctx);
   const int S = a.S, d = a.d, bb = a.bb, B = a.B;
@@ -173,7 +208,7 @@ __device__ void fused_tile_grads(const UpdateArgs& a, int blk, float* smem) {
   float* g_s = n_s + S * d;
   float* l_s = g_s + bb * T1;
   float* m_s = l_s + bb * T1;
-  const int row0 = blk * bb;
+  const int row0 = tile * bb;
   const int rows = min(bb, B - row0);
   const long long dd = d;
 
@@ -264,12 +299,153 @@ __device__ void fused_tile_grads(const UpdateArgs& a, int blk, float* smem) {
     const int s = i / d, k = i - s * d;
     float acc = 0.0f;
     for (int r = 0; r < rows; ++r) acc += g_s[r * T1 + 1 + s] * v_s[r * d + k];
-    dn[i] = acc;
+    dn[i] = first ? acc : dn[i] + acc;
   }
   if (threadIdx.x == 0) {
     float acc = 0.0f;
     for (int q = 0; q < rows * T1; ++q) acc += l_s[q];
-    a.loss_part[blk] = acc;
+    a.loss_part[blk] = first ? acc : a.loss_part[blk] + acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// tiles whose S negatives do not fit beside them in shared memory
+// ---------------------------------------------------------------------------
+// The gradients of rows [row0, row0 + rows) with the S negatives staged nc
+// rows at a time, for any S and d. The workspace w holds the (bb, d) v and c
+// rows and dv accumulator, the (bb, S + 1) gradients and loss terms, the
+// (bb,) mask and nc negative rows, all f32 (chunk_work_floats): the block's
+// shared memory when that fits, else the block's own slice of a device
+// scratch, which the same code reaches through generic pointers
+// (__syncthreads orders a block's device-memory accesses as it does its
+// shared ones). Rows come from slabs (row r at src + r d) or, with GATHER,
+// from table rows through the ids. Each dot product is one warp's fmaf
+// chain over lanes and a fixed shuffle tree; dv = g_pos c + the negatives'
+// terms in order of s, carried from chunk to chunk in the workspace; the
+// chunk's dn rows go to `part` (written by the block's first tile, added to
+// by its later ones, each element by the same thread). Writes dv and dc
+// (OutT) at rows row0.. and returns the tile's loss in warp 0 (its lanes'
+// terms in order, then a shuffle tree).
+template <typename T, bool GATHER, typename OutT>
+__device__ float tile_grads_chunked(const T* vsrc, const T* csrc,
+                                   const T* nsrc, const int* idx_v,
+                                   const int* idx_c, const int* idx_n,
+                                   const void* mask, int mask_bf16, int row0,
+                                   int rows, int bb, int S, int d, int nc,
+                                   float* w, OutT* dv, OutT* dc, float* part,
+                                   bool first) {
+  const int T1 = S + 1;
+  const long long dd = d;
+  float* v_s = w;
+  float* c_s = v_s + static_cast<long long>(bb) * d;
+  float* a_s = c_s + static_cast<long long>(bb) * d;
+  float* g_s = a_s + static_cast<long long>(bb) * d;
+  float* l_s = g_s + static_cast<long long>(bb) * T1;
+  float* m_s = l_s + static_cast<long long>(bb) * T1;
+  float* n_s = m_s + bb;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nr = rows * d;
+  for (int i = tid; i < nr; i += THREADS) {
+    const int r = i / d, k = i - r * d;
+    const long long rv = GATHER ? idx_v[row0 + r] : row0 + r;
+    const long long rc = GATHER ? idx_c[row0 + r] : row0 + r;
+    v_s[i] = to_f32(vsrc[rv * dd + k]);
+    c_s[i] = to_f32(csrc[rc * dd + k]);
+  }
+  for (int r = tid; r < bb; r += THREADS)
+    m_s[r] = r < rows ? load_mask(mask, mask_bf16, row0 + r) : 0.0f;
+  for (int s0 = 0; s0 < S; s0 += nc) {
+    const int ns = min(nc, S - s0), nn = ns * d;
+    for (int i = tid; i < nn; i += THREADS) {
+      const int s = i / d, k = i - s * d;
+      const long long rn = GATHER ? idx_n[s0 + s] : s0 + s;
+      n_s[i] = to_f32(nsrc[rn * dd + k]);
+    }
+    __syncthreads();
+    // the chunk's scores, after the positives' with the first chunk
+    const int np = s0 == 0 ? rows : 0;
+    for (int q = warp; q < np + rows * ns; q += WARPS) {
+      int r, t;
+      const float* y;
+      if (q < np) {
+        r = q;
+        t = 0;
+        y = c_s + static_cast<long long>(r) * d;
+      } else {
+        r = (q - np) / ns;
+        const int s = q - np - r * ns;
+        t = 1 + s0 + s;
+        y = n_s + static_cast<long long>(s) * d;
+      }
+      const float* x = v_s + static_cast<long long>(r) * d;
+      float acc = 0.0f;
+      for (int k = lane; k < d; k += 32) acc = fmaf(x[k], y[k], acc);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      if (lane == 0) {
+        const float m = m_s[r];
+        const int o = r * T1 + t;
+        g_s[o] = t == 0 ? (sigmoid_f32(acc) - 1.0f) * m : sigmoid_f32(acc) * m;
+        l_s[o] = m * softplus_f32(t == 0 ? -acc : acc);
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < nr; i += THREADS) {
+      const int r = i / d, k = i - r * d;
+      const float* g = g_s + r * T1;
+      float acc = s0 == 0 ? g[0] * c_s[i] : a_s[i];
+      for (int s = 0; s < ns; ++s)
+        acc = fmaf(g[1 + s0 + s], n_s[static_cast<long long>(s) * d + k], acc);
+      a_s[i] = acc;
+    }
+    float* pc = part + static_cast<long long>(s0) * d;
+    for (int i = tid; i < nn; i += THREADS) {
+      const int s = i / d, k = i - s * d;
+      float acc = 0.0f;
+      for (int r = 0; r < rows; ++r)
+        acc = fmaf(g_s[r * T1 + 1 + s0 + s], v_s[static_cast<long long>(r) * d + k],
+                   acc);
+      pc[i] = first ? acc : pc[i] + acc;
+    }
+    __syncthreads();                  // the next chunk reuses n_s
+  }
+  for (int i = tid; i < nr; i += THREADS) {
+    const long long o = static_cast<long long>(row0) * d + i;
+    dv[o] = from_f32<OutT>(a_s[i]);
+    dc[o] = from_f32<OutT>(g_s[(i / d) * T1] * v_s[i]);
+  }
+  float loss = 0.0f;
+  if (warp == 0) {
+    for (int q = lane; q < rows * T1; q += 32) loss += l_s[q];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      loss += __shfl_xor_sync(0xffffffffu, loss, o);
+  }
+  __syncthreads();                    // the next tile reuses the workspace
+  return loss;
+}
+
+// Tile `tile` of the fused update, its partials block blk's: all S
+// negatives beside the tile in shared memory (fused_tile_grads), or (CHUNK)
+// staged in chunks.
+template <typename T, bool CHUNK>
+__device__ void update_tile(const UpdateArgs& a, int tile, int blk, bool first,
+                            unsigned char* smem) {
+  if constexpr (CHUNK) {
+    const int row0 = tile * a.bb;
+    float* w = a.work ? a.work + static_cast<long long>(blk) * a.work_floats
+                      : reinterpret_cast<float*>(smem);
+    const float l = tile_grads_chunked<T, true, float>(
+        static_cast<const T*>(a.vert), static_cast<const T*>(a.ctx),
+        static_cast<const T*>(a.ctx), a.idx_v, a.idx_c, a.idx_n, a.mask,
+        a.mask_bf16, row0, min(a.bb, a.B - row0), a.bb, a.S, a.d, a.nc, w,
+        a.dv, a.dc, a.dn_part + static_cast<long long>(blk) * a.S * a.d,
+        first);
+    if (threadIdx.x == 0)
+      a.loss_part[blk] = first ? l : a.loss_part[blk] + l;
+  } else {
+    fused_tile_grads<T>(a, tile, blk, first, reinterpret_cast<float*>(smem));
   }
 }
 
@@ -354,18 +530,122 @@ __device__ void sort_runs(const UpdateArgs& a, int side,
   }
 }
 
+// Run [j, e) of the sorted positions (row `id`; its first position fp),
+// applied by one warp: for each column the run's gradients summed in
+// sorted-position order, a negative position's dn partials in block order,
+// then the row's one update. j < B is the vertex side.
+template <typename T>
+__device__ __forceinline__ void combine_run(const UpdateArgs& a, int j, int e,
+                                            int id, int fp, int lane) {
+  const int B = a.B, d = a.d, nblk = a.nblk;
+  const long long dd = d;
+  const long long sd = static_cast<long long>(a.S) * d;
+  const bool vside = j < B;
+  T* dst = static_cast<T*>(vside ? a.vert : a.ctx) +
+           static_cast<long long>(id) * dd;
+  for (int k0 = 0; k0 < d; k0 += 32 * COLS) {
+    // the row's old value, loaded while the gradients are summed
+    float old[COLS];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      const int k = k0 + 32 * c + lane;
+      old[c] = k < d ? to_f32(dst[k]) : 0.0f;
+    }
+    float acc[COLS];
+    for (int p32 = j; p32 < e; p32 += 32) {
+      // 32 sorted positions at once, one a lane, then AHEAD positions'
+      // gradients in flight at a time, added in order
+      const int mine = e - j == 1 ? fp
+                       : p32 + lane < e ? __ldcg(a.pos + p32 + lane) : 0;
+      const int e32 = min(e, p32 + 32);
+      for (int p0 = p32; p0 < e32; p0 += AHEAD) {
+        int q[AHEAD];
+#pragma unroll
+        for (int i = 0; i < AHEAD; ++i)
+          q[i] = __shfl_sync(0xffffffffu, mine, (p0 - p32 + i) & 31);
+        float g[AHEAD][COLS];
+#pragma unroll
+        for (int i = 0; i < AHEAD; ++i) {
+          const long long qi = q[i];
+          const bool neg = p0 + i < e32 && !vside && qi >= B;
+          const float* src =
+              vside ? a.dv + qi * dd
+                    : qi < B ? a.dc + qi * dd : a.dn_part + (qi - B) * dd;
+#pragma unroll
+          for (int c = 0; c < COLS; ++c) {
+            const int k = k0 + 32 * c + lane;
+            g[i][c] = p0 + i < e32 && k < d ? __ldcg(src + k) : 0.0f;
+          }
+          if (neg) {
+            // a negative's partials of the other blocks, summed in block
+            // order, PARTS blocks' partials of every column loaded at once
+            for (int b0 = 1; b0 < nblk; b0 += PARTS) {
+              float part[PARTS][COLS];
+#pragma unroll
+              for (int u = 0; u < PARTS; ++u) {
+#pragma unroll
+                for (int c = 0; c < COLS; ++c) {
+                  const int k = k0 + 32 * c + lane;
+                  part[u][c] = b0 + u < nblk && k < d
+                                   ? __ldcg(src + (b0 + u) * sd + k)
+                                   : 0.0f;
+                }
+              }
+#pragma unroll
+              for (int u = 0; u < PARTS; ++u) {
+                if (b0 + u < nblk) {
+#pragma unroll
+                  for (int c = 0; c < COLS; ++c) g[i][c] += part[u][c];
+                }
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < AHEAD; ++i) {
+          if (p0 + i < e32) {
+#pragma unroll
+            for (int c = 0; c < COLS; ++c)
+              acc[c] = p0 + i == j ? g[i][c] : acc[c] + g[i][c];
+          }
+        }
+      }
+    }
+    // the update rounded to the table's dtype, then one add rounded to
+    // it; the _rn intrinsics keep the compiler from fusing them into an
+    // FMA
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      const int k = k0 + 32 * c + lane;
+      if (k < d) {
+        const float upd = to_f32(from_f32<T>(__fmul_rn(a.neg_lr, acc[c])));
+        dst[k] = from_f32<T>(__fadd_rn(old[c], upd));
+      }
+    }
+  }
+}
+
+// Block 0's first thread: the loss, the nblk loss partials in block order.
+__device__ __forceinline__ void sum_loss(const UpdateArgs& a) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    float acc = __ldcg(a.loss_part);
+    for (int b = 1; b < a.nblk; ++b) acc += __ldcg(a.loss_part + b);
+    *a.loss = acc;
+  }
+}
+
 // Blocks [0, nblk) compute the tile gradients while blocks nblk and nblk +
 // 1 sort (the blocks past them, there to give the combine a warp per run,
 // wait); one
 // grid-wide barrier; then every warp of the grid takes runs of the sorted
 // positions in turn and applies each run's summed update to its row once.
-template <typename T>
+template <typename T, bool CHUNK>
 __global__ void __launch_bounds__(THREADS) sgns_update_fused(
     const UpdateArgs a) {
   extern __shared__ __align__(16) unsigned char fsmem[];
   const int nblk = a.nblk;
   if (blockIdx.x < nblk)
-    fused_tile_grads<T>(a, blockIdx.x, reinterpret_cast<float*>(fsmem));
+    update_tile<T, CHUNK>(a, blockIdx.x, blockIdx.x, true, fsmem);
   else if (blockIdx.x < nblk + 2)
     sort_runs(a, blockIdx.x - nblk,
               reinterpret_cast<unsigned long long*>(fsmem));
@@ -373,103 +653,151 @@ __global__ void __launch_bounds__(THREADS) sgns_update_fused(
 
   // scratch written before the barrier is read at L2 (__ldcg), never
   // through a possibly stale L1 line
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    float acc = __ldcg(a.loss_part);
-    for (int b = 1; b < nblk; ++b) acc += __ldcg(a.loss_part + b);
-    *a.loss = acc;
-  }
-  const int B = a.B, S = a.S, d = a.d;
-  const long long dd = d;
-  const long long sd = static_cast<long long>(S) * d;
+  sum_loss(a);
+  const int B = a.B;
   const int runs_v = __ldcg(a.runs), runs = runs_v + __ldcg(a.runs + 1);
   const int lane = threadIdx.x & 31;
   for (int r = blockIdx.x * WARPS + (threadIdx.x >> 5); r < runs;
        r += gridDim.x * WARPS) {
     // the vertex side's runs, then the context side's (from info[B] on)
     const int4 run = __ldcg(a.info + (r < runs_v ? r : B + r - runs_v));
-    const int j = run.x, e = run.y;
-    const bool vside = j < B;
-    T* dst = static_cast<T*>(vside ? a.vert : a.ctx) +
-             static_cast<long long>(run.z) * dd;
-    for (int k0 = 0; k0 < d; k0 += 32 * COLS) {
-      // the row's old value, loaded while the gradients are summed
-      float old[COLS];
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) {
-        const int k = k0 + 32 * c + lane;
-        old[c] = k < d ? to_f32(dst[k]) : 0.0f;
-      }
-      float acc[COLS];
-      for (int p32 = j; p32 < e; p32 += 32) {
-        // 32 sorted positions at once, one a lane, then AHEAD positions'
-        // gradients in flight at a time, added in order
-        const int mine = e - j == 1 ? run.w
-                         : p32 + lane < e ? __ldcg(a.pos + p32 + lane) : 0;
-        const int e32 = min(e, p32 + 32);
-        for (int p0 = p32; p0 < e32; p0 += AHEAD) {
-          int q[AHEAD];
-#pragma unroll
-          for (int i = 0; i < AHEAD; ++i)
-            q[i] = __shfl_sync(0xffffffffu, mine, (p0 - p32 + i) & 31);
-          float g[AHEAD][COLS];
-#pragma unroll
-          for (int i = 0; i < AHEAD; ++i) {
-            const long long qi = q[i];
-            const bool neg = p0 + i < e32 && !vside && qi >= B;
-            const float* src =
-                vside ? a.dv + qi * dd
-                      : qi < B ? a.dc + qi * dd : a.dn_part + (qi - B) * dd;
-#pragma unroll
-            for (int c = 0; c < COLS; ++c) {
-              const int k = k0 + 32 * c + lane;
-              g[i][c] = p0 + i < e32 && k < d ? __ldcg(src + k) : 0.0f;
-            }
-            if (neg) {
-              // a negative's partials of the other blocks, summed in block
-              // order, PARTS blocks' partials of every column loaded at once
-              for (int b0 = 1; b0 < nblk; b0 += PARTS) {
-                float part[PARTS][COLS];
-#pragma unroll
-                for (int u = 0; u < PARTS; ++u) {
-#pragma unroll
-                  for (int c = 0; c < COLS; ++c) {
-                    const int k = k0 + 32 * c + lane;
-                    part[u][c] = b0 + u < nblk && k < d
-                                     ? __ldcg(src + (b0 + u) * sd + k)
-                                     : 0.0f;
-                  }
-                }
-#pragma unroll
-                for (int u = 0; u < PARTS; ++u) {
-                  if (b0 + u < nblk) {
-#pragma unroll
-                    for (int c = 0; c < COLS; ++c) g[i][c] += part[u][c];
-                  }
-                }
-              }
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < AHEAD; ++i) {
-            if (p0 + i < e32) {
-#pragma unroll
-              for (int c = 0; c < COLS; ++c)
-                acc[c] = p0 + i == j ? g[i][c] : acc[c] + g[i][c];
-            }
-          }
+    combine_run<T>(a, run.x, run.y, run.z, run.w, lane);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the fused update past one block an SM or a sorting block's shared memory
+// ---------------------------------------------------------------------------
+// The sort key of position p in [0, 2B + S): the vertex positions p < B
+// (side 0) before the context ones (side 1: idx_c ++ idx_n), each side by
+// id, equal ids by position. Sorted, the first B keys are the vertex side,
+// as in sort_runs' layout.
+__device__ __forceinline__ unsigned long long position_key(const UpdateArgs& a,
+                                                           int p) {
+  const int B = a.B;
+  const unsigned id = static_cast<unsigned>(
+      p < B ? a.idx_v[p] : p < 2 * B ? a.idx_c[p - B] : a.idx_n[p - 2 * B]);
+  return (p < B ? 0ull : 1ull << 63) |
+         static_cast<unsigned long long>(id) << 32 | static_cast<unsigned>(p);
+}
+
+// Bitonic steps of sizes size_from..size_to (powers of two) on the C keys
+// of chunk [c0, c0 + C) staged in shared memory: every stride below C (and
+// below the size), the direction of a pair from its index in the whole
+// array, as one bitonic sort of all the keys would take it.
+__device__ void bitonic_chunk(unsigned long long* sk, int C, int c0,
+                              int size_from, int size_to) {
+  for (int size = size_from; size <= size_to; size <<= 1) {
+    for (int stride = min(size, C) >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < C / 2; i += THREADS) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const unsigned long long x = sk[lo], y = sk[lo + stride];
+        if ((x > y) == (((c0 + lo) & size) == 0)) {
+          sk[lo] = y;
+          sk[lo + stride] = x;
         }
       }
-      // the update rounded to the table's dtype, then one add rounded to
-      // it; the _rn intrinsics keep the compiler from fusing them into an
-      // FMA
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) {
-        const int k = k0 + 32 * c + lane;
-        if (k < d) {
-          const float upd = to_f32(from_f32<T>(__fmul_rn(a.neg_lr, acc[c])));
-          dst[k] = from_f32<T>(__fadd_rn(old[c], upd));
+      __syncthreads();
+    }
+  }
+}
+
+// The fused update for any B and S, one cooperative launch of one block an
+// SM: every block takes tiles blockIdx.x, + gridDim.x, ... (its dn and loss
+// partials summed over them in order); the 2B + S position keys
+// (position_key) are bitonic-sorted in device memory, chunks of sort_chunk
+// keys in shared memory and the strides of a merge that cross chunks as
+// grid-wide steps, a grid barrier after each; then each run of equal keys'
+// ids (its head found by comparing a key with the one before it, its end by
+// scanning on) is combined by one warp exactly as in sgns_update_fused. The
+// same gradients, the same per-run sums in sorted-position order, the same
+// one owner per row.
+template <typename T, bool CHUNK>
+__global__ void __launch_bounds__(THREADS) sgns_update_sorted(
+    const UpdateArgs a) {
+  extern __shared__ __align__(16) unsigned char fsmem[];
+  auto grid = cooperative_groups::this_grid();
+  const int B = a.B, n = 2 * B + a.S, n2 = a.sort_keys, C = a.sort_chunk;
+  const int tiles = (B + a.bb - 1) / a.bb;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    update_tile<T, CHUNK>(a, t, blockIdx.x, t == static_cast<int>(blockIdx.x),
+                          fsmem);
+    __syncthreads();                  // the next tile reuses shared memory
+  }
+  unsigned long long* sk = reinterpret_cast<unsigned long long*>(fsmem);
+  unsigned long long* keys = a.keys;
+  const int stride_all = gridDim.x * C;
+  for (int c0 = blockIdx.x * C; c0 < n2; c0 += stride_all) {
+    for (int i = threadIdx.x; i < C; i += THREADS)
+      sk[i] = c0 + i < n ? position_key(a, c0 + i) : ~0ull;
+    __syncthreads();
+    bitonic_chunk(sk, C, c0, 2, C);
+    for (int i = threadIdx.x; i < C; i += THREADS) keys[c0 + i] = sk[i];
+    __syncthreads();
+  }
+  grid.sync();
+  for (int size = 2 * C; size <= n2; size <<= 1) {
+    for (int stride = size >> 1; stride >= C; stride >>= 1) {
+      for (int i = blockIdx.x * THREADS + threadIdx.x; i < n2 / 2;
+           i += gridDim.x * THREADS) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const unsigned long long x = __ldcg(keys + lo),
+                                 y = __ldcg(keys + lo + stride);
+        if ((x > y) == ((lo & size) == 0)) {
+          keys[lo] = y;
+          keys[lo + stride] = x;
         }
       }
+      grid.sync();
+    }
+    for (int c0 = blockIdx.x * C; c0 < n2; c0 += stride_all) {
+      for (int i = threadIdx.x; i < C; i += THREADS)
+        sk[i] = __ldcg(keys + c0 + i);
+      __syncthreads();
+      bitonic_chunk(sk, C, c0, size, size);
+      for (int i = threadIdx.x; i < C; i += THREADS) keys[c0 + i] = sk[i];
+      __syncthreads();
+    }
+    grid.sync();
+  }
+  // the sorted positions as sort_runs writes them: a vertex position, or
+  // one of idx_c ++ idx_n
+  for (int i = blockIdx.x * THREADS + threadIdx.x; i < n;
+       i += gridDim.x * THREADS) {
+    const int p = static_cast<int>(__ldcg(keys + i) & 0xffffffffu);
+    a.pos[i] = p < B ? p : p - B;
+  }
+  sum_loss(a);
+  grid.sync();
+
+  // the runs: a warp takes 32 sorted positions at a time and combines each
+  // run that starts among them
+  const int lane = threadIdx.x & 31;
+  for (int w0 = (blockIdx.x * WARPS + (threadIdx.x >> 5)) * 32; w0 < n;
+       w0 += gridDim.x * WARPS * 32) {
+    const int i = w0 + lane;
+    const unsigned long long key = i < n ? __ldcg(keys + i) : ~0ull;
+    const bool head =
+        i < n && (i == 0 || (__ldcg(keys + i - 1) >> 32) != (key >> 32));
+    unsigned heads = __ballot_sync(0xffffffffu, head);
+    while (heads) {
+      const int h = __ffs(heads) - 1;
+      heads &= heads - 1;
+      const int j = w0 + h;
+      const unsigned long long kj = __shfl_sync(0xffffffffu, key, h);
+      int e = n;
+      for (int base = j + 1; base < n; base += 32) {
+        const int x = base + lane;
+        const bool end = x >= n || (__ldcg(keys + x) >> 32) != (kj >> 32);
+        const unsigned m = __ballot_sync(0xffffffffu, end);
+        if (m) {
+          e = base + __ffs(m) - 1;
+          break;
+        }
+      }
+      const int p = static_cast<int>(kj & 0xffffffffu);
+      combine_run<T>(a, j, e, static_cast<int>((kj >> 32) & 0x7fffffffu),
+                     p < B ? p : p - B, lane);
     }
   }
 }
@@ -486,6 +814,9 @@ struct GradsArgs {
   const int* idx_n;
   const void* mask;
   int mask_bf16, B, S, d, bb;
+  int nc;            // > 0: negatives staged nc at a time (CHUNK)
+  int work_floats;   // floats of a block's workspace at `work` (CHUNK)
+  float* work;       // (blocks, work_floats) f32, or null: shared memory
   void* dv;          // (B, d), the rows' dtype
   void* dc;
   void* dn;          // (S, d), the rows' dtype
@@ -545,8 +876,9 @@ __device__ __forceinline__ const T* slab_elem(const T* src, const int* ids,
 // order) added to the block's, in scratch. One grid-wide barrier, then the
 // grid sums each dn element's block partials in block order and casts once;
 // block 0 sums the loss partials. No float atomics: a call repeats bitwise, and the two
-// instantiations give the same bits on the same rows.
-template <typename T, bool GATHER>
+// instantiations give the same bits on the same rows. CHUNK: the S negatives
+// do not fit beside a tile, and each tile is tile_grads_chunked's.
+template <typename T, bool GATHER, bool CHUNK>
 __global__ void __launch_bounds__(THREADS) sgns_grads_coop(const GradsArgs a) {
   constexpr int VEC = 16 / sizeof(T);
   extern __shared__ float gsmem[];
@@ -574,6 +906,21 @@ __global__ void __launch_bounds__(THREADS) sgns_grads_coop(const GradsArgs a) {
   float* part = a.dn_part + static_cast<long long>(blockIdx.x) * nn;
   float loss = 0.0f;
   const int tiles = (a.B + bb - 1) / bb;
+  if constexpr (CHUNK) {
+    float* w = a.work ? a.work + static_cast<long long>(blockIdx.x) *
+                                     a.work_floats
+                      : gsmem;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const bool first = tile == static_cast<int>(blockIdx.x);
+      const int row0 = tile * bb;
+      const float l = tile_grads_chunked<T, GATHER, T>(
+          static_cast<const T*>(a.v), static_cast<const T*>(a.c),
+          static_cast<const T*>(a.n), a.idx_v, a.idx_c, a.idx_n, a.mask,
+          a.mask_bf16, row0, min(bb, a.B - row0), bb, S, d, a.nc, w,
+          static_cast<T*>(a.dv), static_cast<T*>(a.dc), part, first);
+      if (warp == 0) loss = first ? l : loss + l;
+    }
+  } else {
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const bool first = tile == static_cast<int>(blockIdx.x);
     const int row0 = tile * bb;
@@ -725,6 +1072,7 @@ __global__ void __launch_bounds__(THREADS) sgns_grads_coop(const GradsArgs a) {
     }
     __syncthreads();        // the next tile reuses the shared memory
   }
+  }
   if (warp == 0 && lane == 0) a.loss_part[blockIdx.x] = loss;
   cooperative_groups::this_grid().sync();
 
@@ -769,32 +1117,32 @@ __global__ void __launch_bounds__(THREADS) sgns_grads_coop(const GradsArgs a) {
 // One cooperative launch of `blocks` blocks (at most one per SM, so every
 // block is resident at once; cudaLaunchCooperativeKernel refuses a grid
 // that is not).
-template <typename T, bool GATHER>
+template <typename T, bool GATHER, bool CHUNK>
 int launch_grads_coop(const GradsArgs& a, int blocks, int smem,
                       cudaStream_t st) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sgns_grads_coop<T, GATHER>,
+        sgns_grads_coop<T, GATHER, CHUNK>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   GradsArgs args = a;
   void* params[] = {&args};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(sgns_grads_coop<T, GATHER>),
+      reinterpret_cast<const void*>(sgns_grads_coop<T, GATHER, CHUNK>),
       dim3(blocks), dim3(THREADS), params, static_cast<size_t>(smem), st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One cooperative launch of nblk + 1 blocks, refused (with the error
-// returned) unless every block can be resident at once: the grid-wide
-// barrier needs them all.
-template <typename T>
-int launch_fused(const UpdateArgs& a, int grid, int smem, cudaStream_t st) {
+// One cooperative launch of `grid` blocks of `kernel`, refused (with the
+// error returned) unless every block can be resident at once: the
+// grid-wide barriers need them all.
+int launch_update(const void* kernel, const UpdateArgs& a, int grid,
+                  int smem, cudaStream_t st) {
   cudaError_t e;
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(sgns_update_fused<T>,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -804,55 +1152,90 @@ int launch_fused(const UpdateArgs& a, int grid, int smem, cudaStream_t st) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sgns_update_fused<T>, THREADS, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      THREADS, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm * sms < grid)
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   UpdateArgs args = a;
   void* params[] = {&args};
-  e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(sgns_update_fused<T>), dim3(grid),
-      dim3(THREADS), params, static_cast<size_t>(smem), st);
+  e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(THREADS), params,
+                                  static_cast<size_t>(smem), st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool CHUNK>
+int launch_fused(const UpdateArgs& a, int grid, int smem, cudaStream_t st) {
+  const void* k =
+      a.sort_chunk ? reinterpret_cast<const void*>(sgns_update_sorted<T, CHUNK>)
+                   : reinterpret_cast<const void*>(sgns_update_fused<T, CHUNK>);
+  return launch_update(k, a, grid, smem, st);
 }
 
 }  // namespace
 
 // dtype: 0 = f32 tables, 1 = bf16. mask: (B,) f32, or bf16 when mask_bf16.
-// Tables are updated in place. bb rows per gradient block (nblk = ceil(B /
-// bb) of them), then the two sorting blocks, then more up to `blocks` for
-// the combine; smem: the dynamic shared memory of a block, the larger of a
-// gradient tile's and a sort's 12 n2 + 4 bytes, n2 being B + S rounded up
-// to a power of two. fscratch: f32 dv, dc (B, d), dn partials (nblk, S,
-// d), loss partials (nblk,), then the loss (its last element, the output);
-// iscratch: 5 (2B + S) + 2 int32, 16-byte aligned.
+// Tables are updated in place. Tiles of bb rows; nc > 0 stages the
+// negatives nc at a time, in a workspace of work_floats per block in
+// fscratch (0: in shared memory). sort_chunk == 0: one gradient block a
+// tile (nblk = ceil(B / bb) of them), then the two sorting blocks, then
+// more up to `blocks` for the combine; smem: the larger of a gradient
+// tile's and a sort's 12 n2 + 4 bytes, n2 being B + S rounded up to a power
+// of two. sort_chunk > 0: `blocks` blocks (one an SM) stride over the
+// tiles, nblk = min(blocks, tiles) hold partials, and the 2B + S keys,
+// sort_keys of them with the padding, are sorted sort_chunk at a time in
+// shared memory (smem at least 8 sort_chunk). fscratch: f32 dv, dc (B, d),
+// dn partials (nblk, S, d), the workspaces (blocks, work_floats), loss
+// partials (nblk,), then the loss (its last element, the output);
+// iscratch, 16-byte aligned: 5 (2B + S) + 2 int32 (sort_chunk == 0), or
+// sort_keys 64-bit keys and then 2B + S int32.
 extern "C" int sgns_fused_update(int dtype, int mask_bf16, void* vert,
                                  void* ctx, const void* idx_v,
                                  const void* idx_c, const void* idx_n,
                                  const void* mask, int B, int S, int d,
-                                 float lr, int bb, int blocks, int smem,
+                                 float lr, int bb, int nblk, int blocks,
+                                 int smem, int nc, int work_floats,
+                                 int sort_chunk, int sort_keys,
                                  void* fscratch, void* iscratch,
                                  void* stream) {
-  const int nblk = (B + bb - 1) / bb, n = 2 * B + S;
+  const int n = 2 * B + S;
   const long long bd = static_cast<long long>(B) * d;
   float* f = static_cast<float*>(fscratch);
   int* i = static_cast<int*>(iscratch);
   float* dn_part = f + 2 * bd;
-  float* loss_part = dn_part + static_cast<long long>(nblk) * S * d;
-  const UpdateArgs a{vert, ctx,
-                     static_cast<const int*>(idx_v),
-                     static_cast<const int*>(idx_c),
-                     static_cast<const int*>(idx_n),
-                     mask, mask_bf16, B, S, d, bb, nblk, -lr,
-                     f, f + bd, dn_part, loss_part, loss_part + nblk,
-                     reinterpret_cast<int4*>(i), i + 4 * n, i + 5 * n};
+  float* work = dn_part + static_cast<long long>(nblk) * S * d;
+  float* loss_part = work + static_cast<long long>(blocks) * work_floats;
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(i);
+  UpdateArgs a{vert, ctx,
+               static_cast<const int*>(idx_v),
+               static_cast<const int*>(idx_c),
+               static_cast<const int*>(idx_n),
+               mask, mask_bf16, B, S, d, bb, nblk, -lr, nc, work_floats,
+               sort_chunk, sort_keys,
+               f, f + bd, dn_part, work_floats ? work : nullptr, loss_part,
+               loss_part + nblk,
+               reinterpret_cast<int4*>(i), i + 4 * n, i + 5 * n, keys};
+  if (sort_chunk) a.pos = i + 2 * static_cast<long long>(sort_keys);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (blocks < nblk + 2) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return launch_fused<float>(a, blocks, smem, st);
-  if (dtype == 1) return launch_fused<__nv_bfloat16>(a, blocks, smem, st);
+  const int tiles = (B + bb - 1) / bb;
+  if (nblk != (sort_chunk ? min(blocks, tiles) : tiles) ||
+      (!sort_chunk && blocks < nblk + 2) ||
+      (sort_chunk && (sort_keys % sort_chunk || sort_keys < n)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return nc ? launch_fused<float, true>(a, blocks, smem, st)
+              : launch_fused<float, false>(a, blocks, smem, st);
+  if (dtype == 1)
+    return nc ? launch_fused<__nv_bfloat16, true>(a, blocks, smem, st)
+              : launch_fused<__nv_bfloat16, false>(a, blocks, smem, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, bool GATHER>
+int launch_grads_t(const GradsArgs& a, int blocks, int smem, cudaStream_t st) {
+  return a.nc ? launch_grads_coop<T, GATHER, true>(a, blocks, smem, st)
+              : launch_grads_coop<T, GATHER, false>(a, blocks, smem, st);
 }
 
 // The gradients of rows gathered beforehand (sgns_grads: v, c (B, d) and n
@@ -860,21 +1243,22 @@ extern "C" int sgns_fused_update(int dtype, int mask_bf16, void* vert,
 // vert, ctx and idx_v, idx_c (B,), idx_n (S,) int32): dv, dc (B, d), dn (S,
 // d) in the rows' dtype, loss (1,) f32; tiles of bb <= 256 rows over
 // `blocks` blocks, at most one per SM; dn_part (blocks, S, d) and loss_part
-// (blocks,) f32 scratch (plan_sgns_grads). One cooperative launch.
+// (blocks,) f32 scratch (plan_sgns_grads). nc > 0 stages the negatives nc
+// at a time, each block in its work_floats of `work` (null: in shared
+// memory). One cooperative launch.
 static int launch_grads(int dtype, const GradsArgs& a, int blocks, int smem,
                         void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool gather = a.idx_v != nullptr;
-  if (a.bb < 1 || a.bb > THREADS || blocks < 1 ||
+  if (a.bb < 1 || a.bb > THREADS || blocks < 1 || a.nc < 0 ||
       (gather && (a.idx_c == nullptr || a.idx_n == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return gather ? launch_grads_coop<float, true>(a, blocks, smem, st)
-                  : launch_grads_coop<float, false>(a, blocks, smem, st);
+    return gather ? launch_grads_t<float, true>(a, blocks, smem, st)
+                  : launch_grads_t<float, false>(a, blocks, smem, st);
   if (dtype == 1)
-    return gather
-               ? launch_grads_coop<__nv_bfloat16, true>(a, blocks, smem, st)
-               : launch_grads_coop<__nv_bfloat16, false>(a, blocks, smem, st);
+    return gather ? launch_grads_t<__nv_bfloat16, true>(a, blocks, smem, st)
+                  : launch_grads_t<__nv_bfloat16, false>(a, blocks, smem, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -882,14 +1266,16 @@ extern "C" int sgns_fused_grads(int dtype, int mask_bf16, const void* vert,
                                 const void* ctx, const void* idx_v,
                                 const void* idx_c, const void* idx_n,
                                 const void* mask, int B, int S, int d, int bb,
-                                int blocks, int smem, void* dv, void* dc,
+                                int blocks, int smem, int nc, int work_floats,
+                                void* work, void* dv, void* dc,
                                 void* dn_part, void* loss_part, void* dn,
                                 void* loss, void* stream) {
   const GradsArgs a{vert, ctx, ctx,
                     static_cast<const int*>(idx_v),
                     static_cast<const int*>(idx_c),
                     static_cast<const int*>(idx_n),
-                    mask, mask_bf16, B, S, d, bb,
+                    mask, mask_bf16, B, S, d, bb, nc, work_floats,
+                    static_cast<float*>(work),
                     dv, dc, dn, static_cast<float*>(dn_part),
                     static_cast<float*>(loss_part), static_cast<float*>(loss)};
   return launch_grads(dtype, a, blocks, smem, stream);
@@ -898,10 +1284,11 @@ extern "C" int sgns_fused_grads(int dtype, int mask_bf16, const void* vert,
 extern "C" int sgns_grads(int dtype, int mask_bf16, const void* v,
                           const void* c, const void* n, const void* mask,
                           int B, int S, int d, int bb, int blocks, int smem,
-                          void* dv, void* dc, void* dn_part, void* loss_part,
-                          void* dn, void* loss, void* stream) {
+                          int nc, int work_floats, void* work, void* dv,
+                          void* dc, void* dn_part, void* loss_part, void* dn,
+                          void* loss, void* stream) {
   const GradsArgs a{v, c, n, nullptr, nullptr, nullptr, mask, mask_bf16, B,
-                    S, d, bb,
+                    S, d, bb, nc, work_floats, static_cast<float*>(work),
                     dv, dc, dn, static_cast<float*>(dn_part),
                     static_cast<float*>(loss_part), static_cast<float*>(loss)};
   return launch_grads(dtype, a, blocks, smem, stream);

@@ -49,7 +49,8 @@
 //                   digits, most significant first, are counted in a
 //                   shared-memory histogram (lanes with the same digit
 //                   combined by __match_any_sync) until the entries that
-//                   can still be among the k best number at most CAP; one
+//                   can still be among the k best number at most CAP (past
+//                   k = CAP / 2: a power of two >= 2k, in device memory); one
 //                   more pass copies those into shared memory (the first
 //                   pass copies them as it counts, and that pass is the
 //                   only one when they fit), a bitonic sort orders them,
@@ -264,13 +265,25 @@ __device__ unsigned block_exclusive_sum(unsigned x, unsigned* warp_sums,
 
 // One query's k best over rows base .. base + n - 1 (scores[q * ld + i])
 // and the k best carried in best_v / best_i (ignored when first), written
-// back to best_v / best_i sorted.
+// back to best_v / best_i sorted. The candidates are sorted in shared memory
+// (CAP of them), or (GLOBAL: k past CAP / 2) in the query's `cap` slots of
+// gkey / gval in device memory, through the same code.
+template <bool GLOBAL>
 __global__ void __launch_bounds__(SEL_THREADS)
     select_kernel(const float* __restrict__ scores, int ld, int n, int base,
-                  int k, int first, float* best_v, int* best_i) {
+                  int k, int first, float* best_v, int* best_i,
+                  unsigned long long* gkey, float* gval, int gcap) {
   __shared__ unsigned hist[BINS];
-  __shared__ unsigned long long ckey[CAP];
-  __shared__ float cval[CAP];
+  __shared__ unsigned long long skey[GLOBAL ? 1 : CAP];
+  __shared__ float sval[GLOBAL ? 1 : CAP];
+  unsigned long long* ckey = skey;
+  float* cval = sval;
+  int cap = CAP;
+  if constexpr (GLOBAL) {
+    ckey = gkey + static_cast<size_t>(blockIdx.x) * gcap;
+    cval = gval + static_cast<size_t>(blockIdx.x) * gcap;
+    cap = gcap;
+  }
   __shared__ unsigned warp_sums[SEL_WARPS];
   __shared__ unsigned s_count, s_digit, s_before, s_matched;
   const int tid = threadIdx.x;
@@ -314,7 +327,7 @@ __global__ void __launch_bounds__(SEL_THREADS)
     }
   };
 
-  // radix select, most significant digit first, until at most CAP entries
+  // radix select, most significant digit first, until at most cap entries
   // can still be among the k best: (key & mask) < prefix are in (below of
   // them), (key & mask) == prefix compete for the rest
   // them), (key & mask) == prefix compete for the rest. The first pass
@@ -341,7 +354,7 @@ __global__ void __launch_bounds__(SEL_THREADS)
       if (lane == __ffs(in) - 1) slot = atomicAdd(&s_count, __popc(in));
       slot = __shfl_sync(0xffffffffu, slot, __ffs(in) - 1) +
              __popc(in & ((1u << lane) - 1u));
-      if (bin >= 0 && slot < CAP) {
+      if (bin >= 0 && slot < static_cast<unsigned>(cap)) {
         ckey[slot] = key;
         cval[slot] = v;
       }
@@ -354,7 +367,7 @@ __global__ void __launch_bounds__(SEL_THREADS)
     for (int j = 0; j < PER; ++j) mine += hist[tid * PER + j];
     unsigned total;
     const unsigned ex = block_exclusive_sum(mine, warp_sums, &total);
-    if (first_pass && total <= CAP) break;   // all of them copied already
+    if (first_pass && total <= static_cast<unsigned>(cap)) break;  // all copied
     const unsigned need = k - below;   // >= 1, and total >= need
     if (ex < need && need <= ex + mine) {
       unsigned c = ex;
@@ -376,7 +389,7 @@ __global__ void __launch_bounds__(SEL_THREADS)
     mask |= static_cast<unsigned long long>(BINS - 1) << shift;
     const unsigned matched = s_matched;
     __syncthreads();                   // s_* are rewritten next pass
-    if (below + matched <= CAP || shift == 0) break;
+    if (below + matched <= static_cast<unsigned>(cap) || shift == 0) break;
   }
 
   // the candidates into shared memory (unless the first pass holds them
@@ -424,7 +437,7 @@ __global__ void __launch_bounds__(SEL_THREADS)
 template <typename T>
 int launch(const void* table, const void* queries, int Q, int d, int valid,
            int k, int chunk_rows, void* scratch, void* out_v, void* out_i,
-           cudaStream_t stream) {
+           void* cand, int cap, cudaStream_t stream) {
   const int qtiles = (Q + TQ - 1) / TQ;
   for (int base = 0; base < valid; base += chunk_rows) {
     const int n = min(chunk_rows, valid - base);
@@ -434,9 +447,18 @@ int launch(const void* table, const void* queries, int Q, int d, int valid,
         d, base, n, chunk_rows, qtiles, static_cast<float*>(scratch));
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
-    select_kernel<<<Q, SEL_THREADS, 0, stream>>>(
-        static_cast<const float*>(scratch), chunk_rows, n, base, k,
-        base == 0, static_cast<float*>(out_v), static_cast<int*>(out_i));
+    unsigned long long* gkey = static_cast<unsigned long long*>(cand);
+    float* gval = reinterpret_cast<float*>(gkey + static_cast<size_t>(Q) * cap);
+    if (cand == nullptr)
+      select_kernel<false><<<Q, SEL_THREADS, 0, stream>>>(
+          static_cast<const float*>(scratch), chunk_rows, n, base, k,
+          base == 0, static_cast<float*>(out_v), static_cast<int*>(out_i),
+          nullptr, nullptr, CAP);
+    else
+      select_kernel<true><<<Q, SEL_THREADS, 0, stream>>>(
+          static_cast<const float*>(scratch), chunk_rows, n, base, k,
+          base == 0, static_cast<float*>(out_v), static_cast<int*>(out_i),
+          gkey, gval, cap);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -447,23 +469,28 @@ int launch(const void* table, const void* queries, int Q, int d, int valid,
 
 // dtype: 0 = f32, 1 = bf16. table: (rows, d) row-major, 16-byte aligned,
 // d % 8 == 0; rows >= valid are never read (valid >= 1). queries: (Q, d)
-// f32, 16-byte aligned. 1 <= k <= CAP / 2. chunk_rows: a multiple of 4;
+// f32, 16-byte aligned. k >= 1: up to CAP / 2 the candidates are sorted in
+// shared memory (cand null); past it in cand, (Q, cap) 64-bit keys then
+// (Q, cap) f32, cap a power of two >= 2k. chunk_rows: a multiple of 4;
 // scratch: (Q, chunk_rows) f32. out_v/out_i: (Q, k), written in full.
 extern "C" int topk_rowwise(int dtype, const void* table, const void* queries,
                             int Q, int d, int valid, int k, int chunk_rows,
                             void* scratch, void* out_v, void* out_i,
-                            void* stream) {
+                            void* cand, int cap, void* stream) {
   if (Q == 0) return 0;
-  if (k < 1 || 2 * k > CAP || chunk_rows < 4 || chunk_rows % 4)
+  const bool global = 2 * k > CAP;
+  if (k < 1 || chunk_rows < 4 || chunk_rows % 4 || global != (cand != nullptr) ||
+      (global && (cap < 2 * k || (cap & (cap - 1)))))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return launch<float>(table, queries, Q, d, valid, k, chunk_rows,
-                           scratch, out_v, out_i, st);
+                           scratch, out_v, out_i, cand, cap, st);
     case 1:
       return launch<__nv_bfloat16>(table, queries, Q, d, valid, k,
-                                   chunk_rows, scratch, out_v, out_i, st);
+                                   chunk_rows, scratch, out_v, out_i, cand,
+                                   cap, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

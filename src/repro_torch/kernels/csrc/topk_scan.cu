@@ -82,12 +82,30 @@
 //   monotone, so comparing the rounded sum with the float tau loses
 //   nothing.)
 //
-//   Shapes: d is padded with zeros to D in {32, 64, 128, 256} (KS = D / 16
-//   k-steps); NT = min(8, 32 / KS) query tiles of 8 per warp, so the query
-//   fragments take KS * NT * 2 <= 64 registers. A block of 8 warps is QW
+//   The bound for any d. Nothing above assumes d <= 256: the chain's
+//   factor 1 + d 2^-24 <= 2 needs d <= 2^24, and the floors cover
+//   d <= 2^46. Past 256 columns (wide_scores) a is the same mma.sync
+//   products, 256 columns at a time, added into the same f32
+//   accumulators, which shared memory keeps exactly between slices: one
+//   accumulation of d products, as the allowance d 2^-20 sum |q~_j t~_j|
+//   assumes, and n'_r is the root of the slices' summed squares (rounding
+//   far inside the factor 8, as above). So eps = E'_q n'_r stands for
+//   every d <= 2^24, and chip_smoke.py holds |a - s| <= eps / 4 at
+//   d = 1, 100, 300 and 1000 as at 128. (d here is the padded width: the
+//   store pads a table's columns with zeros to a multiple of 8 and each
+//   query batch with it, which adds exact zeros to every chain, and only
+//   raises E'_q.)
+//
+//   Shapes: d (a multiple of 8) is padded with zeros to D in {32, 64, 128,
+//   256} (KS = D / 16 k-steps); NT = min(8, 32 / KS) query tiles of 8 per
+//   warp, so the query fragments take KS * NT * 2 <= 64 registers. Past
+//   256 columns the kernel takes KS = 16 slices in turn (WIDE), packing a
+//   slice's query fragments as it starts, its tile's scores kept in shared
+//   memory (TR x bq f32) from slice to slice. A block of 8 warps is QW
 //   query groups by 8 / QW row groups (QW from Q: 1, 2, 4 or 8); queries
 //   past Q are zero and never pass. The host plans one block per SM over
-//   the rows.
+//   the rows. Past what the merge's shared memory holds (k > 7,264), each
+//   merge warp keeps its query's list in that query's output row.
 //
 // int8 tables (topk_mips_quant, filter_kernel<int8_t, KS>): the score is
 // s_r * scale_r, s_r the chain over the row widened to f32, scale_r > 0
@@ -238,13 +256,14 @@ __device__ unsigned warp_offer(float* Lv, int* Li, int k, float v, int gi,
 // The filter scan's merge: one warp per query over its (lists, k) entries,
 // 32 at a time in memory order, so the loads need not wait for the
 // inserts; an entry below gtau[q] (the largest k-th score of any list, at
-// most the final k-th) is never offered.
+// most the final k-th) is never offered. The list is kept in shared memory,
+// or (in_out: past what shared memory holds) in the query's output row
+// itself, through the same code and generic pointers.
 __global__ void __launch_bounds__(MERGE_WARPS * 32)
     filter_merge_kernel(const float* __restrict__ part_v,
                         const int* __restrict__ part_i,
                         const unsigned* __restrict__ gtau, int Q, int lists,
-                        int k, float* __restrict__ out_v,
-                        int* __restrict__ out_i) {
+                        int k, float* out_v, int* out_i, int in_out) {
   extern __shared__ float4 smem4[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q = blockIdx.x * MERGE_WARPS + warp;
@@ -252,6 +271,10 @@ __global__ void __launch_bounds__(MERGE_WARPS * 32)
   float* Lv = reinterpret_cast<float*>(smem4) + warp * k;
   int* Li = reinterpret_cast<int*>(reinterpret_cast<float*>(smem4) +
                                    MERGE_WARPS * k) + warp * k;
+  if (in_out) {
+    Lv = out_v + static_cast<size_t>(q) * k;
+    Li = out_i + static_cast<size_t>(q) * k;
+  }
   for (int i = lane; i < k; i += 32) {
     Lv[i] = -INFINITY;
     Li[i] = IDX_SENTINEL;
@@ -268,6 +291,7 @@ __global__ void __launch_bounds__(MERGE_WARPS * 32)
     const int gi = i < n ? pi[i] : IDX_SENTINEL;
     warp_offer(Lv, Li, k, v, gi, i < n && !(v < tau), lane);
   }
+  if (in_out) return;
   for (int i = lane; i < k; i += 32) {
     out_v[static_cast<size_t>(q) * k + i] = Lv[i];
     out_i[static_cast<size_t>(q) * k + i] = Li[i];
@@ -431,7 +455,7 @@ __device__ __forceinline__ uint2 widen4(unsigned w) {
 // 2^-40: the sum of squares in int32 (__dp4a; exact, at most 256 * 127^2
 // < 2^24, so its float is too). FT / TR adjacent threads a row, 16 bytes a
 // step.
-template <int KS>
+template <int KS, bool ACC = false>
 __device__ void widen_tile(const int8_t* src, __nv_bfloat16* dst,
                            float* nrm) {
   constexpr int D = KS * 16, TR = tile_rows<int8_t, KS>(), TPR = FT / TR;
@@ -455,7 +479,13 @@ __device__ void widen_tile(const int8_t* src, __nv_bfloat16* dst,
   }
 #pragma unroll
   for (int o = 1; o < TPR; o <<= 1) ss += __shfl_xor_sync(FULL, ss, o);
-  if (part == 0) nrm[r] = sqrtf(static_cast<float>(ss)) + FLOOR;
+  // ACC: a slice's sum of squares added to the row's (wide rows)
+  if (part == 0) {
+    if constexpr (ACC)
+      nrm[r] += static_cast<float>(ss);
+    else
+      nrm[r] = sqrtf(static_cast<float>(ss)) + FLOOR;
+  }
 }
 
 // The scales of rows [r0, r0 + TR) into a stage (0 at or past `end`).
@@ -535,7 +565,7 @@ struct Filter {
   // the bf16 fragments of the warp's 8 NT queries from qw0 on
   static __device__ void query_frags(const float* queries, int Q, int d,
                                      int qw0, int lane,
-                                     uint32_t (&b)[KS][NT][2]) {
+                                     uint32_t (&b)[KS][NT][2], int c0 = 0) {
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -545,7 +575,7 @@ struct Filter {
       for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int j = 16 * ks + 2 * t + 8 * h;
+          const int j = c0 + 16 * ks + 2 * t + 8 * h;
           const float x0 = q < Q && j < d ? p[j] : 0.f;
           const float x1 = q < Q && j + 1 < d ? p[j + 1] : 0.f;
           b[ks][nt][h] = pack_bf16(x0, x1);
@@ -564,33 +594,45 @@ struct Filter {
     }
   }
 
-  // rows [r0, r0 + TR) into a stage; rows at or past `end` zero-filled
+  // columns [c0, c0 + w) of rows [r0, r0 + TR) into a stage (w = d: whole
+  // rows); rows at or past `end` zero-filled
   static __device__ void load_tile(T* dst, const T* table, int d,
-                                   long long r0, long long end) {
+                                   long long r0, long long end, int c0 = 0,
+                                   int w = -1) {
+    if (w < 0) w = d;
     if constexpr (kInt8<T>) {
-      if (d % 16) {                           // 8-byte rows' copies
-        const int ch = d / 8;
+      if (d % 16 || w % 16) {                 // 8-byte rows' copies
+        const int ch = w / 8;
         for (int i = threadIdx.x; i < TR * ch; i += FT) {
           const int r = i / ch, c = i - r * ch;
           const bool ok = r0 + r < end;
           cp_small<8>(dst + r * RS + c * 8,
-                      table + (ok ? (r0 + r) * d : 0) + c * 8, ok);
+                      table + (ok ? (r0 + r) * d : 0) + c0 + c * 8, ok);
         }
         return;
       }
     }
     constexpr int EPC = 16 / sizeof(T);       // elements per 16-byte copy
-    const int ch = d / EPC;                   // copies per row
+    const int ch = w / EPC;                   // copies per row
     for (int i = threadIdx.x; i < TR * ch; i += FT) {
       const int r = i / ch, c = i - r * ch;
       const bool ok = r0 + r < end;
       cp16(dst + r * RS + c * EPC,
-           table + (ok ? (r0 + r) * d : 0) + c * EPC, ok);
+           table + (ok ? (r0 + r) * d : 0) + c0 + c * EPC, ok);
+    }
+  }
+
+  // zero columns [w, D) of one stage (the last slice of a wide row)
+  static __device__ void zero_cols(T* tile, int w) {
+    for (int e = threadIdx.x; e < TR * (D - w); e += FT) {
+      const int r = e / (D - w), c = w + e % (D - w);
+      tile[r * RS + c] = T(0.f);
     }
   }
 
   // n'_r of every row of a staged tile (the f32 values of an f32 row, the
   // bf16 values of a bf16 one), FT / TR adjacent threads a row
+  template <bool ACC = false>
   static __device__ void row_norms(const T* tile, float* nrm) {
     constexpr int TPR = FT / TR;
     const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
@@ -604,7 +646,13 @@ struct Filter {
     }
 #pragma unroll
     for (int o = 1; o < TPR; o <<= 1) s += __shfl_xor_sync(FULL, s, o);
-    if (part == 0) nrm[r] = sqrtf(s) + FLOOR;
+    // ACC: a slice's sum of squares added to the row's (wide rows)
+    if (part == 0) {
+      if constexpr (ACC)
+        nrm[r] += s;
+      else
+        nrm[r] = sqrtf(s) + FLOOR;
+    }
   }
 
   // The approximate scores of m-tile rows [16 mt, 16 mt + 16) of a staged
@@ -612,13 +660,15 @@ struct Filter {
   // 8 nt + 2t, 8 nt + 2t + 1 (the mma accumulator layout).
   static __device__ __forceinline__ void scores(
       const T* tile, int mt, int lane, const uint32_t (&b)[KS][NT][2],
-      float (&acc)[NT][4]) {
+      float (&acc)[NT][4], bool add = false) {
     const int g = lane >> 2, t = lane & 3;
     const T* r0 = tile + (16 * mt + g) * RS + 2 * t;
     const T* r8 = r0 + 8 * RS;
+    if (!add) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+      for (int nt = 0; nt < NT; ++nt)
+        acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    }
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       const uint32_t a[4] = {frag2(r0 + 16 * ks), frag2(r8 + 16 * ks),
@@ -630,14 +680,90 @@ struct Filter {
   }
 };
 
+// The approximate scores of one row tile of a wide table (d > 256) against
+// a warp's queries: the tile's 256-column slices staged one after another
+// into stage 0 (the last slice's columns past d zeroed), an int8 slice
+// widened into `wide`; the warp's query fragments of each slice packed
+// from the f32 queries; each of the warp's m-tiles' mma.sync products
+// added into its accumulators, which A (TR x bq f32, laid out (m-tile,
+// query group, nt, c, lane)) keeps from slice to slice; each row's sum of
+// squares added slice by slice, and nrm[r] = its root + 2^-40 at the end.
+// The filter then reads a pair's a from A, as the narrow kernel reads its
+// accumulators.
+template <typename T, int KS>
+__device__ void wide_scores(const T* table, const float* queries, int Q,
+                            int d, long long r0, long long end, int qw,
+                            int qw0, int rw, int rws, int lane, T* tiles,
+                            typename Frag<T>::type* wide, float* nrm,
+                            float* A) {
+  using FragT = typename Frag<T>::type;
+  using R = Filter<T, KS>;
+  using F = Filter<FragT, KS>;
+  constexpr int NT = F::NT, TR = R::TR, D = R::D;
+  const int qg = (threadIdx.x >> 5) % qw;
+  for (int i = threadIdx.x; i < TR; i += FT) nrm[i] = 0.f;
+  for (int c0 = 0; c0 < d; c0 += D) {
+    const int wd = min(D, d - c0);
+    R::load_tile(tiles, table, d, r0, end, c0, wd);
+    cp_commit();
+    if (wd < D) R::zero_cols(tiles, wd);
+    cp_wait<0>();
+    __syncthreads();
+    const FragT* tile;
+    if constexpr (kInt8<T>) {
+      widen_tile<KS, true>(tiles, wide, nrm);
+      tile = wide;
+      __syncthreads();
+    } else {
+      tile = tiles;
+      F::template row_norms<true>(tile, nrm);
+    }
+    uint32_t b[KS][NT][2];
+    F::query_frags(queries, Q, d, qw0, lane, b, c0);
+    for (int mt = rw; mt < TR / 16; mt += rws) {
+      float* am = A + (mt * qw + qg) * NT * 4 * 32 + lane;
+      float acc[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc[nt][c] = c0 ? am[(4 * nt + c) * 32] : 0.f;
+      }
+      F::scores(tile, mt, lane, b, acc, true);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) am[(4 * nt + c) * 32] = acc[nt][c];
+      }
+    }
+    __syncthreads();            // the stage is refilled by the next slice
+  }
+  for (int i = threadIdx.x; i < TR; i += FT) nrm[i] = sqrtf(nrm[i]) + FLOOR;
+  __syncthreads();
+}
+
+// A warp's accumulators of m-tile mt as wide_scores left them in A.
+template <int NT>
+__device__ __forceinline__ void wide_acc(const float* A, int mt, int qw,
+                                         int lane, float (&acc)[NT][4]) {
+  const float* am =
+      A + (mt * qw + (threadIdx.x >> 5) % qw) * NT * 4 * 32 + lane;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nt][c] = am[(4 * nt + c) * 32];
+  }
+}
+
 // Shared memory of a filter block after its row staging (staging_bytes):
 // the lists' k-th (score, row) words, E, the threshold keys and the list
 // locks (bq each), each warp's float copy of its thresholds (FW x 8 NT),
 // the seeds' candidates (FW x 8 NT x seed_slots floats), the survivor
 // queues (FW x QCAP (query, row) pairs), the warps' survivor counts (FW
 // ints) and a tile's n'_r (TR floats); then, when they are kept on chip,
-// the block's lists (bq x k entries).
-template <typename T, int KS>
+// the block's lists (bq x k entries). A wide table's (WIDE) accumulators A
+// (TR x bq f32) follow the n'_r, before the lists.
+template <typename T, int KS, bool WIDE>
 size_t filter_smem(int qw, int k, bool lists_on_chip) {
   const int per_warp = 8 * query_tiles(KS);
   const size_t bq = static_cast<size_t>(qw) * per_warp;
@@ -646,6 +772,7 @@ size_t filter_smem(int qw, int k, bool lists_on_chip) {
          sizeof(float) * (FW * per_warp * (seed_slots<T>() + 1) +
                           tile_rows<T, KS>()) +
          sizeof(int2) * FW * QCAP + sizeof(int) * FW +
+         (WIDE ? sizeof(float) * tile_rows<T, KS>() * bq : 0) +
          (lists_on_chip ? (sizeof(float) + sizeof(int)) * bq *
                               static_cast<size_t>(k)
                         : 0);
@@ -665,8 +792,9 @@ size_t filter_smem(int qw, int k, bool lists_on_chip) {
 // rescored. An int8 table (scales given) keeps its lists in scaled scores:
 // a pair's bound is fl(fl(a + eps) * scale_r), its exact score the chain
 // times scale_r (the note), the tile widened to bf16 before its fragments
-// load.
-template <typename T, int KS>
+// load. WIDE (d > 256, KS = 16): each row tile is scored slice by slice
+// (wide_scores), its scores read back from shared memory.
+template <typename T, int KS, bool WIDE>
 __global__ void __launch_bounds__(FT, 1)
     filter_kernel(const T* __restrict__ table,
                   const float* __restrict__ scales,
@@ -699,6 +827,7 @@ __global__ void __launch_bounds__(FT, 1)
   int2* queue_all = reinterpret_cast<int2*>(seed_all + FW * PER_WARP * SEED);
   int* wcount = reinterpret_cast<int*>(queue_all + FW * QCAP);
   float* nrm = reinterpret_cast<float*>(wcount + FW);
+  float* A = nrm + TR;                        // WIDE: (TR, bq) accumulators
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int rw = w / qw, rws = FW / qw;
@@ -708,7 +837,7 @@ __global__ void __launch_bounds__(FT, 1)
   float* lists_v = part_v;
   int* lists_i = part_i;
   if (lists_on_chip) {
-    lists_v = nrm + TR;
+    lists_v = A + (WIDE ? TR * bq : 0);
     lists_i = reinterpret_cast<int*>(lists_v + bq * k);
   }
   // where the list of query q starts
@@ -740,11 +869,12 @@ __global__ void __launch_bounds__(FT, 1)
   const long long begin = static_cast<long long>(blockIdx.y) * rows_per_split;
   const long long end =
       min(begin + rows_per_split, static_cast<long long>(valid));
-  R::load_tile(tiles, table, d, begin, end);
-  if constexpr (Q8) load_scales<TR>(scale_st, scales, begin, end);
-  cp_commit();
-
-  R::zero_pad(tiles, d);
+  if constexpr (!WIDE) {
+    R::load_tile(tiles, table, d, begin, end);
+    if constexpr (Q8) load_scales<TR>(scale_st, scales, begin, end);
+    cp_commit();
+    R::zero_pad(tiles, d);
+  }
   F::query_bounds(queries, Q, d, q0, bq, rho_t, E);
   for (int i = threadIdx.x; i < bq; i += FT) {
     tkey_all[i] = order_key(q0 + i < Q ? -INFINITY : INFINITY);
@@ -760,7 +890,7 @@ __global__ void __launch_bounds__(FT, 1)
     }
   }
   uint32_t b[KS][NT][2];
-  F::query_frags(queries, Q, d, qw0, lane, b);
+  if constexpr (!WIDE) F::query_frags(queries, Q, d, qw0, lane, b);
   // the lane's accumulator slots that hold a real query (bit 4 nt + c)
   unsigned qmask = 0;
 #pragma unroll
@@ -836,6 +966,15 @@ __global__ void __launch_bounds__(FT, 1)
   for (int i = 0; i < GW; ++i) gnext[i] = 0u;
   int stage = 0;
   for (long long r0 = begin; r0 < end; r0 += TR, stage ^= 1) {
+    const FragT* tile = nullptr;
+    const float* sc = nullptr;                // int8: the tile's row scales
+    if constexpr (WIDE) {
+      // the scales ride with the first slice's copies
+      if constexpr (Q8) load_scales<TR>(scale_st, scales, r0, end);
+      wide_scores<T, KS>(table, queries, Q, d, r0, end, qw, qw0, rw, rws,
+                         lane, tiles, wide, nrm, A);
+      if constexpr (Q8) sc = scale_st;
+    } else {
     if (r0 + TR < end) {
       R::load_tile(tiles + (stage ^ 1) * TR * RS, table, d, r0 + TR, end);
       if constexpr (Q8)
@@ -846,8 +985,6 @@ __global__ void __launch_bounds__(FT, 1)
       cp_wait<0>();
     }
     __syncthreads();
-    const FragT* tile;
-    const float* sc = nullptr;                // int8: the tile's row scales
     if constexpr (Q8) {
       widen_tile<KS>(tiles + stage * TR * RS, wide, nrm);
       tile = wide;
@@ -856,6 +993,15 @@ __global__ void __launch_bounds__(FT, 1)
       tile = tiles + stage * TR * RS;
       F::row_norms(tile, nrm);
     }
+    }
+    // a pair's approximate scores: the tensor cores' products of the staged
+    // tile, or what wide_scores left in A
+    auto scores_of = [&](int mt, float (&acc)[NT][4]) {
+      if constexpr (WIDE)
+        wide_acc<NT>(A, mt, qw, lane, acc);
+      else
+        F::scores(tile, mt, lane, b, acc);
+    };
 #pragma unroll
     for (int i = 0; i < GW; ++i) {
       const int j = 32 * i + lane;
@@ -878,7 +1024,7 @@ __global__ void __launch_bounds__(FT, 1)
       }
       for (int mt = rw; mt < TR / 16; mt += rws) {
         float acc[NT][4];
-        F::scores(tile, mt, lane, b, acc);
+        scores_of(mt, acc);
         const float n_g = nrm[16 * mt + g], n_g8 = nrm[16 * mt + g + 8];
         const bool ok_g = r0 + 16 * mt + g < end;
         const bool ok_g8 = r0 + 16 * mt + g + 8 < end;
@@ -950,7 +1096,7 @@ __global__ void __launch_bounds__(FT, 1)
     }
     for (int mt = rw; mt < TR / 16; mt += rws) {
       float acc[NT][4];
-      F::scores(tile, mt, lane, b, acc);
+      scores_of(mt, acc);
       const float n_g = nrm[16 * mt + g], n_g8 = nrm[16 * mt + g + 8];
       float s_g = 1.f, s_g8 = 1.f;
       if constexpr (Q8) {
@@ -1061,7 +1207,7 @@ __global__ void __launch_bounds__(FT, 1)
 // every query (test-only): out_a and out_eps are (Q, n) f32. One block per
 // (query block, row tile), the same fragments, norms and E'_q as the scan
 // (an int8 table's unscaled: the scan compares them times the row's scale).
-template <typename T, int KS>
+template <typename T, int KS, bool WIDE>
 __global__ void __launch_bounds__(FT, 1)
     filter_export_kernel(const T* __restrict__ table,
                          const float* __restrict__ queries, int Q, int d,
@@ -1077,33 +1223,42 @@ __global__ void __launch_bounds__(FT, 1)
   FragT* wide = reinterpret_cast<FragT*>(smem + 2 * tile_bytes<T, KS>());
   float* E = reinterpret_cast<float*>(smem + staging_bytes<T, KS>());
   float* nrm = E + qw * PER_WARP;
+  float* A = nrm + TR;                        // WIDE: (TR, bq) accumulators
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int rw = w / qw, rws = FW / qw;
   const int q0 = blockIdx.x * qw * PER_WARP;
   const int qw0 = q0 + (w % qw) * PER_WARP;
   const long long r0 = static_cast<long long>(blockIdx.y) * TR;
-  R::load_tile(tiles, table, d, r0, n);
-  cp_commit();
-  R::zero_pad(tiles, d);
-  F::query_bounds(queries, Q, d, q0, qw * PER_WARP, rho_t, E);
+  const FragT* tile = nullptr;
   uint32_t b[KS][NT][2];
-  F::query_frags(queries, Q, d, qw0, lane, b);
-  cp_wait<0>();
-  __syncthreads();
-  const FragT* tile;
-  if constexpr (kInt8<T>) {
-    widen_tile<KS>(tiles, wide, nrm);
-    tile = wide;
+  F::query_bounds(queries, Q, d, q0, qw * PER_WARP, rho_t, E);
+  if constexpr (WIDE) {
+    wide_scores<T, KS>(table, queries, Q, d, r0, n, qw, qw0, rw, rws, lane,
+                       tiles, wide, nrm, A);
   } else {
-    tile = tiles;
-    F::row_norms(tile, nrm);
+    R::load_tile(tiles, table, d, r0, n);
+    cp_commit();
+    R::zero_pad(tiles, d);
+    F::query_frags(queries, Q, d, qw0, lane, b);
+    cp_wait<0>();
+    __syncthreads();
+    if constexpr (kInt8<T>) {
+      widen_tile<KS>(tiles, wide, nrm);
+      tile = wide;
+    } else {
+      tile = tiles;
+      F::row_norms(tile, nrm);
+    }
+    __syncthreads();
   }
-  __syncthreads();
   const float* Ew = E + (w % qw) * PER_WARP;
   for (int mt = rw; mt < TR / 16; mt += rws) {
     float acc[NT][4];
-    F::scores(tile, mt, lane, b, acc);
+    if constexpr (WIDE)
+      wide_acc<NT>(A, mt, qw, lane, acc);
+    else
+      F::scores(tile, mt, lane, b, acc);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
@@ -1120,33 +1275,33 @@ __global__ void __launch_bounds__(FT, 1)
   }
 }
 
-template <typename T, int KS>
+template <typename T, int KS, bool WIDE>
 int launch_filter(bool export_only, const void* table, const void* scales,
                   const void* queries, int Q, int d, int valid, int k, int qw,
                   int rows_per_split, int splits, void* part_v, void* part_i,
                   void* counts, void* gtau, void* out_a, void* out_eps,
                   cudaStream_t st) {
   const bool on_chip = !export_only &&
-                       filter_smem<T, KS>(qw, k, true) <= kSmemPerBlock;
-  const size_t smem = filter_smem<T, KS>(qw, k, on_chip);
+                       filter_smem<T, KS, WIDE>(qw, k, true) <= kSmemPerBlock;
+  const size_t smem = filter_smem<T, KS, WIDE>(qw, k, on_chip);
   const int per_block = qw * 8 * query_tiles(KS);
   // 2^-8 for an f32 table rounded to bf16; 0 for bf16 and int8 rows
   const float rho_t = sizeof(T) == 4 ? 0.00390625f : 0.f;
   if (export_only) {
     cudaError_t e = cudaFuncSetAttribute(
-        filter_export_kernel<T, KS>,
+        filter_export_kernel<T, KS, WIDE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     const dim3 grid((Q + per_block - 1) / per_block,
                     (valid + tile_rows<T, KS>() - 1) / tile_rows<T, KS>());
-    filter_export_kernel<T, KS><<<grid, FT, smem, st>>>(
+    filter_export_kernel<T, KS, WIDE><<<grid, FT, smem, st>>>(
         static_cast<const T*>(table), static_cast<const float*>(queries), Q,
         d, valid, qw, rho_t, static_cast<float*>(out_a),
         static_cast<float*>(out_eps));
     return static_cast<int>(cudaGetLastError());
   }
   cudaError_t e = cudaFuncSetAttribute(
-      filter_kernel<T, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      filter_kernel<T, KS, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   // gtau, then for int8 the GROUPS group words of each query
   if (e == cudaSuccess)
@@ -1156,7 +1311,7 @@ int launch_filter(bool export_only, const void* table, const void* scales,
         st);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Q + per_block - 1) / per_block, splits);
-  filter_kernel<T, KS><<<grid, FT, smem, st>>>(
+  filter_kernel<T, KS, WIDE><<<grid, FT, smem, st>>>(
       static_cast<const T*>(table), static_cast<const float*>(scales),
       static_cast<const float*>(queries), Q, d, valid, k, qw, rows_per_split,
       rho_t, static_cast<float*>(part_v), static_cast<int*>(part_i),
@@ -1181,9 +1336,9 @@ struct FilterCall {
   cudaStream_t st;
 };
 
-template <typename T, int KS>
+template <typename T, int KS, bool WIDE = false>
 int launch_call(const FilterCall& c) {
-  return launch_filter<T, KS>(c.export_only, c.table, c.scales, c.queries,
+  return launch_filter<T, KS, WIDE>(c.export_only, c.table, c.scales, c.queries,
                               c.Q, c.d, c.valid, c.k, c.qw, c.rows_per_split,
                               c.splits, c.part_v, c.part_i, c.counts, c.gtau,
                               c.out_a, c.out_eps, c.st);
@@ -1191,6 +1346,13 @@ int launch_call(const FilterCall& c) {
 
 template <typename T>
 int dispatch_width(int width, const FilterCall& c) {
+  // past 256 columns: 256-column slices (any width a multiple of 256 that
+  // covers d)
+  if (width > 256) {
+    if (width % 256 || c.d > width || c.d <= width - 256)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_call<T, 16, true>(c);
+  }
   switch (width) {
     case 32:
       return launch_call<T, 2>(c);
@@ -1218,7 +1380,8 @@ int dispatch_dtype(int dtype, int width, const FilterCall& c) {
 
 // The filter scan. dtype: 0 = f32, 1 = bf16, 2 = int8 (scales: (rows,) f32,
 // positive, required; scores are (q . row) * scale); width: d padded to 32,
-// 64, 128 or 256; qw in {1, 2, 4, 8} query groups per block. The table is
+// 64, 128 or 256, or past 256 d rounded up to a multiple of 256 (scored in
+// 256-column slices); qw in {1, 2, 4, 8} query groups per block. The table is
 // (rows, d) row-major with d % 8 == 0 and 16-byte rows aligned, queries
 // (Q, d) f32 16-byte aligned; rows >= valid are never read. Grid: one
 // block per (query block, split); part_v/part_i: (Q, splits, k), each
@@ -1245,8 +1408,12 @@ extern "C" int topk_filter_partials(int dtype, int width, int qw,
 extern "C" int topk_filter_merge(const void* part_v, const void* part_i,
                                  const void* gtau, int Q, int splits, int k,
                                  void* out_v, void* out_i, void* stream) {
-  const size_t smem =
-      static_cast<size_t>(MERGE_WARPS) * k * (sizeof(float) + sizeof(int));
+  // the warps' lists in shared memory while they fit, else in the output
+  const bool in_out = static_cast<size_t>(MERGE_WARPS) * k *
+                          (sizeof(float) + sizeof(int)) > kSmemPerBlock;
+  const size_t smem = in_out ? 0
+                             : static_cast<size_t>(MERGE_WARPS) * k *
+                                   (sizeof(float) + sizeof(int));
   cudaError_t e = cudaFuncSetAttribute(
       filter_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -1256,7 +1423,7 @@ extern "C" int topk_filter_merge(const void* part_v, const void* part_i,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part_v), static_cast<const int*>(part_i),
       static_cast<const unsigned*>(gtau), Q, splits, k,
-      static_cast<float*>(out_v), static_cast<int*>(out_i));
+      static_cast<float*>(out_v), static_cast<int*>(out_i), in_out ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 

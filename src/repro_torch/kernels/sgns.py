@@ -19,10 +19,14 @@ three CUDA sources:
   gradients only) and :func:`sgns_grads` replaces ``sgns_grads`` (the
   gradients of pre-gathered rows). All three launch ``csrc/sgns_update.cu``,
   whose header has the design. The update is one cooperative launch per
-  minibatch (:func:`plan_fused_update`): tile-gradient blocks with
-  per-block partials while one block sorts the ids on chip, a grid-wide
-  barrier, then every warp combines and applies runs of equal ids, so a
-  run repeats bitwise. ``sgns_grads`` and ``sgns_fused_grads`` are one
+  minibatch at any B and S (:func:`plan_fused_update`): tile-gradient
+  blocks with per-block partials while one block sorts the ids on chip, a
+  grid-wide barrier, then every warp combines and applies runs of equal
+  ids, so a run repeats bitwise; past one block an SM or
+  ``FUSED_SORT_CAP`` positions, one block an SM strides over the tiles
+  and the ids are sorted across the grid. Negatives too wide for a tile's
+  shared memory are staged in chunks (:func:`plan_grads_tile`), in all
+  three kernels. ``sgns_grads`` and ``sgns_fused_grads`` are one
   cooperative launch of one kernel (:func:`plan_sgns_grads`), with the
   rows gathered beforehand or read through the ids: 8-row gradient tiles,
   up to one block an SM (a block takes several tiles past that), a
@@ -72,6 +76,8 @@ FUSED_WARPS = 8                   # warps of a fused-update block
 # 8-byte keys and 4-byte run starts, a power of two of each, in one
 # block's shared memory
 FUSED_SORT_CAP = 1 << ((SMEM_PER_BLOCK // 12).bit_length() - 1)
+# keys a block of the fused update's grid-wide sort holds at once (64 KB)
+FUSED_SORT_CHUNK = 8192
 _TABLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -307,34 +313,71 @@ def grads_tile_smem_bytes(bb: int, S: int, d: int) -> int:
     return 4 * (2 * bb * d + S * d + 2 * bb * (S + 1) + bb)
 
 
+def chunk_work_floats(bb: int, S: int, d: int, nc: int) -> int:
+    """f32 words of a chunked tile's workspace (``tile_grads_chunked`` in
+    ``csrc/sgns_update.cu``): the (bb, d) v and c rows and dv accumulator,
+    the (bb, S + 1) gradients and loss terms, the (bb,) mask and ``nc``
+    negative rows."""
+    return 3 * bb * d + 2 * bb * (S + 1) + bb + nc * d
+
+
+@dataclasses.dataclass(frozen=True)
+class GradsTile:
+    """A gradient tile's geometry: ``bb`` rows; ``chunk`` 0 when the S
+    negatives fit beside the tile in shared memory (``smem_bytes`` of
+    :func:`grads_tile_smem_bytes`), else the negatives staged ``chunk``
+    rows at a time in a workspace of :func:`chunk_work_floats`: in shared
+    memory (``smem_bytes``) when it fits there, else ``work_floats`` words
+    per block in device memory (``smem_bytes`` 0)."""
+
+    bb: int
+    smem_bytes: int
+    chunk: int = 0
+    work_floats: int = 0
+
+
 def plan_grads_tile(B: int, S: int, d: int,
-                    rows: int = GRAD_TILE_ROWS) -> tuple[int, int]:
-    """(rows per block, shared bytes) of the tile-gradients kernel:
-    ``rows`` rows, halved while the block would exceed the card's 227 KB.
-    Raises ``ValueError`` when one row does not fit (the S negative rows
-    alone are too wide)."""
+                    rows: int = GRAD_TILE_ROWS) -> GradsTile:
+    """The tile-gradients geometry for any B, S and d: ``rows`` rows,
+    halved while the tile and all S negatives would exceed the card's
+    227 KB. When not even one row fits beside the negatives, the tile keeps
+    ``rows`` rows and the negatives are staged in the largest chunks that
+    fit beside it (its rows halved while not one negative fits); when a
+    one-row tile and one negative do not fit (d past 14,500), the
+    workspace moves to device memory, all S negatives in one chunk."""
     bb = max(1, min(rows, B))
     while bb > 1 and grads_tile_smem_bytes(bb, S, d) > SMEM_PER_BLOCK:
         bb //= 2
     smem = grads_tile_smem_bytes(bb, S, d)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"S={S} negatives of width d={d} do not fit the "
-                         f"tile-gradients block's shared memory "
-                         f"({smem} > {SMEM_PER_BLOCK} bytes)")
-    return bb, smem
+    if smem <= SMEM_PER_BLOCK:
+        return GradsTile(bb, smem)
+    bb = max(1, min(rows, B))
+    while True:
+        nc = min(S, (SMEM_PER_BLOCK // 4 - chunk_work_floats(bb, S, d, 0))
+                 // d)
+        if nc >= 1:
+            return GradsTile(bb, 4 * chunk_work_floats(bb, S, d, nc), nc)
+        if bb == 1:
+            break
+        bb //= 2
+    bb = max(1, min(rows, B))
+    return GradsTile(bb, 0, S, chunk_work_floats(bb, S, d, S))
 
 
 @dataclasses.dataclass(frozen=True)
 class GradsPlan:
     """Geometry of one :func:`sgns_grads`: ``bb`` minibatch rows per tile,
     ``tiles`` tiles, ``blocks`` blocks (one cooperative launch, at most one
-    per SM, each taking tiles ``blockIdx``, ``blockIdx + blocks``, ...) and
-    the dynamic shared memory of a block (:func:`grads_tile_smem_bytes`)."""
+    per SM, each taking tiles ``blockIdx``, ``blockIdx + blocks``, ...), the
+    dynamic shared memory of a block, and the tiles' negative ``chunk`` and
+    device ``work_floats`` per block (:class:`GradsTile`)."""
 
     bb: int
     tiles: int
     blocks: int
     smem_bytes: int
+    chunk: int = 0
+    work_floats: int = 0
 
 
 def plan_sgns_grads(B: int, S: int, d: int, *,
@@ -342,57 +385,69 @@ def plan_sgns_grads(B: int, S: int, d: int, *,
     """:func:`plan_grads_tile` with ``GRADS_ROWS`` rows a tile, and as many
     blocks as tiles, at most one per SM (the launch is cooperative, and one
     block per SM is the residency every grid of this size is sure of);
-    past that each block takes several tiles. Raises ``ValueError`` when
-    the S negative rows of width d do not fit a block's shared memory."""
+    past that each block takes several tiles. Any B, S >= 1 and d."""
     if B < 1 or S < 1:
         raise ValueError(f"sgns_grads: need B, S >= 1, got {B}, {S}")
-    bb, smem = plan_grads_tile(B, S, d, GRADS_ROWS)
-    tiles = -(-B // bb)
-    return GradsPlan(bb=bb, tiles=tiles, blocks=min(tiles, sm_count),
-                     smem_bytes=smem)
+    t = plan_grads_tile(B, S, d, GRADS_ROWS)
+    tiles = -(-B // t.bb)
+    return GradsPlan(bb=t.bb, tiles=tiles, blocks=min(tiles, sm_count),
+                     smem_bytes=t.smem_bytes, chunk=t.chunk,
+                     work_floats=t.work_floats)
 
 
 @dataclasses.dataclass(frozen=True)
 class FusedPlan:
-    """Geometry of one fused update: ``bb`` minibatch rows per gradient
-    block (``grad_blocks`` of them), then two sorting blocks (the vertex
-    side's B positions, the context side's B + S), then more up to
-    ``blocks`` so the combine has a warp per position; ``sort_keys`` (B +
-    S rounded up to a power of two, the larger side's keys), and the
-    dynamic shared memory of a block (the larger of a gradient tile's and
-    a sort's: the keys and the run starts)."""
+    """Geometry of one fused update. ``sort_chunk`` 0 (every minibatch the
+    trainer issues): ``bb`` minibatch rows per gradient block
+    (``grad_blocks`` of them), then two sorting blocks (the vertex side's B
+    positions, the context side's B + S), then more up to ``blocks`` so the
+    combine has a warp per position; ``sort_keys`` is B + S rounded up to a
+    power of two (the larger side's keys). ``sort_chunk`` > 0 (past one
+    block an SM or ``FUSED_SORT_CAP``): ``blocks`` blocks, one an SM,
+    stride over the tiles (``grad_blocks`` of them hold partials) and sort
+    all 2B + S positions, ``sort_keys`` of them padded to a power of two,
+    ``sort_chunk`` at a time in shared memory. ``smem_bytes`` is a block's
+    dynamic shared memory (the larger of a gradient tile's and the sort's);
+    ``chunk`` and ``work_floats`` are the tiles' (:class:`GradsTile`)."""
 
     bb: int
     grad_blocks: int
     blocks: int
     sort_keys: int
     smem_bytes: int
+    chunk: int = 0
+    work_floats: int = 0
+    sort_chunk: int = 0
 
 
 def plan_fused_update(B: int, S: int, d: int, *,
                       sm_count: int = 132) -> FusedPlan:
-    """The fused update's geometry (:func:`plan_grads_tile` for the
-    gradient tiles, ``FUSED_TILE_ROWS`` rows each). Raises
-    ``ValueError`` when a side's B + S positions pass ``FUSED_SORT_CAP`` (a
-    sorting block's shared memory) or when the grid has more blocks than
-    the card has SMs: the launch is cooperative, and one block per SM is
-    the residency every grid of this size is sure of (the kernel also asks
-    the card, and its launch fails rather than hang)."""
-    bb, grads_smem = plan_grads_tile(B, S, d, FUSED_TILE_ROWS)
-    if B + S > FUSED_SORT_CAP:
-        raise ValueError(f"sgns_fused_update sorts B + S = {B + S} context "
-                         f"positions on chip; a sorting block's shared "
-                         f"memory holds {FUSED_SORT_CAP}")
-    nblk = -(-B // bb)
-    if nblk + 2 > sm_count:
-        raise ValueError(f"sgns_fused_update at B={B} needs {nblk + 2} "
-                         f"blocks resident at once, more than the card's "
-                         f"{sm_count} SMs")
-    n2 = 1 << (B + S - 1).bit_length()
+    """The fused update's geometry for any B, S >= 1 and d
+    (:func:`plan_grads_tile` for the gradient tiles, ``FUSED_TILE_ROWS``
+    rows each). Up to one tile a block beside the two sorting blocks, and
+    B + S <= ``FUSED_SORT_CAP``, the layout of one block a tile with the
+    sort on chip; past either, one block an SM and the grid-wide sort in
+    ``FUSED_SORT_CHUNK``-key chunks. The launch is cooperative, and one
+    block per SM is the residency every grid of this size is sure of (the
+    kernel also asks the card, and its launch fails rather than hang)."""
+    if B < 1 or S < 1:
+        raise ValueError(f"sgns_fused_update: need B, S >= 1, got {B}, {S}")
+    t = plan_grads_tile(B, S, d, FUSED_TILE_ROWS)
+    tiles = -(-B // t.bb)
     n = 2 * B + S
-    return FusedPlan(bb=bb, grad_blocks=nblk,
-                     blocks=min(sm_count, max(nblk + 2, -(-n // FUSED_WARPS))),
-                     sort_keys=n2, smem_bytes=max(grads_smem, 12 * n2 + 4))
+    if B + S <= FUSED_SORT_CAP and tiles + 2 <= sm_count:
+        n2 = 1 << (B + S - 1).bit_length()
+        return FusedPlan(
+            bb=t.bb, grad_blocks=tiles,
+            blocks=min(sm_count, max(tiles + 2, -(-n // FUSED_WARPS))),
+            sort_keys=n2, smem_bytes=max(t.smem_bytes, 12 * n2 + 4),
+            chunk=t.chunk, work_floats=t.work_floats)
+    n2 = 1 << (n - 1).bit_length()
+    chunk = min(n2, FUSED_SORT_CHUNK)
+    return FusedPlan(bb=t.bb, grad_blocks=min(sm_count, tiles),
+                     blocks=sm_count, sort_keys=n2,
+                     smem_bytes=max(t.smem_bytes, 8 * chunk), chunk=t.chunk,
+                     work_floats=t.work_floats, sort_chunk=chunk)
 
 
 def _check_sgns_args(name, vert, ctx, idx_v, idx_c, idx_n, mask):
@@ -436,22 +491,28 @@ def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def _grads_launch(dev, dtype, B, S, d):
     """The plan of one cooperative gradients launch (:func:`plan_sgns_grads`)
-    and its outputs: ``(plan, (loss, dv, dc, dn), pointers)``, dv and dc (B,
-    d) and dn (S, d) in ``dtype``, the loss the last element of an f32
-    scratch that first holds the blocks' dn partials (blocks, S, d) and loss
-    partials (blocks,); ``pointers`` are the C entries' last six arguments
-    (dv, dc, dn partials, loss partials, dn, loss)."""
+    and its outputs: ``(plan, (loss, dv, dc, dn), arguments)``, dv and dc
+    (B, d) and dn (S, d) in ``dtype``, the loss the last element of an f32
+    scratch that first holds the blocks' dn partials (blocks, S, d), their
+    chunked tiles' workspaces (blocks, work_floats) and loss partials
+    (blocks,); ``arguments`` are the C entries' last arguments but the
+    stream (plan.bb, blocks, shared bytes, nc, work_floats, workspaces, dv,
+    dc, dn partials, loss partials, dn, loss)."""
     plan = plan_sgns_grads(B, S, d, sm_count=_sm_count(dev))
     nblk = plan.blocks
     dv = torch.empty((B, d), dtype=dtype, device=dev)
     dc = torch.empty((B, d), dtype=dtype, device=dev)
     dn = torch.empty((S, d), dtype=dtype, device=dev)
-    scratch = torch.empty(nblk * S * d + nblk + 1, dtype=torch.float32,
-                          device=dev)
+    work = nblk * plan.work_floats
+    scratch = torch.empty(nblk * S * d + work + nblk + 1,
+                          dtype=torch.float32, device=dev)
     p = scratch.data_ptr()
-    ptrs = (dv.data_ptr(), dc.data_ptr(), p, p + 4 * nblk * S * d,
-            dn.data_ptr(), p + 4 * (nblk * S * d + nblk))
-    return plan, (scratch[-1], dv, dc, dn), ptrs
+    p_work = p + 4 * nblk * S * d
+    p_loss = p_work + 4 * work
+    args = (plan.bb, plan.blocks, plan.smem_bytes, plan.chunk,
+            plan.work_floats, p_work if work else None, dv.data_ptr(),
+            dc.data_ptr(), p, p_loss, dn.data_ptr(), p_loss + 4 * nblk)
+    return plan, (scratch[-1], dv, dc, dn), args
 
 
 def sgns_fused_grads(vert, ctx, idx_v, idx_c, idx_n, mask):
@@ -470,12 +531,11 @@ def sgns_fused_grads(vert, ctx, idx_v, idx_c, idx_n, mask):
     B, S, d, mask_bf16 = _check_sgns_args("sgns_fused_grads", vert, ctx,
                                           idx_v, idx_c, idx_n, mask)
     dev = vert.device
-    plan, out, ptrs = _grads_launch(dev, vert.dtype, B, S, d)
+    _, out, args = _grads_launch(dev, vert.dtype, B, S, d)
     rc = _launch(dev, build.library("sgns_update").sgns_fused_grads,
                  _TABLE_DTYPES[vert.dtype], mask_bf16, vert.data_ptr(),
                  ctx.data_ptr(), idx_v.data_ptr(), idx_c.data_ptr(),
-                 idx_n.data_ptr(), mask.data_ptr(), B, S, d, plan.bb,
-                 plan.blocks, plan.smem_bytes, *ptrs)
+                 idx_n.data_ptr(), mask.data_ptr(), B, S, d, *args)
     build.check(rc, "sgns_fused_grads")
     LAUNCHES["sgns_fused_grads"] += 1
     return out
@@ -503,19 +563,24 @@ def sgns_fused_update(vert, ctx, idx_v, idx_c, idx_n, mask, lr):
     dev = vert.device
     plan = plan_fused_update(B, S, d, sm_count=_sm_count(dev))
     nblk = plan.grad_blocks
-    # f32 scratch: dv, dc (B, d), dn partials (nblk, S, d), loss partials
-    # (nblk,), loss; int32: each run's (start, end, id, first position),
-    # the sorted positions and the two sides' run counts
-    fscratch = torch.empty(2 * B * d + nblk * S * d + nblk + 1,
+    n = 2 * B + S
+    # f32 scratch: dv, dc (B, d), dn partials (nblk, S, d), the chunked
+    # tiles' workspaces (blocks, work_floats), loss partials (nblk,), loss;
+    # int32: each run's (start, end, id, first position), the sorted
+    # positions and the two sides' run counts; or, for the grid-wide sort,
+    # its 64-bit keys and the sorted positions
+    fscratch = torch.empty(2 * B * d + nblk * S * d
+                           + plan.blocks * plan.work_floats + nblk + 1,
                            dtype=torch.float32, device=dev)
-    iscratch = torch.empty(5 * (2 * B + S) + 2, dtype=torch.int32,
-                           device=dev)
+    iscratch = torch.empty(2 * plan.sort_keys + n if plan.sort_chunk
+                           else 5 * n + 2, dtype=torch.int32, device=dev)
     rc = _launch(dev, build.library("sgns_update").sgns_fused_update,
                  _TABLE_DTYPES[vert.dtype], mask_bf16, vert.data_ptr(),
                  ctx.data_ptr(), idx_v.data_ptr(), idx_c.data_ptr(),
                  idx_n.data_ptr(), mask.data_ptr(), B, S, d, float(lr),
-                 plan.bb, plan.blocks, plan.smem_bytes, fscratch.data_ptr(),
-                 iscratch.data_ptr())
+                 plan.bb, nblk, plan.blocks, plan.smem_bytes, plan.chunk,
+                 plan.work_floats, plan.sort_chunk, plan.sort_keys,
+                 fscratch.data_ptr(), iscratch.data_ptr())
     build.check(rc, "sgns_fused_update")
     LAUNCHES["sgns_fused_update"] += 1
     return vert, ctx, fscratch[-1]
@@ -552,11 +617,11 @@ def sgns_grads(v, c, n, mask):
         raise ValueError(f"sgns_grads: mask must be a contiguous ({B},) "
                          f"float32 or {v.dtype} tensor on {dev}, got "
                          f"{mask.dtype} {tuple(mask.shape)}")
-    plan, out, ptrs = _grads_launch(dev, v.dtype, B, S, d)
+    _, out, args = _grads_launch(dev, v.dtype, B, S, d)
     rc = _launch(dev, build.library("sgns_update").sgns_grads,
                  _TABLE_DTYPES[v.dtype], int(mask.dtype == torch.bfloat16),
                  v.data_ptr(), c.data_ptr(), n.data_ptr(), mask.data_ptr(),
-                 B, S, d, plan.bb, plan.blocks, plan.smem_bytes, *ptrs)
+                 B, S, d, *args)
     build.check(rc, "sgns_grads")
     LAUNCHES["sgns_grads"] += 1
     return out

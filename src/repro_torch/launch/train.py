@@ -18,6 +18,20 @@ JAX package's checkpoint format, so either package loads the other's files,
 and ends with a summary line: edges trained per second and the mean
 episode seconds.
 
+Several ranks: under ``torchrun`` (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
+``MASTER_ADDR``, ``MASTER_PORT`` in the environment) each process is one
+rank of the mesh ``(1, WORLD_SIZE)``, as the JAX launcher builds ``(1,
+n_dev)``; without them the launcher runs one rank. Every rank builds the
+same graph, walks and blocks from ``--seed`` and stages only its own row;
+the vertex shards rotate between the ranks (``core.ring``). Rank 0 gathers
+both tables, prints, evaluates and writes the checkpoint and resume files
+(the same format). ``--device cuda`` gives each rank ``cuda:LOCAL_RANK``
+(``nccl``); an explicit ``--device cuda:N`` places every rank on that one
+card (``gloo``, host-staged); ``--device cpu`` runs ``gloo`` on the CPU:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --graph-kind \
+        sbm --nodes 1200 --epochs 12 --episodes 3 --subparts 2 ...
+
 Fault tolerance: ``--ckpt-every N`` writes an atomic, checksummed resume
 checkpoint (tables + mid-epoch cursor) every N episodes; ``--resume``
 continues from it. ``--stall-timeout-s`` bounds how long any stage may block
@@ -33,18 +47,56 @@ import time
 import numpy as np
 
 
+def _ranks(args):
+    """(world size, rank, this rank's device, backend or None) from the
+    ``torchrun`` environment; one rank without it."""
+    import torch
+
+    from repro_torch.core.ring import backend_for
+    from repro_torch.device import resolve_device
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return 1, 0, resolve_device(args.device), None
+    rank = int(os.environ["RANK"])
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    name = str(args.device)
+    # "cuda" alone: a card a rank; an explicit index: every rank on it
+    shared = name != "cuda"
+    device = resolve_device(f"cuda:{local}" if name == "cuda" else name)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return world, rank, device, backend_for(device, shared)
+
+
 def train_embedding(args) -> dict:
+    import torch.distributed as dist
+
+    # fail before any graph work
+    world, rank, device, backend = _ranks(args)
+    if backend is not None:
+        dist.init_process_group(
+            backend, init_method=f"tcp://{os.environ['MASTER_ADDR']}:"
+                                 f"{os.environ['MASTER_PORT']}",
+            world_size=world, rank=rank)
+    try:
+        return _train_ranks(args, world, rank, device)
+    finally:
+        if backend is not None:
+            dist.destroy_process_group()
+
+
+def _train_ranks(args, world, rank, device) -> dict:
     from repro_torch.configs.tencent_embedding import SMALL
     from repro_torch.core import (EpisodePipeline, HybridConfig,
                                   HybridEmbeddingTrainer)
     from repro_torch.core import eval as ev
-    from repro_torch.device import resolve_device
     from repro_torch.graph.csr import build_csr
     from repro_torch.graph.generators import powerlaw_graph, sbm_graph
     from repro_torch.train.checkpoint import load_arrays
     from repro_torch.walk import MemorySampleStore, WalkConfig, WalkEngine
 
-    device = resolve_device(args.device)   # fail before any graph work
+    say = print if rank == 0 else (lambda *a, **kw: None)
     if args.graph:
         from repro_torch.graph.io import load_edge_list
         g_full = load_edge_list(args.graph)
@@ -58,8 +110,8 @@ def train_embedding(args) -> dict:
     train_e, test_e = ev.split_edges(g_full, 0.03, seed=args.seed)
     g = build_csr(train_e, g_full.num_nodes, symmetrize=False, dedup=False)
     neg_e = ev.sample_negative_pairs(g_full, len(test_e), seed=args.seed + 1)
-    print(f"graph: {g.num_nodes} nodes / {g.num_edges} train edges; "
-          f"{len(test_e)} held out")
+    say(f"graph: {g.num_nodes} nodes / {g.num_edges} train edges; "
+        f"{len(test_e)} held out" + (f"; {world} ranks" if world > 1 else ""))
 
     cfg_kw = {}
     if args.dtype is not None:          # None -> HybridConfig default (bf16)
@@ -72,7 +124,7 @@ def train_embedding(args) -> dict:
                        lr=args.lr, seed=args.seed, impl=args.impl,
                        **cfg_kw)
     trainer = HybridEmbeddingTrainer(g.num_nodes, cfg, degrees=g.degrees(),
-                                     device=device)
+                                     dims=(1, world), device=device)
 
     # crash-resume: restore tables + (epoch, episode) cursor from the last
     # resume checkpoint; the remaining episodes replay as an uninterrupted
@@ -83,10 +135,10 @@ def train_embedding(args) -> dict:
         data, _ = load_arrays(resume_path)   # verifies the crc manifest
         start_epoch, start_episode = (int(v) for v in data["__cursor__"])
         trainer.set_embeddings(data["vertex"], data["context"])
-        print(f"resume <- {resume_path} @ epoch {start_epoch} "
-              f"episode {start_episode}")
+        say(f"resume <- {resume_path} @ epoch {start_epoch} "
+            f"episode {start_episode}")
         if start_epoch >= args.epochs:
-            print("resume cursor is past the final epoch; nothing to do")
+            say("resume cursor is past the final epoch; nothing to do")
             return {"auc": None, "edges": 0, "episodes": 0}
     else:
         trainer.init_embeddings()
@@ -119,7 +171,7 @@ def train_embedding(args) -> dict:
                                        pipe, test_e, neg_e,
                                        mk_walker=mk_walker,
                                        start_epoch=start_epoch,
-                                       start_episode=start_episode)
+                                       start_episode=start_episode, say=say)
     finally:
         # always drain the prefetch workers: an in-flight build racing
         # interpreter teardown can crash inside numpy after module unload
@@ -129,22 +181,24 @@ def train_embedding(args) -> dict:
 def _write_resume(args, trainer, epoch, next_ep):
     """Atomic resume checkpoint: tables + checksummed (epoch, episode)
     cursor. ``next_ep`` is the NEXT episode to train; a full epoch
-    normalizes to (epoch+1, 0) so resume never re-enters a finished epoch."""
+    normalizes to (epoch+1, 0) so resume never re-enters a finished epoch.
+    Every rank gathers the tables; rank 0 writes them."""
     from repro_torch.train.checkpoint import save_checkpoint
 
     cur = (epoch + 1, 0) if next_ep >= args.episodes else (epoch, next_ep)
     path = os.path.join(args.out_dir, "resume.npz")
-    save_checkpoint(path,
-                    {"vertex": trainer.embeddings(),
-                     "context": trainer.context_embeddings()},
-                    step=epoch * args.episodes + next_ep,
-                    extra={"__cursor__": np.asarray(cur, np.int64)})
+    tables = {"vertex": trainer.embeddings(),
+              "context": trainer.context_embeddings()}
+    if trainer.rank == 0:
+        save_checkpoint(path, tables, step=epoch * args.episodes + next_ep,
+                        extra={"__cursor__": np.asarray(cur, np.int64)})
     return path
 
 
 def _train_embedding_epochs(args, cfg, trainer, engine, store, pipe,
                             test_e, neg_e, *, mk_walker,
-                            start_epoch=0, start_episode=0) -> dict:
+                            start_epoch=0, start_episode=0,
+                            say=print) -> dict:
     from repro_torch.core import eval as ev
     from repro_torch.obs import counter_add, observe, span
     from repro_torch.train.checkpoint import save_checkpoint
@@ -193,8 +247,8 @@ def _train_embedding_epochs(args, cfg, trainer, engine, store, pipe,
                     nxt.start_async(epoch + 1)
                 if ckpt_every and (epoch * args.episodes + ep + 1) % ckpt_every == 0:
                     rpath = _write_resume(args, trainer, epoch, ep + 1)
-                    print(f"  resume checkpoint -> {rpath} "
-                          f"@ ({epoch}, {ep + 1})")
+                    say(f"  resume checkpoint -> {rpath} "
+                        f"@ ({epoch}, {ep + 1})")
         except Exception:
             # a dead walker finishes the epoch with episodes missing, which
             # surfaces here as a KeyError — join to re-raise its real error.
@@ -216,27 +270,30 @@ def _train_embedding_epochs(args, cfg, trainer, engine, store, pipe,
                 np.einsum("ij,ij->i", Vn[test_e[:, 0]], Vn[test_e[:, 1]]),
                 np.einsum("ij,ij->i", Vn[neg_e[:, 0]], Vn[neg_e[:, 1]]))
         loss_s = f"{np.mean(losses):.4f}" if losses else "--"
-        print(f"epoch {epoch:3d} loss {loss_s} AUC {auc:.4f} "
-              f"({time.perf_counter()-t0:.1f}s)")
+        say(f"epoch {epoch:3d} loss {loss_s} AUC {auc:.4f} "
+            f"({time.perf_counter()-t0:.1f}s)")
         if epoch + 1 < args.epochs:
             engine = nxt
         if epoch + 1 == args.epochs:
             path = os.path.join(args.out_dir, f"embeddings_{epoch+1}.npz")
-            save_checkpoint(path, {"vertex": V,
-                                   "context": trainer.context_embeddings()},
-                            step=epoch + 1)
-            print(f"  checkpoint -> {path}")
+            C = trainer.context_embeddings()
+            if trainer.rank == 0:
+                save_checkpoint(path, {"vertex": V, "context": C},
+                                step=epoch + 1)
+            say(f"  checkpoint -> {path}")
     rate = edges / train_s if train_s > 0 else 0.0
     mean_ep = train_s / n_episodes if n_episodes else 0.0
-    print(f"trained {edges} edges in {n_episodes} episodes on "
-          f"{trainer.device} (impl {cfg.impl}): {rate:.1f} edges/s, mean "
-          f"episode {mean_ep:.4f}s")
+    ranks = trainer.part.num_shards
+    say(f"trained {edges} edges in {n_episodes} episodes on "
+        f"{trainer.device}" + (f" x {ranks} ranks" if ranks > 1 else "")
+        + f" (impl {cfg.impl}): {rate:.1f} edges/s, mean episode "
+        f"{mean_ep:.4f}s")
     if args.min_auc is not None and auc < args.min_auc:
         raise SystemExit(
             f"final AUC {auc:.4f} below --min-auc {args.min_auc}")
     return {"auc": float(auc), "loss": loss_s, "edges": edges,
             "train_s": train_s, "edges_per_s": rate, "episode_s": mean_ep,
-            "episodes": n_episodes, "checkpoint": path}
+            "episodes": n_episodes, "checkpoint": path, "ranks": ranks}
 
 
 def main(argv=None) -> dict:

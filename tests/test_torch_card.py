@@ -236,9 +236,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
                      q, 3)
     with pytest.raises(ValueError, match="queries"):
         tk.topk_mips(torch.zeros((32, 16), device=card), q.double(), 3)
-    with pytest.raises(ValueError, match="d % 8"):
-        tk.topk_mips(torch.zeros((32, 12), device=card),
-                     torch.zeros((4, 12), device=card), 3)
+    # a width not a multiple of 8 is no longer refused: the table is read
+    # padded with zero columns, and scores as the real ones
+    t12, q12 = _int(32, 12, 40).to(card), _int(4, 12, 41).to(card)
+    got = tk.topk_mips(t12, q12, 3)
+    want = tk.topk_mips_plain(t12, q12, 3)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(ValueError, match="idx"):
         sgns.gather_rows(torch.zeros((32, 16), device=card),
                          torch.zeros(3, device=card, dtype=torch.int64))
@@ -340,13 +343,16 @@ def test_rowwise_wrapper_raises_on_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="dtype"):
         tk.topk_mips_rowwise(torch.zeros((32, 16), device=card,
                                          dtype=torch.int8), q, 3)
-    with pytest.raises(ValueError, match="d % 8"):
-        tk.topk_mips_rowwise(torch.zeros((32, 12), device=card),
-                             torch.zeros((4, 12), device=card), 3)
+    # neither a width off a multiple of 8 nor k past the shared selection
+    # is refused any more: the table is read padded, the candidates sorted
+    # in device memory
+    t12, q12 = _int(32, 12, 42).to(card), _int(4, 12, 43).to(card)
+    for tbl, qq, k in ((t12, q12, 3), (_int(32, 16, 44).to(card), q, 5000)):
+        got = tk.topk_mips_rowwise(tbl, qq, k)
+        want = tk.topk_mips_rowwise_plain(tbl, qq, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(ValueError, match="contiguous"):
         tk.topk_mips_rowwise(torch.zeros((16, 32), device=card).T, q, 3)
-    with pytest.raises(ValueError, match="shared memory"):
-        tk.topk_mips_rowwise(torch.zeros((32, 16), device=card), q, 5000)
     with pytest.raises(ValueError, match="valid"):
         tk.topk_mips_rowwise(torch.zeros((32, 16), device=card), q, 3, 0)
 

@@ -187,37 +187,88 @@ def test_plain_update_uses_pre_update_rows_and_one_cast():
 
 
 def test_grads_tile_plan():
-    bb, smem = sgns.plan_grads_tile(256, 5, 128)
-    assert bb == sgns.GRAD_TILE_ROWS
-    assert smem == sgns.grads_tile_smem_bytes(bb, 5, 128) <= sgns.SMEM_PER_BLOCK
-    assert sgns.plan_grads_tile(5, 5, 128)[0] == 5          # B < one tile
-    bb, smem = sgns.plan_grads_tile(256, 32, 1024)           # wide rows
-    assert bb < sgns.GRAD_TILE_ROWS and smem <= sgns.SMEM_PER_BLOCK
-    with pytest.raises(ValueError, match="shared memory"):
-        sgns.plan_grads_tile(256, 100, 1024)
+    """A tile and all S negatives in shared memory while they fit (its rows
+    halved to make room); past that, any S and d: the negatives staged in
+    the largest chunks that fit beside the tile, and past one row and one
+    negative (d past 14,500), the workspace in device memory."""
+    t = sgns.plan_grads_tile(256, 5, 128)
+    assert (t.bb, t.chunk, t.work_floats) == (sgns.GRAD_TILE_ROWS, 0, 0)
+    assert t.smem_bytes == sgns.grads_tile_smem_bytes(t.bb, 5, 128)
+    assert t.smem_bytes <= sgns.SMEM_PER_BLOCK
+    assert sgns.plan_grads_tile(5, 5, 128).bb == 5          # B < one tile
+    t = sgns.plan_grads_tile(256, 32, 1024)                  # wide rows
+    assert t.bb < sgns.GRAD_TILE_ROWS and t.smem_bytes <= sgns.SMEM_PER_BLOCK
+    assert t.chunk == 0
+    # S d = 102,400 floats: the negatives no longer fit beside one row
+    t = sgns.plan_grads_tile(256, 100, 1024)
+    assert t.chunk and t.chunk < 100 and t.work_floats == 0
+    assert t.smem_bytes == 4 * sgns.chunk_work_floats(t.bb, 100, 1024,
+                                                      t.chunk)
+    assert t.smem_bytes <= sgns.SMEM_PER_BLOCK
+    # the largest chunk: one more negative would not fit
+    assert 4 * sgns.chunk_work_floats(t.bb, 100, 1024, t.chunk + 1) > \
+        sgns.SMEM_PER_BLOCK
+    t = sgns.plan_grads_tile(256, 3, 20_000)                # past 14,500
+    assert t.smem_bytes == 0 and t.chunk == 3
+    assert t.work_floats == sgns.chunk_work_floats(t.bb, 3, 20_000, 3)
 
 
 def test_sgns_grads_plan():
     """#5's and #6's one cooperative launch: tiles of 8 rows (fewer when
     the S negatives leave no room), a block a tile up to one block an SM
     (32 blocks at the trainer's B = 256), past that each block takes
-    several tiles, so any B plans; a ValueError when one row and the S
-    negatives do not fit a block."""
+    several tiles, so any B plans; and any S and d: the negatives in chunks
+    when one row and all S do not fit a block."""
     p = sgns.plan_sgns_grads(256, 5, 128)
     assert (p.bb, p.tiles, p.blocks) == (sgns.GRADS_ROWS, 32, 32)
     assert p.smem_bytes == sgns.grads_tile_smem_bytes(8, 5, 128)
     for B in (1, 5, 37, 256, 1000, 1056, 1057, 5000, 256 * 132 + 1):
-        for S, d in ((1, 8), (5, 128), (32, 256), (300, 128), (400, 128)):
+        for S, d in ((1, 8), (5, 128), (32, 256), (300, 128), (400, 128),
+                     (128, 512), (500, 128)):
             p = sgns.plan_sgns_grads(B, S, d, sm_count=132)
-            assert (p.bb, p.smem_bytes) == sgns.plan_grads_tile(
-                B, S, d, sgns.GRADS_ROWS)
+            t = sgns.plan_grads_tile(B, S, d, sgns.GRADS_ROWS)
+            assert (p.bb, p.smem_bytes, p.chunk) == (t.bb, t.smem_bytes,
+                                                     t.chunk)
             assert (p.tiles - 1) * p.bb < B <= p.tiles * p.bb
             assert p.blocks == min(p.tiles, 132)
             assert p.smem_bytes <= sgns.SMEM_PER_BLOCK
     assert sgns.plan_sgns_grads(37, 5, 128).blocks == 5     # a ragged tail
     assert sgns.plan_sgns_grads(400, 400, 128).bb < sgns.GRADS_ROWS
-    with pytest.raises(ValueError, match="negatives of width"):
-        sgns.plan_sgns_grads(256, 100, 1024)
+    p = sgns.plan_sgns_grads(256, 100, 1024)
+    assert p.chunk and p.smem_bytes <= sgns.SMEM_PER_BLOCK
+
+
+def _chunked_tile(v, c, n, m, nc):
+    """tile_grads_chunked's arithmetic order in f64-free f32 numpy: dv =
+    g_pos c, then each chunk's negatives added in order of s; dn rows a
+    chunk at a time; the loss summed at the end."""
+    pos = (v * c).sum(1)
+    neg = v @ n.T
+    g_pos = ((1 / (1 + np.exp(-pos)) - 1) * m).astype(np.float32)
+    g_neg = ((1 / (1 + np.exp(-neg))) * m[:, None]).astype(np.float32)
+    dv = g_pos[:, None] * c
+    dn = np.zeros_like(n)
+    for s0 in range(0, n.shape[0], nc):
+        for s in range(s0, min(s0 + nc, n.shape[0])):
+            dv = dv + g_neg[:, s:s + 1] * n[s][None, :]
+        dn[s0:s0 + nc] = g_neg[:, s0:s0 + nc].T @ v
+    return dv, g_pos[:, None] * v, dn
+
+
+@pytest.mark.parametrize("nc", [1, 3, 7])
+def test_chunked_negatives_compute_the_tile_gradients(nc):
+    """Staging the negatives nc at a time and carrying dv from chunk to
+    chunk computes the tile's gradients (tile_grads_plain) to f32
+    rounding: the chunks only cut the sum over s, never reorder it."""
+    rng = np.random.default_rng(nc)
+    v, c = (rng.normal(0, 0.3, (8, 24)).astype(np.float32) for _ in range(2))
+    n = rng.normal(0, 0.3, (7, 24)).astype(np.float32)
+    m = (rng.random(8) > 0.2).astype(np.float32)
+    dv, dc, dn = _chunked_tile(v, c, n, m, nc)
+    want = sgns.tile_grads_plain(*(torch.from_numpy(a) for a in (v, c, n)),
+                                 torch.from_numpy(m)[:, None])
+    for got, w in zip((dv, dc, dn), want[:3]):
+        np.testing.assert_allclose(got, w.numpy(), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("B,S,d,dtype,block_b", [

@@ -174,10 +174,11 @@ def test_plan_fits_shared_memory():
     p = tk.plan_topk_filter(256, 128, 40, 26_250_000, 1)
     assert (p.qw, p.qblocks, p.splits, p.lists_on_chip) == (8, 1, 132, True)
     assert not tk.plan_topk_filter(256, 128, 400, 26_250_000, 1).lists_on_chip
-    with pytest.raises(ValueError, match="d <= 256"):
-        tk.plan_topk_filter(16, 1024, 10, 10_000, 1)
-    with pytest.raises(ValueError, match="d % 8"):
-        tk.plan_topk_filter(16, 30, 10, 10_000, 1)
+    # any width: past 256 in 256-column slices (the tile's scores kept on
+    # chip beside the staging), and d padded to a multiple of 8
+    p = tk.plan_topk_filter(16, 1024, 10, 10_000, 1)
+    assert p.width == 1024 and p.smem_bytes <= tk.SMEM_PER_BLOCK
+    assert tk.plan_topk_filter(16, 30, 10, 10_000, 1).width == 32
 
 
 @pytest.mark.parametrize("Q,d,k", [(256, 128, 10), (256, 128, 400),
@@ -204,13 +205,17 @@ def test_rowwise_plan_chunks_cover_valid(Q, d, k, monkeypatch):
 
 
 def test_rowwise_plan_refuses_k_past_its_limit():
-    tk.plan_topk_rowwise(16, 128, tk.ROWWISE_K_MAX, 10_000)
-    with pytest.raises(ValueError, match="shared memory"):
-        tk.plan_topk_rowwise(16, 128, tk.ROWWISE_K_MAX + 1, 10_000)
-    with pytest.raises(ValueError, match="shared memory"):
-        tk.plan_topk_rowwise(16, 16, 5000, 10_000)
-    with pytest.raises(ValueError, match="d % 8"):
-        tk.plan_topk_rowwise(16, 30, 10, 10_000)
+    """Past ROWWISE_K_MAX the selection keeps its candidates in a device
+    buffer of a power of two >= 2k slots a query, instead of refusing; d
+    of any width plans (the kernel reads the padded table)."""
+    p = tk.plan_topk_rowwise(16, 128, tk.ROWWISE_K_MAX, 10_000)
+    assert (p.select_cap, p.candidate_bytes) == (tk.ROWWISE_SELECT_CAP, 0)
+    p = tk.plan_topk_rowwise(16, 128, tk.ROWWISE_K_MAX + 1, 10_000)
+    assert p.select_cap == 4096 and p.candidate_bytes == 12 * 16 * 4096
+    p = tk.plan_topk_rowwise(16, 16, 5000, 10_000)
+    assert p.select_cap == 16384 >= 2 * 5000
+    assert p.select_smem_bytes <= tk.SMEM_STATIC
+    assert tk.plan_topk_rowwise(16, 30, 10, 10_000).chunks == 1
 
 
 # --------------------------------------------------------------------------

@@ -445,14 +445,19 @@ def test_filter_plan_geometry():
 
 
 def test_filter_plan_refuses_what_the_kernel_cannot_take():
+    """Only empty shapes are refused: past what the merge's shared memory
+    holds its lists go to the output rows, past 256 columns the rows are
+    scored in 256-column slices, and d is padded to a multiple of 8."""
     kmax = tk.SMEM_PER_BLOCK // (8 * tk.MERGE_WARPS)
-    tk.plan_topk_filter(16, 128, kmax, 10_000, 2)
-    with pytest.raises(ValueError, match="merge's shared memory"):
-        tk.plan_topk_filter(16, 128, kmax + 1, 10_000, 2)
-    with pytest.raises(ValueError, match="d <= 256"):
-        tk.plan_topk_filter(16, 264, 10, 10_000, 2)
-    with pytest.raises(ValueError, match="d % 8"):
-        tk.plan_topk_filter(16, 30, 10, 10_000, 2)
+    assert tk.plan_topk_filter(16, 128, kmax, 10_000, 2).merge_on_chip
+    assert not tk.plan_topk_filter(16, 128, kmax + 1, 10_000, 2).merge_on_chip
+    for d, width in ((264, 512), (300, 512), (1000, 1024), (16384, 16384)):
+        for itemsize in (1, 2, 4):
+            p = tk.plan_topk_filter(256, d, 10, 10_000, itemsize)
+            assert p.width == width and p.query_tiles == 2
+            assert p.smem_bytes <= tk.SMEM_PER_BLOCK
+    assert tk.plan_topk_filter(16, 30, 10, 10_000, 2).width == 32
+    assert tk.plan_topk_filter(16, 1, 10, 10_000, 2).width == 32
     with pytest.raises(ValueError, match=">= 1"):
         tk.plan_topk_filter(0, 32, 10, 10_000, 2)
 
