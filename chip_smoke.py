@@ -85,6 +85,16 @@ failure ends the run with a non-zero exit:
    config's geometry, served at recall 1.0; the CI gate at ``--dim 100``
    (a width the scans read padded), its checkpoint served at recall 1.0;
    the launch counts read around each run;
+7b. the launcher's fault tolerance and telemetry, each leg bitwise its
+   phase-7 run: the config's geometry through ``--store disk
+   --keep-samples --metrics-dir --trace`` (its episode files against their
+   crc sidecars, the telemetry files through ``tools/check_telemetry.py``,
+   the host stages' p50 and p99 from ``metrics_summary.json`` and its
+   edges/s beside phase 7's), served at recall 1.0; the CI gate killed by
+   ``--inject walk.chunk:crash:at=5 --inject train.episode:crash:key=6/1``
+   (``diagnostics.json`` says ``InjectedFault``), then ``--resume`` at AUC
+   >= 0.62; the CI gate through ``--store disk`` with episode (3, 1) torn
+   as it is written (``[1 episode(s) re-walked]``); each leg's launches;
 8. the paper's rings on two ranks sharing the card (``gloo``, each
    sub-part staged through pinned host memory, one process a rank started
    with the ``torchrun`` variables): the training launcher on the CI gate
@@ -1288,6 +1298,151 @@ print("LAUNCHES " + json.dumps(sgns.LAUNCHES))
 REF_TWO_DEVICE_AUC = 0.5731
 
 
+# the host stages the launcher's --metrics-dir times (metrics_summary.json)
+HOST_STAGES = ("walk.chunk_s", "pipeline.walk_wait_s", "pipeline.build_s",
+               "pipeline.stage_s", "store.put_wait_s", "train.episode_s")
+
+
+def _argv_with(argv, flag, value):
+    """``argv`` with ``flag``'s value replaced (or the flag dropped when
+    ``value`` is None)."""
+    i = argv.index(flag)
+    return [*argv[:i], *([flag, value] if value is not None else []),
+            *argv[i + 2:]]
+
+
+def _same_tables(a, b) -> bool:
+    """Two checkpoints' tables word for word."""
+    with np.load(a) as x, np.load(b) as y:
+        return all(x[k].tobytes() == y[k].tobytes()
+                   for k in ("vertex", "context"))
+
+
+class _Tee:
+    """stdout that is also kept, for lines a leg must print."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, []
+
+    def write(self, text):
+        self.kept.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def fault_tolerance_phase(counted, train_run, tmp, gate, config):
+    """Phase 7b: the launcher's disk store, telemetry, chaos crash-resume
+    and corrupt-episode re-walk on the card, each leg bitwise phase 7's
+    uninterrupted run of the same schedule; returns the legs' launch
+    counts."""
+    import contextlib
+    import zlib
+
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.runtime import InjectedFault
+
+    paths = {}
+    tmp = Path(tmp)
+    # 1. the config's geometry through --store disk with telemetry on
+    d = tmp / "config_disk"
+    argv = [*CONFIG_RUN, "--store", "disk", "--keep-samples",
+            "--metrics-dir", str(d / "metrics"), "--trace",
+            str(d / "trace.json")]
+    disk, paths["train_disk"] = counted(lambda: train_run(
+        "config geometry, --store disk + telemetry", argv, str(d),
+        serve=True))
+    if not _same_tables(disk["checkpoint"], config["checkpoint"]):
+        raise AssertionError("--store disk checkpoint != phase 7's memory-"
+                             "store checkpoint of the config geometry")
+    files = sorted((d / "samples").glob("epoch*_ep*.npy"))
+    for f in files:
+        blob = f.read_bytes()
+        want_crc, want_len = Path(f"{f}.crc").read_text().split()
+        if (f"{zlib.crc32(blob):08x}", str(len(blob))) != (want_crc,
+                                                            want_len):
+            raise AssertionError(f"{f.name}: crc sidecar disagrees")
+    print(f"--store disk at the config geometry: checkpoint == phase 7's "
+          f"memory-store run (bitwise); {len(files)} episode files "
+          f"({sum(f.stat().st_size for f in files)} bytes) match their crc "
+          f"sidecars")
+    check = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "check_telemetry.py"),
+         "--metrics", str(d / "metrics" / "metrics.jsonl"),
+         "--summary", str(d / "metrics" / "metrics_summary.json"),
+         "--trace", str(d / "trace.json"),
+         "--require-tracks", "walk,build,stage,train,store"],
+        capture_output=True, text=True, timeout=120)
+    print(check.stdout.strip())
+    if check.returncode != 0:
+        raise AssertionError(f"check_telemetry.py failed: {check.stdout}"
+                             f"{check.stderr}")
+    hists = json.loads((d / "metrics" / "metrics_summary.json")
+                       .read_text())["histograms"]
+    for name in HOST_STAGES:
+        h = hists[name]
+        print(f"host stage {name}: n {h['count']}, p50 {1e3 * h['p50']:.3f} "
+              f"ms, p99 {1e3 * h['p99']:.3f} ms, sum {h['sum']:.3f} s")
+    print(f"config geometry edges/s: {disk['edges_per_s']:.1f} with "
+          f"--store disk and telemetry on, {config['edges_per_s']:.1f} "
+          f"with the memory store and telemetry off (phase 7)")
+
+    # 2. chaos crash-resume on the CI gate (the reference CI's leg): a walk
+    # chunk crashes once (retried), the run dies before episode (6, 1),
+    # the rerun resumes from the last resume.npz
+    c = tmp / "gate_chaos"
+    chaos = _argv_with(_argv_with(CI_GATE, "--ckpt-every", "4"),
+                       "--min-auc", None)
+
+    def crash_then_resume():
+        try:
+            train_launcher.main([*chaos, "--out-dir", str(c), "--device",
+                                 "cuda", "--inject", "walk.chunk:crash:at=5",
+                                 "--inject", "train.episode:crash:key=6/1"])
+        except InjectedFault as e:
+            print(f"chaos leg died as injected: {e}")
+        else:
+            raise AssertionError("the chaos leg's injected crash did not "
+                                 "end the run")
+        diag = json.loads((c / "diagnostics.json").read_text())
+        if diag["error"] != "InjectedFault":
+            raise AssertionError(f"diagnostics.json: {diag}")
+        return train_run("CI gate resumed after the chaos crash",
+                         [*chaos, "--resume", "--min-auc", "0.62"], str(c))
+
+    resumed, paths["train_chaos"] = counted(crash_then_resume)
+    if not _same_tables(resumed["checkpoint"], gate["checkpoint"]):
+        raise AssertionError("crash-resume checkpoint != phase 7's "
+                             "uninterrupted CI-gate run")
+    print(f"chaos crash-resume: diagnostics.json says InjectedFault; the "
+          f"resumed run (AUC {resumed['auc']:.4f}) == phase 7's CI gate "
+          f"(bitwise)")
+
+    # 3. a torn episode file on the CI gate: re-walked and rewritten
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        rewalk, paths["train_rewalk"] = counted(lambda: train_run(
+            "CI gate, --store disk, episode (3, 1) torn",
+            [*CI_GATE, "--store", "disk", "--inject",
+             "disk.write:corrupt:key=3/1"], str(tmp / "gate_rewalk")))
+    if (rewalk["rewalked"] != [(3, 1)]
+            or "[1 episode(s) re-walked]" not in "".join(tee.kept)):
+        raise AssertionError(f"corrupt leg re-walked {rewalk['rewalked']}")
+    if not _same_tables(rewalk["checkpoint"], gate["checkpoint"]):
+        raise AssertionError("re-walk checkpoint != phase 7's CI gate")
+    print("corrupt-episode leg: [1 episode(s) re-walked], checkpoint == "
+          "phase 7's CI gate (bitwise)")
+    for path, counts in paths.items():
+        missing = [n for n in ("sgns_fused_update",) + (
+            ("topk_scan_exact",) if path == "train_disk" else ())
+            if counts[n] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on {path}: "
+                                 f"{missing}")
+    return paths
+
+
 def ring_phase(torch, gate):
     """Two ranks on the one card (gloo, each sub-part staged through pinned
     host memory): the training launcher on the CI gate schedule, at an AUC
@@ -2181,7 +2336,7 @@ def main() -> int:
     gate_name = "CI gate (sbm 1200 nodes, bf16)"
     config_name = "config geometry (powerlaw 262144 nodes, f32)"
     with tempfile.TemporaryDirectory() as tmp:
-        (gate, _), paths["train"] = counted(lambda: (
+        (gate, config), paths["train"] = counted(lambda: (
             train_run(gate_name, CI_GATE, str(Path(tmp) / "gate")),
             train_run(config_name, CONFIG_RUN, str(Path(tmp) / "config"),
                       serve=True)))
@@ -2205,6 +2360,9 @@ def main() -> int:
                         str(Path(tmp) / f"config_{impl}"), serve=True))
                 return runs[0]
             gates[impl], paths[f"train_{impl}"] = counted(routed)
+        # ------------------------------------------------------ phase 7b
+        paths.update(fault_tolerance_phase(counted, train_run, tmp, gate,
+                                           config))
     for impl, r in gates.items():
         if not r["auc"] >= 0.62:
             raise AssertionError(f"CI gate impl {impl}: AUC {r['auc']} < 0.62")

@@ -1,9 +1,8 @@
 """Episode pipeline: overlap host-side walk-wait, block building and device
 staging with device compute (paper §III-C, Fig. 3 stages 5/7).
 
-A copy of the JAX package's ``core/pipeline.py`` without its corrupt-
-episode re-walk (the memory store never raises one). ``EpisodePipeline``
-runs a bounded multi-stage pipeline:
+A copy of the JAX package's ``core/pipeline.py``. ``EpisodePipeline`` runs
+a bounded multi-stage pipeline:
 
     walk-wait (store.get)  ->  block-build (2D bucketing)  ->  device staging
 
@@ -14,9 +13,16 @@ many episodes are in flight at once. Prefetches are keyed by
 synchronous build instead of handing back the wrong episode's blocks.
 The staging stage (``HybridEmbeddingTrainer.stage_blocks``) copies on a
 side stream, so it overlaps the kernels the training loop enqueues.
+
+A torn or bit-flipped episode file (the disk store's
+``CorruptEpisodeError``) is re-walked through ``rewalk`` — bitwise the
+original by RNG keying — and the file repaired, instead of failing the run.
+Every stage's seconds land in the ``pipeline.*_s`` histograms and, per
+episode, in :meth:`EpisodePipeline.pop_times`.
 """
 from __future__ import annotations
 
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -25,7 +31,11 @@ import torch
 
 from repro_torch.core.partition import NodePartition, build_episode_blocks
 from repro_torch.obs import observe, span
+from repro_torch.runtime import CorruptEpisodeError
 
+# Registry histogram / trace track per pipeline stage: every _record lands
+# in the process histogram too, so per-stage durations survive even when a
+# caller never pops (or the bounded per-episode table evicts the entry).
 _STAGE_METRIC = {"walk_wait_s": "pipeline.walk_wait_s",
                  "build_s": "pipeline.build_s",
                  "stage_s": "pipeline.stage_s"}
@@ -49,14 +59,23 @@ class EpisodePipeline:
     drop_consumed : call ``store.drop(epoch, episode)`` once the build stage
         has bucketed the pairs — with a bounded store this is what frees the
         walker's backpressure slots.
+    rewalk : optional ``(epoch, episode) -> pairs`` regenerator (e.g.
+        ``WalkEngine.episode_pairs``). When the store raises
+        ``CorruptEpisodeError`` — a torn or bit-flipped episode file — the
+        fetch stage re-walks the episode (bitwise-identical by RNG keying)
+        instead of failing the run, and repairs the file via the store's
+        ``rewrite`` if it has one.
 
     Each stage runs on one worker thread.
     """
 
     def __init__(self, store, part: NodePartition, *, pad_multiple: int,
                  block_cap: int | None = None, depth: int = 2,
-                 stage_fn=None, device=None, drop_consumed: bool = False):
+                 stage_fn=None, device=None, drop_consumed: bool = False,
+                 rewalk=None):
         self.store = store
+        self.rewalk = rewalk
+        self.recovered: list[tuple[int, int]] = []  # corrupt episodes re-walked
         self.part = part
         self.pad_multiple = pad_multiple
         self.block_cap = block_cap
@@ -75,31 +94,62 @@ class EpisodePipeline:
                                                initializer=init)
                             if stage_fn is not None else None)
         self._inflight: dict[tuple[int, int], object] = {}
+        self._times: dict[tuple[int, int], dict] = {}
+        self._times_mu = threading.Lock()   # stage workers write concurrently
+        # bound on retained per-episode timing entries: entries leave via
+        # pop_times; callers that consume out of prefetch order (or never
+        # pop) are covered by oldest-first eviction
+        self._times_cap = max(64, 8 * self.depth)
+
+    def _record(self, key, stage, seconds):
+        observe(_STAGE_METRIC[stage], seconds)  # registry copy: never dropped
+        with self._times_mu:
+            self._times.setdefault(key, {})[stage] = seconds
+            while len(self._times) > self._times_cap:
+                self._times.pop(next(iter(self._times)))
 
     # ------------------------------------------------------------- stages
-    def _fetch(self, key):
+    def _get_pairs(self, epoch: int, episode: int):
+        """store.get with corrupt-episode recovery (when ``rewalk`` is set):
+        regenerate the pairs deterministically and repair the stored file."""
+        try:
+            return self.store.get(epoch, episode)
+        except CorruptEpisodeError:
+            if self.rewalk is None:
+                raise
+            pairs = self.rewalk(epoch, episode)
+            rewrite = getattr(self.store, "rewrite", None)
+            if callable(rewrite):
+                rewrite(epoch, episode, pairs)
+            self.recovered.append((epoch, episode))
+            return pairs
+
+    # Each stage is one helper, used by the prefetch chain and, inline, by
+    # the prefetch-miss path: both record the same per-stage timings (a
+    # sync-built episode is one built on the critical path).
+    def _fetch(self, key, sync=False):
         t0 = time.perf_counter()
-        with span("walk_wait", "walk", {"epoch": key[0], "episode": key[1]}):
-            pairs = self.store.get(*key)
-        observe(_STAGE_METRIC["walk_wait_s"], time.perf_counter() - t0)
+        with span("walk_wait", "walk", _span_args(key, sync)):
+            pairs = self._get_pairs(*key)
+        self._record(key, "walk_wait_s", time.perf_counter() - t0)
         return pairs
 
-    def _build(self, key, pairs):
+    def _build(self, key, pairs, sync=False):
         t0 = time.perf_counter()
-        with span("build", "build", {"epoch": key[0], "episode": key[1]}):
+        with span("build", "build", _span_args(key, sync)):
             eb = build_episode_blocks(
                 np.asarray(pairs), self.part, block_cap=self.block_cap,
                 pad_multiple=self.pad_multiple)
-        observe(_STAGE_METRIC["build_s"], time.perf_counter() - t0)
+        self._record(key, "build_s", time.perf_counter() - t0)
         if self.drop_consumed:
             self.store.drop(*key)   # pairs are bucketed; free the slot
         return eb
 
-    def _stage(self, key, eb):
+    def _stage(self, key, eb, sync=False):
         t0 = time.perf_counter()
-        with span("stage", "stage", {"epoch": key[0], "episode": key[1]}):
+        with span("stage", "stage", _span_args(key, sync)):
             staged = self.stage_fn(eb)
-        observe(_STAGE_METRIC["stage_s"], time.perf_counter() - t0)
+        self._record(key, "stage_s", time.perf_counter() - t0)
         return staged
 
     def _build_from(self, key, fetch_fut):
@@ -111,8 +161,8 @@ class EpisodePipeline:
     def _build_sync(self, epoch: int, episode: int):
         """Prefetch-miss fallback: the same stages inline."""
         key = (epoch, episode)
-        eb = self._build(key, self._fetch(key))
-        return eb if self.stage_fn is None else self._stage(key, eb)
+        eb = self._build(key, self._fetch(key, True), True)
+        return eb if self.stage_fn is None else self._stage(key, eb, True)
 
     # ---------------------------------------------------------------- API
     def prefetch(self, epoch: int, episode: int) -> bool:
@@ -144,6 +194,16 @@ class EpisodePipeline:
             return fut.result()
         return self._build_sync(epoch, episode)
 
+    def pop_times(self, epoch: int, episode: int) -> dict:
+        """Per-stage seconds recorded for a consumed episode:
+        ``walk_wait_s`` (blocked in store.get), ``build_s``, ``stage_s``
+        (absent for two-stage pipelines). Entries persist until popped
+        (bounded by oldest-first eviction, cap ``max(64, 8*depth)``); the
+        ``pipeline.*_s`` registry histograms keep every duration regardless
+        of pops."""
+        with self._times_mu:
+            return self._times.pop((epoch, episode), {})
+
     def close(self):
         """Shut down the stage workers, waiting for in-flight work: a build
         racing interpreter teardown can die inside numpy with the module
@@ -152,3 +212,11 @@ class EpisodePipeline:
             if pool is not None:
                 pool.shutdown(wait=True, cancel_futures=True)
         self._inflight.clear()
+        self._times.clear()
+
+
+def _span_args(key, sync):
+    args = {"epoch": key[0], "episode": key[1]}
+    if sync:
+        args["sync"] = True
+    return args

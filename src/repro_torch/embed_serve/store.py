@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.partition import NodePartition
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, shard_devices
 from repro_torch.embed_serve import quant as qz
 from repro_torch.embed_serve import topk as tk
 from repro_torch.kernels import ref as kref
@@ -127,14 +127,16 @@ class ShardedEmbeddingStore:
 
     # ------------------------------------------------------------- loading
     @classmethod
-    def from_array(cls, table, *, devices=("cuda",),
+    def from_array(cls, table, *, devices=None,
                    normalize: bool = False, keep_host_table: bool = True,
                    quant: str | None = None,
                    overfetch: float = qz.DEFAULT_OVERFETCH,
                    shard_timeout_s: float | None = None,
                    step: int = -1) -> "ShardedEmbeddingStore":
         """Shard a (num_nodes, d) table (tensor, or numpy array) across
-        ``devices``, one shard each; a CUDA device must exist if named.
+        ``devices``, one shard each (default: one a visible card, as the
+        JAX store takes ``jax.devices()``); a CUDA device must exist if
+        named.
 
         The table keeps its dtype. ``normalize`` rescales rows to unit
         norm (cosine retrieval through the same MIPS scan).
@@ -144,7 +146,8 @@ class ShardedEmbeddingStore:
         default per-shard deadline of degraded-mode queries (None = wait
         forever).
         """
-        devices = [resolve_device(d) for d in devices]
+        devices = [resolve_device(d) for d in (
+            shard_devices() if devices is None else devices)]
         if quant not in QUANT_TIERS:
             raise ValueError(f"unknown quant tier {quant!r}; "
                              f"one of {QUANT_TIERS}")

@@ -19,8 +19,11 @@ scan's reference kernel, ``topk_rowwise``). ``--quant int8`` builds the int8 tie
 exact hot tier of the stream's N most requested rows in front of a
 compacted int8 cold remainder (``impl="tiered"``).
 
-Degraded mode: ``--shards N`` lays the table out over N shards on the one
-device, ``--shard-timeout-ms`` bounds each shard's scan, and ``--inject
+Shards: ``--device cuda`` (no index) puts one shard on each visible card,
+as the JAX launcher spreads them over every device it sees; ``--shards N``
+cycles N shards over the cards (``cuda:(i % count)``); an explicit
+``cuda:N`` or ``cpu`` holds every shard. Degraded mode: ``--shards N`` on
+one card, ``--shard-timeout-ms`` bounds each shard's scan, and ``--inject
 "serve.shard:delay:key=1:..."`` makes a shard miss it; the recall gate then
 scores against the surviving-shards oracle, and ``--expect-degraded``
 fails the run unless some response was degraded. ``--metrics-dir`` and
@@ -83,8 +86,10 @@ def main(argv=None) -> dict:
                     help="exit 1 if recall@k vs the oracle is below this "
                          "(the surviving-shards oracle when shards failed)")
     ap.add_argument("--shards", type=int, default=None,
-                    help="lay the table out over N shards, all on --device "
-                         "(degraded-mode testing on one card)")
+                    help="lay the table out over N shards, cycling the "
+                         "visible cards for --device cuda, else all on "
+                         "--device (default: one a card; degraded-mode "
+                         "testing on one card)")
     ap.add_argument("--shard-timeout-ms", type=float, default=None,
                     help="per-shard scan deadline; shards that miss it are "
                          "dropped from the merge and the response is tagged "
@@ -111,10 +116,12 @@ def main(argv=None) -> dict:
                     help="record serve_batch spans + queue-depth counter "
                          "track as Chrome trace-event JSON (ui.perfetto.dev)")
     ap.add_argument("--device", default="cuda",
-                    help="device of every shard (cuda, cuda:N or cpu)")
+                    help="shard devices: cuda (every visible card), cuda:N "
+                         "or cpu")
     args = ap.parse_args(argv)
 
     from repro_torch import obs
+    from repro_torch.device import shard_devices
     from repro_torch.runtime import FaultPlan, clear_plan, install_plan
 
     quant = None if args.quant == "none" else args.quant
@@ -150,14 +157,15 @@ def main(argv=None) -> dict:
                        else args.shard_timeout_ms / 1e3)
     store = ShardedEmbeddingStore.load(
         args.ckpt, table=args.table, normalize=args.metric == "cosine",
-        quant=quant, devices=[args.device] * (args.shards or 1),
+        quant=quant, devices=shard_devices(args.device, args.shards),
         shard_timeout_s=shard_timeout_s,
         overfetch=(qz.DEFAULT_OVERFETCH if args.overfetch is None
                    else args.overfetch))
     tier = f", int8 tier (overfetch {store.overfetch:g})" if quant else ""
     print(f"loaded {args.table} table: {store.num_nodes} x {store.dim} "
           f"{store.host_table.dtype} over {len(store.shards)} shard(s) on "
-          f"{store.devices[0]} (step {store.step}){tier}")
+          f"{', '.join(sorted({str(d) for d in store.devices}))} (step "
+          f"{store.step}){tier}")
 
     plan = None
     if args.inject:

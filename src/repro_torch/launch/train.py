@@ -34,8 +34,29 @@ card (``gloo``, host-staged); ``--device cpu`` runs ``gloo`` on the CPU:
 
 Fault tolerance: ``--ckpt-every N`` writes an atomic, checksummed resume
 checkpoint (tables + mid-epoch cursor) every N episodes; ``--resume``
-continues from it. ``--stall-timeout-s`` bounds how long any stage may block
-without store progress before failing with diagnostics instead of hanging.
+continues from it, bitwise-identical to an uninterrupted run. ``--inject
+SPEC`` installs a deterministic fault plan (crash/delay/corrupt at the
+``walk.chunk``, ``store.put``, ``disk.write`` and ``train.episode`` sites —
+see ``repro_torch.runtime.faults``) for chaos testing; a crashed walk chunk
+is retried (``WalkConfig.retries``), bitwise. ``--stall-timeout-s`` bounds
+how long any stage may block without store progress before failing with
+diagnostics instead of hanging. On any fatal exit the launcher writes
+``OUT_DIR/diagnostics.json`` (the error, a stall's diagnostics, and the live
+metrics when telemetry is on).
+
+``--store disk`` is the paper's offline mode: episodes go through
+checksummed ``.npy`` files under ``--store-dir`` (default OUT_DIR/samples),
+byte for byte the JAX package's, deleted once consumed unless
+``--keep-samples``; a torn or corrupt file is re-walked and rewritten, and
+the epoch line says ``[N episode(s) re-walked]``. ``--metrics-dir`` writes
+``metrics.jsonl`` and ``metrics_summary.json`` (walk, store, pipeline and
+train histograms) and ``--trace FILE`` a Perfetto timeline of the walk,
+store, build, stage and train lanes.
+
+Under several ranks, rank 0 keeps these paths, and rank r > 0 writes its
+own samples, metrics, trace and diagnostics under a ``rank<r>/``
+subdirectory of each (a trace ``dir/t.json`` becomes ``dir/rank<r>/t.json``):
+every rank walks the same episodes, so they must not share one directory.
 """
 from __future__ import annotations
 
@@ -69,6 +90,18 @@ def _ranks(args):
     return world, rank, device, backend_for(device, shared)
 
 
+def _rank_path(path, rank, file=False):
+    """Rank r > 0's copy of a per-rank output path: ``path/rank<r>`` for a
+    directory, ``dirname/rank<r>/basename`` for a file; rank 0 keeps
+    ``path``."""
+    if path is None or rank == 0:
+        return path
+    if file:
+        head, tail = os.path.split(path)
+        return os.path.join(head, f"rank{rank}", tail)
+    return os.path.join(path, f"rank{rank}")
+
+
 def train_embedding(args) -> dict:
     import torch.distributed as dist
 
@@ -87,16 +120,56 @@ def train_embedding(args) -> dict:
 
 
 def _train_ranks(args, world, rank, device) -> dict:
+    from repro_torch import obs
+
+    say = print if rank == 0 else (lambda *a, **kw: None)
+    metrics_dir = _rank_path(args.metrics_dir, rank)
+    trace_path = _rank_path(args.trace, rank, file=True)
+
+    # telemetry is opt-in (disabled-by-default hot paths are single None
+    # checks); enable BEFORE building the dataflow so components register
+    # their snapshot sources with the live registry
+    writer = obs_tracer = None
+    if metrics_dir or trace_path:
+        reg = obs.enable()
+        if trace_path:
+            obs_tracer = obs.Tracer()
+            obs.set_tracer(obs_tracer)
+        if metrics_dir:
+            writer = obs.MetricsWriter(reg, metrics_dir,
+                                       interval_s=args.metrics_interval_s)
+            say(f"metrics -> {writer.path} "
+                f"(every {writer.interval_s:g}s)")
+    try:
+        return _train_dataflow(args, world, rank, device, say)
+    finally:
+        # on the way out, in the JAX launcher's order: close the writer,
+        # save the trace, then switch the registry off
+        if writer is not None:
+            writer.close()
+            say(f"metrics summary -> {writer.summary_path}")
+        if obs_tracer is not None:
+            obs.set_tracer(None)
+            os.makedirs(os.path.dirname(trace_path) or ".", exist_ok=True)
+            obs_tracer.save(trace_path)
+            say(f"trace -> {trace_path} ({obs_tracer.event_count()} "
+                f"events, {obs_tracer.dropped} dropped)")
+        if writer is not None or obs_tracer is not None:
+            obs.disable()
+
+
+def _train_dataflow(args, world, rank, device, say) -> dict:
     from repro_torch.configs.tencent_embedding import SMALL
     from repro_torch.core import (EpisodePipeline, HybridConfig,
                                   HybridEmbeddingTrainer)
     from repro_torch.core import eval as ev
     from repro_torch.graph.csr import build_csr
     from repro_torch.graph.generators import powerlaw_graph, sbm_graph
+    from repro_torch.runtime import FaultPlan, clear_plan, install_plan
     from repro_torch.train.checkpoint import load_arrays
-    from repro_torch.walk import MemorySampleStore, WalkConfig, WalkEngine
+    from repro_torch.walk import (DiskSampleStore, MemorySampleStore,
+                                  WalkConfig, WalkEngine)
 
-    say = print if rank == 0 else (lambda *a, **kw: None)
     if args.graph:
         from repro_torch.graph.io import load_edge_list
         g_full = load_edge_list(args.graph)
@@ -150,16 +223,43 @@ def _train_ranks(args, world, rank, device) -> dict:
     if args.stall_timeout_s is not None:
         store_kw["stall_timeout_s"] = (args.stall_timeout_s
                                        if args.stall_timeout_s > 0 else None)
-    store = MemorySampleStore(depth=store_depth, **store_kw)
+    if args.store == "disk":
+        # fresh: this run produces NEW walks — stale episode files or .done
+        # markers from a previous run in the same dir would race it. With
+        # --keep-samples the files are the artifact the user asked to keep,
+        # so never delete them — warn instead if any are present.
+        sample_dir = _rank_path(
+            args.store_dir or os.path.join(args.out_dir, "samples"), rank)
+        if args.keep_samples and os.path.isdir(sample_dir) and any(
+                f.startswith("epoch") and f.endswith((".npy", ".done"))
+                for f in os.listdir(sample_dir)):
+            print(f"WARNING: {sample_dir} already holds episode files from a "
+                  f"previous run; this run's epochs will overwrite same-"
+                  f"numbered files and may race stale .done markers — use a "
+                  f"fresh --store-dir to keep both artifacts")
+        store = DiskSampleStore(sample_dir, depth=store_depth,
+                                keep=args.keep_samples,
+                                fresh=not args.keep_samples, **store_kw)
+    else:
+        store = MemorySampleStore(depth=store_depth, **store_kw)
     wcfg = WalkConfig(walk_length=10, window=5, episodes=args.episodes,
                       seed=args.seed, workers=args.walk_workers)
+    # rewalk: a never-started engine whose episode_pairs regenerates any
+    # episode bitwise — the corrupt-episode-file recovery path
     pipe = EpisodePipeline(store, trainer.part, pad_multiple=cfg.minibatch,
                            block_cap=args.block_cap,
                            depth=args.pipeline_depth,
                            stage_fn=trainer.stage_blocks,
                            device=trainer.device,
-                           drop_consumed=True)
+                           drop_consumed=True,
+                           rewalk=WalkEngine(g, wcfg, store).episode_pairs)
     os.makedirs(args.out_dir, exist_ok=True)
+
+    plan = None
+    if args.inject:
+        plan = FaultPlan(args.inject)
+        install_plan(plan)
+        say(f"fault plan: {args.inject}")
 
     def mk_walker():
         return WalkEngine(g, wcfg, store)
@@ -172,10 +272,45 @@ def _train_ranks(args, world, rank, device) -> dict:
                                        mk_walker=mk_walker,
                                        start_epoch=start_epoch,
                                        start_episode=start_episode, say=say)
+    except BaseException as e:
+        # leave a machine-readable dump on ANY fatal exit, so a chaos run
+        # that dies on an unexpected error still produces an artifact: what
+        # failed, what was resident, and the live metrics when telemetry
+        # is on
+        _dump_diagnostics(_rank_path(args.out_dir, rank), e)
+        raise
     finally:
         # always drain the prefetch workers: an in-flight build racing
         # interpreter teardown can crash inside numpy after module unload
         pipe.close()
+        if plan is not None:
+            clear_plan()
+
+
+def _dump_diagnostics(out_dir, err):
+    """OUT_DIR/diagnostics.json: the failure in machine-readable form, with
+    the JAX launcher's keys (its remote walkers' host health, transport and
+    failover parts come with them)."""
+    import json
+
+    from repro_torch import obs
+    from repro_torch.runtime import StoreStalled
+
+    diag = {"error": type(err).__name__, "message": str(err)}
+    if isinstance(err, StoreStalled):
+        diag.update({"op": err.op, "key": err.key,
+                     "resident": sorted(err.resident),
+                     "producer_alive": err.producer_alive,
+                     "producer_info": err.producer_info,
+                     "waited_s": err.waited_s})
+    reg = obs.active()
+    if reg is not None:          # fold the live registry into the dump
+        diag["metrics"] = reg.snapshot()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "diagnostics.json")
+    with open(path, "w") as f:
+        json.dump(diag, f, indent=2, default=str)
+    print(f"diagnostics -> {path}")
 
 
 def _write_resume(args, trainer, epoch, next_ep):
@@ -201,6 +336,8 @@ def _train_embedding_epochs(args, cfg, trainer, engine, store, pipe,
                             say=print) -> dict:
     from repro_torch.core import eval as ev
     from repro_torch.obs import counter_add, observe, span
+    from repro_torch.obs import trace as _trace
+    from repro_torch.runtime import fault_point
     from repro_torch.train.checkpoint import save_checkpoint
 
     auc = 0.0
@@ -211,6 +348,8 @@ def _train_embedding_epochs(args, cfg, trainer, engine, store, pipe,
     for epoch in range(start_epoch, args.epochs):
         # streamed: do NOT join — training starts as soon as episode 0 lands
         # in the bounded store; the walker streams the rest concurrently
+        tr = _trace.tracer()
+        t_epoch_us = tr.now_us() if tr is not None else 0.0
         t0 = time.perf_counter()
         nxt = None
         losses = []
@@ -220,6 +359,7 @@ def _train_embedding_epochs(args, cfg, trainer, engine, store, pipe,
         skip_until = start_episode if epoch == start_epoch else 0
         try:
             for ep in range(args.episodes):
+                fault_point("train.episode", (epoch, ep))
                 if ep < skip_until:
                     store.get(epoch, ep)
                     store.drop(epoch, ep)
@@ -269,9 +409,14 @@ def _train_embedding_epochs(args, cfg, trainer, engine, store, pipe,
             auc = ev.auc_score(
                 np.einsum("ij,ij->i", Vn[test_e[:, 0]], Vn[test_e[:, 1]]),
                 np.einsum("ij,ij->i", Vn[neg_e[:, 0]], Vn[neg_e[:, 1]]))
+        if tr is not None:
+            tr.add_span("epoch", "train", t_epoch_us, tr.now_us(),
+                        {"epoch": epoch, "auc": round(float(auc), 4)})
         loss_s = f"{np.mean(losses):.4f}" if losses else "--"
         say(f"epoch {epoch:3d} loss {loss_s} AUC {auc:.4f} "
-            f"({time.perf_counter()-t0:.1f}s)")
+            f"({time.perf_counter()-t0:.1f}s)"
+            + (f" [{len(pipe.recovered)} episode(s) re-walked]"
+               if pipe.recovered else ""))
         if epoch + 1 < args.epochs:
             engine = nxt
         if epoch + 1 == args.epochs:
@@ -293,12 +438,14 @@ def _train_embedding_epochs(args, cfg, trainer, engine, store, pipe,
             f"final AUC {auc:.4f} below --min-auc {args.min_auc}")
     return {"auc": float(auc), "loss": loss_s, "edges": edges,
             "train_s": train_s, "edges_per_s": rate, "episode_s": mean_ep,
-            "episodes": n_episodes, "checkpoint": path, "ranks": ranks}
+            "episodes": n_episodes, "checkpoint": path, "ranks": ranks,
+            "rewalked": list(pipe.recovered)}
 
 
 def main(argv=None) -> dict:
     """Run the trainer; returns ``{"auc", "loss", "edges", "train_s",
-    "edges_per_s", "episode_s", "episodes", "checkpoint"}``."""
+    "edges_per_s", "episode_s", "episodes", "checkpoint", "ranks",
+    "rewalked"}``."""
     from repro_torch.kernels.ops import STEP_IMPLS
 
     ap = argparse.ArgumentParser()
@@ -337,6 +484,12 @@ def main(argv=None) -> dict:
                     help="continue from OUT_DIR/resume.npz — restores tables "
                          "+ (epoch, episode) cursor and trains the rest of "
                          "the run")
+    ap.add_argument("--inject", action="append", default=[], metavar="SPEC",
+                    help="deterministic fault spec, repeatable: "
+                         "site:kind[:opt=val]... e.g. walk.chunk:crash:at=5, "
+                         "train.episode:crash:key=6/1, "
+                         "disk.write:corrupt:at=0 (see "
+                         "repro_torch.runtime.faults)")
     ap.add_argument("--stall-timeout-s", type=float, default=None,
                     help="seconds without sample-store progress before a "
                          "blocked stage fails with StoreStalled diagnostics "
@@ -348,9 +501,17 @@ def main(argv=None) -> dict:
     ap.add_argument("--pipeline-depth", type=int, default=2,
                     help="episodes in flight through the fetch/build/stage "
                          "pipeline")
+    ap.add_argument("--store", default="memory", choices=["memory", "disk"],
+                    help="sample store backend (disk = the paper's "
+                         "offline/slow-cluster mode: episode .npy files)")
+    ap.add_argument("--store-dir", default=None,
+                    help="disk-store directory (default: OUT_DIR/samples)")
     ap.add_argument("--store-depth", type=int, default=None,
                     help="bounded-store capacity in undrained episodes "
                          "(default: pipeline depth + 1)")
+    ap.add_argument("--keep-samples", action="store_true",
+                    help="disk store: keep episode files after consumption "
+                         "(the offline artifact) instead of deleting them")
     ap.add_argument("--block-cap", type=int, default=None,
                     help="pin every episode's per-cell block capacity (rounds "
                          "up to the minibatch pad); samples past it are "
@@ -358,6 +519,17 @@ def main(argv=None) -> dict:
     ap.add_argument("--min-auc", type=float, default=None,
                     help="exit non-zero if the final epoch's link-prediction "
                          "AUC is below this (CI sanity gate)")
+    # telemetry (repro_torch.obs; disabled unless one of these is given)
+    ap.add_argument("--metrics-dir", default=None,
+                    help="enable the telemetry registry and append periodic "
+                         "snapshots to DIR/metrics.jsonl (+ final "
+                         "metrics_summary.json at exit)")
+    ap.add_argument("--metrics-interval-s", type=float, default=5.0,
+                    help="seconds between metrics.jsonl snapshots")
+    ap.add_argument("--trace", default=None, metavar="FILE",
+                    help="record a span timeline of the walk/build/stage/"
+                         "train pipeline and write Chrome trace-event JSON "
+                         "to FILE (load in ui.perfetto.dev)")
     ap.add_argument("--impl", default="pallas_fused2", choices=STEP_IMPLS,
                     help="SGNS minibatch route (kernels.ops.sgns_step): "
                          "pallas_fused2 (default) launches the fused CUDA "

@@ -2,9 +2,9 @@
 
 The port imports nothing of the JAX package, so it keeps its own copy of
 the classes its paths raise: fault injection's ``InjectedFault``, the
-sample store's ``StoreStalled`` and serving's ``DeadlineExceeded`` and
-``Overloaded``. The transport and corrupt-episode errors come with the
-slices that raise them.
+sample store's ``StoreStalled``, the disk store's ``CorruptEpisodeError``
+and serving's ``DeadlineExceeded`` and ``Overloaded``. The transport's
+error comes with the remote walkers.
 """
 from __future__ import annotations
 
@@ -45,6 +45,18 @@ class StoreStalled(RuntimeError):
             f"({waited_s:.1f}s without progress); resident episodes: "
             f"{sorted(self.resident)!r}; producer: {alive}"
             + (f" [{producer_info}]" if producer_info else ""))
+
+
+class CorruptEpisodeError(RuntimeError):
+    """An episode payload failed its integrity check (short file, checksum
+    mismatch). Retriable: the ``(seed, epoch, episode, chunk)`` RNG keying
+    means the episode can be re-walked bitwise-identically."""
+
+    def __init__(self, key, path: str, reason: str):
+        self.key = key
+        self.path = path
+        self.reason = reason
+        super().__init__(f"episode {key!r} corrupt at {path}: {reason}")
 
 
 class DeadlineExceeded(RuntimeError):

@@ -5,13 +5,15 @@ same spec grammar and the same firing rules, so one ``--inject`` spec
 fires on the same invocations in both packages.
 
 Stages declare named **fault sites** by calling :func:`fault_point`. In
-the port so far that is ``serve.shard``, inside each shard's scan task of
-the degraded-mode store; the training sites come with the training
-launcher's ``--inject``. A :class:`FaultPlan` installed via
-:func:`install_plan` (or the :func:`inject` context manager, or the
-serving launcher's ``--inject`` flag) decides deterministically whether
-that invocation crashes (:class:`~repro_torch.runtime.errors.InjectedFault`),
-sleeps, or asks the caller to corrupt its output.
+the port these are ``walk.chunk`` (the top of a walk chunk), ``store.put``
+(both sample stores), ``disk.write`` (the disk store's publish, and its
+``"publish"`` crash window), ``train.episode`` (the top of each training
+episode) and ``serve.shard`` (each shard's scan task of the degraded-mode
+store). A :class:`FaultPlan` installed via :func:`install_plan` (or the
+:func:`inject` context manager, or either launcher's ``--inject`` flag)
+decides deterministically whether that invocation crashes
+(:class:`~repro_torch.runtime.errors.InjectedFault`), sleeps, or asks the
+caller to corrupt its output.
 
 Determinism: a spec fires on the N-th invocation of its site
 (``at=N``, a per-site counter) and/or on an exact invocation key match

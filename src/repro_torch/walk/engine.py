@@ -22,11 +22,18 @@ e+1's walks. Because the chunk decomposition and per-chunk RNG streams are
 fixed by the config — never by the worker count — the sample stream is
 bitwise identical for any ``workers`` setting.
 
-Fault tolerance: :meth:`WalkEngine.alive` feeds the store's
-producer-liveness watchdog, so a walker that dies fails consumers loudly
-instead of leaving them blocked. (The JAX package also retries a failed
-chunk; with no fault source in the port, a chunk is pure seeded numpy and
-has nothing to retry.)
+Fault tolerance: each chunk is a retriable unit — its RNG stream is fixed
+by (seed, epoch, episode, chunk), so a crashed chunk replayed under
+``WalkConfig.retries`` produces bitwise-identical pairs. The
+``walk.chunk`` fault site sits at the top of the chunk body;
+:meth:`WalkEngine.alive` feeds the store's producer-liveness watchdog so a
+walker that exhausts its retries fails consumers loudly instead of leaving
+them blocked.
+
+Telemetry: each chunk is a ``walk_chunk`` span on its worker thread's
+``walk:<thread>`` lane, and each episode's hand-over to the store a
+``store_put`` span on the ``store`` lane (where the JAX package's remote
+coordinator puts its own), so a trace shows backpressure on the walker.
 """
 from __future__ import annotations
 
@@ -39,7 +46,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from repro_torch.graph.csr import CSRGraph
-from repro_torch.obs import counter_add, observe
+from repro_torch.obs import counter_add, observe, span
+from repro_torch.obs import trace as _trace
+from repro_torch.runtime import RetryPolicy, call_with_retry, fault_point
 from repro_torch.walk.augment import walks_to_pairs
 from repro_torch.walk.store import SampleStore
 
@@ -59,6 +68,11 @@ class WalkConfig:
     workers: int = 1
     chunk_size: int = 4096
     lookahead: int = 2
+    # fault tolerance: total tries per chunk (1 = fail on first error) and
+    # the base backoff between them. Replay is bitwise-safe: the chunk's RNG
+    # stream depends only on (seed, epoch, episode, chunk).
+    retries: int = 3
+    retry_backoff_s: float = 0.05
 
 
 class WalkEngine:
@@ -120,16 +134,38 @@ class WalkEngine:
         """Walks + augmentation for one start-node chunk. The RNG stream is
         keyed by (seed, epoch, episode, chunk) — independent of which worker
         runs it and of the worker count."""
+        fault_point("walk.chunk", (epoch, episode, chunk))
         t0 = time.perf_counter()
         cfg = self.config
         rng = np.random.default_rng(
             [cfg.seed & 0x7FFFFFFF, epoch, episode, chunk])
         walks = self.generate_walks(starts, rng)
         pairs = walks_to_pairs(walks, cfg.window)
+        dt = time.perf_counter() - t0
         counter_add("walk.chunks")
         counter_add("walk.pairs", int(pairs.shape[0]))
-        observe("walk.chunk_s", time.perf_counter() - t0)
+        observe("walk.chunk_s", dt)
+        tr = _trace.tracer()
+        if tr is not None:
+            # one lane per worker thread: concurrent chunk spans on a shared
+            # lane would render as bogus nesting in Perfetto
+            end = tr.now_us()
+            tr.add_span("walk_chunk",
+                        "walk:" + threading.current_thread().name,
+                        end - dt * 1e6, end,
+                        {"epoch": epoch, "episode": episode, "chunk": chunk,
+                         "pairs": int(pairs.shape[0])})
         return pairs
+
+    def _chunk_retrying(self, epoch: int, episode: int, chunk: int,
+                        starts: np.ndarray) -> np.ndarray:
+        """`_chunk_pairs` under the configured retry policy. Replay is
+        bitwise-identical (RNG keyed by the chunk, not the attempt)."""
+        cfg = self.config
+        return call_with_retry(
+            self._chunk_pairs, epoch, episode, chunk, starts,
+            policy=RetryPolicy(attempts=max(1, cfg.retries),
+                               backoff_s=cfg.retry_backoff_s))
 
     def _episode_chunks(self, starts: np.ndarray) -> list[np.ndarray]:
         c = max(1, self.config.chunk_size)
@@ -155,9 +191,9 @@ class WalkEngine:
         if cfg.workers <= 1:
             for ep, starts in enumerate(parts):
                 pairs = self._assemble(
-                    [self._chunk_pairs(epoch, ep, c, s)
+                    [self._chunk_retrying(epoch, ep, c, s)
                      for c, s in enumerate(self._episode_chunks(starts))])
-                self.store.put(epoch, ep, pairs)
+                self._put(epoch, ep, pairs)
             self.store.finish_epoch(epoch)
             return
 
@@ -166,7 +202,7 @@ class WalkEngine:
         futs: dict[int, list] = {}
 
         def submit(ep: int) -> None:
-            futs[ep] = [pool.submit(self._chunk_pairs, epoch, ep, c, s)
+            futs[ep] = [pool.submit(self._chunk_retrying, epoch, ep, c, s)
                         for c, s in enumerate(self._episode_chunks(parts[ep]))]
 
         try:
@@ -180,20 +216,25 @@ class WalkEngine:
                     hi += 1
                 # may block on store backpressure — workers keep running the
                 # already-submitted lookahead chunks meanwhile
-                self.store.put(epoch, ep, pairs)
+                self._put(epoch, ep, pairs)
         except BaseException:
             pool.shutdown(wait=False, cancel_futures=True)
             raise
         pool.shutdown(wait=True)
         self.store.finish_epoch(epoch)
 
+    def _put(self, epoch: int, episode: int, pairs: np.ndarray) -> None:
+        with span("store_put", "store", {"epoch": epoch, "episode": episode}):
+            self.store.put(epoch, episode, pairs)
+
     def episode_pairs(self, epoch: int, episode: int) -> np.ndarray:
         """Regenerate one episode's pairs directly (no store interaction),
         bitwise-identical to what ``run_epoch`` puts: the chunk
-        decomposition and RNG keys depend only on the config."""
+        decomposition and RNG keys depend only on the config. Deterministic
+        replay for corrupt-episode recovery (the pipeline's ``rewalk``)."""
         starts = self._episode_starts(epoch)[episode]
         return self._assemble(
-            [self._chunk_pairs(epoch, episode, c, s)
+            [self._chunk_retrying(epoch, episode, c, s)
              for c, s in enumerate(self._episode_chunks(starts))])
 
     # ------------------------------------------------------------ async mode

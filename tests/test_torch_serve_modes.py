@@ -414,3 +414,45 @@ def test_launcher_telemetry_like_jax(ckpts, tmp_path, capsys):
     assert port["sources"] == {} == ref["sources"]      # batcher closed
     from repro_torch import obs
     assert not obs.enabled() and obs.tracer() is None
+
+
+@pytest.mark.parametrize("count", [1, 2, 4])
+@pytest.mark.parametrize("shards", [None, 1, 3, 8])
+def test_launcher_shard_devices_follow_jax(monkeypatch, count, shards):
+    """The devices the serving launcher gives its shards, by JAX's rule:
+    no --shards, one shard a device (the store's jax.devices()); --shards
+    N, devices[i % len(devs)]. With --device cuda the devices are the
+    visible cards; an explicit cuda:N or cpu holds every shard."""
+    from repro_torch.device import shard_devices
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    devs = [f"cuda:{i}" for i in range(count)]        # JAX's device list
+    want = devs if shards is None else [devs[i % len(devs)]
+                                        for i in range(shards)]
+    assert shard_devices("cuda", shards) == want
+    assert shard_devices(f"cuda:{count - 1}", shards) == \
+        [f"cuda:{count - 1}"] * (shards or 1)
+    assert shard_devices("cpu", shards) == ["cpu"] * (shards or 1)
+    # the launcher hands exactly this list to the store
+    seen = {}
+
+    def load(path, **kw):
+        seen.update(kw)
+        raise RuntimeError("stop after the device list")
+
+    monkeypatch.setattr(ShardedEmbeddingStore, "load", load)
+    argv = ["--ckpt", "unused.npz"] + ([] if shards is None
+                                       else ["--shards", str(shards)])
+    with pytest.raises(RuntimeError, match="stop after"):
+        launcher.main(argv)
+    assert seen["devices"] == want
+
+
+def test_shard_devices_raise_without_cuda(monkeypatch):
+    from repro_torch.device import shard_devices
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        shard_devices("cuda", 3)
+    assert shard_devices("cpu", 3) == ["cpu"] * 3

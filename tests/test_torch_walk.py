@@ -89,7 +89,8 @@ def test_async_engine_and_bounded_store():
 
 
 def test_walker_error_fails_consumers_and_surfaces_in_join():
-    """A chunk that raises runs once: the walker finishes the epoch, so a
+    """A chunk that keeps raising is tried ``WalkConfig.retries`` times,
+    as in the JAX engine, and no more: the walker finishes the epoch, so a
     consumer waiting on the missing episode fails instead of hanging, and
     join re-raises the error."""
     calls = []
@@ -102,15 +103,15 @@ def test_walker_error_fails_consumers_and_surfaces_in_join():
             return super()._chunk_pairs(epoch, episode, chunk, starts)
 
     store = MemorySampleStore()
-    engine = Failing(gen.sbm_graph(400, seed=0),
-                     WalkConfig(episodes=3, seed=3), store)
+    cfg = WalkConfig(episodes=3, seed=3, retry_backoff_s=0.001)
+    engine = Failing(gen.sbm_graph(400, seed=0), cfg, store)
     engine.start_async(0)
     assert store.get(0, 0).shape[1] == 2
     with pytest.raises(KeyError):
         store.get(0, 1)
     with pytest.raises(RuntimeError, match="walk chunk failed"):
         engine.join()
-    assert calls.count((1, 0)) == 1 and (2, 0) not in calls
+    assert calls.count((1, 0)) == cfg.retries == 3 and (2, 0) not in calls
 
 
 def test_store_stalls_loudly_on_a_dead_producer():
