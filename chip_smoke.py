@@ -95,6 +95,17 @@ failure ends the run with a non-zero exit:
    (``diagnostics.json`` says ``InjectedFault``), then ``--resume`` at AUC
    >= 0.62; the CI gate through ``--store disk`` with episode (3, 1) torn
    as it is written (``[1 episode(s) re-walked]``); each leg's launches;
+7c. the tiered tables and the parameter-server baseline: the training
+   launcher at the config's geometry with ``--hbm-rows 16384`` (a cache of
+   1/16 of its rows; served at recall 1.0, its cache line and edges/s
+   beside phase 7's), and on the CI gate with ``--hbm-rows 0``, with
+   ``--hbm-rows 200 --cache-policy lru --cache-spill`` and with
+   ``--hbm-rows 200 --impl pallas``, each checkpoint bitwise its phase-7
+   run; then ``ParameterServerTrainer`` for two episodes at the config's
+   geometry (the launcher's first episode of walks), f32 and bf16,
+   bitwise the resident trainer on the same blocks and draws, its wall
+   time per episode timed in turns with the resident's, with its host
+   syncs and bytes through the host; each leg's launches;
 8. the paper's rings on two ranks sharing the card (``gloo``, each
    sub-part staged through pinned host memory, one process a rank started
    with the ``torchrun`` variables): the training launcher on the CI gate
@@ -1443,6 +1454,166 @@ def fault_tolerance_phase(counted, train_run, tmp, gate, config):
     return paths
 
 
+# the tiered legs on the CI gate: (path, flags, the phase-7 run whose
+# checkpoint each must equal, the kernels each must launch)
+TIERED_GATE_LEGS = (
+    ("train_tiered_gate0", ["--hbm-rows", "0"], "pallas_fused2"),
+    ("train_tiered_lru_spill", ["--hbm-rows", "200", "--cache-policy", "lru",
+                                "--cache-spill"], "pallas_fused2"),
+    ("train_tiered_pallas", ["--hbm-rows", "200", "--impl", "pallas"],
+     "pallas"),
+)
+# the config geometry's cache: 1/16 of its 262,144 rows
+CONFIG_HBM_ROWS = 16384
+
+
+def _cache_line(st) -> str:
+    return (f"hit rate {st['hit_rate']:.4f}, {st['host_bytes_moved']} bytes "
+            f"through the host, {st['hbm_bytes_moved']} cache bytes, "
+            f"promotions {st['vertex']['promotions']}"
+            f"+{st['context']['promotions']}, evictions "
+            f"{st['vertex']['evictions']}+{st['context']['evictions']}")
+
+
+def tiered_phase(counted, train_run, tmp, config, gates):
+    """Phase 7c, the tiered tables through the training launcher, each leg
+    bitwise its phase-7 run: the config geometry with a cache of 1/16 of
+    its rows (served at recall 1.0; its edges/s beside phase 7's), and the
+    CI gate with no cache, with 200 rows under lru with the disk spill, and
+    with 200 rows on ``--impl pallas``; returns the legs' launch counts."""
+    paths = {}
+    tmp = Path(tmp)
+    tiered, paths["train_tiered"] = counted(lambda: train_run(
+        f"config geometry, --hbm-rows {CONFIG_HBM_ROWS}",
+        [*CONFIG_RUN, "--hbm-rows", str(CONFIG_HBM_ROWS)],
+        str(tmp / "config_tiered"), serve=True))
+    if not _same_tables(tiered["checkpoint"], config["checkpoint"]):
+        raise AssertionError(f"--hbm-rows {CONFIG_HBM_ROWS} checkpoint != "
+                             f"phase 7's resident config-geometry run")
+    print(f"config geometry edges/s: {tiered['edges_per_s']:.1f} with "
+          f"--hbm-rows {CONFIG_HBM_ROWS} ({_cache_line(tiered['cache'])}), "
+          f"{config['edges_per_s']:.1f} resident (phase 7); checkpoint == "
+          f"phase 7's (bitwise)")
+    for path, extra, route in TIERED_GATE_LEGS:
+        out = tmp / path
+        r, paths[path] = counted(lambda: train_run(
+            f"CI gate {' '.join(extra)}", [*CI_GATE, *extra], str(out)))
+        if not _same_tables(r["checkpoint"], gates[route]["checkpoint"]):
+            raise AssertionError(f"{path}: checkpoint != phase 7's CI gate "
+                                 f"on {route}")
+        if "--cache-spill" in extra and not all(
+                (out / "master_spill" / f).stat().st_size
+                for f in ("vertex.master", "context.master")):
+            raise AssertionError(f"{path}: no spill files")
+        print(f"{path}: checkpoint == phase 7's CI gate on {route} (bitwise); "
+              f"{_cache_line(r['cache'])}; {r['edges_per_s']:.1f} edges/s "
+              f"(phase 7 {gates[route]['edges_per_s']:.1f})")
+    for path, counts in paths.items():
+        names = (ROUTE_KERNELS["pallas"] if path == "train_tiered_pallas"
+                 else ("sgns_fused_update",)
+                 + (("topk_scan_exact",) if path == "train_tiered" else ()))
+        missing = [n for n in names if counts[n] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on {path}: "
+                                 f"{missing}")
+    return paths
+
+
+def baseline_phase(torch, counted, dev):
+    """Phase 7c's parameter-server baseline: two episodes at the config
+    geometry (the launcher's first episode of a 262,144-node power-law
+    graph's walks, d = 128, minibatch 256, 5 negatives), f32 and bf16,
+    against the resident trainer on the same blocks and draws, bitwise;
+    the episodes' wall times, timed in turns with the resident's, and the
+    baseline's host syncs and bytes through the host. Returns the
+    baseline's launch counts."""
+    from repro_torch.core import (HybridConfig, HybridEmbeddingTrainer,
+                                  ParameterServerTrainer,
+                                  build_episode_blocks)
+    from repro_torch.graph.generators import powerlaw_graph
+    from repro_torch.walk import MemorySampleStore, WalkConfig, WalkEngine
+
+    flag = dict(zip(CONFIG_RUN[::2], CONFIG_RUN[1::2]))
+    nodes = int(flag["--nodes"])
+    # the launcher's first episode of the config geometry's walks
+    g = powerlaw_graph(nodes, 5, seed=SEED)
+    pairs = WalkEngine(g, WalkConfig(walk_length=10, window=5,
+                                     episodes=int(flag["--episodes"]),
+                                     seed=SEED, workers=2),
+                       MemorySampleStore()).episode_pairs(0, 0)
+    degrees = g.degrees()
+    counts = None
+    for dtype in ("float32", "bfloat16"):
+        cfg = HybridConfig(dim=int(flag["--dim"]),
+                           minibatch=int(flag["--minibatch"]),
+                           negatives=int(flag["--negatives"]),
+                           subparts=int(flag["--subparts"]),
+                           neg_pool=int(flag["--neg-pool"]), seed=SEED,
+                           dtype=dtype)
+        res = HybridEmbeddingTrainer(nodes, cfg, degrees=degrees, device=dev)
+        res.init_embeddings()
+        eb = build_episode_blocks(pairs, res.part,
+                                  pad_multiple=cfg.minibatch)
+        draws = res._negative_positions(
+            1, cfg.subparts, eb.block_cap // cfg.minibatch, None).cpu().numpy()
+        ps = ParameterServerTrainer(nodes, 1, cfg, degrees=degrees,
+                                    device=dev)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        # two episodes each, in turns (resident, baseline, baseline,
+        # resident): the host's drift shows
+        runs = {"res": [], "ps": []}
+        for who in ("res", "ps", "ps", "res"):
+            tr = res if who == "res" else ps
+            run = lambda: timed(lambda: tr.train_episode(  # noqa: E731
+                eb, neg_draws=draws))
+            if who == "ps":
+                run, launched = counted(run)
+                counts = launched if counts is None else {
+                    n: counts[n] + launched[n] for n in counts}
+            else:
+                run = run()
+            runs[who].append(run)
+        same = all(
+            torch.equal(a.view(torch.int16 if dtype == "bfloat16"
+                               else torch.int32),
+                        b.view(torch.int16 if dtype == "bfloat16"
+                               else torch.int32))
+            for a, b in ((ps.embeddings(), res.embeddings()),
+                         (ps.context_embeddings(),
+                          res.context_embeddings())))
+        if not same:
+            raise AssertionError(f"baseline_ps {dtype}: tables != the "
+                                 f"resident trainer's on the same draws")
+        l_ps, l_res = ([loss for loss, _ in runs[w]] for w in ("ps", "res"))
+        if not (np.all(np.isfinite(l_ps))
+                and np.allclose(l_ps, l_res, rtol=1e-4, atol=0)):
+            raise AssertionError(f"baseline_ps {dtype}: losses {l_ps} != the "
+                                 f"resident trainer's {l_res}")
+        n = eb.counts.sum()
+        secs = {w: " and ".join(f"{t:.4f}" for _, t in runs[w])
+                for w in runs}
+        print(f"baseline_ps {dtype} at the config geometry ({n} pairs, "
+              f"blocks of {eb.block_cap}): tables == the resident trainer's "
+              f"after two episodes (bitwise), losses "
+              f"{', '.join(f'{x:.6f}' for x in l_ps)}; {secs['ps']} "
+              f"s/episode against the resident trainer's {secs['res']} s "
+              f"(in turns: resident, baseline, baseline, resident); "
+              f"host_syncs {ps.counters.host_syncs}, bytes_through_host "
+              f"{ps.counters.bytes_through_host}")
+        del res, ps
+        torch.cuda.empty_cache()
+    if counts["sgns_fused_update"] == 0:
+        raise AssertionError("baseline_ps: sgns_fused_update never launched")
+    return {"baseline_ps": counts}
+
+
 def ring_phase(torch, gate):
     """Two ranks on the one card (gloo, each sub-part staged through pinned
     host memory): the training launcher on the CI gate schedule, at an AUC
@@ -2363,6 +2534,11 @@ def main() -> int:
         # ------------------------------------------------------ phase 7b
         paths.update(fault_tolerance_phase(counted, train_run, tmp, gate,
                                            config))
+        # ------------------------------------------------------ phase 7c
+        t_7c = time.perf_counter()
+        paths.update(tiered_phase(counted, train_run, tmp, config, gates))
+    paths.update(baseline_phase(torch, counted, dev))
+    print(f"phase 7c took {time.perf_counter() - t_7c:.1f}s")
     for impl, r in gates.items():
         if not r["auc"] >= 0.62:
             raise AssertionError(f"CI gate impl {impl}: AUC {r['auc']} < 0.62")

@@ -103,6 +103,39 @@ class StagedEpisodeBlocks:
     ready: object = None
 
 
+def build_neg_pool(part: NodePartition, cfg: HybridConfig, num_nodes: int,
+                   degrees: np.ndarray | None) -> np.ndarray:
+    """Per-shard pools of local context rows, sampled ∝ deg^0.75: a
+    (shards, cfg.neg_pool) int32 array, the JAX trainers' draw (the hybrid
+    trainer's and the parameter-server baseline's are one stream)."""
+    P_shards, rows = part.num_shards, part.padded_rows_per_shard
+    rng = np.random.default_rng(cfg.seed + 17)
+    pool = np.zeros((P_shards, cfg.neg_pool), dtype=np.int32)
+    for s in range(P_shards):
+        lo = s * rows
+        hi = min((s + 1) * rows, num_nodes)
+        if hi <= lo:
+            continue
+        local_n = hi - lo
+        if degrees is None:
+            pool[s] = rng.integers(0, local_n, cfg.neg_pool)
+        else:
+            w = degrees[lo:hi].astype(np.float64) ** 0.75
+            w = np.maximum(w, 1e-12)
+            w /= w.sum()
+            pool[s] = rng.choice(local_n, size=cfg.neg_pool, p=w)
+    return pool
+
+
+def init_vertex_rows(part: NodePartition, cfg: HybridConfig) -> np.ndarray:
+    """The whole padded vertex table's word2vec init, U(-0.5/d, 0.5/d) in
+    f32 (the JAX trainers' numpy draw); each trainer casts it to its
+    dtype once."""
+    rng = np.random.default_rng(cfg.seed)
+    return (rng.random((part.padded_num_nodes, cfg.dim), dtype=np.float32)
+            - 0.5) / cfg.dim
+
+
 class HybridEmbeddingTrainer:
     """Driver tying partition + rotation + episode step together, for one
     rank of a ``dims`` mesh (``device``: ``"cuda"`` by default, ``"cpu"``
@@ -143,7 +176,7 @@ class HybridEmbeddingTrainer:
         self.vert = None               # this rank's (rows, d) shards
         self.ctx = None
         self._spare = None             # the vertex shard's other buffer
-        self.pool = self._build_neg_pool(degrees)
+        self.pool = build_neg_pool(self.part, cfg, num_nodes, degrees)
         self._pool_dev = torch.from_numpy(self.pool[self.rank]).to(
             self.device)
         # negative-draw seed: (cfg.seed, this rank's flat index)
@@ -153,48 +186,24 @@ class HybridEmbeddingTrainer:
                      if self.device.type == "cuda" else None)
 
     # ---------------------------------------------------------------- setup
-    def _build_neg_pool(self, degrees: np.ndarray | None) -> np.ndarray:
-        """Per-device pool of local context rows, sampled ∝ deg^0.75."""
-        part, cfg = self.part, self.cfg
-        P_shards, rows = part.num_shards, part.padded_rows_per_shard
-        rng = np.random.default_rng(cfg.seed + 17)
-        pool = np.zeros((P_shards, cfg.neg_pool), dtype=np.int32)
-        for s in range(P_shards):
-            lo = s * rows
-            hi = min((s + 1) * rows, self.num_nodes)
-            if hi <= lo:
-                continue
-            local_n = hi - lo
-            if degrees is None:
-                pool[s] = rng.integers(0, local_n, cfg.neg_pool)
-            else:
-                w = degrees[lo:hi].astype(np.float64) ** 0.75
-                w = np.maximum(w, 1e-12)
-                w /= w.sum()
-                pool[s] = rng.choice(local_n, size=cfg.neg_pool, p=w)
-        return pool
-
     def init_embeddings(self):
         """word2vec-style init: vertex ~ U(-0.5/d, 0.5/d), context = 0
         (the JAX trainer's numpy draw of the whole padded table, then one
         cast to the table dtype; a rank keeps its own rows)."""
         part, cfg = self.part, self.cfg
         d = cfg.dim
-        rng = np.random.default_rng(cfg.seed)
-        vert = (rng.random((part.padded_num_nodes, d), dtype=np.float32)
-                - 0.5) / d
+        vert = init_vertex_rows(part, cfg)
         self.vert = torch.from_numpy(vert[self._rows]).to(self.device,
                                                           self.dtype)
         self.ctx = torch.zeros((part.padded_rows_per_shard, d),
                                dtype=self.dtype, device=self.device)
         self._spare = None
 
-    def _install(self, table) -> torch.Tensor:
-        """This rank's rows of one whole table, as the trainer holds them:
-        on its device, in the config's dtype, padded to the partition's
-        rows. A numpy table (f32, or bf16 words) is converted bitwise first;
-        a tensor that already is all that is kept as it is, without a copy,
-        and trained in place (one rank)."""
+    def _padded(self, table, device) -> torch.Tensor:
+        """One whole table on ``device``, in the config's dtype, padded to
+        the partition's rows. A numpy table (f32, or bf16 words) is
+        converted bitwise first; a tensor that already is all that is kept
+        as it is, without a copy."""
         if not isinstance(table, torch.Tensor):
             table = numpy_to_tensor(np.asarray(table))
         n_pad, d = self.part.padded_num_nodes, self.cfg.dim
@@ -202,13 +211,18 @@ class HybridEmbeddingTrainer:
                 or table.shape[0] not in (self.num_nodes, n_pad)):
             raise ValueError(f"table of shape {tuple(table.shape)}; expected "
                              f"({self.num_nodes} or {n_pad}, {d})")
-        table = table.to(self.device, self.dtype)
+        table = table.to(device, self.dtype)
         if table.shape[0] != n_pad:
-            padded = torch.zeros((n_pad, d), dtype=self.dtype,
-                                 device=self.device)
+            padded = torch.zeros((n_pad, d), dtype=self.dtype, device=device)
             padded[: table.shape[0]] = table
             table = padded
-        return table[self._rows].contiguous()
+        return table
+
+    def _install(self, table) -> torch.Tensor:
+        """This rank's rows of one whole table, as the trainer holds them
+        (:meth:`_padded` on its device); a table that already is all that
+        is trained in place (one rank)."""
+        return self._padded(table, self.device)[self._rows].contiguous()
 
     def set_embeddings(self, vert, ctx) -> None:
         """Install externally-provided (num_nodes, d) tables — the resume

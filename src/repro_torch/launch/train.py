@@ -53,6 +53,14 @@ the epoch line says ``[N episode(s) re-walked]``. ``--metrics-dir`` writes
 train histograms) and ``--trace FILE`` a Perfetto timeline of the walk,
 store, build, stage and train lanes.
 
+``--hbm-rows N`` trains through tiered tables (``core.tiered``): the full
+tables in host RAM (``--cache-spill``: ``np.memmap`` files under
+OUT_DIR/master_spill) and a device cache of the N hottest rows a table,
+promoted by ``--cache-policy`` (freq or lru) at each episode's head; the
+checkpoint is the resident run's bit for bit. It prints ``tiered tables:
+...`` at the start and ``cache: hit_rate ...`` at the end, and runs on one
+rank only.
+
 Under several ranks, rank 0 keeps these paths, and rank r > 0 writes its
 own samples, metrics, trace and diagnostics under a ``rank<r>/``
 subdirectory of each (a trace ``dir/t.json`` becomes ``dir/rank<r>/t.json``):
@@ -161,7 +169,8 @@ def _train_ranks(args, world, rank, device) -> dict:
 def _train_dataflow(args, world, rank, device, say) -> dict:
     from repro_torch.configs.tencent_embedding import SMALL
     from repro_torch.core import (EpisodePipeline, HybridConfig,
-                                  HybridEmbeddingTrainer)
+                                  HybridEmbeddingTrainer,
+                                  TieredEmbeddingTrainer)
     from repro_torch.core import eval as ev
     from repro_torch.graph.csr import build_csr
     from repro_torch.graph.generators import powerlaw_graph, sbm_graph
@@ -196,8 +205,23 @@ def _train_dataflow(args, world, rank, device, say) -> dict:
                        neg_pool=args.neg_pool or SMALL.neg_pool,
                        lr=args.lr, seed=args.seed, impl=args.impl,
                        **cfg_kw)
-    trainer = HybridEmbeddingTrainer(g.num_nodes, cfg, degrees=g.degrees(),
-                                     dims=(1, world), device=device)
+    if args.hbm_rows is not None:
+        # tiered tables: host-RAM master + a device cache of --hbm-rows hot
+        # rows; bitwise the resident trainer at any budget, so the
+        # artifacts (and --resume) are interchangeable between the two
+        trainer = TieredEmbeddingTrainer(
+            g.num_nodes, cfg, degrees=g.degrees(), hbm_rows=args.hbm_rows,
+            policy=args.cache_policy,
+            spill_dir=(os.path.join(args.out_dir, "master_spill")
+                       if args.cache_spill else None),
+            dims=(1, world), device=device)
+        say(f"tiered tables: hbm_rows={args.hbm_rows} "
+            f"policy={args.cache_policy}"
+            + (" (disk-backed master)" if args.cache_spill else ""))
+    else:
+        trainer = HybridEmbeddingTrainer(g.num_nodes, cfg,
+                                         degrees=g.degrees(),
+                                         dims=(1, world), device=device)
 
     # crash-resume: restore tables + (epoch, episode) cursor from the last
     # resume checkpoint; the remaining episodes replay as an uninterrupted
@@ -212,7 +236,7 @@ def _train_dataflow(args, world, rank, device, say) -> dict:
             f"episode {start_episode}")
         if start_epoch >= args.epochs:
             say("resume cursor is past the final epoch; nothing to do")
-            return {"auc": None, "edges": 0, "episodes": 0}
+            return {"auc": None, "edges": 0, "episodes": 0, "cache": None}
     else:
         trainer.init_embeddings()
 
@@ -267,11 +291,23 @@ def _train_dataflow(args, world, rank, device, say) -> dict:
     engine = mk_walker()
     engine.start_async(start_epoch)
     try:
-        return _train_embedding_epochs(args, cfg, trainer, engine, store,
-                                       pipe, test_e, neg_e,
-                                       mk_walker=mk_walker,
-                                       start_epoch=start_epoch,
-                                       start_episode=start_episode, say=say)
+        summary = _train_embedding_epochs(args, cfg, trainer, engine, store,
+                                          pipe, test_e, neg_e,
+                                          mk_walker=mk_walker,
+                                          start_epoch=start_epoch,
+                                          start_episode=start_episode,
+                                          say=say)
+        summary["cache"] = None
+        if args.hbm_rows is not None:
+            st = summary["cache"] = trainer.cache_stats()
+            say(f"cache: hit_rate {st['hit_rate']:.3f} "
+                f"hbm_bytes {st['hbm_bytes_moved']} "
+                f"host_bytes {st['host_bytes_moved']} "
+                f"promotions {st['vertex']['promotions']}"
+                f"+{st['context']['promotions']} "
+                f"evictions {st['vertex']['evictions']}"
+                f"+{st['context']['evictions']}")
+        return summary
     except BaseException as e:
         # leave a machine-readable dump on ANY fatal exit, so a chaos run
         # that dies on an unexpected error still produces an artifact: what
@@ -445,7 +481,9 @@ def _train_embedding_epochs(args, cfg, trainer, engine, store, pipe,
 def main(argv=None) -> dict:
     """Run the trainer; returns ``{"auc", "loss", "edges", "train_s",
     "edges_per_s", "episode_s", "episodes", "checkpoint", "ranks",
-    "rewalked"}``."""
+    "rewalked", "cache"}`` (``cache``: the tiered trainer's
+    ``cache_stats()`` with ``--hbm-rows``, else None)."""
+    from repro_torch.core.tiered import CACHE_POLICIES
     from repro_torch.kernels.ops import STEP_IMPLS
 
     ap = argparse.ArgumentParser()
@@ -476,6 +514,21 @@ def main(argv=None) -> dict:
                     help="embedding-table dtype (default: the HybridConfig "
                          "default, bfloat16; pass float32 for the "
                          "paper-faithful tables)")
+    ap.add_argument("--hbm-rows", type=int, default=None,
+                    help="train through tiered tables: host-RAM master + a "
+                         "device cache of this many hot rows per table "
+                         "(core.tiered; bitwise identical to the resident "
+                         "trainer at any budget; one rank only). Default: "
+                         "fully resident tables")
+    ap.add_argument("--cache-policy", default="freq",
+                    choices=CACHE_POLICIES,
+                    help="hot-row promotion policy for --hbm-rows: freq "
+                         "(cumulative access count) or lru (most recent "
+                         "episode touch); ties break to the smaller row id")
+    ap.add_argument("--cache-spill", action="store_true",
+                    help="with --hbm-rows: back the master tables with "
+                         "np.memmap files under OUT_DIR/master_spill "
+                         "(tables beyond host RAM)")
     ap.add_argument("--ckpt-every", type=int, default=0,
                     help="episodes between atomic resume checkpoints "
                          "(OUT_DIR/resume.npz: tables + cursor, crc-"

@@ -12,6 +12,9 @@ stage from ``metrics_summary.json`` (``chip_smoke.HOST_STAGES``). Legs:
     memory+obs  --store memory with --metrics-dir and --trace
     disk        --store disk, telemetry off
     disk+obs    --store disk with --metrics-dir and --trace (phase 7b's)
+    tiered      --store memory with --hbm-rows (chip_smoke.CONFIG_HBM_ROWS,
+                phase 7c's), telemetry off
+    tiered+obs  the same with --metrics-dir and --trace
 
 Give the legs in turns, so that drift from run to run shows, e.g.
 
@@ -28,7 +31,8 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-LEGS = ("memory", "memory+obs", "disk", "disk+obs")
+LEGS = ("memory", "memory+obs", "disk", "disk+obs", "tiered",
+        "tiered+obs")
 
 
 def run_leg(leg: str, tmp: str) -> str:
@@ -36,8 +40,11 @@ def run_leg(leg: str, tmp: str) -> str:
     from repro_torch.launch import train as train_launcher
 
     store, _, obs = leg.partition("+")
+    tiered = store == "tiered"
     argv = [*cs.CONFIG_RUN, "--out-dir", tmp, "--device", "cuda",
-            "--store", store]
+            "--store", "memory" if tiered else store]
+    if tiered:
+        argv += ["--hbm-rows", str(cs.CONFIG_HBM_ROWS)]
     mdir = Path(tmp) / "metrics"
     if obs:
         argv += ["--metrics-dir", str(mdir), "--trace",
@@ -45,6 +52,8 @@ def run_leg(leg: str, tmp: str) -> str:
     r = train_launcher.main(argv)
     line = (f"{leg}: {r['edges_per_s']:.1f} edges/s, mean episode "
             f"{r['episode_s']:.4f} s")
+    if tiered:
+        line += f"; {cs._cache_line(r['cache'])}"
     if obs:
         hists = json.loads((mdir / "metrics_summary.json")
                            .read_text())["histograms"]
