@@ -106,6 +106,19 @@ failure ends the run with a non-zero exit:
    bitwise the resident trainer on the same blocks and draws, its wall
    time per episode timed in turns with the resident's, with its host
    syncs and bytes through the host; each leg's launches;
+7d. the remote walkers (two producer processes, spawned, shipping episode
+   chunks over the socket transport to the launcher's episode server) on
+   the reference CI's legs, each checkpoint bitwise its phase-7 run and no
+   producer left after any run: the CI gate with chunk (0, 1, 0)
+   disconnected (resent), with walker-0 killed (its episodes reassigned
+   once its lease lapses: ``lease expired; reassigning``), and killed
+   before episode (6, 1) over ``--store disk --keep-samples`` then resumed
+   with ``--coordinator-resume`` (``coordinator takeover: recovering
+   server``, ``remote-walk: takeover of epoch``; the crash's
+   ``diagnostics.json`` with the hosts, transport and failover keys); the
+   config geometry with telemetry (``tools/check_telemetry.py`` with the
+   ``host`` lanes; served at recall 1.0), its edges/s and pipeline p50
+   beside phase 7's and 7b's; each leg's launches;
 8. the paper's rings on two ranks sharing the card (``gloo``, each
    sub-part staged through pinned host memory, one process a rank started
    with the ``torchrun`` variables): the training launcher on the CI gate
@@ -1519,6 +1532,156 @@ def tiered_phase(counted, train_run, tmp, config, gates):
     return paths
 
 
+# the reference CI's remote-walker flags (.github/workflows/ci.yml): two
+# spawned producers, a heartbeat every 0.5 s
+REMOTE = ["--remote-walkers", "2", "--heartbeat-s", "0.5"]
+
+
+def _no_producer_left(what):
+    """Fails if a spawned producer outlived its launcher run."""
+    import multiprocessing
+
+    deadline = time.monotonic() + 15.0
+    while multiprocessing.active_children() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    left = multiprocessing.active_children()
+    if left:
+        raise AssertionError(f"{what}: producers outlived the run: {left}")
+
+
+def _transport_line(r) -> str:
+    st, fo = r["transport"], r["failover"]
+    return (f"{st['frames_recv']} frames / {st['bytes_recv']} bytes "
+            f"received, {st['chunks_applied']} chunks applied, "
+            f"{st['dup_chunks']} duplicate(s) discarded; "
+            f"{fo['takeovers']} takeover(s), {fo['recovered_episodes']} "
+            f"episode(s) recovered")
+
+
+def remote_phase(counted, train_run, tmp, gate, config):
+    """Phase 7d: the remote walkers (two spawned producers shipping episode
+    chunks to the launcher's episode server) on the reference CI's legs,
+    each checkpoint bitwise its phase-7 run and no producer left after any
+    run: (a) a disconnect on chunk (0, 1, 0) and its resend, (b) walker-0
+    killed at its first episode and its episodes reassigned, (c) the run
+    killed before episode (6, 1) over the disk store, then resumed with
+    ``--coordinator-resume``, (d) the config geometry with telemetry (the
+    ``host`` lanes through ``tools/check_telemetry.py``), served at recall
+    1.0; returns the legs' launch counts."""
+    import contextlib
+
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.runtime import InjectedFault
+
+    paths = {}
+    tmp = Path(tmp)
+
+    def leg(path, name, run, want, lines=()):
+        """One counted leg, its output kept for the lines it must print;
+        its checkpoint bitwise ``want``'s."""
+        tee = _Tee(sys.stdout)
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            r, paths[path] = counted(run)
+        took = time.perf_counter() - t
+        _no_producer_left(path)
+        text = "".join(tee.kept)
+        missing = [line for line in lines if line not in text]
+        if missing:
+            raise AssertionError(f"{path}: the output lacks {missing}")
+        if not _same_tables(r["checkpoint"], want["checkpoint"]):
+            raise AssertionError(f"{path}: checkpoint != phase 7's {name}")
+        print(f"{path}: checkpoint == phase 7's {name} (bitwise), "
+              f"{took:.1f}s; {_transport_line(r)}")
+        return r
+
+    # (a) a disconnect mid-epoch: the producer reconnects and resends
+    leg("train_remote_disconnect", "CI gate", lambda: train_run(
+        "CI gate, 2 remote walkers, chunk (0, 1, 0) disconnected",
+        [*CI_GATE, *REMOTE, "--lease-s", "15", "--inject",
+         "net.disconnect:fire:key=0/1/0"], str(tmp / "remote_disconnect")),
+        gate, lines=("transport: ",))
+
+    # (b) a killed producer: its lease lapses, walker-1 takes its episodes
+    leg("train_remote_killed", "CI gate", lambda: train_run(
+        "CI gate, 2 remote walkers, walker-0 killed",
+        [*CI_GATE, *REMOTE, "--lease-s", "5", "--inject",
+         "producer.episode:crash:key=walker-0/*"], str(tmp / "remote_kill")),
+        gate, lines=("lease expired; reassigning",))
+
+    # (c) the coordinator killed with the trainer, then taken over from the
+    # surviving episode files
+    c = tmp / "remote_failover"
+    chaos = [*_argv_with(_argv_with(CI_GATE, "--ckpt-every", "4"),
+                         "--min-auc", None),
+             "--store", "disk", "--keep-samples", *REMOTE, "--lease-s", "15",
+             "--server-grace-s", "30"]
+
+    def kill_then_take_over():
+        try:
+            train_launcher.main([*chaos, "--out-dir", str(c), "--device",
+                                 "cuda", "--inject",
+                                 "train.episode:crash:key=6/1"])
+        except InjectedFault as e:
+            print(f"coordinator-kill leg died as injected: {e}")
+        else:
+            raise AssertionError("the coordinator-kill leg's injected crash "
+                                 "did not end the run")
+        _no_producer_left("the killed coordinator's run")
+        diag = json.loads((c / "diagnostics.json").read_text())
+        if not (diag["error"] == "InjectedFault" and {
+                "host_health", "transport", "failover"} <= set(diag)):
+            raise AssertionError(f"diagnostics.json: {sorted(diag)}")
+        return train_run("CI gate resumed with --coordinator-resume",
+                         [*chaos, "--resume", "--coordinator-resume",
+                          "--min-auc", "0.62"], str(c))
+
+    leg("train_remote_failover", "uninterrupted CI gate",
+        kill_then_take_over, gate,
+        lines=("coordinator takeover: recovering server",
+               "remote-walk: takeover of epoch"))
+
+    # (d) the config geometry with telemetry: the per-host receive lanes
+    d = tmp / "remote_config"
+    remote = leg("train_remote_config", "config geometry", lambda: train_run(
+        "config geometry, 2 remote walkers + telemetry",
+        [*CONFIG_RUN, *REMOTE, "--lease-s", "15", "--metrics-dir",
+         str(d / "metrics"), "--trace", str(d / "trace.json")], str(d),
+        serve=True), config)
+    check = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "check_telemetry.py"),
+         "--metrics", str(d / "metrics" / "metrics.jsonl"),
+         "--summary", str(d / "metrics" / "metrics_summary.json"),
+         "--trace", str(d / "trace.json"),
+         "--require-tracks", "walk,build,stage,train,store,host"],
+        capture_output=True, text=True, timeout=120)
+    print(check.stdout.strip())
+    if check.returncode != 0:
+        raise AssertionError(f"check_telemetry.py failed: {check.stdout}"
+                             f"{check.stderr}")
+    hists = json.loads((d / "metrics" / "metrics_summary.json")
+                       .read_text())["histograms"]
+    # phase 7b's in-process telemetry run of the same geometry
+    local = json.loads((tmp / "config_disk" / "metrics" /
+                        "metrics_summary.json").read_text())["histograms"]
+    for name in HOST_STAGES:
+        if name.startswith("pipeline."):
+            print(f"host stage {name} p50: {1e3 * hists[name]['p50']:.3f} "
+                  f"ms with 2 remote walkers, {1e3 * local[name]['p50']:.3f}"
+                  f" ms in process (phase 7b)")
+    print(f"config geometry edges/s: {remote['edges_per_s']:.1f} with 2 "
+          f"remote walkers and telemetry on, {config['edges_per_s']:.1f} "
+          f"in process with telemetry off (phase 7)")
+    for path, counts in paths.items():
+        missing = [n for n in ("sgns_fused_update",) + (
+            ("topk_scan_exact",) if path == "train_remote_config" else ())
+            if counts[n] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on {path}: "
+                                 f"{missing}")
+    return paths
+
+
 def baseline_phase(torch, counted, dev):
     """Phase 7c's parameter-server baseline: two episodes at the config
     geometry (the launcher's first episode of a 262,144-node power-law
@@ -1919,6 +2082,7 @@ def main() -> int:
         raise AssertionError(f"kernels that must not spill do: {spilled}")
 
     # ---------------------------------------------------------- phase 2
+    print(f"phase 2 starts at {time.perf_counter() - t_start:.1f}s")
     g = torch.Generator(device="cpu").manual_seed(SEED)
     err = {"topk_scan_exact": 0.0, "topk_scan_int8": 0.0, "topk_rowwise": 0.0,
            **{name: 0.0 for name in sgns.LAUNCHES},
@@ -2382,6 +2546,7 @@ def main() -> int:
               f"max |kernel - plain| {err[name]:.3g}")
 
     # ---------------------------------------------------------- phase 3
+    print(f"phase 3 starts at {time.perf_counter() - t_start:.1f}s")
     # the 1 M-row checkpoint lives until phase 9, which serves it again
     serve_dir = tempfile.TemporaryDirectory()
     ckpt = str(Path(serve_dir.name) / "embeddings.npz")
@@ -2459,6 +2624,7 @@ def main() -> int:
                              f"path: {missing}")
 
     # ---------------------------------------------------------- phase 4
+    print(f"phase 4 starts at {time.perf_counter() - t_start:.1f}s")
     cases = check_sgns_kernels(torch, sgns, dev, err)
     print(f"sgns kernels == plain within tolerance on {cases} cases each "
           f"(f32, bf16; dup, odd B, one index; bf16 tables within two "
@@ -2473,11 +2639,13 @@ def main() -> int:
           f"steps)")
 
     # ---------------------------------------------------------- phase 5
+    print(f"phase 5 starts at {time.perf_counter() - t_start:.1f}s")
     rec.update(per_card_training(torch, sgns, dev, time_ms, wall_ms,
                                  call_kernels, err))
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 6
+    print(f"phase 6 starts at {time.perf_counter() - t_start:.1f}s")
     # the kernels past the shapes they refused before: after every check
     # that counts a call's kernels with the profiler (run before those,
     # they left it dropping later sessions' kernels), timed with CUDA
@@ -2488,6 +2656,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 7
+    print(f"phase 7 starts at {time.perf_counter() - t_start:.1f}s")
     def train_run(name, argv, out_dir, serve=False):
         """The training launcher (then, with ``serve``, the serving
         launcher on its checkpoint at recall 1.0); returns its summary."""
@@ -2532,13 +2701,22 @@ def main() -> int:
                 return runs[0]
             gates[impl], paths[f"train_{impl}"] = counted(routed)
         # ------------------------------------------------------ phase 7b
+        print(f"phase 7b starts at {time.perf_counter() - t_start:.1f}s")
         paths.update(fault_tolerance_phase(counted, train_run, tmp, gate,
                                            config))
         # ------------------------------------------------------ phase 7c
+        print(f"phase 7c starts at {time.perf_counter() - t_start:.1f}s")
         t_7c = time.perf_counter()
         paths.update(tiered_phase(counted, train_run, tmp, config, gates))
+        t_7c = time.perf_counter() - t_7c
+        # ------------------------------------------------------ phase 7d
+        print(f"phase 7d starts at {time.perf_counter() - t_start:.1f}s")
+        t_7d = time.perf_counter()
+        paths.update(remote_phase(counted, train_run, tmp, gate, config))
+        print(f"phase 7d took {time.perf_counter() - t_7d:.1f}s")
+    t_base = time.perf_counter()
     paths.update(baseline_phase(torch, counted, dev))
-    print(f"phase 7c took {time.perf_counter() - t_7c:.1f}s")
+    print(f"phase 7c took {t_7c + time.perf_counter() - t_base:.1f}s")
     for impl, r in gates.items():
         if not r["auc"] >= 0.62:
             raise AssertionError(f"CI gate impl {impl}: AUC {r['auc']} < 0.62")
@@ -2568,9 +2746,11 @@ def main() -> int:
               f"{err[name]:.3g}")
 
     # ---------------------------------------------------------- phase 8
+    print(f"phase 8 starts at {time.perf_counter() - t_start:.1f}s")
     paths.update(ring_phase(torch, gate))
 
     # ---------------------------------------------------------- phase 9
+    print(f"phase 9 starts at {time.perf_counter() - t_start:.1f}s")
     # the serving launcher's other legs on the phase-3 checkpoint, each a
     # path of its own: the flags and the kernels each must launch (run
     # last: nothing is profiled after their numpy oracles)
@@ -2615,6 +2795,7 @@ def main() -> int:
               f"failed shards {r['failed_shards']}")
 
     # ---------------------------------------------------------- phase 10
+    print(f"phase 10 starts at {time.perf_counter() - t_start:.1f}s")
     cases = check_flash_kernel(torch, fa, dev, err)
     print(f"flash_attention == mha_plain on {cases} cases (f32 rtol 2e-4 "
           f"atol 2e-5, bf16 2e-2; rows with no valid key == mean of v); max "
@@ -2626,9 +2807,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 11
+    print(f"phase 11 starts at {time.perf_counter() - t_start:.1f}s")
     paths["lm_serve"] = lm_serving(torch, dev, counted)
 
     # ---------------------------------------------------------- phase 12
+    print(f"phase 12 starts at {time.perf_counter() - t_start:.1f}s")
     for name, r in rec.items():
         # the ranks' paths count only the training kernels
         by_path = {path: counts.get(name, 0)

@@ -26,6 +26,9 @@ class CSRGraph:
     def num_edges(self) -> int:
         return int(self.indices.shape[0])
 
+    def neighbors(self, v: int) -> np.ndarray:
+        return self.indices[self.indptr[v] : self.indptr[v + 1]]
+
     def degrees(self) -> np.ndarray:
         return np.diff(self.indptr)
 
@@ -33,6 +36,14 @@ class CSRGraph:
         """(m, 2) array of (src, dst)."""
         src = np.repeat(np.arange(self.num_nodes, dtype=self.indices.dtype), self.degrees())
         return np.stack([src, self.indices], axis=1)
+
+    def save(self, path: str) -> None:
+        np.savez_compressed(path, indptr=self.indptr, indices=self.indices)
+
+    @staticmethod
+    def load(path: str) -> "CSRGraph":
+        with np.load(path) as f:
+            return CSRGraph(indptr=f["indptr"], indices=f["indices"])
 
 
 def build_csr(edges: np.ndarray, num_nodes: int, *, symmetrize: bool = True,

@@ -1,7 +1,9 @@
 """Synthetic graph generators mirroring the paper's benchmark networks
-(numpy copies of the two the training launcher uses, from the JAX
-package's ``graph/generators.py``).
+(numpy copies of the JAX package's ``graph/generators.py``, the same CSR
+arrays from the same seeds).
 
+* :func:`rmat_graph`      — Kronecker/R-MAT scale-free graph ("kron" in Table II).
+* :func:`mesh_graph`      — uniform-degree 2D mesh ("delaunay"-like topology).
 * :func:`powerlaw_graph`  — preferential-attachment social-network-like graph
   (the "generated A/B/C" family: "resemble the topology of real-world social
   networks").
@@ -15,6 +17,40 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.graph.csr import CSRGraph, build_csr
+
+
+def rmat_graph(scale: int, edge_factor: int = 16, *, a: float = 0.57, b: float = 0.19,
+               c: float = 0.19, seed: int = 0) -> CSRGraph:
+    """R-MAT generator: 2**scale nodes, edge_factor * n edges (pre-dedup)."""
+    n = 1 << scale
+    m = n * edge_factor
+    rng = np.random.default_rng(seed)
+    src = np.zeros(m, dtype=np.int64)
+    dst = np.zeros(m, dtype=np.int64)
+    for level in range(scale):
+        r = rng.random(m)
+        # standard R-MAT: quadrants (0,0)=a (0,1)=b (1,0)=c (1,1)=d; c and d
+        # set the source's bit at this level, b and d the destination's
+        q_b = (r >= a) & (r < a + b)
+        q_c = (r >= a + b) & (r < a + b + c)
+        q_d = r >= a + b + c
+        src |= ((q_c | q_d).astype(np.int64)) << level
+        dst |= ((q_b | q_d).astype(np.int64)) << level
+    edges = np.stack([src, dst], axis=1)
+    return build_csr(edges, n)
+
+
+def mesh_graph(side: int) -> CSRGraph:
+    """side*side 2D grid — uniform degree distribution (delaunay-like)."""
+    n = side * side
+    ii, jj = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    vid = (ii * side + jj).ravel()
+    right = vid[(jj < side - 1).ravel()]
+    down = vid[(ii < side - 1).ravel()]
+    edges = np.concatenate(
+        [np.stack([right, right + 1], 1), np.stack([down, down + side], 1)], axis=0
+    )
+    return build_csr(edges, n)
 
 
 def powerlaw_graph(n: int, m_per_node: int = 4, *, seed: int = 0) -> CSRGraph:

@@ -61,10 +61,28 @@ checkpoint is the resident run's bit for bit. It prints ``tiered tables:
 ...`` at the start and ``cache: hit_rate ...`` at the end, and runs on one
 rank only.
 
+``--remote-walkers N`` runs the walks in N producer processes
+(``multiprocessing`` spawn; they import no torch, so they never touch the
+card) that ship episode chunks to an episode server in the launcher over
+the checksummed socket transport (``walk/remote.py``,
+``runtime/transport.py``): the sample stream is bitwise the in-process
+one. A producer whose heartbeat lease (``--lease-s``) lapses has its
+episodes reassigned to the survivors; when every producer is dead the run
+fails with the hosts named, and never walks in process instead.
+``--coordinator-resume`` (with ``--resume``) builds the episode server in
+recovery mode: it skips every episode the sample store already accepted
+(``--store disk --keep-samples`` keeps them across the crash) and re-walks
+the rest, bitwise. The launcher prints the JAX launcher's ``remote
+walkers:``, ``coordinator takeover:``, ``transport:`` and ``failover:``
+lines, and the summary and ``diagnostics.json`` gain the transport and
+failover statistics.
+
 Under several ranks, rank 0 keeps these paths, and rank r > 0 writes its
 own samples, metrics, trace and diagnostics under a ``rank<r>/``
 subdirectory of each (a trace ``dir/t.json`` becomes ``dir/rank<r>/t.json``):
 every rank walks the same episodes, so they must not share one directory.
+With ``--remote-walkers`` each rank runs its own episode server and
+producers, listening on ``--coordinator-port`` + rank when that is nonzero.
 """
 from __future__ import annotations
 
@@ -113,7 +131,13 @@ def _rank_path(path, rank, file=False):
 def train_embedding(args) -> dict:
     import torch.distributed as dist
 
-    # fail before any graph work
+    # fail before any graph work: the flags first, then the device
+    if args.coordinator_resume and args.remote_walkers <= 0:
+        raise SystemExit("--coordinator-resume requires --remote-walkers")
+    if args.coordinator_resume and not args.resume:
+        raise SystemExit("--coordinator-resume requires --resume (the "
+                         "trainer cursor tells the server which epochs to "
+                         "re-submit)")
     world, rank, device, backend = _ranks(args)
     if backend is not None:
         dist.init_process_group(
@@ -177,7 +201,8 @@ def _train_dataflow(args, world, rank, device, say) -> dict:
     from repro_torch.runtime import FaultPlan, clear_plan, install_plan
     from repro_torch.train.checkpoint import load_arrays
     from repro_torch.walk import (DiskSampleStore, MemorySampleStore,
-                                  WalkConfig, WalkEngine)
+                                  RemoteWalkCoordinator, WalkConfig,
+                                  WalkEngine)
 
     if args.graph:
         from repro_torch.graph.io import load_edge_list
@@ -236,7 +261,8 @@ def _train_dataflow(args, world, rank, device, say) -> dict:
             f"episode {start_episode}")
         if start_epoch >= args.epochs:
             say("resume cursor is past the final epoch; nothing to do")
-            return {"auc": None, "edges": 0, "episodes": 0, "cache": None}
+            return {"auc": None, "edges": 0, "episodes": 0, "cache": None,
+                    "transport": None, "failover": None}
     else:
         trainer.init_embeddings()
 
@@ -261,9 +287,12 @@ def _train_dataflow(args, world, rank, device, say) -> dict:
                   f"previous run; this run's epochs will overwrite same-"
                   f"numbered files and may race stale .done markers — use a "
                   f"fresh --store-dir to keep both artifacts")
+        # --coordinator-resume reconstructs the episode server's state FROM
+        # the store, so a resuming run must never wipe the surviving files
+        keep_files = args.keep_samples or args.coordinator_resume
         store = DiskSampleStore(sample_dir, depth=store_depth,
                                 keep=args.keep_samples,
-                                fresh=not args.keep_samples, **store_kw)
+                                fresh=not keep_files, **store_kw)
     else:
         store = MemorySampleStore(depth=store_depth, **store_kw)
     wcfg = WalkConfig(walk_length=10, window=5, episodes=args.episodes,
@@ -285,12 +314,38 @@ def _train_dataflow(args, world, rank, device, say) -> dict:
         install_plan(plan)
         say(f"fault plan: {args.inject}")
 
-    def mk_walker():
-        return WalkEngine(g, wcfg, store)
-
-    engine = mk_walker()
-    engine.start_async(start_epoch)
+    # walker factory: the in-process threaded engine, or — with
+    # --remote-walkers N — spawned producers shipping episode chunks over
+    # the checksummed socket transport (same RNG keys, bitwise the same
+    # sample stream, walks outside the training process's GIL). A rank
+    # has its own server and producers: every rank walks every episode.
+    coord = None
     try:
+        if args.remote_walkers > 0:
+            coord = RemoteWalkCoordinator(
+                g, wcfg, store, num_producers=args.remote_walkers,
+                heartbeat_s=args.heartbeat_s, lease_s=args.lease_s,
+                inject_specs=args.inject,
+                port=(args.coordinator_port + rank
+                      if args.coordinator_port else 0),
+                recover=args.coordinator_resume,
+                server_grace_s=args.server_grace_s)
+            coord.start()
+            mk_walker = coord.epoch_walker
+            say(f"remote walkers: {args.remote_walkers} subprocess "
+                f"producer(s) @ {coord.server.address[0]}:"
+                f"{coord.server.address[1]} (heartbeat {args.heartbeat_s}s, "
+                f"lease {args.lease_s}s, grace {args.server_grace_s}s)")
+            if args.coordinator_resume:
+                say(f"coordinator takeover: recovering server on port "
+                    f"{coord.server.address[1]} reconstructs epoch state "
+                    f"from the {args.store} store")
+        else:
+            def mk_walker():
+                return WalkEngine(g, wcfg, store)
+
+        engine = mk_walker()
+        engine.start_async(start_epoch)
         summary = _train_embedding_epochs(args, cfg, trainer, engine, store,
                                           pipe, test_e, neg_e,
                                           mk_walker=mk_walker,
@@ -307,26 +362,40 @@ def _train_dataflow(args, world, rank, device, say) -> dict:
                 f"+{st['context']['promotions']} "
                 f"evictions {st['vertex']['evictions']}"
                 f"+{st['context']['evictions']}")
+        summary["transport"] = summary["failover"] = None
+        if coord is not None:
+            st = summary["transport"] = coord.transport_stats()
+            say(f"transport: {st['frames_recv']} frames / "
+                f"{st['bytes_recv']} bytes received, "
+                f"{st['dup_chunks']} duplicate chunk(s) discarded")
+            fo = summary["failover"] = coord.failover_stats()
+            if fo["takeovers"] or fo["recovered_episodes"]:
+                say(f"failover: {fo['takeovers']} takeover(s), "
+                    f"{fo['recovered_episodes']} episode(s) recovered "
+                    f"from the store without re-production")
         return summary
     except BaseException as e:
         # leave a machine-readable dump on ANY fatal exit, so a chaos run
         # that dies on an unexpected error still produces an artifact: what
-        # failed, what was resident, and the live metrics when telemetry
-        # is on
-        _dump_diagnostics(_rank_path(args.out_dir, rank), e)
+        # failed, what was resident, which hosts were (not) beating, and
+        # the live metrics when telemetry is on
+        _dump_diagnostics(_rank_path(args.out_dir, rank), e, coord)
         raise
     finally:
         # always drain the prefetch workers: an in-flight build racing
-        # interpreter teardown can crash inside numpy after module unload
+        # interpreter teardown can crash inside numpy after module unload;
+        # then stop the producers, so no process or socket outlives the run
         pipe.close()
+        if coord is not None:
+            coord.close()
         if plan is not None:
             clear_plan()
 
 
-def _dump_diagnostics(out_dir, err):
+def _dump_diagnostics(out_dir, err, coord):
     """OUT_DIR/diagnostics.json: the failure in machine-readable form, with
-    the JAX launcher's keys (its remote walkers' host health, transport and
-    failover parts come with them)."""
+    the JAX launcher's keys (with remote walkers also the hosts' leases,
+    the transport's and the failover's statistics)."""
     import json
 
     from repro_torch import obs
@@ -339,6 +408,10 @@ def _dump_diagnostics(out_dir, err):
                      "producer_alive": err.producer_alive,
                      "producer_info": err.producer_info,
                      "waited_s": err.waited_s})
+    if coord is not None:
+        diag["host_health"] = coord.server.health.snapshot()
+        diag["transport"] = coord.transport_stats()
+        diag["failover"] = coord.failover_stats()
     reg = obs.active()
     if reg is not None:          # fold the live registry into the dump
         diag["metrics"] = reg.snapshot()
@@ -481,8 +554,10 @@ def _train_embedding_epochs(args, cfg, trainer, engine, store, pipe,
 def main(argv=None) -> dict:
     """Run the trainer; returns ``{"auc", "loss", "edges", "train_s",
     "edges_per_s", "episode_s", "episodes", "checkpoint", "ranks",
-    "rewalked", "cache"}`` (``cache``: the tiered trainer's
-    ``cache_stats()`` with ``--hbm-rows``, else None)."""
+    "rewalked", "cache", "transport", "failover"}`` (``cache``: the tiered
+    trainer's ``cache_stats()`` with ``--hbm-rows``; ``transport`` and
+    ``failover``: the remote walkers' statistics with ``--remote-walkers``;
+    else None)."""
     from repro_torch.core.tiered import CACHE_POLICIES
     from repro_torch.kernels.ops import STEP_IMPLS
 
@@ -551,6 +626,35 @@ def main(argv=None) -> dict:
     ap.add_argument("--walk-workers", type=int, default=2,
                     help="walk-engine chunk worker threads (1 = inline; the "
                          "sample stream is identical for any value)")
+    ap.add_argument("--remote-walkers", type=int, default=0,
+                    help="run N walk producers as subprocesses shipping "
+                         "episode chunks over the checksummed socket "
+                         "transport (0 = in-process threads). The sample "
+                         "stream is bitwise-identical either way; "
+                         "subprocesses walk outside the GIL and survive "
+                         "producer crashes via lease-based reassignment")
+    ap.add_argument("--coordinator-resume", action="store_true",
+                    help="with --resume and --remote-walkers: build the "
+                         "episode server in recovery mode — it reconstructs "
+                         "the work queue from the sample store (complete "
+                         "episodes skipped, partial ones replayed via the "
+                         "RNG keys) instead of starting the epoch from 0")
+    ap.add_argument("--coordinator-port", type=int, default=0,
+                    help="fixed listen port for the episode server (default "
+                         "0 = ephemeral; rank r listens on this + r); a "
+                         "restarted coordinator must reuse its "
+                         "predecessor's port so producers in their "
+                         "reconnect-backoff loop can reattach")
+    ap.add_argument("--server-grace-s", type=float, default=30.0,
+                    help="producer-side outage budget: how long a producer "
+                         "keeps retrying (jittered capped backoff) against "
+                         "an unreachable episode server before giving up")
+    ap.add_argument("--heartbeat-s", type=float, default=1.0,
+                    help="remote producer heartbeat interval")
+    ap.add_argument("--lease-s", type=float, default=10.0,
+                    help="seconds without a heartbeat before a remote "
+                         "producer is declared dead and its unfinished "
+                         "episodes are reassigned to survivors")
     ap.add_argument("--pipeline-depth", type=int, default=2,
                     help="episodes in flight through the fetch/build/stage "
                          "pipeline")

@@ -2,9 +2,9 @@
 
 The port imports nothing of the JAX package, so it keeps its own copy of
 the classes its paths raise: fault injection's ``InjectedFault``, the
-sample store's ``StoreStalled``, the disk store's ``CorruptEpisodeError``
-and serving's ``DeadlineExceeded`` and ``Overloaded``. The transport's
-error comes with the remote walkers.
+sample store's ``StoreStalled``, the disk store's ``CorruptEpisodeError``,
+the remote walkers' ``TransportError`` and serving's ``DeadlineExceeded``
+and ``Overloaded``.
 """
 from __future__ import annotations
 
@@ -65,3 +65,10 @@ class DeadlineExceeded(RuntimeError):
 
 class Overloaded(RuntimeError):
     """A serving request was shed at admission because the queue was full."""
+
+
+class TransportError(RuntimeError):
+    """A transport-level failure: torn/corrupt frame, injected disconnect,
+    ack timeout, or a peer that vanished mid-conversation. Retriable by
+    reconnect-and-resend — the idempotence keys on every episode chunk make
+    redelivery exactly-once at the store."""

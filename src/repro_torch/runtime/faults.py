@@ -8,8 +8,10 @@ Stages declare named **fault sites** by calling :func:`fault_point`. In
 the port these are ``walk.chunk`` (the top of a walk chunk), ``store.put``
 (both sample stores), ``disk.write`` (the disk store's publish, and its
 ``"publish"`` crash window), ``train.episode`` (the top of each training
-episode) and ``serve.shard`` (each shard's scan task of the degraded-mode
-store). A :class:`FaultPlan` installed via :func:`install_plan` (or the
+episode), ``serve.shard`` (each shard's scan task of the degraded-mode
+store), the ``net.*`` sites of the remote walkers' chunk frames
+(``runtime/transport.py``) and ``producer.episode`` (the top of a remote
+producer's episode). A :class:`FaultPlan` installed via :func:`install_plan` (or the
 :func:`inject` context manager, or either launcher's ``--inject`` flag)
 decides deterministically whether that invocation crashes
 (:class:`~repro_torch.runtime.errors.InjectedFault`), sleeps, or asks the
@@ -48,7 +50,7 @@ returns True and the CALLER implements the behaviour. ``corrupt`` names the
 torn-output sites; ``fire`` is the generic signal used by sites whose
 behaviour isn't a corruption (the ``net.*`` transport sites: the transport
 drops / duplicates / reorders the frame or closes the socket when its site
-fires, in the JAX package's transport).
+fires).
 """
 from __future__ import annotations
 

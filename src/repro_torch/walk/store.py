@@ -35,7 +35,7 @@ simulating a torn write).
 
 ``put_unique``, ``accepted_episodes`` and ``set_producer``'s ``info_fn``
 are the store's half of the remote walkers' exactly-once delivery and
-coordinator failover, which the port has not taken yet.
+coordinator failover (``walk/remote.py``).
 """
 from __future__ import annotations
 
@@ -66,12 +66,12 @@ class SampleStore:
     _producer_info = None
 
     def set_producer(self, alive_fn, info_fn=None) -> None:
-        """Wire a zero-arg producer-liveness probe (``WalkEngine.alive``): a
-        blocked ``get``/``episodes`` whose producer is dead fails with
+        """Wire a zero-arg producer-liveness probe (``WalkEngine.alive`` or
+        ``RemoteWalkCoordinator.alive`` for remote producers): a blocked
+        ``get``/``episodes`` whose producer is dead fails with
         ``StoreStalled`` instead of waiting out the stall deadline.
-        ``info_fn`` renders the producer's state for the diagnostic (the
-        JAX package's remote walkers pass their host registry's, so a stall
-        names the dead host)."""
+        ``info_fn`` (e.g. ``HostHealth.describe``) renders the producer's
+        state for the diagnostic, so a stall names the dead HOST."""
         self._producer = alive_fn
         self._producer_info = info_fn
 
@@ -97,8 +97,7 @@ class SampleStore:
         OR consumed-and-dropped. This is the coordinator-failover recovery
         source: a restarted episode server re-derives its ordered-put
         cursor from the longest contiguous accepted prefix and only
-        re-produces what the store never took (the JAX package's
-        ``walk/remote.py``)."""
+        re-produces what the store never took (``walk/remote.py``)."""
         return []
 
     def finish_epoch(self, epoch: int) -> None:

@@ -1,7 +1,9 @@
-"""The port's numpy copies of the host-side path — graphs, walks, the sample
+"""The port's numpy copies of the host-side path — graphs (R-MAT and mesh
+too), walks (DeepWalk and node2vec-biased), the alias sampler, the sample
 store, the 2D block builder, the rotation schedule and the AUC evaluation —
 against the JAX package's originals, bitwise: the same seeds give the same
-arrays."""
+arrays; and the reference's distribution tests of the walk features, run
+on the port."""
 import threading
 
 import numpy as np
@@ -11,19 +13,25 @@ from repro.core import eval as jev
 from repro.core import partition as jpart
 from repro.core import rotation as jrot
 from repro.graph import generators as jgen
+from repro.graph.csr import CSRGraph as JCSRGraph
 from repro.graph.csr import build_csr as jbuild_csr
 from repro.graph.io import load_edge_list as jload_edge_list
+from repro.walk import AliasTable as JAliasTable
 from repro.walk import MemorySampleStore as JStore
 from repro.walk import WalkConfig as JWalkConfig
 from repro.walk import WalkEngine as JWalkEngine
+from repro.walk.alias import negative_sampling_table as jneg_table
 from repro_torch.core import eval as ev
 from repro_torch.core import partition as part
 from repro_torch.core import rotation
 from repro_torch.graph import generators as gen
-from repro_torch.graph.csr import build_csr
+from repro_torch.graph.csr import CSRGraph, build_csr
 from repro_torch.graph.io import load_edge_list
 from repro_torch.runtime import StoreStalled
-from repro_torch.walk import MemorySampleStore, WalkConfig, WalkEngine
+from repro_torch.graph import mesh_graph, rmat_graph
+from repro_torch.walk import (AliasTable, MemorySampleStore, WalkConfig,
+                              WalkEngine)
+from repro_torch.walk.alias import negative_sampling_table
 
 
 def _same_graph(a, b):
@@ -40,6 +48,18 @@ def test_generators_bitwise(n, seed):
                 jgen.sbm_graph(n, rounds=max(30, n // 40), seed=seed))
 
 
+@pytest.mark.parametrize("scale,edge_factor,seed", [(8, 4, 2), (10, 16, 0),
+                                                    (6, 8, 5)])
+def test_rmat_graph_bitwise(scale, edge_factor, seed):
+    _same_graph(gen.rmat_graph(scale, edge_factor, seed=seed),
+                jgen.rmat_graph(scale, edge_factor, seed=seed))
+
+
+@pytest.mark.parametrize("side", [1, 2, 12, 37])
+def test_mesh_graph_bitwise(side):
+    _same_graph(gen.mesh_graph(side), jgen.mesh_graph(side))
+
+
 def test_build_csr_and_edge_list_io_bitwise(tmp_path):
     edges = np.random.default_rng(2).integers(0, 50, size=(400, 2))
     for kw in ({}, {"symmetrize": False, "dedup": False}):
@@ -50,6 +70,14 @@ def test_build_csr_and_edge_list_io_bitwise(tmp_path):
     np.save(npy, edges)
     for path in (str(txt), str(npy)):
         _same_graph(load_edge_list(path), jload_edge_list(path))
+    # a saved graph reads back in either package
+    g, jg = build_csr(edges, 50), jbuild_csr(edges, 50)
+    g.save(str(tmp_path / "g.npz"))
+    jg.save(str(tmp_path / "jg.npz"))
+    _same_graph(CSRGraph.load(str(tmp_path / "jg.npz")), jg)
+    _same_graph(JCSRGraph.load(str(tmp_path / "g.npz")), g)
+    for v in (0, 17, 49):
+        np.testing.assert_array_equal(g.neighbors(v), jg.neighbors(v))
 
 
 def _epoch_pairs(engine_cls, cfg_cls, store_cls, g, workers, epoch=1):
@@ -72,6 +100,108 @@ def test_walk_engine_pairs_bitwise(workers):
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(engine.episode_pairs(1, ep), a)
+
+
+@pytest.mark.parametrize("p,q", [(0.5, 2.0), (2.0, 0.5)])
+@pytest.mark.parametrize("graph", ["powerlaw", "mesh"])
+def test_node2vec_pairs_bitwise(p, q, graph):
+    """The biased step's rejection sampler draws in JAX's order: every
+    episode's pairs are the JAX engine's, bitwise, for p != q."""
+    if graph == "powerlaw":
+        g, jg = gen.powerlaw_graph(500, 4, seed=2), jgen.powerlaw_graph(
+            500, 4, seed=2)
+    else:
+        g, jg = mesh_graph(20), jgen.mesh_graph(20)
+    kw = dict(walk_length=8, window=3, episodes=3, seed=11, chunk_size=64,
+              node2vec_p=p, node2vec_q=q)
+    eng = WalkEngine(g, WalkConfig(**kw))
+    jeng = JWalkEngine(jg, JWalkConfig(**kw))
+    deepwalk = WalkEngine(g, WalkConfig(**{**kw, "node2vec_p": 1.0,
+                                           "node2vec_q": 1.0}))
+    for epoch, ep in ((0, 0), (0, 2), (3, 1)):
+        a, b = eng.episode_pairs(epoch, ep), jeng.episode_pairs(epoch, ep)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+        # the bias really acts: not the DeepWalk stream
+        assert not np.array_equal(a, deepwalk.episode_pairs(epoch, ep))
+
+
+@pytest.mark.parametrize("weights", [
+    [1.0, 2.0, 3.0, 4.0], [0.01, 100.0, 5.0], [7.0] * 9,
+    list(np.random.default_rng(3).uniform(0.01, 100.0, 50)),
+    [0.0, 1.0, 0.0, 2.5, 0.0],
+], ids=["ramp", "skewed", "flat", "random50", "zeros"])
+def test_alias_table_bitwise(weights):
+    """Tables and draws from one seeded generator equal JAX's."""
+    tab, jtab = AliasTable(weights), JAliasTable(weights)
+    np.testing.assert_array_equal(tab.prob, jtab.prob)
+    np.testing.assert_array_equal(tab.alias, jtab.alias)
+    assert tab.prob.dtype == jtab.prob.dtype
+    assert tab.alias.dtype == jtab.alias.dtype
+    for size in (1000, (7, 33)):
+        np.testing.assert_array_equal(
+            tab.sample(size, np.random.default_rng(4)),
+            jtab.sample(size, np.random.default_rng(4)))
+    deg = np.array([1, 16, 81, 0, 3])
+    n, jn = negative_sampling_table(deg), jneg_table(deg)
+    np.testing.assert_array_equal(n.prob, jn.prob)
+    np.testing.assert_array_equal(n.alias, jn.alias)
+
+
+@pytest.mark.parametrize("bad", [[], [[1.0, 2.0]], [-1.0, 2.0], [0.0, 0.0]])
+def test_alias_table_rejects_like_jax(bad):
+    with pytest.raises(ValueError):
+        AliasTable(bad)
+    with pytest.raises(ValueError):
+        JAliasTable(bad)
+
+
+# the reference's distribution tests (tests/test_walk.py), on the port; the
+# alias case's weights are fixed lists where the reference draws them
+@pytest.mark.parametrize("weights", [
+    [1.0, 2.0, 3.0, 4.0], [0.01, 100.0], [50.0, 0.5, 0.5, 10.0, 25.0],
+    list(np.random.default_rng(9).uniform(0.01, 100.0, 50)),
+], ids=["ramp", "two", "mixed", "random50"])
+def test_alias_table_distribution(weights):
+    w = np.asarray(weights)
+    tab = AliasTable(w)
+    rng = np.random.default_rng(0)
+    s = tab.sample(20000, rng)
+    emp = np.bincount(s, minlength=len(w)) / 20000.0
+    np.testing.assert_allclose(emp, w / w.sum(), atol=0.05)
+
+
+def test_negative_sampling_power():
+    deg = np.array([1, 16, 81, 0])
+    tab = negative_sampling_table(deg, power=0.75)
+    rng = np.random.default_rng(1)
+    s = tab.sample(40000, rng)
+    emp = np.bincount(s, minlength=4) / 40000.0
+    w = np.maximum(deg.astype(float) ** 0.75, 1e-12)
+    np.testing.assert_allclose(emp, w / w.sum(), atol=0.02)
+
+
+def test_node2vec_biased_step_runs():
+    g = mesh_graph(12)
+    cfg = WalkConfig(walk_length=6, window=2, node2vec_p=0.5, node2vec_q=2.0)
+    eng = WalkEngine(g, cfg, MemorySampleStore())
+    rng = np.random.default_rng(0)
+    walks = eng.generate_walks(np.arange(50, dtype=np.int32), rng)
+    adj = {v: set(g.neighbors(v)) for v in range(g.num_nodes)}
+    for w in walks[:20]:
+        for a, b in zip(w[:-1], w[1:]):
+            assert b in adj[a] or a == b
+
+
+def test_async_engine_on_rmat_graph():
+    g = rmat_graph(8, 4, seed=2)
+    store = MemorySampleStore(stall_timeout_s=60.0)
+    eng = WalkEngine(g, WalkConfig(walk_length=6, window=3, episodes=2),
+                     store)
+    eng.start_async(0)
+    pairs = store.get(0, 0)  # blocks until the walker delivers
+    eng.join()
+    assert pairs.shape[0] > 0
 
 
 def test_async_engine_and_bounded_store():
