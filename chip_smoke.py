@@ -32,8 +32,9 @@ failure ends the run with a non-zero exit:
    shapes the launcher gives it, the rowwise kernel (#4) also bit for
    bit against the scan, and timed, with the split between its score and
    selection kernels; then the checkpoint served by
-   ``repro_torch.launch.embed_serve.main`` at recall 1.0, exact and int8,
-   with every kernel's launch count read around the two runs;
+   ``repro_torch.launch.embed_serve.main`` at recall 1.0, exact and int8
+   (``SERVE_QUERIES`` requests each, padded to the launcher's 256-row
+   batch), with every kernel's launch count read around the two runs;
 4. the SGNS kernels (``sgns_fused_update``, ``sgns_fused_grads``,
    ``sgns_grads``) against their plain versions at f32 and bf16, with
    heavy duplicates, an odd B and one index per table, at the JAX kernel
@@ -127,8 +128,9 @@ failure ends the run with a non-zero exit:
    k = 2) from two ``pallas_fused2`` ranks on the card against two plain
    CPU ranks on the same blocks and negatives, f32 and bf16, at SGNS_TOL,
    and its wall time beside one rank's; the ranks' launch counts summed;
-9. the serving launcher's other legs on the phase-3 checkpoint, each a
-   path with its own counts: ``--impl rowwise``, ``--quant int8
+9. the serving launcher's other legs on the phase-3 checkpoint
+   (``SERVE_QUERIES`` requests each), each a path with its own counts:
+   ``--impl rowwise``, ``--quant int8
    --hot-rows 120``, the 3-shard chaos leg (shard 1 delayed past a 150 ms
    deadline, ``--expect-degraded``, recall against the surviving shards)
    and ``--metrics-dir`` + ``--trace`` (the files and the trace's
@@ -138,8 +140,8 @@ failure ends the run with a non-zero exit:
    the JAX package's ``tests/test_flash_attention.py``, a case with rows
    that have no valid key, hd 128 and hd 8 with ragged tiles, and
    granite-3-2b's prefill (B = 4, H = 32, Hkv = 8, S = 2048, hd = 64;
-   causal, and with a 512-key window) on the (B, S, H, hd) views the model
-   passes; then timed at that prefill shape beside its bound (f32 CUDA
+   causal, and with a 512-key window) and phi3.5-moe's (B = 2, hd = 128)
+   on the (B, S, H, hd) views the model passes; then timed at that prefill shape beside its bound (f32 CUDA
    cores and 3xTF32 tensor cores), ``mha_plain`` and PyTorch's
    ``scaled_dot_product_attention``, with the device kernels of one call
    of each;
@@ -149,6 +151,21 @@ failure ends the run with a non-zero exit:
    no masked prefill; then granite at full width and 2 layers, its
    prefill logits on the kernel route against the masked plain route
    within 2e-3;
+11b. LM training and the MoE family: ``repro_torch.launch.train.main``
+   for qwen1.5-0.5b at full width and depth (24 layers, d 1,024, vocab
+   151,936, f32, AdamW, 4 microbatches; 20 steps of batch 8 x 256 with
+   ``--save``), its last loss below its first, ``lm_final.npz`` loaded
+   back through the port's loader leaf for leaf, its steps/s, tokens/s and
+   rate by 6 * params * tokens, and no kernel launched (the masked plain
+   attention, as JAX's training takes); then phi3.5-moe at full width (d
+   4,096, 16 experts of ff 6,400, 32/8 heads of 128) and 2 layers:
+   ``serve.run`` at batch 2 with a 2,048-token prompt and 16 new tokens
+   (one flash launch a layer, no masked prefill, the kernel route's
+   prefill logits against the masked route within 2e-3), the expert
+   dispatch against the dense oracle on layer 0's MoE input within 1e-4
+   at a capacity factor of E / k (and the config's 1.25 dropped share),
+   and one Adafactor train step through the dispatch (a finite loss, a
+   positive grad norm, changed parameters); each path's launches;
 12. a JSON line of per-kernel results (launches per path), the card's line,
    and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -197,10 +214,21 @@ FLASH_CASES = [  # B, H, Hkv, Sq, Skv, hd, causal, window
     (1, 8, 4, 257, 257, 8, True, 0),
     (LM_B, 32, 8, LM_S, LM_S, 64, True, 0),
     (LM_B, 32, 8, LM_S, LM_S, 64, True, 512),
+    (2, 32, 8, LM_S, LM_S, 128, True, 0),   # phi3.5-moe's prefill (11b)
 ]
 LM_ARGV = ["--arch", "granite-3-2b", "--no-reduced", "--batch", str(LM_B),
            "--prompt-len", str(LM_S), "--tokens", str(LM_TOKENS),
            "--device", "cuda"]
+# phase 11b: the LM training launcher at qwen1.5-0.5b's full width and
+# depth; phi3.5-moe at full width and 2 layers
+LM_TRAIN_ARCH, LM_TRAIN_STEPS, LM_TRAIN_B, LM_TRAIN_S = (
+    "qwen1.5-0.5b", 20, 8, 256)
+MOE_ARCH, MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 2
+MOE_B, MOE_NEW = 2, 16                 # serve: batch, new tokens (2,048 prompt)
+MOE_TRAIN_B, MOE_TRAIN_S = 4, 128      # train: 4 microbatches of 1 x 128
+# the serving launcher's requests a leg (phases 3 and 9): its numpy oracle
+# sorts every row per request, which set those phases' time at 256
+SERVE_QUERIES = 64
 BF16_FLOP_PER_S = 989e12           # H100 SXM, dense bf16 tensor cores
 TF32_FLOP_PER_S = 495e12           # H100 SXM, dense TF32 tensor cores
 # kernels (mangled-name parts) that must not spill registers: #2's int8
@@ -2015,6 +2043,222 @@ def lm_serving(torch, dev, counted):
     return launches
 
 
+def lm_training(torch, dev, counted):
+    """The LM training launcher at qwen1.5-0.5b's full width and depth: its
+    loss falls over the run, ``lm_final.npz`` loads back through the port's
+    loader leaf for leaf, and its rate against ``6 * params * tokens``.
+    Returns the path's launch counts (none: the masked plain attention, as
+    JAX's training takes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models.common import count_params, tree_leaves
+    from repro_torch.models.convert import params_from_arrays
+    from repro_torch.train.checkpoint import load_arrays
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--arch", LM_TRAIN_ARCH, "--steps", str(LM_TRAIN_STEPS),
+                "--batch", str(LM_TRAIN_B), "--seq", str(LM_TRAIN_S),
+                "--log-every", "5", "--save", "--out-dir", tmp,
+                "--device", "cuda"]
+        t0 = time.perf_counter()
+        r, launches = counted(lambda: train_launcher.main(argv))
+        wall = time.perf_counter() - t0
+        losses = r["losses"]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"LM training {LM_TRAIN_ARCH}: losses "
+                                 f"{losses}; want the last below the first")
+        arrays, step = load_arrays(r["checkpoint"])
+        back = params_from_arrays(arrays)
+        got, want = tree_leaves(back), tree_leaves(r["params"])
+        if not (step == LM_TRAIN_STEPS and len(got) == len(want)
+                and all(tuple(a.shape) == tuple(b.shape)
+                        for a, b in zip(got, want))
+                and torch.equal(back["embed"], r["params"]["embed"].cpu())):
+            raise AssertionError(f"lm_final.npz: step {step}, {len(got)} "
+                                 f"leaves against {len(want)}")
+        n = count_params(r["params"])
+    tokens = LM_TRAIN_B * LM_TRAIN_S
+    rate = 6.0 * n * tokens / r["step_s"]
+    cfg = get_config(LM_TRAIN_ARCH)
+    print(f"LM training {LM_TRAIN_ARCH} full width and depth ({n} params, "
+          f"{cfg.param_dtype}, {cfg.optimizer}, batch {LM_TRAIN_B} x "
+          f"{LM_TRAIN_S}, {cfg.train_microbatches} microbatches): "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} over {LM_TRAIN_STEPS} "
+          f"steps; {r['step_s'] * 1e3:.1f} ms/step after the first "
+          f"({1.0 / r['step_s']:.3f} steps/s, {tokens / r['step_s']:.1f} "
+          f"tokens/s, {rate / 1e12:.2f} TFLOP/s by 6 * params * tokens, "
+          f"{100 * rate / FP32_FLOP_PER_S:.1f} % of the f32 CUDA-core peak); "
+          f"{wall:.1f} s with init; lm_final.npz loads back with all "
+          f"{len(got)} leaves' shapes; launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"LM training launched {launches}: its "
+                             f"attention is the masked plain path")
+    del r, back, arrays
+    torch.cuda.empty_cache()
+    # where a step's time goes: one step after two warm ones, profiled
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.train_step import make_train_step
+
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    step_fn, opt = make_train_step(cfg, lr=3e-4, moe_dispatch=True)
+    state = opt.init(params)
+    pipe = TokenPipeline(cfg, LM_TRAIN_B, LM_TRAIN_S, seed=SEED)
+    try:
+        batches = [{"tokens": torch.from_numpy(pipe.next()["tokens"]).to(dev)}
+                   for _ in range(3)]
+    finally:
+        pipe.close()
+    for i in range(2):
+        params, state, _ = step_fn(params, state, i, batches[i])
+    profile_split(torch, f"train step ({LM_TRAIN_ARCH})",
+                  lambda: step_fn(params, state, 2, batches[2]))
+    del params, state, batches
+    torch.cuda.empty_cache()
+    return {"lm_train": launches}
+
+
+def moe_family(torch, dev, counted):
+    """phi3.5-moe at full width and 2 layers: served through ``serve.run``
+    (one flash launch a layer, no masked prefill; the kernel route's
+    prefill logits against the masked route within 2e-3), its expert
+    dispatch against the dense oracle on one layer's input (no row can drop
+    at a capacity factor of E / k; the config's 1.25 prints its dropped
+    share), and one Adafactor train step through the dispatch. Returns the
+    paths' launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import attention as lm_attn
+    from repro_torch.models import mlp
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.convert import stack_layers, unstack_layers
+    from repro_torch.train.train_step import make_train_step, synthetic_batch
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = unstack_layers(stack_layers(tfm.init_params(cfg, seed=SEED,
+                                                         device=dev), cfg))
+    torch.cuda.synchronize()
+    n = tfm.param_count(cfg)
+    print(f"{MOE_ARCH} full width, {MOE_LAYERS} layers: {n} params "
+          f"({4 * n / 1e9:.2f} GB f32) made on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    S = cfg.prefill_chunk
+    prompt = synthetic_batch(cfg, MOE_B, S, seed=SEED)["tokens"]
+    cache_len = S + MOE_NEW + 8
+    for name in lm_attn.ROUTE_CALLS:
+        lm_attn.ROUTE_CALLS[name] = 0
+    out, launches = counted(lambda: lm_serve.run(
+        params, cfg, prompt, new_tokens=MOE_NEW, cache_len=cache_len))
+    routes = dict(lm_attn.ROUTE_CALLS)
+    if not (launches["flash_attention"] == MOE_LAYERS
+            and routes == {"flash_calls": MOE_LAYERS, "masked_calls": 0}):
+        raise AssertionError(f"{MOE_ARCH} serving: {launches}, routes "
+                             f"{routes}; want one flash launch a layer")
+    logits, toks = out["logits"], out["tokens"]
+    if not (tuple(logits.shape) == (MOE_B, 1, cfg.vocab_size)
+            and torch.isfinite(logits).all()
+            and toks.shape == (MOE_B, MOE_NEW)
+            and ((0 <= toks) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{MOE_ARCH} serving: logits "
+                             f"{tuple(logits.shape)}, tokens {toks.shape}")
+    masked = lm_serve.run(params, cfg, prompt, new_tokens=1,
+                          cache_len=cache_len, flash=False)
+    torch.testing.assert_close(logits, masked["logits"], rtol=2e-3, atol=2e-3)
+    print(f"{MOE_ARCH} serve (dense-oracle MoE, as JAX serves): batch "
+          f"{MOE_B}, prompt {S}, {MOE_NEW} tokens: prefill "
+          f"{out['prefill_s'] * 1e3:.1f} ms (masked route "
+          f"{masked['prefill_s'] * 1e3:.1f} ms), decode "
+          f"{out['tok_per_s']:.1f} tok/s; flash route == masked route within "
+          f"2e-3 (max |diff| "
+          f"{(logits - masked['logits']).abs().max().item():.3g}); "
+          f"launches {launches}, routes {routes}")
+    paths = {"moe_serve": launches}
+    del out, masked, logits
+    torch.cuda.empty_cache()
+
+    # the dispatch against the oracle on layer 0's MoE input
+    p0 = params["layers"][0]
+    with torch.no_grad():
+        x = tfm._embed_tokens(params, torch.as_tensor(prompt, device=dev))
+        x = x + lm_attn.attention_forward(
+            p0["attn"], rms_norm(x, p0["ln1"], cfg.norm_eps), cfg)
+        h = rms_norm(x, p0["ln2"], cfg.norm_eps)
+        del x
+        E, k = cfg.moe_num_experts, cfg.moe_top_k
+        roomy = dataclasses.replace(cfg, moe_capacity_factor=E / k)
+        t1 = time.perf_counter()
+        y_ref, a_ref = mlp.moe_ref(p0["moe"], h, cfg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        y_d, a_d = mlp.moe_forward(p0["moe"], h, roomy, dispatch=True)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        torch.testing.assert_close(y_d, y_ref, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(a_d, a_ref, rtol=1e-4, atol=1e-4)
+        _, _, topi = mlp._route(h.reshape(-1, cfg.d_model),
+                                p0["moe"]["router"], k)
+        kept = mlp.dispatch_plan(topi, cfg)[1]
+        dropped = 1.0 - kept.float().mean().item()
+        y_c, _ = mlp.moe_forward(p0["moe"], h, cfg, dispatch=True)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    print(f"{MOE_ARCH} MoE layer on {MOE_B} x {S} tokens: dispatch at "
+          f"capacity factor {E / k:g} == dense oracle within 1e-4 (max "
+          f"|diff| {(y_d - y_ref).abs().max().item():.3g}, aux "
+          f"{a_ref.item():.6f}); at the config's "
+          f"{cfg.moe_capacity_factor:g}: {100 * dropped:.3f} % of "
+          f"{kept.numel()} rows dropped; oracle {1e3 * (t2 - t1):.1f} ms, "
+          f"dispatch {1e3 * (t3 - t2):.1f} ms (factor {E / k:g}), "
+          f"{1e3 * (t4 - t3):.1f} ms (factor {cfg.moe_capacity_factor:g}; "
+          f"first calls)")
+    del h, y_ref, y_d, y_c, topi, kept
+    torch.cuda.empty_cache()
+
+    # one train step through the dispatch (Adafactor, 4 microbatches)
+    step_fn, opt = make_train_step(cfg, lr=3e-4, moe_dispatch=True)
+    state = opt.init(params)
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_TRAIN_B, MOE_TRAIN_S),
+                           generator=g).to(dev)
+    before = params["layers"][0]["moe"]["w_gate"][0, :4, :4].clone()
+    router = params["layers"][1]["moe"]["router"].clone()
+
+    def step():
+        out = step_fn(params, state, 0, {"tokens": tokens})
+        torch.cuda.synchronize()
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (new, state, m), launches = counted(step)
+    step_s = time.perf_counter() - t0
+    changed = not (torch.equal(new["layers"][0]["moe"]["w_gate"][0, :4, :4],
+                               before)
+                   and torch.equal(new["layers"][1]["moe"]["router"], router))
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    if not (np.isfinite(loss) and gnorm > 0 and changed):
+        raise AssertionError(f"{MOE_ARCH} train step: loss {loss}, grad norm "
+                             f"{gnorm}, parameters changed: {changed}")
+    tokens_n = MOE_TRAIN_B * MOE_TRAIN_S
+    active = n - MOE_LAYERS * (E - k) * 3 * cfg.d_model * cfg.moe_d_ff
+    print(f"{MOE_ARCH} train step (Adafactor, expert dispatch, "
+          f"{cfg.train_microbatches} microbatches of {MOE_TRAIN_B // cfg.train_microbatches}"
+          f" x {MOE_TRAIN_S}): loss {loss:.4f}, grad norm {gnorm:.2f}, "
+          f"{step_s:.2f} s (the first call; "
+          f"{6.0 * active * tokens_n / step_s / 1e12:.2f} TFLOP/s by 6 * "
+          f"active params * tokens); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; launches "
+          f"{launches}")
+    if any(launches.values()):
+        raise AssertionError(f"MoE training launched {launches}")
+    paths["moe_train"] = launches
+    del params, new, state, m
+    torch.cuda.empty_cache()
+    return paths
+
+
 def profile_split(torch, label, run):
     """``run()`` once under the profiler: wall ms, the device's busy share
     and the top device ops by self device time. Returns ``run()``'s
@@ -2558,7 +2802,7 @@ def main() -> int:
 
     def serve(*extra):
         return embed_serve.main(
-            ["--ckpt", ckpt, "--k", str(K), "--queries", str(BATCH),
+            ["--ckpt", ckpt, "--k", str(K), "--queries", str(SERVE_QUERIES),
              "--check-recall", "1.0", "--device", "cuda", *extra])
 
     # the kernels against their plain versions on the main path's own table
@@ -2782,7 +3026,8 @@ def main() -> int:
                   for e in trace["traceEvents"])
     summary = json.loads((mdir / "metrics_summary.json").read_text())
     if not ((mdir / "metrics.jsonl").exists() and n_spans > 0
-            and summary["histograms"]["serve.request_s"]["count"] == BATCH):
+            and summary["histograms"]["serve.request_s"]["count"]
+            == SERVE_QUERIES):
         raise AssertionError(f"telemetry leg: {n_spans} serve_batch spans, "
                              f"summary {sorted(summary)}")
     print(f"telemetry leg: {n_spans} serve_batch spans in the trace, "
@@ -2809,6 +3054,11 @@ def main() -> int:
     # ---------------------------------------------------------- phase 11
     print(f"phase 11 starts at {time.perf_counter() - t_start:.1f}s")
     paths["lm_serve"] = lm_serving(torch, dev, counted)
+
+    # ---------------------------------------------------------- phase 11b
+    print(f"phase 11b starts at {time.perf_counter() - t_start:.1f}s")
+    paths.update(lm_training(torch, dev, counted))
+    paths.update(moe_family(torch, dev, counted))
 
     # ---------------------------------------------------------- phase 12
     print(f"phase 12 starts at {time.perf_counter() - t_start:.1f}s")

@@ -3,20 +3,22 @@
 The port's counterpart of the JAX package's ``configs/__init__.py``. It
 names every arch of the JAX registry, so a JAX command line parses
 unchanged, and holds copies of the configs of the families the port runs:
-the dense LMs and the paper's embedding workload. :func:`get_config` on an
-arch of a family not ported yet (MoE, MLA, SSM, hybrid, enc-dec, VLM)
-raises ``NotImplementedError``; ``ROADMAP.md`` Queue 1 item 8 lists them.
+the dense LMs, the MoE LM phi3.5-moe and the paper's embedding workload.
+:func:`get_config` on an arch of a family not ported yet (MLA, SSM,
+hybrid, enc-dec, VLM) raises ``NotImplementedError``; ``ROADMAP.md`` Queue
+1 item 8 lists them.
 """
 from __future__ import annotations
 
-from repro_torch.configs import (granite_3_2b, qwen1_5_0_5b, qwen1_5_4b,
-                                 qwen2_5_32b, tencent_embedding)
+from repro_torch.configs import (granite_3_2b, phi3_5_moe_42b, qwen1_5_0_5b,
+                                 qwen1_5_4b, qwen2_5_32b, tencent_embedding)
 
 ARCHS = {
     "qwen1.5-4b": qwen1_5_4b.CONFIG,
     "qwen2.5-32b": qwen2_5_32b.CONFIG,
     "qwen1.5-0.5b": qwen1_5_0_5b.CONFIG,
     "granite-3-2b": granite_3_2b.CONFIG,
+    "phi3.5-moe-42b-a6.6b": phi3_5_moe_42b.CONFIG,
     "tencent-embedding": tencent_embedding.CONFIG,
 }
 
@@ -27,7 +29,6 @@ NOT_PORTED = {
     "llava-next-mistral-7b": "VLM",
     "mamba2-1.3b": "SSM",
     "seamless-m4t-large-v2": "enc-dec (audio)",
-    "phi3.5-moe-42b-a6.6b": "MoE",
 }
 
 

@@ -16,15 +16,23 @@ decode then serves one token per step.
 
 ``--reduced`` (the default, as in JAX, whose ``store_true`` flag with
 ``default=True`` cannot be switched off) cuts the arch to 2 layers of
-width 256; ``--no-reduced`` runs it at its full width. ``--temperature 0``
-is greedy decoding, the parity path; a positive temperature samples from
-a ``torch.Generator``, which cannot give ``jax.random``'s numbers. The
-weights are random, from ``--seed``. Families other than dense raise.
+width 256 (4 experts for a MoE arch); ``--no-reduced`` runs it at its full
+width and depth, which must fit one device: the launcher raises before
+allocating when the f32 weights alone exceed the device's memory
+(phi3.5-moe-42b-a6.6b: 167 GB, qwen2.5-32b: 131 GB), as those archs need
+``sharding/`` (``ROADMAP.md``, Queue 1 item 8). ``serve.run`` takes any
+weights, so a caller can serve such an arch at full width and a cut depth.
+MoE layers take the dense oracle, as the JAX launcher serves without a
+mesh. ``--temperature 0`` is greedy decoding, the parity path; a positive
+temperature samples from a ``torch.Generator``, which cannot give
+``jax.random``'s numbers. The weights are random, from ``--seed``. The
+dense and MoE families run; the others raise.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 
@@ -34,6 +42,14 @@ import torch
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def device_memory(dev: torch.device) -> int:
+    """Bytes of memory of ``dev``: the card's, or the host's for the
+    CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
 def run(params, cfg, tokens, *, new_tokens: int, cache_len: int,
@@ -94,8 +110,12 @@ def main(argv=None) -> dict:
                     choices=cfgs.list_archs())
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True,
-                    help="2 layers of width 256 (default); --no-reduced "
-                         "runs the arch at full width")
+                    help="2 layers of width 256, 4 experts (default); "
+                         "--no-reduced runs the arch at full width and "
+                         "depth, which must fit one device: an arch whose "
+                         "f32 weights exceed it (phi3.5-moe-42b-a6.6b 167 "
+                         "GB, qwen2.5-32b 131 GB) needs sharding/, not "
+                         "ported yet, and raises")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--tokens", type=int, default=32)
@@ -116,6 +136,14 @@ def main(argv=None) -> dict:
         cfg = dataclasses.replace(cfg, sliding_window=args.window)
     tfm.check_family(cfg)
     dev = resolve_device(args.device)
+    need = 4 * tfm.param_count(cfg)
+    have = device_memory(dev)
+    if need > have:
+        raise SystemExit(
+            f"{args.arch}: {need / 1e9:.0f} GB of f32 weights exceed one "
+            f"{dev.type} device ({have / 1e9:.0f} GB); serving it at full "
+            f"depth needs sharding/, not ported yet (ROADMAP.md, Queue 1 "
+            f"item 8): use --reduced")
 
     params = tfm.init_params(cfg, seed=args.seed, device=dev)
     batch = synthetic_batch(cfg, args.batch, args.prompt_len, seed=args.seed)

@@ -1,10 +1,30 @@
-"""Embedding training launcher, on the card by default.
+"""Training launcher, on the card by default: the paper's embedding
+trainer (``--arch tencent-embedding``, the default) and the LM trainer
+(any other ``--arch``).
 
-The port of the embedding mode of the JAX package's ``launch/train.py``:
-the decoupled walk engine (async, one epoch ahead), the episode pipeline,
-the single-card hybrid trainer with the CUDA SGNS kernels (``--impl`` picks
+The port of the JAX package's ``launch/train.py``. The embedding mode: the
+decoupled walk engine (async, one epoch ahead), the episode pipeline, the
+single-card hybrid trainer with the CUDA SGNS kernels (``--impl`` picks
 the route, the fused update by default), periodic resume checkpoints and
 the link-prediction AUC.
+
+The LM mode (``--arch qwen1.5-0.5b`` or any dense or MoE LM): random
+weights from ``--seed``, ``TokenPipeline``'s seeded Markov token stream
+(``data/tokens.py``), and ``--steps`` steps of ``train/train_step.py``
+(the config's optimizer, its ``train_microbatches``, MoE layers through
+the expert dispatch as JAX's trainer under its host mesh); it prints the
+JAX launcher's lines (``{arch}: {n}M params``, ``step {s:5d} loss ...
+grad_norm ...`` every ``--log-every`` steps and at the last) and with
+``--save`` writes ``OUT_DIR/lm_final.npz`` in the JAX tree layout, which
+JAX's ``restore_checkpoint`` reads. ``--reduced`` cuts the arch to
+``--layers`` layers of width ``--d-model`` (4 experts, vocab ≤ 8,192, one
+microbatch). Its attention is the masked plain path, as JAX's training
+takes: the LM mode launches no kernel of the port.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
+        --reduced --steps 3 --batch 2 --seq 64 --device cpu
+
+The embedding mode in detail:
 
     PYTHONPATH=src python -m repro_torch.launch.train --graph-kind sbm \\
         --nodes 1200 --epochs 12 --episodes 3 --dim 128 --subparts 2 \\
@@ -551,22 +571,94 @@ def _train_embedding_epochs(args, cfg, trainer, engine, store, pipe,
             "rewalked": list(pipe.recovered)}
 
 
+def train_lm(args) -> dict:
+    """The LM mode (the module docstring). Returns ``{"losses", "grad_norm",
+    "params", "checkpoint", "step_s"}``: every step's loss and grad norm
+    (floats), the trained parameters, the ``lm_final.npz`` path (None
+    without ``--save``) and the mean seconds of a step after the first."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs as cfgs
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.device import resolve_device
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import count_params
+    from repro_torch.models.convert import params_to_jax
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.train.checkpoint import save_checkpoint
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = cfgs.get_config(args.arch)
+    if not isinstance(cfg, ModelConfig):
+        raise SystemExit(f"--arch {args.arch} is not an LM")
+    if args.reduced:
+        cfg = cfg.reduced(layers=args.layers, d_model=args.d_model, experts=4)
+        cfg = dataclasses.replace(
+            cfg, vocab_size=min(cfg.vocab_size, 8192), train_microbatches=1)
+    tfm.check_family(cfg)
+    dev = resolve_device(args.device)
+    params = tfm.init_params(cfg, seed=args.seed, device=dev)
+    print(f"{args.arch}: {count_params(params)/1e6:.1f}M params")
+
+    # MoE layers take the expert dispatch: JAX's trainer runs under its
+    # host mesh, which on one device routes them so
+    step_fn, opt = make_train_step(cfg, lr=args.lr, moe_dispatch=True)
+    opt_state = opt.init(params)
+    pipe = TokenPipeline(cfg, args.batch, args.seq, seed=args.seed)
+    os.makedirs(args.out_dir, exist_ok=True)
+    positions = torch.arange(args.seq, dtype=torch.int32,
+                             device=dev).expand(args.batch, args.seq)
+    losses, norms, times = [], [], []
+    try:
+        for step in range(args.steps):
+            t0 = time.perf_counter()
+            tokens = torch.from_numpy(pipe.next()["tokens"]).to(dev)
+            params, opt_state, m = step_fn(
+                params, opt_state, step,
+                {"tokens": tokens, "positions": positions})
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            times.append(time.perf_counter() - t0)
+            if step % args.log_every == 0 or step == args.steps - 1:
+                print(f"step {step:5d} loss {losses[-1]:.4f} "
+                      f"grad_norm {norms[-1]:.2f}")
+    finally:
+        pipe.close()
+    path = None
+    if args.save:
+        path = os.path.join(args.out_dir, "lm_final.npz")
+        save_checkpoint(path, params_to_jax(params, cfg), step=args.steps)
+    later = times[1:] or times
+    return {"losses": losses, "grad_norm": norms, "params": params,
+            "checkpoint": path,
+            "step_s": sum(later) / len(later) if later else None}
+
+
 def main(argv=None) -> dict:
-    """Run the trainer; returns ``{"auc", "loss", "edges", "train_s",
-    "edges_per_s", "episode_s", "episodes", "checkpoint", "ranks",
-    "rewalked", "cache", "transport", "failover"}`` (``cache``: the tiered
-    trainer's ``cache_stats()`` with ``--hbm-rows``; ``transport`` and
-    ``failover``: the remote walkers' statistics with ``--remote-walkers``;
-    else None)."""
+    """Run the trainer. The embedding mode returns ``{"auc", "loss",
+    "edges", "train_s", "edges_per_s", "episode_s", "episodes",
+    "checkpoint", "ranks", "rewalked", "cache", "transport", "failover"}``
+    (``cache``: the tiered trainer's ``cache_stats()`` with ``--hbm-rows``;
+    ``transport`` and ``failover``: the remote walkers' statistics with
+    ``--remote-walkers``; else None); the LM mode :func:`train_lm`'s
+    summary."""
     from repro_torch.core.tiered import CACHE_POLICIES
     from repro_torch.kernels.ops import STEP_IMPLS
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tencent-embedding",
+                    help="tencent-embedding (the paper's embedding trainer) "
+                         "or an LM arch (the LM mode; --reduced cuts it)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out-dir",
                     default=os.path.join(tempfile.gettempdir(),
                                          "repro_torch_train"))
-    ap.add_argument("--lr", type=float, default=0.025)
+    ap.add_argument("--lr", type=float, default=None,
+                    help="learning rate (default 0.025 for the embedding "
+                         "mode, 3e-4 for the LM mode)")
+    # embedding mode
     ap.add_argument("--graph", default=None, help="edge-list file (.npy/.txt)")
     ap.add_argument("--graph-kind", default="powerlaw",
                     choices=["powerlaw", "sbm"],
@@ -699,8 +791,24 @@ def main(argv=None) -> dict:
                          "launcher's default is ref")
     ap.add_argument("--device", default="cuda",
                     help="training device (cuda, cuda:N or cpu)")
+    # lm mode
+    ap.add_argument("--reduced", action="store_true",
+                    help="cut the LM to --layers layers of width --d-model "
+                         "(4 experts, vocab <= 8192, one microbatch)")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--d-model", type=int, default=256)
+    ap.add_argument("--log-every", type=int, default=20)
+    ap.add_argument("--save", action="store_true",
+                    help="write OUT_DIR/lm_final.npz (the JAX tree layout)")
     args = ap.parse_args(argv)
-    return train_embedding(args)
+    if args.arch == "tencent-embedding":
+        args.lr = args.lr if args.lr is not None else 0.025
+        return train_embedding(args)
+    args.lr = args.lr if args.lr is not None else 3e-4
+    return train_lm(args)
 
 
 if __name__ == "__main__":

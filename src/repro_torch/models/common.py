@@ -1,8 +1,11 @@
-"""Shared model building blocks: norms, RoPE, initializers.
+"""Shared model building blocks: norms, RoPE, initializers, parameter
+trees.
 
 The port of the JAX package's ``models/common.py``. Initializers draw from
 an explicit ``torch.Generator``; they cannot give ``jax.random``'s numbers,
-so the tests carry JAX weights across with ``models/convert.py``.
+so the tests carry JAX weights across with ``models/convert.py``. A
+parameter tree is nested dicts and lists of tensors; :func:`tree_map` and
+:func:`tree_leaves` stand in for ``jax.tree``.
 """
 from __future__ import annotations
 
@@ -47,3 +50,29 @@ def embed_init(gen: torch.Generator, shape, *, dtype=torch.float32,
                device=None) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=device)
     return t.normal_(0.0, 0.02, generator=gen).to(dtype)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the tensor leaves of ``tree`` (nested dicts and lists);
+    each tree of ``rest`` may hold a subtree where ``tree`` has a leaf
+    (the optimizers' factored state dicts)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves of ``tree`` in its insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def count_params(params) -> int:
+    return sum(int(np.prod(x.shape)) for x in tree_leaves(params))

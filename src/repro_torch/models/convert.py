@@ -3,29 +3,28 @@
 JAX stacks each segment's layers: ``tree["segments"][i]["slots"][s]`` is a
 slot's parameter dict whose leaves carry a leading ``groups`` dimension,
 and the scan runs group-major (group 0's slots, then group 1's, ...).
-granite-3-2b is one segment of 40 groups of one slot. The port keeps one
-dict per layer in that order (``models/transformer.py``). Both directions
-move no bits: f32 leaves stay f32, bf16 leaves cross as raw 16-bit words.
-The optional ``lm_head`` (untied embeddings) and the QKV biases ride
-along. Families other than dense raise.
+granite-3-2b is one segment of 40 groups of one slot, phi3.5-moe one of
+32. The port keeps one dict per layer in that order
+(``models/transformer.py``). Both directions move no bits: f32 leaves stay
+f32, bf16 leaves cross as raw 16-bit words (JAX to the port). The optional
+``lm_head`` (untied embeddings), the QKV biases and a MoE layer's
+``"moe"`` leaves (the router, the stacked ``(groups, E, ...)`` experts,
+the optional ``shared`` FFN) ride along. Families other than dense and MoE
+raise. :func:`params_from_arrays` rebuilds the parameters from a
+checkpoint's flat ``a/0/b`` keys (``train/checkpoint.py::load_arrays``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import check_family, segments_of
 from repro_torch.train.checkpoint import numpy_to_tensor
 
-_LAYER_KEYS = {"ln1", "attn", "ln2", "ffn"}
+_LAYER_KEYS = {"ln1", "attn", "ln2", "ffn", "moe"}
 _TOP_KEYS = {"embed", "final_norm", "segments", "lm_head"}
-
-
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
 
 
 def layers_from_segments(segments) -> list[dict]:
@@ -35,19 +34,11 @@ def layers_from_segments(segments) -> list[dict]:
     layers = []
     for seg in segments:
         slots = seg["slots"] if isinstance(seg, dict) else seg
-        groups = len(next(iter(_leaves(slots[0]))))
+        groups = len(tree_leaves(slots[0])[0])
         for g in range(groups):
             for slot in slots:
-                layers.append(_map(slot, lambda a, g=g: a[g]))
+                layers.append(tree_map(lambda a, g=g: a[g], slot))
     return layers
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def params_from_jax(tree: dict, *, device="cpu") -> dict:
@@ -65,26 +56,38 @@ def params_from_jax(tree: dict, *, device="cpu") -> dict:
         if set(p) - _LAYER_KEYS or "wdq" in p.get("attn", {}):
             raise NotImplementedError(
                 f"params_from_jax: layer keys {sorted(p)} (attn "
-                f"{sorted(p.get('attn', {}))}) are not the dense family's")
+                f"{sorted(p.get('attn', {}))}) are not the dense or MoE "
+                f"family's")
     out = {"embed": tensor(tree["embed"]),
            "final_norm": tensor(tree["final_norm"]),
-           "layers": [_map(p, tensor) for p in layers]}
+           "layers": [tree_map(tensor, p) for p in layers]}
     if "lm_head" in tree:
         out["lm_head"] = tensor(tree["lm_head"])
     return out
 
 
-def params_to_jax(params: dict, cfg: ModelConfig) -> dict:
-    """The inverse of :func:`params_from_jax`: a JAX-layout tree of numpy
-    arrays, layers restacked by ``segments_of(cfg)``. f32 only (numpy has
-    no bf16 without ml_dtypes, which the port does not import)."""
+def restack(ts: list) -> torch.Tensor:
+    """``torch.stack(ts)``; when ``ts`` are the consecutive views ``base[0],
+    base[1], ...`` of one tensor (:func:`unstack_layers`'s leaves), that
+    tensor itself, with no copy."""
+    base = ts[0]._base
+    if (base is not None and base.is_contiguous()
+            and base.shape[0] == len(ts)
+            and all(t._base is base and t.shape == base.shape[1:]
+                    and t.stride() == base.stride()[1:]
+                    and t.data_ptr() == base[i].data_ptr()
+                    for i, t in enumerate(ts))):
+        return base
+    return torch.stack(ts)
+
+
+def stack_layers(params: dict, cfg: ModelConfig, *, stack=restack) -> dict:
+    """The JAX tree layout of the port's parameters (or of a tree shaped
+    like them: gradients, per-layer state): each segment slot's layer
+    leaves stacked along a leading groups dim by ``segments_of(cfg)``
+    (``stack``: a copy, unless the layers are views of one stack already),
+    the top-level leaves as they are."""
     check_family(cfg)
-
-    def array(t):
-        if t.dtype == torch.bfloat16:
-            raise ValueError("params_to_jax: bf16 leaves need ml_dtypes")
-        return t.detach().cpu().numpy()
-
     layers = iter(params["layers"])
     segments = []
     for seg in segments_of(cfg):
@@ -92,19 +95,66 @@ def params_to_jax(params: dict, cfg: ModelConfig) -> dict:
         slots = []
         for s in range(len(seg.sig)):
             group_layers = [per_group[g][s] for g in range(seg.groups)]
-            slots.append(_stack(group_layers, array))
+            slots.append(_stack(group_layers, stack))
         segments.append({"slots": slots})
     if next(layers, None) is not None:
-        raise ValueError(f"params_to_jax: more layers than {cfg.num_layers}")
-    tree = {"embed": array(params["embed"]),
-            "final_norm": array(params["final_norm"]), "segments": segments}
+        raise ValueError(f"stack_layers: more layers than {cfg.num_layers}")
+    tree = {k: params[k] for k in ("embed", "final_norm")}
+    tree["segments"] = segments
     if "lm_head" in params:
-        tree["lm_head"] = array(params["lm_head"])
+        tree["lm_head"] = params["lm_head"]
     return tree
 
 
-def _stack(dicts, array):
+def unstack_layers(tree: dict) -> dict:
+    """The inverse of :func:`stack_layers` on tensors: the port's layout
+    whose layer leaves are views into the stacked ones (no copy)."""
+    out = {"embed": tree["embed"], "final_norm": tree["final_norm"],
+           "layers": layers_from_segments(tree["segments"])}
+    if "lm_head" in tree:
+        out["lm_head"] = tree["lm_head"]
+    return out
+
+
+def params_to_jax(params: dict, cfg: ModelConfig) -> dict:
+    """The inverse of :func:`params_from_jax`: a JAX-layout tree of numpy
+    arrays, layers restacked by ``segments_of(cfg)``. f32 only (numpy has
+    no bf16 without ml_dtypes, which the port does not import)."""
+    def array(t):
+        if t.dtype == torch.bfloat16:
+            raise ValueError("params_to_jax: bf16 leaves need ml_dtypes")
+        return t.detach().cpu().numpy()
+
+    return stack_layers(tree_map(array, params), cfg, stack=np.stack)
+
+
+def _stack(dicts, stack):
     first = dicts[0]
     if isinstance(first, dict):
-        return {k: _stack([d[k] for d in dicts], array) for k in first}
-    return np.stack([array(t) for t in dicts])
+        return {k: _stack([d[k] for d in dicts], stack) for k in first}
+    return stack(dicts)
+
+
+def params_from_arrays(arrays: dict, *, device="cpu") -> dict:
+    """The port's parameters from a checkpoint of the JAX tree, as
+    ``train/checkpoint.py::load_arrays`` returns it (``"segments/0/slots/0/
+    attn/wq"`` -> tensor): the flat keys rebuilt into the tree (a numeric
+    key part is a list index), then :func:`params_from_jax`."""
+    tree: dict = {}
+    for key, val in arrays.items():
+        node, parts = tree, key.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = val.numpy() if isinstance(val, torch.Tensor) else val
+    return params_from_jax(_lists(tree), device=device)
+
+
+def _lists(node):
+    """Dicts whose keys are 0..n-1 as lists, recursively."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _lists(v) for k, v in node.items()}
+    if out and all(k.isdigit() for k in out) and \
+            sorted(map(int, out)) == list(range(len(out))):
+        return [out[str(i)] for i in range(len(out))]
+    return out

@@ -1,20 +1,26 @@
-"""Decoder stack for the dense LM family: full forward, prefill and decode.
+"""Decoder stack for the dense and MoE LM families: the training forward
+with its loss, prefill and decode.
 
-The port of the dense part of the JAX package's ``models/transformer.py``.
-JAX stacks the layers of each *segment* (``segments_of``) and scans over
-them; the port keeps one dict per layer in ``params["layers"]``, in the
-scan's group-major order, and loops in Python. ``models/convert.py`` moves
-weights between the two layouts.
+The port of the JAX package's ``models/transformer.py`` for decoder-only
+text LMs. JAX stacks the layers of each *segment* (``segments_of``) and
+scans over them; the port keeps one dict per layer in ``params["layers"]``,
+in the scan's group-major order, and loops in Python. ``models/convert.py``
+moves weights between the two layouts.
 
 Parameters: ``{"embed": (V, d), "final_norm": (d,), "layers": [{"ln1",
-"attn": {...}, "ln2", "ffn": {...}}, ...]}`` plus ``"lm_head"`` (d, V)
-unless the embeddings are tied. Caches: one ``attention.init_cache`` dict
-per layer.
+"attn": {...}, "ln2", "ffn" | "moe": {...}}, ...]}`` plus ``"lm_head"``
+(d, V) unless the embeddings are tied; a layer holds ``"moe"`` where
+``cfg.is_moe_layer(i)``. Caches: one ``attention.init_cache`` dict per
+layer.
 
-Entry points: :func:`prefill` (the prompt, in ``cfg.prefill_chunk`` chunks
-or whole, building the caches) and :func:`decode_step` (one token for the
-whole batch). Other families (MoE, MLA, SSM, hybrid, enc-dec, VLM) raise
-in :func:`check_family`.
+Entry points: :func:`forward_train` (the full sequence, next-token cross
+entropy plus 0.01 times the MoE load-balance loss; its attention is the
+masked plain path, as JAX's training takes), :func:`prefill` (the prompt,
+in ``cfg.prefill_chunk`` chunks or whole, building the caches) and
+:func:`decode_step` (one token for the whole batch). ``moe_dispatch``
+picks the MoE route of :func:`forward_train` (``models/mlp.py``); serving
+takes the dense oracle, as JAX serves without a mesh. Other families (MLA,
+SSM, hybrid, enc-dec, VLM) raise in :func:`check_family`.
 """
 from __future__ import annotations
 
@@ -60,12 +66,13 @@ def segments_of(cfg: ModelConfig, num_layers: int | None = None,
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense decoder-only text LM."""
+    """Raise unless ``cfg`` is a dense or MoE decoder-only text LM."""
     other = [name for name, on in (
-        ("MoE", cfg.moe_num_experts > 0), ("MLA", cfg.mla),
+        ("MLA", cfg.mla), ("MTP", cfg.mtp),
         ("SSM/hybrid", any(t != "A" for t in cfg.layer_types())),
         ("enc-dec", cfg.is_encdec), ("VLM/audio", cfg.modality != "text"),
-        (f"arch_type {cfg.arch_type!r}", cfg.arch_type != "dense")) if on]
+        (f"arch_type {cfg.arch_type!r}",
+         cfg.arch_type not in ("dense", "moe"))) if on]
     if other:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(other)} not ported to PyTorch yet "
@@ -75,15 +82,39 @@ def check_family(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
-def _init_layer(gen, cfg: ModelConfig, device) -> dict:
+def _init_layer(gen, cfg: ModelConfig, i: int, device) -> dict:
     dt = getattr(torch, cfg.param_dtype)
+    is_moe = cfg.is_moe_layer(i)
     p = {"ln1": torch.ones((cfg.d_model,), dtype=dt, device=device),
          "attn": attn.init_attention_params(gen, cfg, device=device)}
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 or is_moe:
         p["ln2"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
-        p["ffn"] = mlp.init_ffn_params(gen, cfg.d_model, cfg.d_ff, dt,
-                                       device=device)
+        if is_moe:
+            p["moe"] = mlp.init_moe_params(gen, cfg, device=device)
+        else:
+            p["ffn"] = mlp.init_ffn_params(gen, cfg.d_model, cfg.d_ff, dt,
+                                           device=device)
     return p
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """The number of parameters :func:`init_params` makes, from the config
+    alone (nothing is allocated)."""
+    check_family(cfg)
+    d, V = cfg.d_model, cfg.vocab_size
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    attn_n = 2 * d * H * hd + 2 * d * Hkv * hd
+    if cfg.qkv_bias:
+        attn_n += (H + 2 * Hkv) * hd
+    n = V * d * (1 if cfg.tie_embeddings else 2) + d
+    for i in range(cfg.num_layers):
+        n += d + attn_n
+        if cfg.is_moe_layer(i):
+            E, ff = cfg.moe_num_experts, cfg.moe_d_ff
+            n += d + d * E + 3 * E * d * ff + 3 * d * ff * cfg.moe_num_shared
+        elif cfg.d_ff > 0:
+            n += d + 3 * d * cfg.d_ff
+    return n
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
@@ -96,8 +127,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype=dt,
                             device=device),
         "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
-        "layers": [_init_layer(gen, cfg, device)
-                   for _ in range(cfg.num_layers)],
+        "layers": [_init_layer(gen, cfg, i, device)
+                   for i in range(cfg.num_layers)],
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size),
@@ -108,24 +139,42 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
 # --------------------------------------------------------------------------
 # layer body, embedding, head
 # --------------------------------------------------------------------------
-def _ffn(p, x, cfg: ModelConfig):
+def _ffn(p, x, cfg: ModelConfig, *, moe_dispatch: bool = False):
+    """The layer's FFN or MoE block with its residual: (x, MoE aux or
+    None)."""
+    if "moe" in p:
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        y, aux = mlp.moe_forward(p["moe"], h2, cfg, dispatch=moe_dispatch)
+        return x + y, aux
     if "ffn" in p:
         x = x + mlp.ffn_forward(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
-    return x
+    return x, None
 
 
-def _layer_fwd(p, x, cfg: ModelConfig, *, positions=None):
+def _layer_fwd(p, x, cfg: ModelConfig, *, positions=None,
+               moe_dispatch: bool = False):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + attn.attention_forward(p["attn"], h, cfg, positions=positions)
-    return _ffn(p, x, cfg)
+    return _ffn(p, x, cfg, moe_dispatch=moe_dispatch)
+
+
+def _run_layers(layers, x, cfg: ModelConfig, *, positions=None,
+                moe_dispatch: bool = False):
+    """Full-sequence forward through every layer: (x, the MoE aux loss
+    summed over layers, f32)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in layers:
+        x, aux = _layer_fwd(p, x, cfg, positions=positions,
+                            moe_dispatch=moe_dispatch)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
 
 
 def _run_segments(layers, x, cfg: ModelConfig, *, positions=None):
     """Full-sequence forward through every layer (training-forward math,
     which prefill is held against)."""
-    for p in layers:
-        x = _layer_fwd(p, x, cfg, positions=positions)
-    return x
+    return _run_layers(layers, x, cfg, positions=positions)[0]
 
 
 def _embed_tokens(params, tokens):
@@ -139,19 +188,54 @@ def _lm_logits(params, x):
     return (x @ head).float()
 
 
+def softmax_xent(logits, labels, mask):
+    """logits (B,S,V) f32, labels (B,S) int, mask (B,S)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = (lse - ll) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+# --------------------------------------------------------------------------
+# training forward
+# --------------------------------------------------------------------------
+def forward_train(params, batch: dict, cfg: ModelConfig, *,
+                  moe_dispatch: bool = False):
+    """Returns (loss, metrics ``{"xent", "aux"}``). batch: ``tokens`` (B, S)
+    int, optional ``positions`` (B, S) and ``loss_mask`` (B, S). Loss:
+    next-token cross entropy on positions 1..S-1 under the mask, plus 0.01
+    times the MoE aux loss summed over layers."""
+    check_family(cfg)
+    tokens = batch["tokens"]
+    x = _embed_tokens(params, tokens)
+    x, aux = _run_layers(params["layers"], x, cfg,
+                         positions=batch.get("positions"),
+                         moe_dispatch=moe_dispatch)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _lm_logits(params, x)
+    labels = tokens[:, 1:]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(tokens.shape, dtype=torch.float32,
+                          device=tokens.device)
+    loss = softmax_xent(logits[:, :-1], labels, mask[:, 1:])
+    metrics = {"xent": loss, "aux": aux}
+    return loss + 0.01 * aux, metrics
+
+
 # --------------------------------------------------------------------------
 # serving: prefill + decode
 # --------------------------------------------------------------------------
 def _layer_extend(p, x, cache, cfg: ModelConfig, *, flash: bool = True):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     h, cache = attn.attention_extend(p["attn"], h, cache, cfg, flash=flash)
-    return _ffn(p, x + h, cfg), cache
+    return _ffn(p, x + h, cfg)[0], cache
 
 
 def _layer_decode(p, x1, cache, cfg: ModelConfig):
     h = rms_norm(x1, p["ln1"], cfg.norm_eps)
     h, cache = attn.attention_decode(p["attn"], h, cache, cfg)
-    return _ffn(p, x1 + h, cfg), cache
+    return _ffn(p, x1 + h, cfg)[0], cache
 
 
 def init_caches(params, cfg: ModelConfig, batch: int, cache_len: int) -> list:

@@ -62,10 +62,13 @@ def _to_stored(value) -> tuple[np.ndarray, str | None]:
 
 
 def _flatten(tree, prefix: str = "") -> dict:
+    """``a/b`` keys of a tree of dicts and lists (a list's index is its
+    key part), as JAX names the paths of its trees."""
     out = {}
-    for key, val in tree.items():
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, val in items:
         name = f"{prefix}{key}"
-        if isinstance(val, dict):
+        if isinstance(val, (dict, list)):
             out.update(_flatten(val, name + "/"))
         else:
             out[name] = val
@@ -74,8 +77,9 @@ def _flatten(tree, prefix: str = "") -> dict:
 
 def save_checkpoint(path: str, tree: dict, *, step: int | None = None,
                     extra: dict | None = None) -> None:
-    """Atomically write a (nested) dict of tensors or arrays, plus optional
-    ``extra`` arrays, with a per-entry checksum manifest."""
+    """Atomically write a tree (nested dicts and lists) of tensors or
+    arrays, plus optional ``extra`` arrays, with a per-entry checksum
+    manifest."""
     arrs = {}
     for key, val in {**_flatten(tree), **(extra or {})}.items():
         arr, dtype_name = _to_stored(val)

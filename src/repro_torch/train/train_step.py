@@ -1,15 +1,24 @@
-"""The LM data stand-in of the JAX package's ``train/train_step.py``.
+"""LM training step and the LM data stand-in.
 
-:func:`synthetic_batch` is a numpy copy of its text branch, so one seed
-gives the same prompt tokens in both packages (the VLM and audio branches
-wait for their families). The LM training step waits for its slice
-(``ROADMAP.md``).
+The port of the JAX package's ``train/train_step.py``.
+:func:`make_train_step` is loss + gradients (``torch.autograd``) + the
+optimizer update, with JAX's gradient accumulation over
+``cfg.train_microbatches`` microbatches. :func:`synthetic_batch` is a numpy
+copy of its text branch, so one seed gives the same prompt tokens in both
+packages (the VLM and audio branches wait for their families).
 """
 from __future__ import annotations
 
-import numpy as np
+import dataclasses
 
+import numpy as np
+import torch
+
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.convert import stack_layers, unstack_layers
+from repro_torch.train.optimizer import make_optimizer
 
 
 def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0):
@@ -22,3 +31,98 @@ def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0):
     return {"tokens": np.minimum(z, cfg.vocab_size - 1).astype(np.int32),
             "positions": np.broadcast_to(np.arange(seq, dtype=np.int32),
                                          (batch, seq)).copy()}
+
+
+def loss_and_grads(params, batch: dict, cfg: ModelConfig, *,
+                   moe_dispatch: bool = False):
+    """``jax.value_and_grad(forward_train, has_aux=True)``: (loss,
+    metrics, gradients in the parameters' tree), all detached."""
+    leaves = []
+
+    def track(p):
+        q = p.detach().requires_grad_(True)
+        leaves.append(q)
+        return q
+
+    tracked = tree_map(track, params)
+    with torch.enable_grad():
+        loss, metrics = tfm.forward_train(tracked, batch, cfg,
+                                          moe_dispatch=moe_dispatch)
+        grads = torch.autograd.grad(loss, leaves)
+    it = iter(grads)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree_map(lambda _: next(it), params))
+
+
+def make_train_step(cfg: ModelConfig, *, lr: float = 1e-4,
+                    moe_dispatch: bool = False):
+    """Returns ``(train_step(params, opt_state, step, batch) -> (params,
+    opt_state, metrics), opt)``. ``batch`` holds tensors on the
+    parameters' device: ``tokens`` (B, S) and optionally ``positions`` and
+    ``loss_mask``. ``moe_dispatch`` sends MoE layers through the expert
+    dispatch (JAX's trainer under its host mesh) instead of the dense
+    oracle.
+
+    The optimizer runs on the JAX tree layout (``convert.stack_layers``):
+    JAX updates each segment slot's stacked layer leaves as one leaf, and
+    Adafactor's factored moments and RMS clip span the stack (a layer's
+    norm scale is a row of a factored matrix there, not a vector of its
+    own). So ``opt.init`` takes the port's parameters and returns state in
+    JAX's layout, leaf for leaf (``opt.update`` takes that layout too);
+    ``train_step`` stacks the layers (a copy, unless they are views of one
+    stack already), accumulates the gradients into the stacked layout and
+    returns parameters whose layer leaves are views into the updated
+    stacks.
+    """
+    base = make_optimizer(cfg.optimizer, lr=lr)
+    opt = dataclasses.replace(base, init=lambda params: base.init(
+        stack_layers(params, cfg)))
+
+    def train_step(params, opt_state, step, batch):
+        k = cfg.train_microbatches
+        if k <= 1:
+            loss, metrics, g = loss_and_grads(params, batch, cfg,
+                                              moe_dispatch=moe_dispatch)
+            grads = stack_layers(g, cfg)
+        else:
+            # grad accumulation over k microbatches of the leading dim,
+            # summed in f32 into the stacked layout
+            b = batch["tokens"].shape[0]
+            if b % k:
+                raise ValueError(f"batch {b} does not split into "
+                                 f"{k} microbatches")
+            m = b // k
+            grads = _zero_grads(params, cfg)
+            views = unstack_layers(grads)
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=batch["tokens"].device)
+            for i in range(k):
+                mb = {key: v[i * m:(i + 1) * m] for key, v in batch.items()}
+                l_i, _, g = loss_and_grads(params, mb, cfg,
+                                           moe_dispatch=moe_dispatch)
+                tree_map(lambda acc, gi: acc.add_(gi.float()), views, g)
+                del g
+                loss = loss + l_i
+            tree_map(lambda g: g.div_(k), grads)
+            loss = loss / k
+            metrics = {"xent": loss}
+        stacked = stack_layers(params, cfg)
+        new, opt_state = base.update(grads, opt_state, stacked, step)
+        gnorm = torch.sqrt(sum(g.float().square().sum()
+                               for g in tree_leaves(grads)))
+        metrics = dict(metrics, loss=loss, grad_norm=gnorm)
+        return unstack_layers(new), opt_state, metrics
+
+    return train_step, opt
+
+
+def _zero_grads(params, cfg: ModelConfig) -> dict:
+    """f32 zeros in the JAX layout of ``params``: the accumulators, made
+    without copying the layers."""
+    def zeros(shape, like):
+        return torch.zeros(shape, dtype=torch.float32, device=like.device)
+
+    tree = stack_layers(params, cfg, stack=lambda ts: zeros(
+        (len(ts), *ts[0].shape), ts[0]))
+    return {k: v if k == "segments" else zeros(v.shape, v)
+            for k, v in tree.items()}

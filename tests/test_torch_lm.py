@@ -159,17 +159,16 @@ def test_port_init_has_the_jax_layout(arch):
 
 def test_registry_names_every_jax_arch():
     assert configs.list_archs() == jax_configs.list_archs()
-    for name in ("granite-3-2b", "qwen1.5-0.5b", "qwen1.5-4b", "qwen2.5-32b"):
+    for name in ("granite-3-2b", "qwen1.5-0.5b", "qwen1.5-4b", "qwen2.5-32b",
+                 "phi3.5-moe-42b-a6.6b"):
         assert (dataclasses.asdict(configs.get_config(name))
                 == dataclasses.asdict(jax_configs.get_config(name)))
     for name in configs.NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             configs.get_config(name)
-    moe = _port_cfg(CASES["dense"].__class__(
-        **{**dataclasses.asdict(CASES["dense"]), "moe_num_experts": 4,
-           "moe_top_k": 2, "moe_d_ff": 64}))
+    mla = _port_cfg(jax_configs.get_config("deepseek-v3-671b").reduced())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tfm.init_params(moe)
+        tfm.init_params(mla)
 
 
 def test_synthetic_batch_matches_jax():
