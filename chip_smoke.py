@@ -140,11 +140,12 @@ failure ends the run with a non-zero exit:
    the JAX package's ``tests/test_flash_attention.py``, a case with rows
    that have no valid key, hd 128 and hd 8 with ragged tiles, and
    granite-3-2b's prefill (B = 4, H = 32, Hkv = 8, S = 2048, hd = 64;
-   causal, and with a 512-key window) and phi3.5-moe's (B = 2, hd = 128)
-   on the (B, S, H, hd) views the model passes; then timed at that prefill shape beside its bound (f32 CUDA
-   cores and 3xTF32 tensor cores), ``mha_plain`` and PyTorch's
+   causal, and with a 512-key window) and the hd-128 one of phi3.5-moe,
+   jamba's first chunk and llava (B = 2) on the (B, S, H, hd) views the
+   model passes; then timed at granite's prefill shape beside its bound
+   (f32 CUDA cores and 3xTF32 tensor cores), ``mha_plain`` and PyTorch's
    ``scaled_dot_product_attention``, with the device kernels of one call
-   of each;
+   of each, and at the hd-128 shape beside its bound and the library;
 11. the LM serving main path: ``repro_torch.launch.serve.main`` for
    granite-3-2b at full width (``--no-reduced``), batch 4, a 2,048-token
    prompt and 32 tokens, with exactly one flash launch per layer (40) and
@@ -166,6 +167,28 @@ failure ends the run with a non-zero exit:
    at a capacity factor of E / k (and the config's 1.25 dropped share),
    and one Adafactor train step through the dispatch (a finite loss, a
    positive grad norm, changed parameters); each path's launches;
+11c. the SSM and hybrid families: mamba2-1.3b at full width and depth
+   (48 layers) served through ``repro_torch.launch.serve.main`` (batch 4,
+   a 2,048-token prompt, 32 tokens; no flash launch and no prefill route:
+   the family has no attention), at 2 layers its prefill logits and one
+   decode step against the full forward within 2e-3, and five AdamW steps
+   of 8 x 256 in 4 microbatches through the training launcher (finite
+   losses, positive grad norms, changed parameters, ``lm_final.npz`` read
+   back with every leaf's shape; ms a step, tokens/s, rate by 6 * params *
+   tokens); jamba-v0.1-52b at full width cut to 5 layers ("MMMMA", MoE at
+   layers 1 and 3) served through ``serve.run`` at batch 2 with a
+   4,096-token prompt in its two 2,048-token prefill chunks (the Mamba
+   state, the conv tail and the KV cache cross the chunk boundary; one
+   flash launch, the attention layer's first chunk, and one masked
+   prefill), its prefill logits on the flash route against the masked
+   route within 2e-3, and one Adafactor step at 2 layers through the
+   dispatch; the phase's time against its budget;
+11d. the VLM family: llava-next-mistral-7b at full width and depth served
+   through the launcher (batch 2, a 2,048-long prompt of 1,024 patch
+   embeddings and 1,024 tokens; one flash launch a layer, 32, at head dim
+   128, and no masked prefill), at 2 layers the flash route's prefill
+   logits against the masked route within 2e-3, and one AdamW step with
+   patch embeddings at 4 layers; the phase's time against its budget;
 12. a JSON line of per-kernel results (launches per path), the card's line,
    and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -214,7 +237,8 @@ FLASH_CASES = [  # B, H, Hkv, Sq, Skv, hd, causal, window
     (1, 8, 4, 257, 257, 8, True, 0),
     (LM_B, 32, 8, LM_S, LM_S, 64, True, 0),
     (LM_B, 32, 8, LM_S, LM_S, 64, True, 512),
-    (2, 32, 8, LM_S, LM_S, 128, True, 0),   # phi3.5-moe's prefill (11b)
+    # phi3.5-moe's prefill (11b), jamba's first chunk (11c), llava's (11d)
+    (2, 32, 8, LM_S, LM_S, 128, True, 0),
 ]
 LM_ARGV = ["--arch", "granite-3-2b", "--no-reduced", "--batch", str(LM_B),
            "--prompt-len", str(LM_S), "--tokens", str(LM_TOKENS),
@@ -226,6 +250,19 @@ LM_TRAIN_ARCH, LM_TRAIN_STEPS, LM_TRAIN_B, LM_TRAIN_S = (
 MOE_ARCH, MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 2
 MOE_B, MOE_NEW = 2, 16                 # serve: batch, new tokens (2,048 prompt)
 MOE_TRAIN_B, MOE_TRAIN_S = 4, 128      # train: 4 microbatches of 1 x 128
+# phase 11c: mamba2-1.3b at full width and depth (serve, the 2-layer
+# prefill/decode contract, 5 AdamW steps through the launcher); jamba at
+# full width cut to 5 layers ("MMMMA": serve over two 2,048-token prefill
+# chunks) and to 2 layers (one Adafactor step through the dispatch)
+SSM_ARCH, SSM_B, SSM_S, SSM_TOKENS = "mamba2-1.3b", 4, 2048, 32
+SSM_TRAIN_STEPS, SSM_TRAIN_B, SSM_TRAIN_S = 5, 8, 256
+HYBRID_ARCH, HYBRID_LAYERS, HYBRID_TRAIN_LAYERS = "jamba-v0.1-52b", 5, 2
+HYBRID_B, HYBRID_S, HYBRID_NEW = 2, 4096, 16
+# phase 11d: llava-next at full width and depth (serve: 1,024 patches and
+# 1,024 tokens a row), the routes at 2 layers, an AdamW step at 4 layers
+VLM_ARCH, VLM_B, VLM_S, VLM_NEW = "llava-next-mistral-7b", 2, 2048, 16
+VLM_TRAIN_LAYERS, VLM_TRAIN_B, VLM_TRAIN_S = 4, 4, 1024
+PHASE_BUDGET_S = {"11c": 300.0, "11d": 150.0}
 # the serving launcher's requests a leg (phases 3 and 9): its numpy oracle
 # sorts every row per request, which set those phases' time at 256
 SERVE_QUERIES = 64
@@ -1968,6 +2005,21 @@ def time_flash(torch, fa, dev, time_ms, wall_ms, profiled_calls):
           f"achieved {flops / rec['ms'] / 1e9:.1f} effective TFLOP/s "
           f"({100 * tf32x3_ms / rec['ms']:.1f} % of the 3xTF32 bound); "
           f"sdpa {flops / rec['library_ms'] / 1e9:.1f} TFLOP/s")
+    # the hd-128 prefill of phi3.5-moe, jamba's first chunk and llava
+    B2, hd2 = 2, 128
+    qh, kh, vh = (torch.randn(shape, generator=g, device=dev).transpose(1, 2)
+                  for shape in ((B2, S, H, hd2), (B2, S, Hkv, hd2),
+                                (B2, S, Hkv, hd2)))
+    krh, vrh = (t.repeat_interleave(H // Hkv, dim=1) for t in (kh, vh))
+    hd2_ms = time_ms(lambda: fa.flash_attention(qh, kh, vh, causal=True), 10)
+    hd2_lib = time_ms(lambda: sdpa(qh, krh, vrh, is_causal=True), 10)
+    hd2_flops = 4.0 * B2 * H * hd2 * attention_pairs(S, S, True, 0)
+    print(f"flash_attention at B={B2} H={H} Hkv={Hkv} S={S} hd={hd2} f32 "
+          f"causal (phi3.5-moe, jamba's first chunk, llava): {hd2_ms:.4f} "
+          f"device ms/launch, 3xTF32 bound "
+          f"{1e3 * 3 * hd2_flops / TF32_FLOP_PER_S:.4f} ms, library (sdpa) "
+          f"{hd2_lib:.4f} ms")
+    del qh, kh, vh, krh, vrh
     for label, fn in (("flash_attention", lambda: fa.flash_attention(
             q, k, v, causal=True)), ("sdpa", lambda: sdpa(q, kr, vr,
                                                           is_causal=True))):
@@ -1988,8 +2040,7 @@ def lm_serving(torch, dev, counted):
     from repro_torch.train.train_step import synthetic_batch
 
     cfg = get_config("granite-3-2b")
-    for name in lm_attn.ROUTE_CALLS:
-        lm_attn.ROUTE_CALLS[name] = 0
+    reset_routes(lm_attn)
     lm, launches = counted(lambda: lm_serve.main(LM_ARGV))
     routes = dict(lm_attn.ROUTE_CALLS)
     print(f"lm_serve main-path launches: {launches}; prefill "
@@ -2051,9 +2102,7 @@ def lm_training(torch, dev, counted):
     JAX's training takes)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train as train_launcher
-    from repro_torch.models.common import count_params, tree_leaves
-    from repro_torch.models.convert import params_from_arrays
-    from repro_torch.train.checkpoint import load_arrays
+    from repro_torch.models.common import count_params
 
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--arch", LM_TRAIN_ARCH, "--steps", str(LM_TRAIN_STEPS),
@@ -2067,15 +2116,7 @@ def lm_training(torch, dev, counted):
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
             raise AssertionError(f"LM training {LM_TRAIN_ARCH}: losses "
                                  f"{losses}; want the last below the first")
-        arrays, step = load_arrays(r["checkpoint"])
-        back = params_from_arrays(arrays)
-        got, want = tree_leaves(back), tree_leaves(r["params"])
-        if not (step == LM_TRAIN_STEPS and len(got) == len(want)
-                and all(tuple(a.shape) == tuple(b.shape)
-                        for a, b in zip(got, want))
-                and torch.equal(back["embed"], r["params"]["embed"].cpu())):
-            raise AssertionError(f"lm_final.npz: step {step}, {len(got)} "
-                                 f"leaves against {len(want)}")
+        n_leaves = checkpoint_reads_back(torch, r, LM_TRAIN_STEPS)
         n = count_params(r["params"])
     tokens = LM_TRAIN_B * LM_TRAIN_S
     rate = 6.0 * n * tokens / r["step_s"]
@@ -2089,11 +2130,11 @@ def lm_training(torch, dev, counted):
           f"tokens/s, {rate / 1e12:.2f} TFLOP/s by 6 * params * tokens, "
           f"{100 * rate / FP32_FLOP_PER_S:.1f} % of the f32 CUDA-core peak); "
           f"{wall:.1f} s with init; lm_final.npz loads back with all "
-          f"{len(got)} leaves' shapes; launches {launches}")
+          f"{n_leaves} leaves' shapes; launches {launches}")
     if any(launches.values()):
         raise AssertionError(f"LM training launched {launches}: its "
                              f"attention is the masked plain path")
-    del r, back, arrays
+    del r
     torch.cuda.empty_cache()
     # where a step's time goes: one step after two warm ones, profiled
     from repro_torch.data.tokens import TokenPipeline
@@ -2133,7 +2174,7 @@ def moe_family(torch, dev, counted):
     from repro_torch.models import transformer as tfm
     from repro_torch.models.common import rms_norm
     from repro_torch.models.convert import stack_layers, unstack_layers
-    from repro_torch.train.train_step import make_train_step, synthetic_batch
+    from repro_torch.train.train_step import synthetic_batch
 
     cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
     t0 = time.perf_counter()
@@ -2147,8 +2188,7 @@ def moe_family(torch, dev, counted):
     S = cfg.prefill_chunk
     prompt = synthetic_batch(cfg, MOE_B, S, seed=SEED)["tokens"]
     cache_len = S + MOE_NEW + 8
-    for name in lm_attn.ROUTE_CALLS:
-        lm_attn.ROUTE_CALLS[name] = 0
+    reset_routes(lm_attn)
     out, launches = counted(lambda: lm_serve.run(
         params, cfg, prompt, new_tokens=MOE_NEW, cache_len=cache_len))
     routes = dict(lm_attn.ROUTE_CALLS)
@@ -2156,13 +2196,8 @@ def moe_family(torch, dev, counted):
             and routes == {"flash_calls": MOE_LAYERS, "masked_calls": 0}):
         raise AssertionError(f"{MOE_ARCH} serving: {launches}, routes "
                              f"{routes}; want one flash launch a layer")
-    logits, toks = out["logits"], out["tokens"]
-    if not (tuple(logits.shape) == (MOE_B, 1, cfg.vocab_size)
-            and torch.isfinite(logits).all()
-            and toks.shape == (MOE_B, MOE_NEW)
-            and ((0 <= toks) & (toks < cfg.vocab_size)).all()):
-        raise AssertionError(f"{MOE_ARCH} serving: logits "
-                             f"{tuple(logits.shape)}, tokens {toks.shape}")
+    check_served(torch, MOE_ARCH, out, MOE_B, MOE_NEW, cfg.vocab_size)
+    logits = out["logits"]
     masked = lm_serve.run(params, cfg, prompt, new_tokens=1,
                           cache_len=cache_len, flash=False)
     torch.testing.assert_close(logits, masked["logits"], rtol=2e-3, atol=2e-3)
@@ -2217,45 +2252,378 @@ def moe_family(torch, dev, counted):
     torch.cuda.empty_cache()
 
     # one train step through the dispatch (Adafactor, 4 microbatches)
-    step_fn, opt = make_train_step(cfg, lr=3e-4, moe_dispatch=True)
-    state = opt.init(params)
     g = torch.Generator(device="cpu").manual_seed(SEED)
     tokens = torch.randint(0, cfg.vocab_size, (MOE_TRAIN_B, MOE_TRAIN_S),
                            generator=g).to(dev)
-    before = params["layers"][0]["moe"]["w_gate"][0, :4, :4].clone()
-    router = params["layers"][1]["moe"]["router"].clone()
+    paths["moe_train"] = one_train_step(
+        torch, counted, MOE_ARCH, cfg, params, {"tokens": tokens},
+        lambda p: [p["layers"][0]["moe"]["w_gate"][0, :4, :4],
+                   p["layers"][1]["moe"]["router"]])
+    del params
+    torch.cuda.empty_cache()
+    return paths
+
+
+def checkpoint_reads_back(torch, r, steps) -> int:
+    """The training launcher's ``lm_final.npz`` (``r["checkpoint"]``)
+    through the port's loader: its step, and every leaf's shape and the
+    embedding's values as trained. Returns the number of leaves."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.convert import params_from_arrays
+    from repro_torch.train.checkpoint import load_arrays
+
+    arrays, step = load_arrays(r["checkpoint"])
+    back = params_from_arrays(arrays)
+    got, want = tree_leaves(back), tree_leaves(r["params"])
+    if not (step == steps and len(got) == len(want)
+            and all(tuple(a.shape) == tuple(b.shape)
+                    for a, b in zip(got, want))
+            and torch.equal(back["embed"], r["params"]["embed"].cpu())):
+        raise AssertionError(f"lm_final.npz: step {step}, {len(got)} "
+                             f"leaves against {len(want)}")
+    return len(got)
+
+
+def last_logits(torch, tfm, params, tokens, cfg):
+    """The full-sequence forward (training math) of ``tokens``: the last
+    position's logits (B, 1, V)."""
+    from repro_torch.models.common import rms_norm
+
+    with torch.no_grad():
+        x = tfm._embed_tokens(params, tokens)
+        x = tfm._run_segments(params["layers"], x, cfg)
+        return tfm._lm_logits(params, rms_norm(x[:, -1:],
+                                               params["final_norm"],
+                                               cfg.norm_eps))
+
+
+def check_served(torch, what, out, batch, new, vocab):
+    """A serving run's prefill logits (batch, 1, vocab) finite and its
+    tokens (batch, new) in the vocabulary."""
+    logits, toks = out["logits"], out["tokens"]
+    if not (tuple(logits.shape) == (batch, 1, vocab)
+            and torch.isfinite(logits).all()
+            and toks.shape == (batch, new)
+            and ((0 <= toks) & (toks < vocab)).all()):
+        raise AssertionError(f"{what} serving: logits {tuple(logits.shape)} "
+                             f"(finite: {bool(torch.isfinite(logits).all())})"
+                             f", tokens {toks.shape}")
+
+
+def reset_routes(lm_attn):
+    for name in lm_attn.ROUTE_CALLS:
+        lm_attn.ROUTE_CALLS[name] = 0
+
+
+def one_train_step(torch, counted, what, cfg, params, batch, gate_leaves):
+    """One step of ``make_train_step`` (the config's optimizer and
+    microbatches, MoE layers through the dispatch) with its gate: a finite
+    loss, a positive grad norm and every leaf of ``gate_leaves(params)``
+    changed. Prints the step's time and peak memory; returns its launch
+    counts."""
+    from repro_torch.train.train_step import make_train_step
+
+    step_fn, opt = make_train_step(cfg, lr=3e-4, moe_dispatch=True)
+    state = opt.init(params)
+    before = [t.clone() for t in gate_leaves(params)]
 
     def step():
-        out = step_fn(params, state, 0, {"tokens": tokens})
+        out = step_fn(params, state, 0, batch)
         torch.cuda.synchronize()
         return out
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    (new, state, m), launches = counted(step)
+    (new, _, m), launches = counted(step)
     step_s = time.perf_counter() - t0
-    changed = not (torch.equal(new["layers"][0]["moe"]["w_gate"][0, :4, :4],
-                               before)
-                   and torch.equal(new["layers"][1]["moe"]["router"], router))
+    changed = all(not torch.equal(a, b)
+                  for a, b in zip(gate_leaves(new), before))
     loss, gnorm = float(m["loss"]), float(m["grad_norm"])
     if not (np.isfinite(loss) and gnorm > 0 and changed):
-        raise AssertionError(f"{MOE_ARCH} train step: loss {loss}, grad norm "
+        raise AssertionError(f"{what} train step: loss {loss}, grad norm "
                              f"{gnorm}, parameters changed: {changed}")
-    tokens_n = MOE_TRAIN_B * MOE_TRAIN_S
-    active = n - MOE_LAYERS * (E - k) * 3 * cfg.d_model * cfg.moe_d_ff
-    print(f"{MOE_ARCH} train step (Adafactor, expert dispatch, "
-          f"{cfg.train_microbatches} microbatches of {MOE_TRAIN_B // cfg.train_microbatches}"
-          f" x {MOE_TRAIN_S}): loss {loss:.4f}, grad norm {gnorm:.2f}, "
-          f"{step_s:.2f} s (the first call; "
-          f"{6.0 * active * tokens_n / step_s / 1e12:.2f} TFLOP/s by 6 * "
-          f"active params * tokens); peak memory "
+    if any(launches.values()):
+        raise AssertionError(f"{what} training launched {launches}")
+    tokens = batch["tokens"].numel()
+    print(f"{what} train step ({cfg.optimizer}, {cfg.train_microbatches} "
+          f"microbatches, {tokens} tokens): loss {loss:.4f}, grad norm "
+          f"{gnorm:.2f}, {step_s:.2f} s (the first call); peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; launches "
           f"{launches}")
-    if any(launches.values()):
-        raise AssertionError(f"MoE training launched {launches}")
-    paths["moe_train"] = launches
-    del params, new, state, m
+    return launches
+
+
+def phase_budget(name, t0):
+    took = time.perf_counter() - t0
+    print(f"phase {name} took {took:.1f} s of its {PHASE_BUDGET_S[name]:.0f}"
+          f" s budget{'' if took <= PHASE_BUDGET_S[name] else ' (OVER)'}")
+
+
+def ssm_family(torch, dev, counted):
+    """Phase 11c: mamba2-1.3b served at full width and depth through the
+    launcher (no attention: no flash launch, no prefill route), its
+    prefill and one decode step against the full forward at 2 layers
+    within 2e-3, five AdamW steps through the training launcher (its
+    checkpoint read back); jamba at full width cut to 5 layers served over
+    two prefill chunks (one flash launch: the attention layer's first
+    chunk; its second takes the masked route) with the flash route's
+    prefill logits against the masked route within 2e-3; one jamba
+    Adafactor step at 2 layers through the dispatch. Returns the paths'
+    launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import attention as lm_attn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import count_params
+    from repro_torch.models.convert import stack_layers, unstack_layers
+    from repro_torch.train.train_step import synthetic_batch
+
+    t_phase = time.perf_counter()
+    paths = {}
+    cfg = get_config(SSM_ARCH)
+    n = tfm.param_count(cfg)
+    argv = ["--arch", SSM_ARCH, "--no-reduced", "--batch", str(SSM_B),
+            "--prompt-len", str(SSM_S), "--tokens", str(SSM_TOKENS),
+            "--device", "cuda"]
+    reset_routes(lm_attn)
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = counted(lambda: lm_serve.main(argv))
+    routes = dict(lm_attn.ROUTE_CALLS)
+    if any(launches.values()) or any(routes.values()):
+        raise AssertionError(f"{SSM_ARCH} serving: launches {launches}, "
+                             f"routes {routes}; the family has no attention")
+    check_served(torch, SSM_ARCH, out, SSM_B, SSM_TOKENS, cfg.vocab_size)
+    print(f"{SSM_ARCH} full width and depth ({n} params, {4 * n / 1e9:.2f} "
+          f"GB f32) serve: batch {SSM_B}, prompt {SSM_S}, {SSM_TOKENS} "
+          f"tokens: prefill {out['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{out['tok_per_s']:.1f} tok/s ({out['decode_s'] * 1e3:.1f} ms for "
+          f"{SSM_TOKENS - 1} steps); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; launches "
+          f"{launches}, routes {routes}")
+    paths["mamba_serve"] = launches
+    del out
     torch.cuda.empty_cache()
+
+    # prefill and one decode step against the full forward, 2 layers
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    params2 = tfm.init_params(cfg2, seed=SEED, device=dev)
+    toks = torch.as_tensor(synthetic_batch(cfg2, SSM_B, SSM_S, seed=SEED)[
+        "tokens"], device=dev)
+    with torch.no_grad():
+        lp, caches = tfm.prefill(params2, {"tokens": toks}, cfg2, SSM_S + 8)
+        nxt = lp[:, 0].argmax(-1)[:, None]
+        ld, _ = tfm.decode_step(params2, nxt, caches, cfg2)
+    full_p = last_logits(torch, tfm, params2, toks, cfg2)
+    full_d = last_logits(torch, tfm, params2, torch.cat([toks, nxt], 1), cfg2)
+    torch.testing.assert_close(lp, full_p, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(ld, full_d, rtol=2e-3, atol=2e-3)
+    print(f"{SSM_ARCH} full width, 2 layers: prefill logits == full forward "
+          f"within 2e-3 (max |diff| {(lp - full_p).abs().max().item():.3g}), "
+          f"one decode step == forward of the extended prompt (max |diff| "
+          f"{(ld - full_d).abs().max().item():.3g})")
+    # is decode host-bound? four steps of the 2-layer model, profiled
+    with torch.no_grad():
+        profile_split(torch, f"4 decode steps ({SSM_ARCH}, 2 layers)",
+                      lambda: [tfm.decode_step(params2, nxt, caches, cfg2)
+                               for _ in range(4)])
+    del params2, caches, lp, ld, full_p, full_d
+    torch.cuda.empty_cache()
+
+    # five AdamW steps through the training launcher
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--arch", SSM_ARCH, "--steps", str(SSM_TRAIN_STEPS),
+                "--batch", str(SSM_TRAIN_B), "--seq", str(SSM_TRAIN_S),
+                "--log-every", "1", "--save", "--out-dir", tmp,
+                "--device", "cuda"]
+        torch.cuda.reset_peak_memory_stats()
+        r, launches = counted(lambda: train_launcher.main(argv))
+        peak = torch.cuda.max_memory_allocated()
+        init = tfm.init_params(cfg, seed=0, device=dev)   # the launcher's
+        changed = all(not torch.equal(init["layers"][i]["mixer"][k],
+                                      r["params"]["layers"][i]["mixer"][k])
+                      for i in (0, cfg.num_layers - 1)
+                      for k in ("in_proj", "A_log"))
+        del init
+        checkpoint_reads_back(torch, r, SSM_TRAIN_STEPS)
+    losses, norms = r["losses"], r["grad_norm"]
+    if not (np.isfinite(losses).all() and min(norms) > 0 and changed
+            and not any(launches.values())):
+        raise AssertionError(f"{SSM_ARCH} training: losses {losses}, grad "
+                             f"norms {norms}, changed {changed}, launches "
+                             f"{launches}")
+    n_trained = count_params(r["params"])
+    tokens = SSM_TRAIN_B * SSM_TRAIN_S
+    rate = 6.0 * n_trained * tokens / r["step_s"]
+    print(f"{SSM_ARCH} training ({cfg.optimizer}, batch {SSM_TRAIN_B} x "
+          f"{SSM_TRAIN_S}, {cfg.train_microbatches} microbatches): loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} over {SSM_TRAIN_STEPS} steps,"
+          f" grad norms {[round(x, 2) for x in norms]}; "
+          f"{r['step_s'] * 1e3:.1f} ms/step after the first "
+          f"({tokens / r['step_s']:.1f} tokens/s, {rate / 1e12:.2f} TFLOP/s "
+          f"by 6 * params * tokens, {100 * rate / FP32_FLOP_PER_S:.1f} % of "
+          f"the f32 CUDA-core peak); peak memory {peak / 1e9:.1f} GB; "
+          f"lm_final.npz reads back with every leaf's shape; launches "
+          f"{launches}")
+    paths["mamba_train"] = launches
+    del r
+    torch.cuda.empty_cache()
+
+    # jamba at full width, 5 layers: two prefill chunks
+    hcfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                               num_layers=HYBRID_LAYERS)
+    t0 = time.perf_counter()
+    params = tfm.init_params(hcfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n = tfm.param_count(hcfg)
+    print(f"{HYBRID_ARCH} full width, {HYBRID_LAYERS} layers "
+          f"({''.join(hcfg.layer_types())}, MoE at "
+          f"{[i for i in range(HYBRID_LAYERS) if hcfg.is_moe_layer(i)]}): "
+          f"{n} params ({4 * n / 1e9:.2f} GB f32) made on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    prompt = synthetic_batch(hcfg, HYBRID_B, HYBRID_S, seed=SEED)["tokens"]
+    cache_len = HYBRID_S + HYBRID_NEW + 8
+    reset_routes(lm_attn)
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = counted(lambda: lm_serve.run(
+        params, hcfg, prompt, new_tokens=HYBRID_NEW, cache_len=cache_len))
+    peak = torch.cuda.max_memory_allocated()
+    routes = dict(lm_attn.ROUTE_CALLS)
+    if not (launches["flash_attention"] == 1
+            and routes == {"flash_calls": 1, "masked_calls": 1}):
+        raise AssertionError(f"{HYBRID_ARCH} serving: {launches}, routes "
+                             f"{routes}; want one flash launch (the "
+                             f"attention layer's first chunk)")
+    check_served(torch, HYBRID_ARCH, out, HYBRID_B, HYBRID_NEW,
+                 hcfg.vocab_size)
+    masked = lm_serve.run(params, hcfg, prompt, new_tokens=1,
+                          cache_len=cache_len, flash=False)
+    torch.testing.assert_close(out["logits"], masked["logits"], rtol=2e-3,
+                               atol=2e-3)
+    # the attention layer is the last: over two chunks the logits read
+    # only its masked second chunk, so one chunk holds the flash route's
+    # output itself against the masked route
+    one = [lm_serve.run(params, hcfg, prompt[:, :hcfg.prefill_chunk],
+                        new_tokens=1, cache_len=cache_len,
+                        flash=flash)["logits"] for flash in (True, False)]
+    torch.testing.assert_close(one[0], one[1], rtol=2e-3, atol=2e-3)
+    print(f"{HYBRID_ARCH} one {hcfg.prefill_chunk}-token chunk: prefill "
+          f"logits on the flash route == masked route within 2e-3 (max "
+          f"|diff| {(one[0] - one[1]).abs().max().item():.3g})")
+    print(f"{HYBRID_ARCH} serve ({HYBRID_LAYERS} layers, dense-oracle MoE): "
+          f"batch {HYBRID_B}, prompt {HYBRID_S} in {HYBRID_S // hcfg.prefill_chunk} "
+          f"chunks of {hcfg.prefill_chunk}, {HYBRID_NEW} tokens: prefill "
+          f"{out['prefill_s'] * 1e3:.1f} ms (masked route "
+          f"{masked['prefill_s'] * 1e3:.1f} ms), decode {out['tok_per_s']:.1f}"
+          f" tok/s; flash route == masked route within 2e-3 (max |diff| "
+          f"{(out['logits'] - masked['logits']).abs().max().item():.3g}); "
+          f"peak memory {peak / 1e9:.1f} GB; launches {launches}, routes "
+          f"{routes}")
+    paths["jamba_serve"] = launches
+    del params, out, masked, one
+    torch.cuda.empty_cache()
+
+    # one Adafactor step through the dispatch, 2 layers
+    tcfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                               num_layers=HYBRID_TRAIN_LAYERS)
+    params = unstack_layers(stack_layers(tfm.init_params(
+        tcfg, seed=SEED, device=dev), tcfg))
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    batch = {"tokens": torch.randint(0, tcfg.vocab_size,
+                                     (MOE_TRAIN_B, MOE_TRAIN_S),
+                                     generator=g).to(dev)}
+    print(f"{HYBRID_ARCH} full width, {HYBRID_TRAIN_LAYERS} layers: "
+          f"{tfm.param_count(tcfg)} params")
+    paths["jamba_train"] = one_train_step(
+        torch, counted, f"{HYBRID_ARCH} ({HYBRID_TRAIN_LAYERS} layers)", tcfg,
+        params, batch, lambda p: [p["layers"][0]["mixer"]["in_proj"][:4, :4],
+                                  p["layers"][1]["mixer"]["A_log"],
+                                  p["layers"][1]["moe"]["router"]])
+    del params, batch
+    torch.cuda.empty_cache()
+    phase_budget("11c", t_phase)
+    return paths
+
+
+def vlm_family(torch, dev, counted):
+    """Phase 11d: llava-next-mistral-7b served at full width and depth
+    through the launcher (1,024 patch embeddings and 1,024 tokens a row:
+    one flash launch a layer at head dim 128, no masked prefill), the flash
+    route's prefill logits against the masked route at 2 layers within
+    2e-3, and one AdamW step with patch embeddings at 4 layers. Returns
+    the paths' launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import attention as lm_attn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.convert import stack_layers, unstack_layers
+    from repro_torch.train.train_step import synthetic_batch
+
+    t_phase = time.perf_counter()
+    paths = {}
+    cfg = get_config(VLM_ARCH)
+    layers, hd = cfg.num_layers, cfg.resolved_head_dim
+    n = tfm.param_count(cfg)
+    P = min(cfg.frontend_len_cap, VLM_S // 2)
+    argv = ["--arch", VLM_ARCH, "--no-reduced", "--batch", str(VLM_B),
+            "--prompt-len", str(VLM_S), "--tokens", str(VLM_NEW),
+            "--device", "cuda"]
+    reset_routes(lm_attn)
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = counted(lambda: lm_serve.main(argv))
+    routes = dict(lm_attn.ROUTE_CALLS)
+    if not (hd == 128 and launches["flash_attention"] == layers
+            and routes == {"flash_calls": layers, "masked_calls": 0}):
+        raise AssertionError(f"{VLM_ARCH} serving: {launches}, routes "
+                             f"{routes}, head dim {hd}; want {layers} flash "
+                             f"launches at head dim 128")
+    check_served(torch, VLM_ARCH, out, VLM_B, VLM_NEW, cfg.vocab_size)
+    print(f"{VLM_ARCH} full width and depth ({n} params, {4 * n / 1e9:.2f} "
+          f"GB f32) serve: batch {VLM_B}, prompt {VLM_S} ({P} patch "
+          f"embeddings, {VLM_S - P} tokens), {VLM_NEW} tokens: prefill "
+          f"{out['prefill_s'] * 1e3:.1f} ms, decode {out['tok_per_s']:.1f} "
+          f"tok/s; peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f}"
+          f" GB; launches {launches}, routes {routes}")
+    paths["llava_serve"] = launches
+    del out
+    torch.cuda.empty_cache()
+
+    # the flash route against the masked route, 2 layers
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    params2 = tfm.init_params(cfg2, seed=SEED, device=dev)
+    batch = synthetic_batch(cfg2, VLM_B, VLM_S, seed=SEED)
+    by_route = [lm_serve.run(params2, cfg2, batch["tokens"],
+                             patch_embeds=batch["patch_embeds"], new_tokens=1,
+                             cache_len=VLM_S + VLM_NEW + 8, flash=flash)
+                for flash in (True, False)]
+    lf, lmask = (r["logits"] for r in by_route)
+    torch.testing.assert_close(lf, lmask, rtol=2e-3, atol=2e-3)
+    print(f"{VLM_ARCH} full width, 2 layers: prefill logits on the flash "
+          f"route == masked route within 2e-3 (max |diff| "
+          f"{(lf - lmask).abs().max().item():.3g}; prefill "
+          f"{by_route[0]['prefill_s'] * 1e3:.1f} vs "
+          f"{by_route[1]['prefill_s'] * 1e3:.1f} ms)")
+    del params2, by_route, lf, lmask
+    torch.cuda.empty_cache()
+
+    # one AdamW step with patch embeddings, 4 layers
+    tcfg = dataclasses.replace(cfg, num_layers=VLM_TRAIN_LAYERS)
+    params = unstack_layers(stack_layers(tfm.init_params(
+        tcfg, seed=SEED, device=dev), tcfg))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+        tcfg, VLM_TRAIN_B, VLM_TRAIN_S, seed=SEED).items()}
+    print(f"{VLM_ARCH} full width, {VLM_TRAIN_LAYERS} layers: "
+          f"{tfm.param_count(tcfg)} params; batch {VLM_TRAIN_B} x "
+          f"({batch['patch_embeds'].shape[1]} patches + "
+          f"{batch['tokens'].shape[1]} tokens)")
+    paths["llava_train"] = one_train_step(
+        torch, counted, f"{VLM_ARCH} ({VLM_TRAIN_LAYERS} layers)", tcfg,
+        params, batch, lambda p: [p["embed"][:4, :4],
+                                  p["layers"][0]["attn"]["wq"][:4, 0, :4],
+                                  p["layers"][-1]["ffn"]["w_down"][:4, :4]])
+    del params, batch
+    torch.cuda.empty_cache()
+    phase_budget("11d", t_phase)
     return paths
 
 
@@ -3059,6 +3427,14 @@ def main() -> int:
     print(f"phase 11b starts at {time.perf_counter() - t_start:.1f}s")
     paths.update(lm_training(torch, dev, counted))
     paths.update(moe_family(torch, dev, counted))
+
+    # ---------------------------------------------------------- phase 11c
+    print(f"phase 11c starts at {time.perf_counter() - t_start:.1f}s")
+    paths.update(ssm_family(torch, dev, counted))
+
+    # ---------------------------------------------------------- phase 11d
+    print(f"phase 11d starts at {time.perf_counter() - t_start:.1f}s")
+    paths.update(vlm_family(torch, dev, counted))
 
     # ---------------------------------------------------------- phase 12
     print(f"phase 12 starts at {time.perf_counter() - t_start:.1f}s")

@@ -6,8 +6,10 @@ from a small order-1 Markov chain over the vocab so the LM has actual
 structure to learn (loss visibly decreases), packs them into fixed-length
 sequences, and prefetches batches on a worker thread — the same
 producer/consumer decoupling the paper uses between its walk engine and
-trainer. The text branch only: vision and audio configs raise, as
-``train/train_step.py::synthetic_batch`` does.
+trainer. A vision config's batches also hold ``frontend_len_cap`` patch
+embeddings a row (N(0, 1), f32, drawn after the tokens from the same
+generator); audio configs raise, as ``train/train_step.py::
+synthetic_batch`` does.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from repro_torch.models.config import ModelConfig
 class TokenPipeline:
     def __init__(self, cfg: ModelConfig, batch: int, seq: int, *,
                  seed: int = 0, states: int = 64, prefetch: int = 2):
-        if cfg.modality != "text":
+        if cfg.modality not in ("text", "vision"):
             raise NotImplementedError(f"TokenPipeline: modality "
                                       f"{cfg.modality!r} not ported yet")
         self.cfg, self.batch, self.seq = cfg, batch, seq
@@ -52,7 +54,12 @@ class TokenPipeline:
             cdf = np.cumsum(self._trans[st], axis=1)
             st = (u[:, None] < cdf).argmax(axis=1)
             toks[:, t] = self._emit[st, rng.integers(0, 32, B)]
-        return {"tokens": toks}
+        out = {"tokens": toks}
+        if self.cfg.modality == "vision":
+            P = self.cfg.frontend_len_cap
+            out["patch_embeds"] = rng.normal(
+                0, 1, (B, P, self.cfg.d_model)).astype(np.float32)
+        return out
 
     def _worker(self):
         while not self._stop.is_set():

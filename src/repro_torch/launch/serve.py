@@ -19,14 +19,16 @@ decode then serves one token per step.
 width 256 (4 experts for a MoE arch); ``--no-reduced`` runs it at its full
 width and depth, which must fit one device: the launcher raises before
 allocating when the f32 weights alone exceed the device's memory
-(phi3.5-moe-42b-a6.6b: 167 GB, qwen2.5-32b: 131 GB), as those archs need
-``sharding/`` (``ROADMAP.md``, Queue 1 item 8). ``serve.run`` takes any
-weights, so a caller can serve such an arch at full width and a cut depth.
-MoE layers take the dense oracle, as the JAX launcher serves without a
-mesh. ``--temperature 0`` is greedy decoding, the parity path; a positive
+(jamba-v0.1-52b: 206 GB, phi3.5-moe-42b-a6.6b: 167 GB, qwen2.5-32b: 131
+GB), as those archs need ``sharding/`` (``ROADMAP.md``, Queue 1 item 2).
+``serve.run`` takes any weights, so a caller can serve such an arch at
+full width and a cut depth. MoE layers take the dense oracle, as the JAX
+launcher serves without a mesh. A VLM's prompt is ``synthetic_batch``'s
+patch embeddings, then its tokens (``--prompt-len`` counts both).
+``--temperature 0`` is greedy decoding, the parity path; a positive
 temperature samples from a ``torch.Generator``, which cannot give
 ``jax.random``'s numbers. The weights are random, from ``--seed``. The
-dense and MoE families run; the others raise.
+dense, MoE, SSM, hybrid and VLM families run; MLA and enc-dec raise.
 """
 from __future__ import annotations
 
@@ -52,12 +54,29 @@ def device_memory(dev: torch.device) -> int:
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
+def require_fit(arch: str, cfg, dev: torch.device) -> None:
+    """Exit before allocating when ``cfg``'s f32 weights alone exceed
+    ``dev``'s memory: such an arch needs ``sharding/``."""
+    from repro_torch.models import transformer as tfm
+
+    need = 4 * tfm.param_count(cfg)
+    have = device_memory(dev)
+    if need > have:
+        raise SystemExit(
+            f"{arch}: {need / 1e9:.0f} GB of f32 weights exceed one "
+            f"{dev.type} device ({have / 1e9:.0f} GB); running it at full "
+            f"depth needs sharding/, not ported yet (ROADMAP.md, Queue 1 "
+            f"item 2): use --reduced")
+
+
 def run(params, cfg, tokens, *, new_tokens: int, cache_len: int,
-        temperature: float = 0.0, seed: int = 0, flash: bool = True) -> dict:
-    """Prefill ``tokens`` (B, S) and decode ``new_tokens`` tokens (the first
-    from the prefill's logits). The entry the tests and ``chip_smoke.py``
-    call with their own weights; ``flash=False`` keeps the prefill on the
-    masked attention route.
+        temperature: float = 0.0, seed: int = 0, flash: bool = True,
+        patch_embeds=None) -> dict:
+    """Prefill ``tokens`` (B, S), after a VLM's ``patch_embeds`` (B, P, d)
+    when given, and decode ``new_tokens`` tokens (the first from the
+    prefill's logits). The entry the tests and ``chip_smoke.py`` call with
+    their own weights; ``flash=False`` keeps the prefill on the masked
+    attention route.
 
     Returns ``{"logits": prefill logits (B, 1, V) f32, "tokens": (B,
     new_tokens) int64 numpy, "prefill_s", "decode_s", "tok_per_s"}``.
@@ -65,8 +84,10 @@ def run(params, cfg, tokens, *, new_tokens: int, cache_len: int,
     from repro_torch.train.serve_step import make_decode_step, make_prefill_step
 
     dev = params["embed"].device
-    tokens = torch.as_tensor(tokens, device=dev)
-    B = tokens.shape[0]
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    if patch_embeds is not None:
+        batch["patch_embeds"] = torch.as_tensor(patch_embeds, device=dev)
+    B = batch["tokens"].shape[0]
     prefill = make_prefill_step(cfg, cache_len, flash=flash)
     decode = make_decode_step(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -78,7 +99,7 @@ def run(params, cfg, tokens, *, new_tokens: int, cache_len: int,
         return torch.multinomial(probs, 1, generator=gen)
 
     t0 = time.perf_counter()
-    logits, caches = prefill(params, {"tokens": tokens})
+    logits, caches = prefill(params, batch)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     tok = sample(logits)
@@ -113,9 +134,9 @@ def main(argv=None) -> dict:
                     help="2 layers of width 256, 4 experts (default); "
                          "--no-reduced runs the arch at full width and "
                          "depth, which must fit one device: an arch whose "
-                         "f32 weights exceed it (phi3.5-moe-42b-a6.6b 167 "
-                         "GB, qwen2.5-32b 131 GB) needs sharding/, not "
-                         "ported yet, and raises")
+                         "f32 weights exceed it (jamba-v0.1-52b 206 GB, "
+                         "phi3.5-moe-42b-a6.6b 167 GB, qwen2.5-32b 131 GB) "
+                         "needs sharding/, not ported yet, and raises")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--tokens", type=int, default=32)
@@ -136,21 +157,14 @@ def main(argv=None) -> dict:
         cfg = dataclasses.replace(cfg, sliding_window=args.window)
     tfm.check_family(cfg)
     dev = resolve_device(args.device)
-    need = 4 * tfm.param_count(cfg)
-    have = device_memory(dev)
-    if need > have:
-        raise SystemExit(
-            f"{args.arch}: {need / 1e9:.0f} GB of f32 weights exceed one "
-            f"{dev.type} device ({have / 1e9:.0f} GB); serving it at full "
-            f"depth needs sharding/, not ported yet (ROADMAP.md, Queue 1 "
-            f"item 8): use --reduced")
+    require_fit(args.arch, cfg, dev)
 
     params = tfm.init_params(cfg, seed=args.seed, device=dev)
     batch = synthetic_batch(cfg, args.batch, args.prompt_len, seed=args.seed)
     cache_len = cache_len_for(cfg, args.prompt_len + args.tokens + 8)
     r = run(params, cfg, batch["tokens"], new_tokens=args.tokens,
             cache_len=cache_len, temperature=args.temperature,
-            seed=args.seed)
+            seed=args.seed, patch_embeds=batch.get("patch_embeds"))
     print(f"{args.arch}: prefill {args.batch}x{args.prompt_len} "
           f"{r['prefill_s']*1e3:.1f}ms (first call) | decode "
           f"{r['tok_per_s']:.1f} tok/s")

@@ -8,9 +8,10 @@ single-card hybrid trainer with the CUDA SGNS kernels (``--impl`` picks
 the route, the fused update by default), periodic resume checkpoints and
 the link-prediction AUC.
 
-The LM mode (``--arch qwen1.5-0.5b`` or any dense or MoE LM): random
-weights from ``--seed``, ``TokenPipeline``'s seeded Markov token stream
-(``data/tokens.py``), and ``--steps`` steps of ``train/train_step.py``
+The LM mode (``--arch qwen1.5-0.5b`` or any dense, MoE, SSM, hybrid or
+VLM arch): random weights from ``--seed``, ``TokenPipeline``'s seeded
+Markov token stream (``data/tokens.py``; a VLM's batches carry its patch
+embeddings), and ``--steps`` steps of ``train/train_step.py``
 (the config's optimizer, its ``train_microbatches``, MoE layers through
 the expert dispatch as JAX's trainer under its host mesh); it prints the
 JAX launcher's lines (``{arch}: {n}M params``, ``step {s:5d} loss ...
@@ -19,7 +20,9 @@ grad_norm ...`` every ``--log-every`` steps and at the last) and with
 JAX's ``restore_checkpoint`` reads. ``--reduced`` cuts the arch to
 ``--layers`` layers of width ``--d-model`` (4 experts, vocab ≤ 8,192, one
 microbatch). Its attention is the masked plain path, as JAX's training
-takes: the LM mode launches no kernel of the port.
+takes: the LM mode launches no kernel of the port. An arch whose f32
+weights exceed the device (jamba-v0.1-52b at full depth) exits before it
+allocates: it needs ``sharding/``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
         --reduced --steps 3 --batch 2 --seq 64 --device cpu
@@ -583,6 +586,7 @@ def train_lm(args) -> dict:
     from repro_torch import configs as cfgs
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.device import resolve_device
+    from repro_torch.launch.serve import require_fit
     from repro_torch.models import transformer as tfm
     from repro_torch.models.common import count_params
     from repro_torch.models.convert import params_to_jax
@@ -599,6 +603,7 @@ def train_lm(args) -> dict:
             cfg, vocab_size=min(cfg.vocab_size, 8192), train_microbatches=1)
     tfm.check_family(cfg)
     dev = resolve_device(args.device)
+    require_fit(args.arch, cfg, dev)
     params = tfm.init_params(cfg, seed=args.seed, device=dev)
     print(f"{args.arch}: {count_params(params)/1e6:.1f}M params")
 
@@ -614,10 +619,10 @@ def train_lm(args) -> dict:
     try:
         for step in range(args.steps):
             t0 = time.perf_counter()
-            tokens = torch.from_numpy(pipe.next()["tokens"]).to(dev)
-            params, opt_state, m = step_fn(
-                params, opt_state, step,
-                {"tokens": tokens, "positions": positions})
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in pipe.next().items()}
+            params, opt_state, m = step_fn(params, opt_state, step,
+                                           dict(batch, positions=positions))
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
             times.append(time.perf_counter() - t0)

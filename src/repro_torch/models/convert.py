@@ -4,8 +4,10 @@ JAX stacks each segment's layers: ``tree["segments"][i]["slots"][s]`` is a
 slot's parameter dict whose leaves carry a leading ``groups`` dimension,
 and the scan runs group-major (group 0's slots, then group 1's, ...).
 granite-3-2b is one segment of 40 groups of one slot, phi3.5-moe one of
-32. The port keeps one dict per layer in that order
-(``models/transformer.py``). Both directions move no bits: f32 leaves stay
+32, jamba one of L/8 groups of 8 slots (layer ``g * 8 + s``); a depth
+that is not a whole number of periods falls back to one segment per
+constant run (``segments_of``). The port keeps one dict per layer in that
+order (``models/transformer.py``). Both directions move no bits: f32 leaves stay
 f32, bf16 leaves cross as raw 16-bit words (JAX to the port). The optional
 ``lm_head`` (untied embeddings), the QKV biases and a MoE layer's
 ``"moe"`` leaves (the router, the stacked ``(groups, E, ...)`` experts,
@@ -23,7 +25,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import check_family, segments_of
 from repro_torch.train.checkpoint import numpy_to_tensor
 
-_LAYER_KEYS = {"ln1", "attn", "ln2", "ffn", "moe"}
+_LAYER_KEYS = {"ln1", "attn", "mixer", "ln2", "ffn", "moe"}
 _TOP_KEYS = {"embed", "final_norm", "segments", "lm_head"}
 
 
@@ -46,7 +48,8 @@ def params_from_jax(tree: dict, *, device="cpu") -> dict:
     stray = set(tree) - _TOP_KEYS
     if stray:
         raise NotImplementedError(f"params_from_jax: {sorted(stray)} belong to "
-                                  f"a family not ported yet (ROADMAP.md)")
+                                  f"a family not ported yet (ROADMAP.md, "
+                                  f"Queue 1 item 1)")
 
     def tensor(a):
         return numpy_to_tensor(np.asarray(a)).to(device)
@@ -56,8 +59,8 @@ def params_from_jax(tree: dict, *, device="cpu") -> dict:
         if set(p) - _LAYER_KEYS or "wdq" in p.get("attn", {}):
             raise NotImplementedError(
                 f"params_from_jax: layer keys {sorted(p)} (attn "
-                f"{sorted(p.get('attn', {}))}) are not the dense or MoE "
-                f"family's")
+                f"{sorted(p.get('attn', {}))}) belong to a family not "
+                f"ported yet (ROADMAP.md, Queue 1 item 1)")
     out = {"embed": tensor(tree["embed"]),
            "final_norm": tensor(tree["final_norm"]),
            "layers": [tree_map(tensor, p) for p in layers]}

@@ -1,26 +1,31 @@
-"""Decoder stack for the dense and MoE LM families: the training forward
-with its loss, prefill and decode.
+"""Decoder stack for the dense, MoE, SSM, hybrid and VLM LM families: the
+training forward with its loss, prefill and decode.
 
 The port of the JAX package's ``models/transformer.py`` for decoder-only
-text LMs. JAX stacks the layers of each *segment* (``segments_of``) and
-scans over them; the port keeps one dict per layer in ``params["layers"]``,
-in the scan's group-major order, and loops in Python. ``models/convert.py``
+LMs. JAX stacks the layers of each *segment* (``segments_of``) and scans
+over them; the port keeps one dict per layer in ``params["layers"]``, in
+the scan's group-major order, and loops in Python. ``models/convert.py``
 moves weights between the two layouts.
 
 Parameters: ``{"embed": (V, d), "final_norm": (d,), "layers": [{"ln1",
-"attn": {...}, "ln2", "ffn" | "moe": {...}}, ...]}`` plus ``"lm_head"``
-(d, V) unless the embeddings are tied; a layer holds ``"moe"`` where
-``cfg.is_moe_layer(i)``. Caches: one ``attention.init_cache`` dict per
-layer.
+"attn" | "mixer": {...}, "ln2", "ffn" | "moe": {...}}, ...]}`` plus
+``"lm_head"`` (d, V) unless the embeddings are tied. A layer holds
+``"attn"`` where ``cfg.layer_types()[i]`` is "A" and the Mamba-2
+``"mixer"`` (``models/mamba.py``) where it is "M"; ``"moe"`` where
+``cfg.is_moe_layer(i)``; ``"ln2"`` only with an FFN or MoE block (mamba2's
+layers are ``ln1`` and ``mixer`` alone). Caches: one dict per layer,
+``attention.init_cache``'s or ``mamba.init_mamba_cache``'s.
 
 Entry points: :func:`forward_train` (the full sequence, next-token cross
 entropy plus 0.01 times the MoE load-balance loss; its attention is the
 masked plain path, as JAX's training takes), :func:`prefill` (the prompt,
 in ``cfg.prefill_chunk`` chunks or whole, building the caches) and
-:func:`decode_step` (one token for the whole batch). ``moe_dispatch``
-picks the MoE route of :func:`forward_train` (``models/mlp.py``); serving
-takes the dense oracle, as JAX serves without a mesh. Other families (MLA,
-SSM, hybrid, enc-dec, VLM) raise in :func:`check_family`.
+:func:`decode_step` (one token for the whole batch). A VLM batch's
+``patch_embeds`` (B, P, d) go before the token embeddings in the training
+forward and the prefill. ``moe_dispatch`` picks the MoE route of
+:func:`forward_train` (``models/mlp.py``); serving takes the dense oracle,
+as JAX serves without a mesh. Other families (MLA, MTP, enc-dec, audio)
+raise in :func:`check_family`.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import dataclasses
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as ssm
 from repro_torch.models import mlp
 from repro_torch.models.common import embed_init, rms_norm
 from repro_torch.models.config import ModelConfig
@@ -66,17 +72,18 @@ def segments_of(cfg: ModelConfig, num_layers: int | None = None,
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense or MoE decoder-only text LM."""
+    """Raise unless ``cfg`` is a decoder-only dense, MoE, SSM, hybrid or
+    vision LM."""
     other = [name for name, on in (
-        ("MLA", cfg.mla), ("MTP", cfg.mtp),
-        ("SSM/hybrid", any(t != "A" for t in cfg.layer_types())),
-        ("enc-dec", cfg.is_encdec), ("VLM/audio", cfg.modality != "text"),
+        ("MLA", cfg.mla), ("MTP", cfg.mtp), ("enc-dec", cfg.is_encdec),
+        (f"modality {cfg.modality!r}", cfg.modality not in ("text", "vision")),
         (f"arch_type {cfg.arch_type!r}",
-         cfg.arch_type not in ("dense", "moe"))) if on]
+         cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "vlm")))
+        if on]
     if other:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(other)} not ported to PyTorch yet "
-            f"(ROADMAP.md, Queue 1 item 8)")
+            f"(ROADMAP.md, Queue 1 item 1)")
 
 
 # --------------------------------------------------------------------------
@@ -85,8 +92,11 @@ def check_family(cfg: ModelConfig) -> None:
 def _init_layer(gen, cfg: ModelConfig, i: int, device) -> dict:
     dt = getattr(torch, cfg.param_dtype)
     is_moe = cfg.is_moe_layer(i)
-    p = {"ln1": torch.ones((cfg.d_model,), dtype=dt, device=device),
-         "attn": attn.init_attention_params(gen, cfg, device=device)}
+    p = {"ln1": torch.ones((cfg.d_model,), dtype=dt, device=device)}
+    if cfg.layer_types()[i] == "A":
+        p["attn"] = attn.init_attention_params(gen, cfg, device=device)
+    else:
+        p["mixer"] = ssm.init_mamba_params(gen, cfg, device=device)
     if cfg.d_ff > 0 or is_moe:
         p["ln2"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
         if is_moe:
@@ -106,9 +116,13 @@ def param_count(cfg: ModelConfig) -> int:
     attn_n = 2 * d * H * hd + 2 * d * Hkv * hd
     if cfg.qkv_bias:
         attn_n += (H + 2 * Hkv) * hd
+    di, N, Hs = cfg.d_inner_ssm, cfg.ssm_state, cfg.ssm_heads
+    conv_c = di + 2 * N
+    mixer_n = (d * (2 * di + 2 * N + Hs) + (cfg.ssm_conv + 1) * conv_c
+               + 3 * Hs + di + di * d)
     n = V * d * (1 if cfg.tie_embeddings else 2) + d
-    for i in range(cfg.num_layers):
-        n += d + attn_n
+    for i, ltype in enumerate(cfg.layer_types()):
+        n += d + (attn_n if ltype == "A" else mixer_n)
         if cfg.is_moe_layer(i):
             E, ff = cfg.moe_num_experts, cfg.moe_d_ff
             n += d + d * E + 3 * E * d * ff + 3 * d * ff * cfg.moe_num_shared
@@ -154,8 +168,11 @@ def _ffn(p, x, cfg: ModelConfig, *, moe_dispatch: bool = False):
 def _layer_fwd(p, x, cfg: ModelConfig, *, positions=None,
                moe_dispatch: bool = False):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn.attention_forward(p["attn"], h, cfg, positions=positions)
-    return _ffn(p, x, cfg, moe_dispatch=moe_dispatch)
+    if "mixer" in p:
+        h = ssm.mamba_forward(p["mixer"], h, cfg)
+    else:
+        h = attn.attention_forward(p["attn"], h, cfg, positions=positions)
+    return _ffn(p, x + h, cfg, moe_dispatch=moe_dispatch)
 
 
 def _run_layers(layers, x, cfg: ModelConfig, *, positions=None,
@@ -199,20 +216,38 @@ def softmax_xent(logits, labels, mask):
 # --------------------------------------------------------------------------
 # training forward
 # --------------------------------------------------------------------------
+def _with_prefix(params, batch: dict, cfg: ModelConfig):
+    """The token embeddings, after a VLM batch's ``patch_embeds`` (cast to
+    their dtype) where the config is a vision one: (x, prefix length)."""
+    x = _embed_tokens(params, batch["tokens"])
+    pe = batch.get("patch_embeds")
+    if cfg.modality != "vision" or pe is None:
+        return x, 0
+    return torch.cat([pe.to(x.dtype), x], dim=1), pe.shape[1]
+
+
 def forward_train(params, batch: dict, cfg: ModelConfig, *,
                   moe_dispatch: bool = False):
     """Returns (loss, metrics ``{"xent", "aux"}``). batch: ``tokens`` (B, S)
-    int, optional ``positions`` (B, S) and ``loss_mask`` (B, S). Loss:
-    next-token cross entropy on positions 1..S-1 under the mask, plus 0.01
-    times the MoE aux loss summed over layers."""
+    int, optional ``positions`` (B, S), ``loss_mask`` (B, S) and, for a
+    VLM, ``patch_embeds`` (B, P, d): prepended to the token stream, the
+    positions extended on the left (the prefix takes 0..P-1, the tokens
+    shift by P), the prefix cut before the logits. Loss: next-token cross
+    entropy on the token positions 1..S-1 under the mask, plus 0.01 times
+    the MoE aux loss summed over layers."""
     check_family(cfg)
     tokens = batch["tokens"]
-    x = _embed_tokens(params, tokens)
-    x, aux = _run_layers(params["layers"], x, cfg,
-                         positions=batch.get("positions"),
+    x, prefix = _with_prefix(params, batch, cfg)
+    positions = batch.get("positions")
+    if positions is not None and x.shape[1] != positions.shape[1]:
+        pre = x.shape[1] - positions.shape[1]
+        positions = torch.cat(
+            [torch.arange(pre, device=x.device).expand(x.shape[0], pre),
+             positions + pre], dim=1)
+    x, aux = _run_layers(params["layers"], x, cfg, positions=positions,
                          moe_dispatch=moe_dispatch)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _lm_logits(params, x)
+    logits = _lm_logits(params, x[:, prefix:])
     labels = tokens[:, 1:]
     mask = batch.get("loss_mask")
     if mask is None:
@@ -228,21 +263,33 @@ def forward_train(params, batch: dict, cfg: ModelConfig, *,
 # --------------------------------------------------------------------------
 def _layer_extend(p, x, cache, cfg: ModelConfig, *, flash: bool = True):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    h, cache = attn.attention_extend(p["attn"], h, cache, cfg, flash=flash)
+    if "mixer" in p:
+        h, cache["state"], tail = ssm.mamba_forward(
+            p["mixer"], h, cfg, init_state=cache["state"],
+            conv_init=cache["conv"], return_state=True)
+        cache["conv"] = tail.to(cache["conv"].dtype)
+    else:
+        h, cache = attn.attention_extend(p["attn"], h, cache, cfg,
+                                         flash=flash)
     return _ffn(p, x + h, cfg)[0], cache
 
 
 def _layer_decode(p, x1, cache, cfg: ModelConfig):
     h = rms_norm(x1, p["ln1"], cfg.norm_eps)
-    h, cache = attn.attention_decode(p["attn"], h, cache, cfg)
+    if "mixer" in p:
+        h, cache = ssm.mamba_decode(p["mixer"], h, cache, cfg)
+    else:
+        h, cache = attn.attention_decode(p["attn"], h, cache, cfg)
     return _ffn(p, x1 + h, cfg)[0], cache
 
 
 def init_caches(params, cfg: ModelConfig, batch: int, cache_len: int) -> list:
-    """One ring-buffer cache per layer, on the parameters' device."""
+    """One cache per layer, on the parameters' device: a ring buffer for an
+    attention layer, the (f32) SSM state and conv tail for a mixer."""
     dev = params["embed"].device
-    return [attn.init_cache(cfg, batch, cache_len, device=dev)
-            for _ in params["layers"]]
+    return [ssm.init_mamba_cache(cfg, batch, device=dev) if "mixer" in p
+            else attn.init_cache(cfg, batch, cache_len, device=dev)
+            for p in params["layers"]]
 
 
 def _run_segments_cached(params, x, caches, layer_step):
@@ -264,12 +311,12 @@ def extend_chunk(params, x, caches, cfg: ModelConfig, *, flash: bool = True):
 
 def prefill(params, batch: dict, cfg: ModelConfig, cache_len: int, *,
             flash: bool = True):
-    """Chunked prefill of ``batch["tokens"]`` (B, S). Returns (last-token
-    logits (B, 1, V) f32, caches). ``flash=False`` keeps every chunk on the
-    masked attention route (``attention.attention_extend``)."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = _embed_tokens(params, tokens)
+    """Chunked prefill of ``batch["tokens"]`` (B, S), after a VLM batch's
+    ``patch_embeds``. Returns (last-token logits (B, 1, V) f32, caches).
+    ``flash=False`` keeps every chunk on the masked attention route
+    (``attention.attention_extend``)."""
+    x, _ = _with_prefix(params, batch, cfg)
+    B, S = x.shape[:2]
     caches = init_caches(params, cfg, B, cache_len)
     chunk = cfg.prefill_chunk or S
     if S % chunk != 0:

@@ -4,8 +4,9 @@ The port of the JAX package's ``train/train_step.py``.
 :func:`make_train_step` is loss + gradients (``torch.autograd``) + the
 optimizer update, with JAX's gradient accumulation over
 ``cfg.train_microbatches`` microbatches. :func:`synthetic_batch` is a numpy
-copy of its text branch, so one seed gives the same prompt tokens in both
-packages (the VLM and audio branches wait for their families).
+copy of its text and vision branches, so one seed gives the same prompt
+tokens and patch embeddings in both packages (the audio branch waits for
+its family).
 """
 from __future__ import annotations
 
@@ -22,15 +23,24 @@ from repro_torch.train.optimizer import make_optimizer
 
 
 def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0):
-    """Random-token batch with zipf-ish marginals (data pipeline stand-in)."""
-    if cfg.modality != "text":
+    """Random-token batch with zipf-ish marginals (data pipeline stand-in).
+    A vision config's ``seq`` holds ``P = min(frontend_len_cap, seq // 2)``
+    patch embeddings (N(0, 1), ``compute_dtype``) and ``seq - P`` tokens."""
+    if cfg.modality not in ("text", "vision"):
         raise NotImplementedError(f"synthetic_batch: modality "
                                   f"{cfg.modality!r} not ported yet")
     rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.modality == "vision":
+        P = min(cfg.frontend_len_cap, seq // 2)
+        out["patch_embeds"] = rng.normal(0, 1, (batch, P, cfg.d_model)).astype(
+            np.dtype(cfg.compute_dtype))
+        seq = seq - P
     z = rng.zipf(1.3, size=(batch, seq))
-    return {"tokens": np.minimum(z, cfg.vocab_size - 1).astype(np.int32),
-            "positions": np.broadcast_to(np.arange(seq, dtype=np.int32),
-                                         (batch, seq)).copy()}
+    out["tokens"] = np.minimum(z, cfg.vocab_size - 1).astype(np.int32)
+    out["positions"] = np.broadcast_to(np.arange(seq, dtype=np.int32),
+                                       (batch, seq)).copy()
+    return out
 
 
 def loss_and_grads(params, batch: dict, cfg: ModelConfig, *,
@@ -58,8 +68,8 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 1e-4,
                     moe_dispatch: bool = False):
     """Returns ``(train_step(params, opt_state, step, batch) -> (params,
     opt_state, metrics), opt)``. ``batch`` holds tensors on the
-    parameters' device: ``tokens`` (B, S) and optionally ``positions`` and
-    ``loss_mask``. ``moe_dispatch`` sends MoE layers through the expert
+    parameters' device: ``tokens`` (B, S) and optionally ``positions``,
+    ``loss_mask`` and a VLM's ``patch_embeds`` (B, P, d). ``moe_dispatch`` sends MoE layers through the expert
     dispatch (JAX's trainer under its host mesh) instead of the dense
     oracle.
 

@@ -160,9 +160,12 @@ def test_port_init_has_the_jax_layout(arch):
 def test_registry_names_every_jax_arch():
     assert configs.list_archs() == jax_configs.list_archs()
     for name in ("granite-3-2b", "qwen1.5-0.5b", "qwen1.5-4b", "qwen2.5-32b",
-                 "phi3.5-moe-42b-a6.6b"):
+                 "phi3.5-moe-42b-a6.6b", "mamba2-1.3b", "jamba-v0.1-52b",
+                 "llava-next-mistral-7b"):
         assert (dataclasses.asdict(configs.get_config(name))
                 == dataclasses.asdict(jax_configs.get_config(name)))
+    assert sorted(configs.NOT_PORTED) == ["deepseek-v3-671b",
+                                          "seamless-m4t-large-v2"]
     for name in configs.NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             configs.get_config(name)

@@ -319,8 +319,8 @@ def test_token_pipeline_matches_jax_bitwise(seed):
 
 def test_token_pipeline_refuses_other_modalities():
     cfg = dataclasses.replace(_port_cfg(_reduced("qwen1.5-0.5b")),
-                              modality="vision")
-    with pytest.raises(NotImplementedError, match="vision"):
+                              modality="audio")
+    with pytest.raises(NotImplementedError, match="audio"):
         TokenPipeline(cfg, 2, 8)
 
 
