@@ -142,10 +142,15 @@ failure ends the run with a non-zero exit:
    granite-3-2b's prefill (B = 4, H = 32, Hkv = 8, S = 2048, hd = 64;
    causal, and with a 512-key window) and the hd-128 one of phi3.5-moe,
    jamba's first chunk and llava (B = 2) on the (B, S, H, hd) views the
-   model passes; then timed at granite's prefill shape beside its bound
-   (f32 CUDA cores and 3xTF32 tensor cores), ``mha_plain`` and PyTorch's
-   ``scaled_dot_product_attention``, with the device kernels of one call
-   of each, and at the hd-128 shape beside its bound and the library;
+   model passes, seamless's cross-attention (not causal) and encoder
+   shapes (B = 4, H = 16, S = 1,024, hd = 64) and deepseek-v3's MLA
+   prefill (B = 1, H = 128, S = 2,048, q/k 192 and v 128 wide) with a
+   ragged (192, 128) case; then timed at granite's prefill shape beside
+   its bound (f32 CUDA cores and 3xTF32 tensor cores), ``mha_plain`` and
+   PyTorch's ``scaled_dot_product_attention``, with the device kernels of
+   one call of each, at the hd-128 shape beside its bound and the
+   library, and at seamless's and deepseek-v3's shapes (device and wall
+   ms, bound, plain and library ms, or the library's refusal);
 11. the LM serving main path: ``repro_torch.launch.serve.main`` for
    granite-3-2b at full width (``--no-reduced``), batch 4, a 2,048-token
    prompt and 32 tokens, with exactly one flash launch per layer (40) and
@@ -189,6 +194,36 @@ failure ends the run with a non-zero exit:
    128, and no masked prefill), at 2 layers the flash route's prefill
    logits against the masked route within 2e-3, and one AdamW step with
    patch embeddings at 4 layers; the phase's time against its budget;
+11e. the enc-dec family: seamless-m4t-large-v2 at full width and depth
+   (24 + 24 layers) served through the launcher (batch 4, a 2,048-long
+   prompt of 1,024 encoder frames and 1,024 tokens, 32 new tokens; one
+   flash launch a layer each for the encoder, the decoder's
+   self-attention and its cross-attention: 72, no masked prefill), at
+   2 + 2 layers the flash route's prefill logits against the masked route,
+   the prefill against the full forward and one decode step against the
+   forward of the extended prompt, each within the absolute spread one
+   rounding of the weights gives the forward's logits
+   (``SEAMLESS_LOGIT_ATOL``), layer 0's encoder and cross-attention on the
+   model's own q, k, v on the flash kernel and the masked route, each
+   within 2e-3 of f64, and five AdamW steps of 8 x (256 frames + 256
+   tokens) in 4 microbatches through the training launcher (finite losses, grad norms
+   above 0, one microbatch's gradients of the trained weights finite with
+   a finite f64 norm above 0, the encoder's, ``cross`` and ``ln_x`` leaves
+   changed, ``lm_final.npz`` read back with every leaf's shape); the
+   phase's time against its budget;
+11f. MLA and MTP: deepseek-v3-671b at full width cut to 2 layers (both
+   dense, MTP included): ``serve.run`` at batch 1 over a 4,096-token
+   prompt in its two 2,048-token chunks (2 flash launches at (192, 128),
+   each layer's first chunk, and 2 masked prefills), its logits on the
+   flash route against the masked route, and at 1 x 2,048 the prefill
+   against the full forward and one absorbed decode step against the
+   forward of 2,049 tokens, each within 2e-3; cut to 4 layers (3 dense,
+   then the first MoE layer of 256 experts, 63.19 GB): ``serve.run`` at
+   batch 1 with a 2,048-token prompt and 16 new tokens (4 flash launches,
+   the dense oracle over token blocks), its memory at the start and its
+   peak; one Adafactor step at 2 layers in 8 microbatches of 1 x 256 (a
+   finite loss and ``mtp`` metric, a positive grad norm, the MTP and MLA
+   leaves changed); the phase's time against its budget;
 12. a JSON line of per-kernel results (launches per path), the card's line,
    and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -228,17 +263,23 @@ CONFIG_RUN = ["--graph-kind", "powerlaw", "--nodes", "262144", "--epochs",
 FLASH_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (2e-2, 2e-2)}
 # granite-3-2b's prefill at the LM path's batch and prompt
 LM_B, LM_S, LM_TOKENS = 4, 2048, 32
-FLASH_CASES = [  # B, H, Hkv, Sq, Skv, hd, causal, window
-    (2, 4, 4, 64, 64, 32, True, 0), (1, 4, 2, 64, 128, 32, True, 0),
-    (2, 2, 2, 96, 96, 16, True, 24), (1, 2, 1, 64, 64, 64, False, 0),
-    (1, 8, 8, 128, 128, 8, True, 0),
-    (1, 2, 1, 64, 32, 16, True, 8),      # rows 39.. have no valid key
-    (2, 4, 2, 201, 77, 128, False, 0),   # hd 128 and 8, ragged tiles
-    (1, 8, 4, 257, 257, 8, True, 0),
-    (LM_B, 32, 8, LM_S, LM_S, 64, True, 0),
-    (LM_B, 32, 8, LM_S, LM_S, 64, True, 512),
+FLASH_CASES = [  # B, H, Hkv, Sq, Skv, hd (q/k), hd_v, causal, window
+    (2, 4, 4, 64, 64, 32, 32, True, 0), (1, 4, 2, 64, 128, 32, 32, True, 0),
+    (2, 2, 2, 96, 96, 16, 16, True, 24), (1, 2, 1, 64, 64, 64, 64, False, 0),
+    (1, 8, 8, 128, 128, 8, 8, True, 0),
+    (1, 2, 1, 64, 32, 16, 16, True, 8),      # rows 39.. have no valid key
+    (2, 4, 2, 201, 77, 128, 128, False, 0),  # hd 128 and 8, ragged tiles
+    (1, 8, 4, 257, 257, 8, 8, True, 0),
+    (LM_B, 32, 8, LM_S, LM_S, 64, 64, True, 0),
+    (LM_B, 32, 8, LM_S, LM_S, 64, 64, True, 512),
     # phi3.5-moe's prefill (11b), jamba's first chunk (11c), llava's (11d)
-    (2, 32, 8, LM_S, LM_S, 128, True, 0),
+    (2, 32, 8, LM_S, LM_S, 128, 128, True, 0),
+    # seamless's cross-attention and its encoder (11e)
+    (4, 16, 16, 1024, 1024, 64, 64, False, 0),
+    (4, 16, 16, 1024, 1024, 64, 64, True, 0),
+    # deepseek-v3's MLA prefill (11f), then a ragged (192, 128) case
+    (1, 128, 128, 2048, 2048, 192, 128, True, 0),
+    (2, 4, 4, 201, 77, 192, 128, False, 0),
 ]
 LM_ARGV = ["--arch", "granite-3-2b", "--no-reduced", "--batch", str(LM_B),
            "--prompt-len", str(LM_S), "--tokens", str(LM_TOKENS),
@@ -262,7 +303,30 @@ HYBRID_B, HYBRID_S, HYBRID_NEW = 2, 4096, 16
 # 1,024 tokens a row), the routes at 2 layers, an AdamW step at 4 layers
 VLM_ARCH, VLM_B, VLM_S, VLM_NEW = "llava-next-mistral-7b", 2, 2048, 16
 VLM_TRAIN_LAYERS, VLM_TRAIN_B, VLM_TRAIN_S = 4, 4, 1024
-PHASE_BUDGET_S = {"11c": 300.0, "11d": 150.0}
+# phase 11e: seamless-m4t-large-v2 at full width and depth (serve: 1,024
+# frames and 1,024 tokens a row), the routes and the serving contract at
+# 2 + 2 layers, five AdamW steps of 8 x (256 frames + 256 tokens) through
+# the training launcher
+SEAMLESS_ARCH, SEAMLESS_B, SEAMLESS_S, SEAMLESS_NEW = (
+    "seamless-m4t-large-v2", 4, 2048, 32)
+SEAMLESS_TRAIN_STEPS, SEAMLESS_TRAIN_B, SEAMLESS_TRAIN_S = 5, 8, 256
+# Seamless's logits at full width, 2 + 2 layers, move past 2e-3 when every
+# weight moves by one f32 rounding (relative 1e-7): by 1.09e-2 over the
+# prompt and 1.65e-2 over the extended prompt, as tools/seamless_spread.py
+# measures on the H100. Those spreads are its routes' absolute limits.
+SEAMLESS_LOGIT_ATOL = {"prompt": 1.09e-2, "extended": 1.65e-2}
+# Layer 0's attention on the model's own q, k, v (scores up to ~320): the
+# flash kernel and the masked route each within tests/test_models.py's
+# 2e-3 of the same attention in f64. FLASH_TOL is set for unit-scale
+# inputs: at this scale the two f32 routes differ by 1.1e-3 to 1.3e-3.
+SEAMLESS_LAYER_ATOL = 2e-3
+# phase 11f: deepseek-v3 at full width cut to 2 layers (both dense, MTP;
+# serve a 4,096-token prompt in two chunks, the serving contract at 2,048,
+# one Adafactor step in 8 microbatches of 1 x 256) and to 4 layers (3
+# dense, then the first MoE layer of 256 experts; serve a 2,048 prompt)
+DEEPSEEK_ARCH, DEEPSEEK_NEW = "deepseek-v3-671b", 16
+DEEPSEEK_TRAIN_S = 256
+PHASE_BUDGET_S = {"11c": 300.0, "11d": 150.0, "11e": 200.0, "11f": 200.0}
 # the serving launcher's requests a leg (phases 3 and 9): its numpy oracle
 # sorts every row per request, which set those phases' time at 256
 SERVE_QUERIES = 64
@@ -1926,19 +1990,22 @@ def check_flash_kernel(torch, fa, dev, err):
     cases = 0
     for dtype in ("float32", "bfloat16"):
         rtol, atol = FLASH_TOL[dtype]
-        for i, (B, H, Hkv, Sq, Skv, hd, causal, window) in enumerate(
+        for i, (B, H, Hkv, Sq, Skv, hd, hd_v, causal, window) in enumerate(
                 FLASH_CASES):
             g = torch.Generator(device=dev).manual_seed(SEED + 100 + i)
             q, k, v = (
                 (0.5 * torch.randn(shape, generator=g, device=dev)).to(
                     getattr(torch, dtype)).transpose(1, 2)
                 for shape in ((B, Sq, H, hd), (B, Skv, Hkv, hd),
-                              (B, Skv, Hkv, hd)))
+                              (B, Skv, Hkv, hd_v)))
             got = fa.flash_attention(q, k, v, causal=causal, window=window)
             want = fa.mha_plain(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
             what = (f"{dtype} B={B} H={H} Hkv={Hkv} Sq={Sq} Skv={Skv} "
-                    f"hd={hd} causal={causal} window={window}")
+                    f"hd={hd} hd_v={hd_v} causal={causal} window={window}")
+            if tuple(got.shape) != (B, H, Sq, hd_v):
+                raise AssertionError(f"flash_attention {what}: output "
+                                     f"{tuple(got.shape)}")
             diff = (got.float() - want.float()).abs()
             bad = diff > atol + rtol * want.float().abs()
             if bad.any():
@@ -1955,6 +2022,7 @@ def check_flash_kernel(torch, fa, dev, err):
                     got[:, :, rows].float(),
                     mean_v.expand_as(got[:, :, rows]), rtol=rtol, atol=atol)
             cases += 1
+            del q, k, v, got, want, diff, bad
     return cases
 
 
@@ -2020,6 +2088,9 @@ def time_flash(torch, fa, dev, time_ms, wall_ms, profiled_calls):
           f"{1e3 * 3 * hd2_flops / TF32_FLOP_PER_S:.4f} ms, library (sdpa) "
           f"{hd2_lib:.4f} ms")
     del qh, kh, vh, krh, vrh
+    rec["shapes"] = {label: time_flash_shape(torch, fa, dev, time_ms, wall_ms,
+                                             label, *shape)
+                     for label, shape in FLASH_TIMED_SHAPES.items()}
     for label, fn in (("flash_attention", lambda: fa.flash_attention(
             q, k, v, causal=True)), ("sdpa", lambda: sdpa(q, kr, vr,
                                                           is_causal=True))):
@@ -2028,6 +2099,53 @@ def time_flash(torch, fa, dev, time_ms, wall_ms, profiled_calls):
                  if calls else "not measured (the profiler kept no call)")
         print(f"{label} one call's device kernels (name, us): {split}")
     return rec
+
+
+# the shapes this slice's families give #11: B, H, S, hd (q/k), hd_v, causal
+FLASH_TIMED_SHAPES = {
+    "seamless_cross": (4, 16, 1024, 64, 64, False),
+    "seamless_encoder": (4, 16, 1024, 64, 64, True),
+    "deepseek_mla": (1, 128, 2048, 192, 128, True),
+}
+
+
+def time_flash_shape(torch, fa, dev, time_ms, wall_ms, label, B, H, S, hd,
+                     hd_v, causal):
+    """The flash kernel at one f32 (B, S, H, hd) shape, q/k ``hd`` and v
+    ``hd_v`` wide: device and wall ms beside the bound (2 * (hd + hd_v)
+    flop a valid pair, three TF32 passes; or the bytes), ``mha_plain`` and
+    ``scaled_dot_product_attention`` (None where it refuses v's width, the
+    refusal printed). Returns the numbers."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 300)
+    q, k = (torch.randn((B, S, H, hd), generator=g, device=dev).transpose(
+        1, 2) for _ in range(2))
+    v = torch.randn((B, S, H, hd_v), generator=g, device=dev).transpose(1, 2)
+    flops = 2.0 * (hd + hd_v) * B * H * attention_pairs(S, S, causal, 0)
+    nbytes = 4 * B * H * S * (2 * hd + 2 * hd_v)
+    bound = max((1e3 * nbytes / HBM_BYTES_PER_S, "bytes"),
+                (1e3 * 3 * flops / TF32_FLOP_PER_S, "operations"))
+    out = dict(ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                          10),
+               wall_ms=wall_ms(lambda: fa.flash_attention(q, k, v,
+                                                          causal=causal), 10),
+               plain_ms=time_ms(lambda: fa.mha_plain(q, k, v, causal=causal),
+                                3),
+               bound_ms=bound[0], bound_by=bound[1])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        out["library_ms"] = time_ms(lambda: sdpa(q, k, v, is_causal=causal),
+                                    10)
+        lib = f"library (sdpa) {out['library_ms']:.4f} ms"
+    except RuntimeError as e:
+        out["library_ms"] = None
+        lib = f"library: sdpa refused ({str(e).splitlines()[0][:160]})"
+    print(f"flash_attention {label} at B={B} H={H} S={S} q/k {hd} v {hd_v} "
+          f"f32 causal={causal}: {out['ms']:.4f} device ms/launch "
+          f"({out['wall_ms']:.4f} wall), bound {bound[0]:.4f} ms ({bound[1]};"
+          f" 3 x {flops:.4g} flop at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s "
+          f"TF32, {100 * bound[0] / out['ms']:.1f} % of it), plain "
+          f"{out['plain_ms']:.4f} ms, {lib}")
+    return out
 
 
 def lm_serving(torch, dev, counted):
@@ -2047,7 +2165,7 @@ def lm_serving(torch, dev, counted):
           f"routes {routes}")
     layers, vocab = cfg.num_layers, cfg.vocab_size
     if not (launches["flash_attention"] == layers
-            and routes == {"flash_calls": layers, "masked_calls": 0}):
+            and routes == only_routes(lm_attn, flash_calls=layers)):
         raise AssertionError(f"LM serving path: {launches} flash "
                              f"launches, routes {routes}; want {layers} "
                              f"flash launches and no masked prefill")
@@ -2193,7 +2311,7 @@ def moe_family(torch, dev, counted):
         params, cfg, prompt, new_tokens=MOE_NEW, cache_len=cache_len))
     routes = dict(lm_attn.ROUTE_CALLS)
     if not (launches["flash_attention"] == MOE_LAYERS
-            and routes == {"flash_calls": MOE_LAYERS, "masked_calls": 0}):
+            and routes == only_routes(lm_attn, flash_calls=MOE_LAYERS)):
         raise AssertionError(f"{MOE_ARCH} serving: {launches}, routes "
                              f"{routes}; want one flash launch a layer")
     check_served(torch, MOE_ARCH, out, MOE_B, MOE_NEW, cfg.vocab_size)
@@ -2313,6 +2431,11 @@ def check_served(torch, what, out, batch, new, vocab):
 def reset_routes(lm_attn):
     for name in lm_attn.ROUTE_CALLS:
         lm_attn.ROUTE_CALLS[name] = 0
+
+
+def only_routes(lm_attn, **calls):
+    """``ROUTE_CALLS`` as a run that took only ``calls`` would leave it."""
+    return {name: calls.get(name, 0) for name in lm_attn.ROUTE_CALLS}
 
 
 def one_train_step(torch, counted, what, cfg, params, batch, gate_leaves):
@@ -2490,7 +2613,8 @@ def ssm_family(torch, dev, counted):
     peak = torch.cuda.max_memory_allocated()
     routes = dict(lm_attn.ROUTE_CALLS)
     if not (launches["flash_attention"] == 1
-            and routes == {"flash_calls": 1, "masked_calls": 1}):
+            and routes == only_routes(lm_attn, flash_calls=1,
+                                      masked_calls=1)):
         raise AssertionError(f"{HYBRID_ARCH} serving: {launches}, routes "
                              f"{routes}; want one flash launch (the "
                              f"attention layer's first chunk)")
@@ -2573,7 +2697,7 @@ def vlm_family(torch, dev, counted):
     out, launches = counted(lambda: lm_serve.main(argv))
     routes = dict(lm_attn.ROUTE_CALLS)
     if not (hd == 128 and launches["flash_attention"] == layers
-            and routes == {"flash_calls": layers, "masked_calls": 0}):
+            and routes == only_routes(lm_attn, flash_calls=layers)):
         raise AssertionError(f"{VLM_ARCH} serving: {launches}, routes "
                              f"{routes}, head dim {hd}; want {layers} flash "
                              f"launches at head dim 128")
@@ -2624,6 +2748,388 @@ def vlm_family(torch, dev, counted):
     del params, batch
     torch.cuda.empty_cache()
     phase_budget("11d", t_phase)
+    return paths
+
+
+def encdec_last_logits(torch, tfm, params, frames, tokens, cfg):
+    """The full forward (training math) of an enc-dec batch: the last
+    token's logits (B, 1, V)."""
+    from repro_torch.models.common import rms_norm
+
+    with torch.no_grad():
+        enc, _ = tfm._encoder_forward(params, frames, cfg)
+        x = tfm._run_segments(params["layers"],
+                              tfm._embed_tokens(params, tokens), cfg,
+                              enc_out=enc)
+        return tfm._lm_logits(params, rms_norm(x[:, -1:],
+                                               params["final_norm"],
+                                               cfg.norm_eps))
+
+
+def attention_f64(torch, q, k, v, causal):
+    """Attention of q (B, Sq, H, hd) against k, v (B, Skv, H, hd) in f64,
+    scaled by 1 / sqrt(hd), causal or not: (B, Sq, H, hd) f64."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) / \
+        q.shape[-1] ** 0.5
+    if causal:
+        s = s.masked_fill(torch.ones(s.shape[-2:], dtype=torch.bool,
+                                     device=s.device).triu(1), -float("inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v.double())
+
+
+def encdec_layer_routes(torch, tfm, lm_attn, params, frames, tokens, cfg):
+    """Layer 0's encoder self-attention (causal, RoPE) and its decoder
+    cross-attention on the model's own q, k, v: the flash kernel and the
+    masked route each within ``SEAMLESS_LAYER_ATOL`` of the same attention
+    in f64. Returns {name: (flash's max |error|, the masked route's, max
+    |diff| between them, max |score| of the first row of the batch)}."""
+    from repro_torch.models.common import rms_norm
+
+    B, S, _ = frames.shape
+    pos = torch.arange(S, device=frames.device).expand(B, S)
+    pe, pd = params["enc_layers"][0], params["layers"][0]
+    with torch.no_grad():
+        enc, _ = tfm._encoder_forward(params, frames, cfg)
+        x = tfm._embed_tokens(params, tokens)
+        x = x + lm_attn.attention_forward(
+            pd["attn"], rms_norm(x, pd["ln1"], cfg.norm_eps), cfg)
+        hx = rms_norm(x, pd["ln_x"], cfg.norm_eps)
+        cases = {
+            "encoder": (*lm_attn._qkv(pe["attn"], rms_norm(
+                frames, pe["ln1"], cfg.norm_eps), pos, cfg), True),
+            "cross": (lm_attn._cross_q(pd["cross"], hx),
+                      *lm_attn.cross_kv(pd["cross"], enc), False)}
+        out = {}
+        for name, (q, k, v, causal) in cases.items():
+            got = lm_attn._flash(q, k, v, causal=causal)
+            plain = (lm_attn._attend(q, k, v, pos, pos, cfg) if causal
+                     else lm_attn._attend_all(q, k, v))
+            exact = attention_f64(torch, q, k, v, causal)
+            score = torch.einsum("qhd,khd->hqk", q[0], k[0])
+            out[name] = ((got - exact).abs().max().item(),
+                         (plain - exact).abs().max().item(),
+                         (got - plain).abs().max().item(),
+                         score.abs().max().item() / q.shape[-1] ** 0.5)
+            del got, plain, exact, score
+    if any(max(e[:2]) > SEAMLESS_LAYER_ATOL for e in out.values()):
+        raise AssertionError(f"{SEAMLESS_ARCH} layer 0: a route past "
+                             f"{SEAMLESS_LAYER_ATOL} of f64 (flash error, "
+                             f"masked error, their diff, max |score|: {out})")
+    return out
+
+
+def encdec_family(torch, dev, counted):
+    """Phase 11e: seamless-m4t-large-v2 served at full width and depth
+    through the launcher (72 flash launches: the encoder's, each decoder
+    layer's self- and cross-attention; no masked prefill), at 2 + 2 layers
+    the flash route against the masked route, the prefill against the full
+    forward and a decode step against the forward of the extended prompt
+    (each within ``SEAMLESS_LOGIT_ATOL``, the spread of the forward's logits
+    under one rounding of the weights), layer 0's attention on the flash
+    kernel and the masked route within 2e-3 of f64, and five AdamW
+    steps through the training launcher. Returns the paths' launch
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import attention as lm_attn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.train_step import loss_and_grads, synthetic_batch
+
+    t_phase = time.perf_counter()
+    paths = {}
+    cfg = get_config(SEAMLESS_ARCH)
+    L, Le = cfg.num_layers, cfg.encoder_layers
+    n = tfm.param_count(cfg)
+    argv = ["--arch", SEAMLESS_ARCH, "--no-reduced", "--batch",
+            str(SEAMLESS_B), "--prompt-len", str(SEAMLESS_S), "--tokens",
+            str(SEAMLESS_NEW), "--device", "cuda"]
+    reset_routes(lm_attn)
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = counted(lambda: lm_serve.main(argv))
+    routes = dict(lm_attn.ROUTE_CALLS)
+    want = only_routes(lm_attn, flash_calls=L, cross_flash_calls=L,
+                       encoder_flash_calls=Le)
+    if not (launches["flash_attention"] == L + L + Le and routes == want):
+        raise AssertionError(f"{SEAMLESS_ARCH} serving: {launches}, routes "
+                             f"{routes}; want {L + L + Le} flash launches, "
+                             f"routes {want}")
+    check_served(torch, SEAMLESS_ARCH, out, SEAMLESS_B, SEAMLESS_NEW,
+                 cfg.vocab_size)
+    print(f"{SEAMLESS_ARCH} full width and depth ({Le} + {L} layers, {n} "
+          f"params, {4 * n / 1e9:.2f} GB f32) serve: batch {SEAMLESS_B}, "
+          f"prompt {SEAMLESS_S} ({SEAMLESS_S // 2} frames, "
+          f"{SEAMLESS_S // 2} tokens), {SEAMLESS_NEW} tokens: prefill "
+          f"{out['prefill_s'] * 1e3:.1f} ms, decode {out['tok_per_s']:.1f} "
+          f"tok/s ({out['decode_s'] * 1e3:.1f} ms for {SEAMLESS_NEW - 1} "
+          f"steps); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; launches "
+          f"{launches}, routes {routes}")
+    paths["seamless_serve"] = launches
+    del out
+    torch.cuda.empty_cache()
+
+    # the routes and the serving contract at full width, 2 + 2 layers
+    cfg2 = dataclasses.replace(cfg, num_layers=2, encoder_layers=2)
+    params2 = tfm.init_params(cfg2, seed=SEED, device=dev)
+    batch = synthetic_batch(cfg2, SEAMLESS_B, SEAMLESS_S, seed=SEED)
+    cache_len = SEAMLESS_S + SEAMLESS_NEW + 8
+    by_route = [lm_serve.run(params2, cfg2, batch["tokens"],
+                             frames=batch["frames"], new_tokens=1,
+                             cache_len=cache_len, flash=flash)
+                for flash in (True, False)]
+    lf, lmask = (r["logits"] for r in by_route)
+    frames = torch.as_tensor(batch["frames"], device=dev)
+    toks = torch.as_tensor(batch["tokens"], device=dev)
+    with torch.no_grad():
+        lp, caches = tfm.prefill(params2, {"tokens": toks, "frames": frames},
+                                 cfg2, cache_len)
+        nxt = lp[:, 0].argmax(-1)[:, None]
+        ld, _ = tfm.decode_step(params2, nxt, caches, cfg2)
+    ext = torch.cat([toks, nxt], 1)
+    full_p = encdec_last_logits(torch, tfm, params2, frames, toks, cfg2)
+    full_d = encdec_last_logits(torch, tfm, params2, frames, ext, cfg2)
+    # One rounding of the weights moves this model's logits past 2e-3: the
+    # reference's fan-in (the heads axis of the (d, H, hd) projections)
+    # gives near-argmax softmaxes over 1,024 keys. The logits are held
+    # within that spread, absolute; layer 0's attention on both routes
+    # within 2e-3 of f64.
+    layer = encdec_layer_routes(torch, tfm, lm_attn, params2, frames, toks,
+                                cfg2)
+    tol_p, tol_d = (SEAMLESS_LOGIT_ATOL[k] for k in ("prompt", "extended"))
+    torch.testing.assert_close(lf, lmask, rtol=0.0, atol=tol_p)
+    torch.testing.assert_close(lp, full_p, rtol=0.0, atol=tol_p)
+    torch.testing.assert_close(ld, full_d, rtol=0.0, atol=tol_d)
+    print(f"{SEAMLESS_ARCH} full width, 2 + 2 layers: layer 0 within "
+          f"{SEAMLESS_LAYER_ATOL:g} of f64 (flash's max |error|, the masked "
+          f"route's, max |flash - masked|, max |score|: " + "; ".join(
+              f"{k} " + ", ".join(f"{x:.4g}" for x in e)
+              for k, e in layer.items())
+          + f"); logits held within {tol_p:.3g} "
+          f"(prompt) and {tol_d:.3g} (extended prompt), absolute: prefill "
+          f"logits on the flash route == masked route (max |diff| "
+          f"{(lf - lmask).abs().max().item():.3g}; prefill "
+          f"{by_route[0]['prefill_s'] * 1e3:.1f} vs "
+          f"{by_route[1]['prefill_s'] * 1e3:.1f} ms); prefill == full forward"
+          f" (max |diff| {(lp - full_p).abs().max().item():.3g}); one decode "
+          f"step == forward of the extended prompt (max |diff| "
+          f"{(ld - full_d).abs().max().item():.3g})")
+    del params2, by_route, lf, lmask, caches, lp, ld, full_p, full_d
+    torch.cuda.empty_cache()
+
+    # five AdamW steps through the training launcher
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--arch", SEAMLESS_ARCH, "--steps", str(SEAMLESS_TRAIN_STEPS),
+                "--batch", str(SEAMLESS_TRAIN_B), "--seq",
+                str(SEAMLESS_TRAIN_S), "--log-every", "1", "--save",
+                "--out-dir", tmp, "--device", "cuda"]
+        torch.cuda.reset_peak_memory_stats()
+        r, launches = counted(lambda: train_launcher.main(argv))
+        peak = torch.cuda.max_memory_allocated()
+        init = tfm.init_params(cfg, seed=0, device=dev)   # the launcher's
+        trained = r["params"]
+        pairs = [(init["enc_layers"][i]["attn"]["wq"],
+                  trained["enc_layers"][i]["attn"]["wq"]) for i in (0, Le - 1)]
+        pairs += [(init["layers"][i][k0][k1], trained["layers"][i][k0][k1])
+                  for i in (0, L - 1)
+                  for k0, k1 in (("cross", "wk"), ("cross", "wo"))]
+        pairs += [(init["layers"][i]["ln_x"], trained["layers"][i]["ln_x"])
+                  for i in (0, L - 1)]
+        pairs += [(init["enc_norm"], trained["enc_norm"])]
+        changed = all(not torch.equal(a, b) for a, b in pairs)
+        del init, pairs
+        checkpoint_reads_back(torch, r, SEAMLESS_TRAIN_STEPS)
+    losses, norms = r["losses"], r["grad_norm"]
+    # At full width the grad norm's f32 sum of squares can overflow to inf,
+    # as JAX's formula does (no clip reads it). So one microbatch's
+    # gradients of the trained weights must be finite, with a finite f64
+    # norm above 0.
+    b = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+        cfg, SEAMLESS_TRAIN_B // cfg.train_microbatches,
+        2 * SEAMLESS_TRAIN_S, seed=SEED).items()}
+    _, _, grads = loss_and_grads(r["params"], b, cfg)
+    leaves = tree_leaves(grads)
+    finite = all(bool(torch.isfinite(t).all()) for t in leaves)
+    gmax = max(t.abs().max().item() for t in leaves)
+    g64 = sum(t.double().square().sum().item() for t in leaves) ** 0.5
+    del b, grads, leaves
+    if not (np.isfinite(losses).all() and all(x > 0 for x in norms)
+            and not np.isnan(norms).any() and finite
+            and 0 < g64 < float("inf") and changed
+            and not any(launches.values())):
+        raise AssertionError(f"{SEAMLESS_ARCH} training: losses {losses}, "
+                             f"grad norms {norms}, a microbatch's gradients "
+                             f"finite {finite} (largest |g| {gmax:.4g}, f64 "
+                             f"norm {g64:.4g}), changed {changed}, "
+                             f"launches {launches}")
+    n_enc = sum(p.numel() for p in tree_leaves(r["params"]["enc_layers"]))
+    tokens = SEAMLESS_TRAIN_B * SEAMLESS_TRAIN_S       # decoder tokens
+    frames_n = tokens                                  # as many frames
+    # model flop of a step: 6 x (encoder params x frames + the rest x tokens)
+    rate = 6.0 * (n_enc * frames_n + (n - n_enc) * tokens) / r["step_s"]
+    print(f"{SEAMLESS_ARCH} training ({cfg.optimizer}, batch "
+          f"{SEAMLESS_TRAIN_B} x ({SEAMLESS_TRAIN_S} frames + "
+          f"{SEAMLESS_TRAIN_S} tokens), {cfg.train_microbatches} "
+          f"microbatches): loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+          f"{SEAMLESS_TRAIN_STEPS} steps, grad norms "
+          f"{[round(x, 2) for x in norms]} (a microbatch's gradients of the "
+          f"trained weights: finite, largest |g| {gmax:.4g}, f64 norm "
+          f"{g64:.4g}); {r['step_s'] * 1e3:.1f} ms/step "
+          f"after the first ({tokens / r['step_s']:.1f} decoder tokens/s, "
+          f"frames not counted; {(tokens + frames_n) / r['step_s']:.1f} "
+          f"frames + tokens/s; {rate / 1e12:.2f} TFLOP/s by 6 x (encoder "
+          f"params x frames + the rest x tokens), "
+          f"{100 * rate / FP32_FLOP_PER_S:.1f} % of the f32 CUDA-core peak); "
+          f"peak memory {peak / 1e9:.1f} GB; the encoder's, cross and ln_x "
+          f"leaves changed; lm_final.npz reads back with every leaf's shape; "
+          f"launches {launches}")
+    paths["seamless_train"] = launches
+    del r
+    torch.cuda.empty_cache()
+    phase_budget("11e", t_phase)
+    return paths
+
+
+def mla_family(torch, dev, counted):
+    """Phase 11f: deepseek-v3 at full width cut to 2 layers (serve over two
+    prefill chunks: 2 flash launches at (192, 128), 2 masked prefills; the
+    flash route against the masked route; at 1 x 2,048 the prefill and an
+    absorbed decode step against the full forward) and to 4 layers (3
+    dense, the first MoE layer of 256 experts: serve a 2,048 prompt, 4
+    flash launches, the memory held); one Adafactor step with MTP at 2
+    layers. Returns the paths' launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import attention as lm_attn
+    from repro_torch.models import mlp
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.convert import stack_layers, unstack_layers
+    from repro_torch.train.train_step import synthetic_batch
+
+    t_phase = time.perf_counter()
+    mem_phase = torch.cuda.memory_allocated()
+    paths = {}
+    full = get_config(DEEPSEEK_ARCH)
+    chunk = full.prefill_chunk
+    cfg2 = dataclasses.replace(full, num_layers=2)
+    t0 = time.perf_counter()
+    params = unstack_layers(stack_layers(tfm.init_params(
+        cfg2, seed=SEED, device=dev), cfg2))
+    torch.cuda.synchronize()
+    n = tfm.param_count(cfg2)
+    print(f"{DEEPSEEK_ARCH} full width, 2 layers (dense, MTP): {n} params "
+          f"({4 * n / 1e9:.2f} GB f32) made on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    prompt = synthetic_batch(cfg2, 1, 2 * chunk, seed=SEED)["tokens"]
+    cache_len = 2 * chunk + DEEPSEEK_NEW + 8
+    reset_routes(lm_attn)
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = counted(lambda: lm_serve.run(
+        params, cfg2, prompt, new_tokens=DEEPSEEK_NEW, cache_len=cache_len))
+    peak = torch.cuda.max_memory_allocated()
+    routes = dict(lm_attn.ROUTE_CALLS)
+    if not (launches["flash_attention"] == 2
+            and routes == only_routes(lm_attn, flash_calls=2,
+                                      masked_calls=2)):
+        raise AssertionError(f"{DEEPSEEK_ARCH} 2-chunk serving: {launches}, "
+                             f"routes {routes}; want 2 flash launches (each "
+                             f"layer's first chunk) and 2 masked prefills")
+    check_served(torch, DEEPSEEK_ARCH, out, 1, DEEPSEEK_NEW,
+                 full.vocab_size)
+    masked = lm_serve.run(params, cfg2, prompt, new_tokens=1,
+                          cache_len=cache_len, flash=False)
+    torch.testing.assert_close(out["logits"], masked["logits"], rtol=2e-3,
+                               atol=2e-3)
+    print(f"{DEEPSEEK_ARCH} serve (2 layers): batch 1, prompt {2 * chunk} in "
+          f"2 chunks of {chunk}, {DEEPSEEK_NEW} tokens: prefill "
+          f"{out['prefill_s'] * 1e3:.1f} ms (masked route "
+          f"{masked['prefill_s'] * 1e3:.1f} ms), decode {out['tok_per_s']:.1f}"
+          f" tok/s; flash route == masked route within 2e-3 (max |diff| "
+          f"{(out['logits'] - masked['logits']).abs().max().item():.3g}); "
+          f"peak memory {peak / 1e9:.1f} GB; launches {launches}, routes "
+          f"{routes}")
+    paths["deepseek_serve_2chunk"] = launches
+    del out, masked
+    torch.cuda.empty_cache()
+
+    # the serving contract at 1 x 2,048: prefill and one absorbed decode step
+    toks = torch.as_tensor(prompt[:, :chunk], device=dev)
+    with torch.no_grad():
+        lp, caches = tfm.prefill(params, {"tokens": toks}, cfg2, chunk + 8)
+        nxt = lp[:, 0].argmax(-1)[:, None]
+        ld, _ = tfm.decode_step(params, nxt, caches, cfg2)
+    full_p = last_logits(torch, tfm, params, toks, cfg2)
+    full_d = last_logits(torch, tfm, params, torch.cat([toks, nxt], 1), cfg2)
+    torch.testing.assert_close(lp, full_p, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(ld, full_d, rtol=2e-3, atol=2e-3)
+    print(f"{DEEPSEEK_ARCH} full width, 2 layers, 1 x {chunk}: prefill "
+          f"(flash route) == full forward within 2e-3 (max |diff| "
+          f"{(lp - full_p).abs().max().item():.3g}); one absorbed decode step "
+          f"== forward of {chunk + 1} tokens (max |diff| "
+          f"{(ld - full_d).abs().max().item():.3g})")
+    del caches, lp, ld, full_p, full_d
+
+    # one Adafactor step with MTP in the config's 8 microbatches of 1 x 256
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    tokens = torch.randint(0, full.vocab_size,
+                           (cfg2.train_microbatches, DEEPSEEK_TRAIN_S),
+                           generator=g).to(dev)
+    with torch.no_grad():
+        _, m = tfm.forward_train(params, {"tokens": tokens[:1]}, cfg2)
+    mtp = float(m["mtp"])
+    if not np.isfinite(mtp):
+        raise AssertionError(f"{DEEPSEEK_ARCH}: mtp metric {mtp}")
+    print(f"{DEEPSEEK_ARCH} forward of one 1 x {DEEPSEEK_TRAIN_S} microbatch:"
+          f" xent {float(m['xent']):.4f}, mtp {mtp:.4f}")
+    paths["deepseek_train"] = one_train_step(
+        torch, counted, f"{DEEPSEEK_ARCH} (2 layers, MTP)", cfg2, params,
+        {"tokens": tokens},
+        lambda p: [p["mtp_proj"][:4, :4],
+                   p["mtp_layer"]["attn"]["wdq"][:4, :4],
+                   p["mtp_layer"]["ffn"]["w_down"][:4, :4],
+                   p["layers"][0]["attn"]["wuq"][:4, 0, :4],
+                   p["layers"][1]["attn"]["wkr"][:4, :4]])
+    del params, tokens
+    torch.cuda.empty_cache()
+
+    # 4 layers: 3 dense, then the first MoE layer of 256 experts
+    cfg4 = dataclasses.replace(full, num_layers=4)
+    at_start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg4, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n = tfm.param_count(cfg4)
+    print(f"{DEEPSEEK_ARCH} full width, 4 layers (MoE at "
+          f"{[i for i in range(4) if cfg4.is_moe_layer(i)]}): {n} params "
+          f"({4 * n / 1e9:.2f} GB f32) made on the card in "
+          f"{time.perf_counter() - t0:.1f} s; {at_start / 1e9:.2f} GB "
+          f"allocated at the start; the oracle in blocks of "
+          f"{mlp.moe_ref_block_tokens(cfg4)} tokens")
+    prompt = synthetic_batch(cfg4, 1, chunk, seed=SEED)["tokens"]
+    reset_routes(lm_attn)
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = counted(lambda: lm_serve.run(
+        params, cfg4, prompt, new_tokens=DEEPSEEK_NEW,
+        cache_len=chunk + DEEPSEEK_NEW + 8))
+    peak = torch.cuda.max_memory_allocated()
+    routes = dict(lm_attn.ROUTE_CALLS)
+    if not (launches["flash_attention"] == 4
+            and routes == only_routes(lm_attn, flash_calls=4)):
+        raise AssertionError(f"{DEEPSEEK_ARCH} 4-layer serving: {launches}, "
+                             f"routes {routes}; want 4 flash launches")
+    check_served(torch, DEEPSEEK_ARCH, out, 1, DEEPSEEK_NEW, full.vocab_size)
+    print(f"{DEEPSEEK_ARCH} serve (4 layers, dense-oracle MoE): batch 1, "
+          f"prompt {chunk}, {DEEPSEEK_NEW} tokens: prefill "
+          f"{out['prefill_s'] * 1e3:.1f} ms, decode {out['tok_per_s']:.1f} "
+          f"tok/s ({out['decode_s'] * 1e3:.1f} ms for {DEEPSEEK_NEW - 1} "
+          f"steps); memory allocated {mem_phase / 1e9:.2f} GB at the phase's "
+          f"start, {at_start / 1e9:.2f} GB before these weights, peak "
+          f"{peak / 1e9:.1f} GB; launches {launches}, routes {routes}")
+    paths["deepseek_serve"] = launches
+    del params, out
+    torch.cuda.empty_cache()
+    phase_budget("11f", t_phase)
     return paths
 
 
@@ -3149,7 +3655,9 @@ def main() -> int:
     qf = q8.float()
     rec["topk_scan_int8"]["library_ms"] = time_ms(
         lambda: torch.topk((q @ qf.T) * sc, m), 2)
-    del qf, table, store, shard, q8, sc
+    # small, s8 and ss are views: they would hold the whole table and its
+    # int8 tier (~10 GB) to the end of the run
+    del qf, table, store, shard, q8, sc, small, s8, ss, q8b, qpad
     torch.cuda.empty_cache()
     for name, r in rec.items():
         print(f"{name}: {r['ms']:.3f} device ms/launch ({r['wall_ms']:.3f} "
@@ -3436,6 +3944,14 @@ def main() -> int:
     print(f"phase 11d starts at {time.perf_counter() - t_start:.1f}s")
     paths.update(vlm_family(torch, dev, counted))
 
+    # ---------------------------------------------------------- phase 11e
+    print(f"phase 11e starts at {time.perf_counter() - t_start:.1f}s")
+    paths.update(encdec_family(torch, dev, counted))
+
+    # ---------------------------------------------------------- phase 11f
+    print(f"phase 11f starts at {time.perf_counter() - t_start:.1f}s")
+    paths.update(mla_family(torch, dev, counted))
+
     # ---------------------------------------------------------- phase 12
     print(f"phase 12 starts at {time.perf_counter() - t_start:.1f}s")
     for name, r in rec.items():
@@ -3448,7 +3964,8 @@ def main() -> int:
             "launches_by_path": by_path,
             "max_abs_err": err[name], "ms": r["ms"], "wall_ms": r["wall_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            **({"shapes": r["shapes"]} if "shapes" in r else {})})
     print(f"kernels: {', '.join(rec)} (total run "
           f"{time.perf_counter() - t_start:.1f}s)")
     print(json.dumps({"kernels": results}))

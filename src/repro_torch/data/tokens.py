@@ -7,9 +7,8 @@ structure to learn (loss visibly decreases), packs them into fixed-length
 sequences, and prefetches batches on a worker thread — the same
 producer/consumer decoupling the paper uses between its walk engine and
 trainer. A vision config's batches also hold ``frontend_len_cap`` patch
-embeddings a row (N(0, 1), f32, drawn after the tokens from the same
-generator); audio configs raise, as ``train/train_step.py::
-synthetic_batch`` does.
+embeddings a row, an audio config's ``seq`` encoder frames a row (both
+N(0, 1), f32, drawn after the tokens from the same generator).
 """
 from __future__ import annotations
 
@@ -24,9 +23,6 @@ from repro_torch.models.config import ModelConfig
 class TokenPipeline:
     def __init__(self, cfg: ModelConfig, batch: int, seq: int, *,
                  seed: int = 0, states: int = 64, prefetch: int = 2):
-        if cfg.modality not in ("text", "vision"):
-            raise NotImplementedError(f"TokenPipeline: modality "
-                                      f"{cfg.modality!r} not ported yet")
         self.cfg, self.batch, self.seq = cfg, batch, seq
         rng = np.random.default_rng(seed)
         V = cfg.vocab_size
@@ -59,6 +55,9 @@ class TokenPipeline:
             P = self.cfg.frontend_len_cap
             out["patch_embeds"] = rng.normal(
                 0, 1, (B, P, self.cfg.d_model)).astype(np.float32)
+        if self.cfg.modality == "audio":
+            out["frames"] = rng.normal(
+                0, 1, (B, S, self.cfg.d_model)).astype(np.float32)
         return out
 
     def _worker(self):

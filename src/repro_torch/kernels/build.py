@@ -83,10 +83,11 @@ SIGNATURES = {
         "scatter_add_rows_rowwise": [_I, _I, _P, _P, _P, _I, _I, _I, _P],
     },
     "flash_attention": {
-        # dtype, hd, q, k, v, out, B, H, Hkv, Sq, Skv, causal, window,
-        # scale, strides (batch, head, row) of q, k, v and out, stream
-        "flash_attention_fwd": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _I, _F, *[_LL] * 12, _P],
+        # dtype, hd, hd_v, q, k, v, out, B, H, Hkv, Sq, Skv, causal,
+        # window, scale, strides (batch, head, row) of q, k, v and out,
+        # stream
+        "flash_attention_fwd": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _F, *[_LL] * 12, _P],
     },
 }
 

@@ -1,7 +1,9 @@
 // Online-softmax (flash) attention forward for Hopper: the port of the JAX
 // package's kernels/flash_attention.py::flash_attention. The LM serving
-// path's prefill attention (models/attention.py::attention_extend) runs on
-// it: q of a whole prompt against the keys and values it just wrote.
+// path's prefill attention runs on it (models/attention.py): q of a whole
+// prompt against the keys and values it just wrote, an enc-dec decoder's q
+// against the encoder memory (not causal), and MLA's q/k heads of 192
+// against v heads of 128.
 //
 // What it computes, per (b, h) and query row qpos (GQA: kv head h / G):
 //   s[kpos] = (q . k[kpos]) * scale                f32 dot of f32-widened rows
@@ -9,6 +11,8 @@
 //   qpos - kpos >= window (positions counted from 0 in q and in k: Sq != Skv
 //   is aligned top-left, as in the TPU kernel's iota masks)
 //   out = sum_k softmax(s)[kpos] v[kpos], in f32, cast to q's dtype.
+// q and k are HD wide, v and out HDV: (HD, HD) for HD in 8 .. 128, and
+// (192, 128), deepseek-v3's MLA heads.
 // -1e30 is finite: a row masked everywhere (a window with Sq > Skv) comes
 // out as the mean of v over the Skv keys, as in the TPU kernel and mha_ref.
 //
@@ -30,15 +34,19 @@
 // mask (the bits of cvt.rna), and each warp holds two 16-row m-tiles, so
 // each k and v fragment split feeds two products.
 //
-// One block of 4 warps per (b, h, 128 query rows; 64 at hd 128, whose
-// accumulators leave no room for a second m-tile); a loop over tiles of 64
-// keys. q's rows are copied to shared memory once and their hi/lo
+// One block of 4 warps per (b, h, 128 query rows; 64 at an HDV of 128,
+// whose accumulators leave no room for a second m-tile); a loop over tiles
+// of 64 keys. q's rows are copied to shared memory once and their hi/lo
 // fragments split from there on each tile. K and V tiles go through a
 // double-buffered ring in shared memory filled by 16-byte cp.async copies:
 // tile t + 1 loads while tile t multiplies. Rows are padded by 16 bytes, so
 // the fragment loads of a warp (8 rows x 4 columns of k; 4 row pairs x 8
 // columns of v) hit 32 distinct banks in f32. Keys past Skv are zero-filled
-// by the copy.
+// by the copy. V's tiles have their own width and stride: at (192, 128) in
+// f32 one stride of 196 floats for Q and the whole ring would take
+// (64 + 4 * 64) * 196 * 4 = 250,880 bytes, past the 232,448 a block may
+// opt into; with V's 132 it is (64 + 2 * 64) * 196 * 4 + 2 * 64 * 132 * 4 =
+// 218,112.
 //
 // S = Q K^T lands in the mma accumulator layout: lane (g, t) = (lane / 4,
 // lane % 4) holds rows g and g + 8, key columns 2t and 2t + 1 of each
@@ -77,12 +85,15 @@ constexpr int THREADS = 32 * WARPS;
 constexpr float MASKED = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// 16-row m-tiles per warp: two below hd 128, so each k and v fragment split
-// feeds twice the products (at hd 128 the accumulators would not fit)
-__host__ __device__ constexpr int m_tiles(int hd) { return hd <= 64 ? 2 : 1; }
+// 16-row m-tiles per warp: two below an output width (HDV) of 128, so each
+// k and v fragment split feeds twice the products (at 128 the accumulators
+// would not fit)
+__host__ __device__ constexpr int m_tiles(int hdv) {
+  return hdv <= 64 ? 2 : 1;
+}
 // query rows per block
-__host__ __device__ constexpr int block_rows(int hd) {
-  return WARPS * 16 * m_tiles(hd);
+__host__ __device__ constexpr int block_rows(int hdv) {
+  return WARPS * 16 * m_tiles(hdv);
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -96,10 +107,12 @@ __host__ __device__ constexpr int row_stride() {
   return HD + 16 / static_cast<int>(sizeof(T));
 }
 
-// Q's rows, then the ring: 2 stages of (K, V) tiles
-template <typename T, int HD>
+// Q's rows and the ring's 2 stages of K tiles (stride of HD), then its 2
+// stages of V tiles (stride of HDV)
+template <typename T, int HD, int HDV>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return static_cast<size_t>(block_rows(HD) + 4 * BK) * row_stride<T, HD>() *
+  return (static_cast<size_t>(block_rows(HDV) + 2 * BK) * row_stride<T, HD>() +
+          static_cast<size_t>(2 * BK) * row_stride<T, HDV>()) *
          sizeof(T);
 }
 
@@ -191,15 +204,18 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(THREADS) flash_fwd(const Args a) {
   constexpr int RS = row_stride<T, HD>();
-  constexpr int KD = HD / 8;                 // 8-wide steps over hd
-  constexpr int MT = m_tiles(HD);
-  constexpr int BQ = block_rows(HD);
+  constexpr int RSV = row_stride<T, HDV>();
+  constexpr int KD = HD / 8;                 // 8-wide steps over q/k's dim
+  constexpr int KDV = HDV / 8;               // and over v's
+  constexpr int MT = m_tiles(HDV);
+  constexpr int BQ = block_rows(HDV);
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);        // (BQ, RS)
-  T* ring = sQ + BQ * RS;                    // [stage][K, V] (BK, RS)
+  T* ringK = sQ + BQ * RS;                   // [stage] (BK, RS)
+  T* ringV = ringK + 2 * BK * RS;            // [stage] (BK, RSV)
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -223,8 +239,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(const Args a) {
 
   load_tile<T, HD, BQ>(sQ, Q, a.qs, q0, a.Sq);
   cp_commit();
-  load_tile<T, HD, BK>(ring, K, a.ks, k_lo, a.Skv);
-  load_tile<T, HD, BK>(ring + BK * RS, V, a.vs, k_lo, a.Skv);
+  load_tile<T, HD, BK>(ringK, K, a.ks, k_lo, a.Skv);
+  load_tile<T, HDV, BK>(ringV, V, a.vs, k_lo, a.Skv);
   cp_commit();
 
   // this warp's MT m-tiles of 16 rows; in m-tile i this lane holds rows
@@ -240,12 +256,12 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(const Args a) {
     split(to_f32(p[8 * RS + 4]), hi[3], lo[3]);
   };
 
-  float o[MT][KD][4];
+  float o[MT][KDV][4];
   float m[MT][2], l[MT][2];
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
 #pragma unroll
-    for (int n = 0; n < KD; ++n)
+    for (int n = 0; n < KDV; ++n)
       o[i][n][0] = o[i][n][1] = o[i][n][2] = o[i][n][3] = 0.f;
     m[i][0] = m[i][1] = MASKED;
     l[i][0] = l[i][1] = 0.f;
@@ -255,15 +271,15 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(const Args a) {
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = k_lo + t * BK;
     if (t + 1 < ntiles) {
-      T* nxt = ring + ((t + 1) & 1) * 2 * BK * RS;
-      load_tile<T, HD, BK>(nxt, K, a.ks, k0 + BK, a.Skv);
-      load_tile<T, HD, BK>(nxt + BK * RS, V, a.vs, k0 + BK, a.Skv);
+      const int nxt = (t + 1) & 1;
+      load_tile<T, HD, BK>(ringK + nxt * BK * RS, K, a.ks, k0 + BK, a.Skv);
+      load_tile<T, HDV, BK>(ringV + nxt * BK * RSV, V, a.vs, k0 + BK, a.Skv);
     }
     cp_commit();
     cp_wait<1>();               // tile t has landed
     __syncthreads();
-    const T* sK = ring + (t & 1) * 2 * BK * RS;
-    const T* sV = sK + BK * RS;
+    const T* sK = ringK + (t & 1) * BK * RS;
+    const T* sV = ringV + (t & 1) * BK * RSV;
 
     // Under causal masks a tile whose keys all lie past the warp's rows
     // changes nothing for them (each has seen its valid keys, and masked
@@ -341,7 +357,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(const Args a) {
         l[i][0] = l[i][0] * al0 + ps0;   // this lane's share; summed at the end
         l[i][1] = l[i][1] * al1 + ps1;
 #pragma unroll
-        for (int n = 0; n < KD; ++n) {
+        for (int n = 0; n < KDV; ++n) {
           o[i][n][0] *= al0;
           o[i][n][1] *= al0;
           o[i][n][2] *= al1;
@@ -362,12 +378,12 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(const Args a) {
           split(s[i][j][1], ph[i][2], pl[i][2]);
           split(s[i][j][3], ph[i][3], pl[i][3]);
         }
-        const T* p = sV + (8 * j + 2 * t4) * RS + g;
+        const T* p = sV + (8 * j + 2 * t4) * RSV + g;
 #pragma unroll
-        for (int n = 0; n < KD; ++n) {
+        for (int n = 0; n < KDV; ++n) {
           uint32_t bh0, bh1, bl0, bl1;
           split(to_f32(p[8 * n]), bh0, bl0);
-          split(to_f32(p[RS + 8 * n]), bh1, bl1);
+          split(to_f32(p[RSV + 8 * n]), bh1, bl1);
 #pragma unroll
           for (int i = 0; i < MT; ++i)
             mma3(o[i][n], ph[i], pl[i], bh0, bh1, bl0, bl1);
@@ -390,49 +406,53 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(const Args a) {
     T* O = static_cast<T*>(a.o) + b * a.ob + h * a.oh + 2 * t4;
     if (qp0 < a.Sq) {
 #pragma unroll
-      for (int n = 0; n < KD; ++n)
+      for (int n = 0; n < KDV; ++n)
         store2<T>(O + qp0 * a.os + 8 * n, o[i][n][0] / d0, o[i][n][1] / d0);
     }
     if (qp1 < a.Sq) {
 #pragma unroll
-      for (int n = 0; n < KD; ++n)
+      for (int n = 0; n < KDV; ++n)
         store2<T>(O + qp1 * a.os + 8 * n, o[i][n][2] / d1, o[i][n][3] / d1);
     }
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 int launch(const Args& a, int B, int H, cudaStream_t st) {
-  const size_t smem = smem_bytes<T, HD>();
+  constexpr size_t smem = smem_bytes<T, HD, HDV>();
+  static_assert(smem <= 232448, "past the shared memory a block may use");
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<T, HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(H, B, (a.Sq + block_rows(HD) - 1) / block_rows(HD));
-  flash_fwd<T, HD><<<grid, THREADS, smem, st>>>(a);
+  const dim3 grid(H, B, (a.Sq + block_rows(HDV) - 1) / block_rows(HDV));
+  flash_fwd<T, HD, HDV><<<grid, THREADS, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(int hd, const Args& a, int B, int H, cudaStream_t st) {
+int dispatch(int hd, int hdv, const Args& a, int B, int H, cudaStream_t st) {
+  if (hd == 192 && hdv == 128) return launch<T, 192, 128>(a, B, H, st);
+  if (hd != hdv) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 8: return launch<T, 8>(a, B, H, st);
-    case 16: return launch<T, 16>(a, B, H, st);
-    case 32: return launch<T, 32>(a, B, H, st);
-    case 64: return launch<T, 64>(a, B, H, st);
-    case 128: return launch<T, 128>(a, B, H, st);
+    case 8: return launch<T, 8, 8>(a, B, H, st);
+    case 16: return launch<T, 16, 16>(a, B, H, st);
+    case 32: return launch<T, 32, 32>(a, B, H, st);
+    case 64: return launch<T, 64, 64>(a, B, H, st);
+    case 128: return launch<T, 128, 128>(a, B, H, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (q, k, v and out alike). hd in {8, 16, 32, 64,
-// 128}. q (B, H, Sq, hd), k and v (B, Hkv, Skv, hd), out like q, each given
-// by its batch, head and row strides in elements (the last dim contiguous;
+// dtype: 0 = f32, 1 = bf16 (q, k, v and out alike). (hd, hdv) is (h, h)
+// for h in {8, 16, 32, 64, 128}, or (192, 128). q (B, H, Sq, hd), k (B,
+// Hkv, Skv, hd), v (B, Hkv, Skv, hdv), out (B, H, Sq, hdv), each given by
+// its batch, head and row strides in elements (the last dim contiguous;
 // pointers and strides 16-byte aligned).
 extern "C" int flash_attention_fwd(
-    int dtype, int hd, const void* q, const void* k, const void* v, void* o,
+    int dtype, int hd, int hdv, const void* q, const void* k, const void* v, void* o,
     int B, int H, int Hkv, int Sq, int Skv, int causal, int window,
     float scale, long long qb, long long qh, long long qs, long long kb,
     long long kh, long long ks, long long vb, long long vh, long long vs,
@@ -444,7 +464,7 @@ extern "C" int flash_attention_fwd(
   const Args a{q, k, v, o, H / Hkv, Sq, Skv, causal, window, scale,
                qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(hd, a, B, H, st);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(hd, a, B, H, st);
+  if (dtype == 0) return dispatch<float>(hd, hdv, a, B, H, st);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(hd, hdv, a, B, H, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,21 +3,24 @@
 Counterpart of the JAX package's ``kernels/flash_attention.py``.
 :func:`flash_attention` replaces the TPU kernel ``flash_attention``
 (``flash_attention.py:80``) and launches ``kernels/csrc/flash_attention.cu``:
-one block of 4 warps per (batch, head, 128 query rows; 64 at hd 128)
-walking the keys in tiles of 64 through a double-buffered ring in shared
+one block of 4 warps per (batch, head, 128 query rows; 64 at a v width of
+128) walking the keys in tiles of 64 through a double-buffered ring in shared
 memory, both products
 on the tensor cores in 3xTF32 (f32 accuracy), the running max, denominator
 and accumulator in f32 registers. :func:`mha_plain` is the counterpart of
 ``mha_ref``: the whole score matrix, masked, softmaxed.
 
-Layout as in the JAX package: q (B, H, Sq, hd), k and v (B, Hkv, Skv, hd),
-the kv head of head h being ``h // (H // Hkv)``. Positions count from 0 in
-q and in k, so ``Sq != Skv`` is aligned top-left. Masked scores are -1e30
-(finite), so a row with no valid key comes out as the mean of v. The
-kernel reads any strides whose last one is 1 and whose others, like the
-pointers, are multiples of 16 bytes (its copies move 16 bytes), so
-``x.transpose(1, 2)`` of a (B, S, H, hd) tensor goes in without a copy; the
-output has q's strides.
+Layout as in the JAX package: q (B, H, Sq, hd), k (B, Hkv, Skv, hd), v
+(B, Hkv, Skv, hd_v), the kv head of head h being ``h // (H // Hkv)``. v's
+width is q's (:data:`HEAD_DIMS`) or one of :data:`WIDTH_PAIRS` (MLA's
+192-wide q/k heads against 128-wide v heads); the output is v's width.
+Positions count from 0 in q and in k, so ``Sq != Skv`` is aligned
+top-left. Masked scores are -1e30 (finite), so a row with no valid key
+comes out as the mean of v. The kernel reads any strides whose last one
+is 1 and whose others, like the pointers, are multiples of 16 bytes (its
+copies move 16 bytes), so ``x.transpose(1, 2)`` of a (B, S, H, hd) tensor
+goes in without a copy; the output is a (B, Sq, H, hd_v) tensor seen the
+same way.
 
 A tensor on the CPU takes :func:`mha_plain`; a tensor on the card goes to
 the kernel or the call raises.
@@ -31,7 +34,8 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (8, 16, 32, 64, 128)      # the kernel's instantiations
+HEAD_DIMS = (8, 16, 32, 64, 128)      # the kernel's (hd, hd) instantiations
+WIDTH_PAIRS = ((192, 128),)           # and its (q/k, v) ones (MLA)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of the CUDA kernel of this module (counted where it launches)
@@ -61,11 +65,13 @@ def mha_plain(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 def _check_args(q, k, v, window):
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention: q (B, H, Sq, hd) and k, v "
-                         f"(B, Hkv, Skv, hd) expected, got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"flash_attention: q (B, H, Sq, hd), k (B, Hkv, "
+                         f"Skv, hd) and v (B, Hkv, Skv, hd_v) expected, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     B, H, Sq, hd = q.shape
+    hd_v = v.shape[3]
     Hkv, Skv = k.shape[1], k.shape[2]
     if k.shape[0] != B or k.shape[3] != hd or Hkv == 0 or H % Hkv:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
@@ -73,8 +79,10 @@ def _check_args(q, k, v, window):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: q, k, v must share one dtype of "
                          f"{list(_DTYPES)}, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+    if not (hd == hd_v and hd in HEAD_DIMS or (hd, hd_v) in WIDTH_PAIRS):
+        raise ValueError(f"flash_attention: head dims (q/k {hd}, v {hd_v}) "
+                         f"not instantiated: equal ones in {HEAD_DIMS} or a "
+                         f"pair in {WIDTH_PAIRS}")
     if Skv == 0 or window < 0:
         raise ValueError(f"flash_attention: Skv = {Skv}, window = {window}")
     if any(t.device != q.device for t in (k, v)):
@@ -87,7 +95,7 @@ def _check_args(q, k, v, window):
             raise ValueError(f"flash_attention: {name} is not 16-byte "
                              f"aligned (pointer {t.data_ptr():#x}, strides "
                              f"{t.stride()} of {t.element_size()} bytes)")
-    return B, H, Hkv, Sq, Skv, hd
+    return B, H, Hkv, Sq, Skv, hd, hd_v
 
 
 def _aligned(t) -> bool:
@@ -99,22 +107,26 @@ def _aligned(t) -> bool:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q (B, H, Sq, hd), k/v (B, Hkv, Skv, hd) -> (B, H, Sq, hd) in q's dtype.
+    """q (B, H, Sq, hd), k (B, Hkv, Skv, hd), v (B, Hkv, Skv, hd_v) -> (B,
+    H, Sq, hd_v) in q's dtype, scores scaled by 1 / sqrt(hd).
 
     Causal and/or a sliding window of ``window`` keys (0: none). f32 or
-    bf16, f32 inside; hd in :data:`HEAD_DIMS`. A CPU tensor takes
-    :func:`mha_plain`.
+    bf16, f32 inside; hd = hd_v in :data:`HEAD_DIMS`, or (hd, hd_v) in
+    :data:`WIDTH_PAIRS`. A CPU tensor takes :func:`mha_plain`.
     """
     if q.device.type == "cpu":
         return mha_plain(q, k, v, causal=causal, window=window)
-    B, H, Hkv, Sq, Skv, hd = _check_args(q, k, v, window)
-    out = torch.empty_like(q)     # q's strides if q is dense, else contiguous
+    B, H, Hkv, Sq, Skv, hd, hd_v = _check_args(q, k, v, window)
+    # a (B, Sq, H, hd_v) buffer, the model's layout, seen as (B, H, Sq, hd_v)
+    out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
     lib = build.library("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(
-            _DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, H, Hkv, Sq, Skv, int(causal), int(window),
+            _DTYPES[q.dtype], hd, hd_v, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Skv, int(causal),
+            int(window),
             1.0 / math.sqrt(hd), *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:3], stream)
     build.check(rc, "flash_attention")

@@ -6,8 +6,9 @@ paper's embedding workload; embedding retrieval serving is
 ``launch/embed_serve.py``). It takes the JAX launcher's flags and prints
 its two lines. Prefill builds the ring-buffer caches with its attention
 on the flash kernel (``kernels/csrc/flash_attention.cu``) wherever that
-computes the JAX prefill's function (``models/attention.py`` says when);
-decode then serves one token per step.
+computes the JAX prefill's function (``models/attention.py`` says when:
+self-attention, an encoder's attention, cross-attention, MLA's 192/128
+heads); decode then serves one token per step.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --batch 2 --prompt-len 64 --tokens 4
@@ -19,16 +20,18 @@ decode then serves one token per step.
 width 256 (4 experts for a MoE arch); ``--no-reduced`` runs it at its full
 width and depth, which must fit one device: the launcher raises before
 allocating when the f32 weights alone exceed the device's memory
-(jamba-v0.1-52b: 206 GB, phi3.5-moe-42b-a6.6b: 167 GB, qwen2.5-32b: 131
-GB), as those archs need ``sharding/`` (``ROADMAP.md``, Queue 1 item 2).
-``serve.run`` takes any weights, so a caller can serve such an arch at
-full width and a cut depth. MoE layers take the dense oracle, as the JAX
-launcher serves without a mesh. A VLM's prompt is ``synthetic_batch``'s
-patch embeddings, then its tokens (``--prompt-len`` counts both).
+(deepseek-v3-671b: 2,687 GB, jamba-v0.1-52b: 206 GB, phi3.5-moe-42b-a6.6b:
+167 GB, qwen2.5-32b: 131 GB), as those archs need ``sharding/``
+(``ROADMAP.md``, Queue 1 item 2). ``serve.run`` takes any weights, so a
+caller can serve such an arch at full width and a cut depth. MoE layers
+take the dense oracle, as the JAX launcher serves without a mesh. A VLM's
+prompt is ``synthetic_batch``'s patch embeddings, then its tokens; an
+enc-dec arch's (seamless-m4t-large-v2) is its encoder frames and its
+decoder tokens (``--prompt-len`` counts both, half each).
 ``--temperature 0`` is greedy decoding, the parity path; a positive
 temperature samples from a ``torch.Generator``, which cannot give
-``jax.random``'s numbers. The weights are random, from ``--seed``. The
-dense, MoE, SSM, hybrid and VLM families run; MLA and enc-dec raise.
+``jax.random``'s numbers. The weights are random, from ``--seed``. Every
+family runs.
 """
 from __future__ import annotations
 
@@ -71,12 +74,12 @@ def require_fit(arch: str, cfg, dev: torch.device) -> None:
 
 def run(params, cfg, tokens, *, new_tokens: int, cache_len: int,
         temperature: float = 0.0, seed: int = 0, flash: bool = True,
-        patch_embeds=None) -> dict:
+        patch_embeds=None, frames=None) -> dict:
     """Prefill ``tokens`` (B, S), after a VLM's ``patch_embeds`` (B, P, d)
-    when given, and decode ``new_tokens`` tokens (the first from the
-    prefill's logits). The entry the tests and ``chip_smoke.py`` call with
-    their own weights; ``flash=False`` keeps the prefill on the masked
-    attention route.
+    when given, with an enc-dec arch's encoder ``frames`` (B, Se, d), and
+    decode ``new_tokens`` tokens (the first from the prefill's logits).
+    The entry the tests and ``chip_smoke.py`` call with their own weights;
+    ``flash=False`` keeps the prefill on the masked attention route.
 
     Returns ``{"logits": prefill logits (B, 1, V) f32, "tokens": (B,
     new_tokens) int64 numpy, "prefill_s", "decode_s", "tok_per_s"}``.
@@ -87,6 +90,8 @@ def run(params, cfg, tokens, *, new_tokens: int, cache_len: int,
     batch = {"tokens": torch.as_tensor(tokens, device=dev)}
     if patch_embeds is not None:
         batch["patch_embeds"] = torch.as_tensor(patch_embeds, device=dev)
+    if frames is not None:
+        batch["frames"] = torch.as_tensor(frames, device=dev)
     B = batch["tokens"].shape[0]
     prefill = make_prefill_step(cfg, cache_len, flash=flash)
     decode = make_decode_step(cfg)
@@ -134,9 +139,10 @@ def main(argv=None) -> dict:
                     help="2 layers of width 256, 4 experts (default); "
                          "--no-reduced runs the arch at full width and "
                          "depth, which must fit one device: an arch whose "
-                         "f32 weights exceed it (jamba-v0.1-52b 206 GB, "
-                         "phi3.5-moe-42b-a6.6b 167 GB, qwen2.5-32b 131 GB) "
-                         "needs sharding/, not ported yet, and raises")
+                         "f32 weights exceed it (deepseek-v3-671b 2,687 "
+                         "GB, jamba-v0.1-52b 206 GB, phi3.5-moe-42b-a6.6b "
+                         "167 GB, qwen2.5-32b 131 GB) needs sharding/, not "
+                         "ported yet, and raises")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--tokens", type=int, default=32)
@@ -164,7 +170,8 @@ def main(argv=None) -> dict:
     cache_len = cache_len_for(cfg, args.prompt_len + args.tokens + 8)
     r = run(params, cfg, batch["tokens"], new_tokens=args.tokens,
             cache_len=cache_len, temperature=args.temperature,
-            seed=args.seed, patch_embeds=batch.get("patch_embeds"))
+            seed=args.seed, patch_embeds=batch.get("patch_embeds"),
+            frames=batch.get("frames"))
     print(f"{args.arch}: prefill {args.batch}x{args.prompt_len} "
           f"{r['prefill_s']*1e3:.1f}ms (first call) | decode "
           f"{r['tok_per_s']:.1f} tok/s")

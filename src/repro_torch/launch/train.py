@@ -8,10 +8,12 @@ single-card hybrid trainer with the CUDA SGNS kernels (``--impl`` picks
 the route, the fused update by default), periodic resume checkpoints and
 the link-prediction AUC.
 
-The LM mode (``--arch qwen1.5-0.5b`` or any dense, MoE, SSM, hybrid or
-VLM arch): random weights from ``--seed``, ``TokenPipeline``'s seeded
-Markov token stream (``data/tokens.py``; a VLM's batches carry its patch
-embeddings), and ``--steps`` steps of ``train/train_step.py``
+The LM mode (``--arch qwen1.5-0.5b`` or any other LM arch: dense, MoE,
+MLA with MTP, SSM, hybrid, VLM, enc-dec): random weights from ``--seed``,
+``TokenPipeline``'s seeded Markov token stream (``data/tokens.py``; a
+VLM's batches carry its patch embeddings, an enc-dec arch's its encoder
+frames, as many as tokens), and ``--steps`` steps of
+``train/train_step.py``
 (the config's optimizer, its ``train_microbatches``, MoE layers through
 the expert dispatch as JAX's trainer under its host mesh); it prints the
 JAX launcher's lines (``{arch}: {n}M params``, ``step {s:5d} loss ...
@@ -21,8 +23,8 @@ JAX's ``restore_checkpoint`` reads. ``--reduced`` cuts the arch to
 ``--layers`` layers of width ``--d-model`` (4 experts, vocab ≤ 8,192, one
 microbatch). Its attention is the masked plain path, as JAX's training
 takes: the LM mode launches no kernel of the port. An arch whose f32
-weights exceed the device (jamba-v0.1-52b at full depth) exits before it
-allocates: it needs ``sharding/``.
+weights exceed the device (deepseek-v3-671b, jamba-v0.1-52b at full depth)
+exits before it allocates: it needs ``sharding/``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
         --reduced --steps 3 --batch 2 --seq 64 --device cpu

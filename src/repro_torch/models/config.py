@@ -3,9 +3,8 @@
 A copy of the JAX package's ``models/config.py``: one dataclass describes
 dense / MoE / MLA / SSM / hybrid / enc-dec / VLM / audio stacks; per-arch
 files in ``repro_torch.configs`` instantiate it. Reduced variants (for CPU
-smoke tests) come from :meth:`ModelConfig.reduced`. The port runs the
-dense, MoE, SSM, hybrid and VLM families
-(``models/transformer.py::check_family``).
+smoke tests) come from :meth:`ModelConfig.reduced`. The port runs every
+family (``models/transformer.py``).
 """
 from __future__ import annotations
 

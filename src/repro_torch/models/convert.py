@@ -9,10 +9,14 @@ that is not a whole number of periods falls back to one segment per
 constant run (``segments_of``). The port keeps one dict per layer in that
 order (``models/transformer.py``). Both directions move no bits: f32 leaves stay
 f32, bf16 leaves cross as raw 16-bit words (JAX to the port). The optional
-``lm_head`` (untied embeddings), the QKV biases and a MoE layer's
-``"moe"`` leaves (the router, the stacked ``(groups, E, ...)`` experts,
-the optional ``shared`` FFN) ride along. Families other than dense and MoE
-raise. :func:`params_from_arrays` rebuilds the parameters from a
+``lm_head`` (untied embeddings), the QKV biases, MLA's attention leaves, a
+MoE layer's ``"moe"`` leaves (the router, the stacked ``(groups, E, ...)``
+experts, the optional ``shared`` FFN) and an enc-dec decoder layer's
+``ln_x`` and ``cross`` ride along. An encoder's ``enc_segments``
+(stacked by ``segments_of(cfg, cfg.encoder_layers)``) become the port's
+``enc_layers``; ``enc_norm``, ``mtp_proj``, ``mtp_layer`` and
+``mtp_norm`` cross as they are (``mtp_layer`` is one layer, not stacked,
+in both). :func:`params_from_arrays` rebuilds the parameters from a
 checkpoint's flat ``a/0/b`` keys (``train/checkpoint.py::load_arrays``).
 """
 from __future__ import annotations
@@ -25,8 +29,13 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import check_family, segments_of
 from repro_torch.train.checkpoint import numpy_to_tensor
 
-_LAYER_KEYS = {"ln1", "attn", "mixer", "ln2", "ffn", "moe"}
-_TOP_KEYS = {"embed", "final_norm", "segments", "lm_head"}
+_LAYER_KEYS = {"ln1", "attn", "mixer", "ln_x", "cross", "ln2", "ffn", "moe"}
+# the top-level leaves other than the stacked layers, which cross as they are
+_PLAIN_KEYS = ("embed", "final_norm", "lm_head", "enc_norm", "mtp_proj",
+               "mtp_layer", "mtp_norm")
+# the JAX tree's stacked layers and the port's per-layer lists
+_STACKED = {"segments": "layers", "enc_segments": "enc_layers"}
+_TOP_KEYS = {*_PLAIN_KEYS, *_STACKED}
 
 
 def layers_from_segments(segments) -> list[dict]:
@@ -47,25 +56,22 @@ def params_from_jax(tree: dict, *, device="cpu") -> dict:
     """The port's parameters from the JAX tree (numpy or JAX arrays)."""
     stray = set(tree) - _TOP_KEYS
     if stray:
-        raise NotImplementedError(f"params_from_jax: {sorted(stray)} belong to "
-                                  f"a family not ported yet (ROADMAP.md, "
-                                  f"Queue 1 item 1)")
+        raise ValueError(f"params_from_jax: unknown top-level keys "
+                         f"{sorted(stray)}")
 
     def tensor(a):
         return numpy_to_tensor(np.asarray(a)).to(device)
 
-    layers = layers_from_segments(tree["segments"])
-    for p in layers:
-        if set(p) - _LAYER_KEYS or "wdq" in p.get("attn", {}):
-            raise NotImplementedError(
-                f"params_from_jax: layer keys {sorted(p)} (attn "
-                f"{sorted(p.get('attn', {}))}) belong to a family not "
-                f"ported yet (ROADMAP.md, Queue 1 item 1)")
-    out = {"embed": tensor(tree["embed"]),
-           "final_norm": tensor(tree["final_norm"]),
-           "layers": [tree_map(tensor, p) for p in layers]}
-    if "lm_head" in tree:
-        out["lm_head"] = tensor(tree["lm_head"])
+    out = {k: tree_map(tensor, tree[k]) for k in _PLAIN_KEYS if k in tree}
+    for jax_key, key in _STACKED.items():
+        if jax_key not in tree:
+            continue
+        layers = layers_from_segments(tree[jax_key])
+        for p in layers:
+            if set(p) - _LAYER_KEYS:
+                raise ValueError(f"params_from_jax: unknown layer keys "
+                                 f"{sorted(set(p) - _LAYER_KEYS)}")
+        out[key] = [tree_map(tensor, p) for p in layers]
     return out
 
 
@@ -87,13 +93,23 @@ def restack(ts: list) -> torch.Tensor:
 def stack_layers(params: dict, cfg: ModelConfig, *, stack=restack) -> dict:
     """The JAX tree layout of the port's parameters (or of a tree shaped
     like them: gradients, per-layer state): each segment slot's layer
-    leaves stacked along a leading groups dim by ``segments_of(cfg)``
-    (``stack``: a copy, unless the layers are views of one stack already),
-    the top-level leaves as they are."""
+    leaves stacked along a leading groups dim by ``segments_of(cfg)`` (an
+    encoder's by ``segments_of(cfg, cfg.encoder_layers)``; ``stack``: a
+    copy, unless the layers are views of one stack already), the other
+    top-level leaves, ``mtp_layer`` among them, as they are."""
     check_family(cfg)
-    layers = iter(params["layers"])
+    tree = {k: params[k] for k in _PLAIN_KEYS if k in params}
+    tree["segments"] = _segments(params["layers"], segments_of(cfg), stack)
+    if "enc_layers" in params:
+        tree["enc_segments"] = _segments(
+            params["enc_layers"], segments_of(cfg, cfg.encoder_layers), stack)
+    return tree
+
+
+def _segments(layers, segs, stack) -> list:
+    layers = iter(layers)
     segments = []
-    for seg in segments_of(cfg):
+    for seg in segs:
         per_group = [[next(layers) for _ in seg.sig] for _ in range(seg.groups)]
         slots = []
         for s in range(len(seg.sig)):
@@ -101,21 +117,18 @@ def stack_layers(params: dict, cfg: ModelConfig, *, stack=restack) -> dict:
             slots.append(_stack(group_layers, stack))
         segments.append({"slots": slots})
     if next(layers, None) is not None:
-        raise ValueError(f"stack_layers: more layers than {cfg.num_layers}")
-    tree = {k: params[k] for k in ("embed", "final_norm")}
-    tree["segments"] = segments
-    if "lm_head" in params:
-        tree["lm_head"] = params["lm_head"]
-    return tree
+        raise ValueError(f"stack_layers: more layers than "
+                         f"{sum(seg.groups * len(seg.sig) for seg in segs)}")
+    return segments
 
 
 def unstack_layers(tree: dict) -> dict:
     """The inverse of :func:`stack_layers` on tensors: the port's layout
     whose layer leaves are views into the stacked ones (no copy)."""
-    out = {"embed": tree["embed"], "final_norm": tree["final_norm"],
-           "layers": layers_from_segments(tree["segments"])}
-    if "lm_head" in tree:
-        out["lm_head"] = tree["lm_head"]
+    out = {k: tree[k] for k in _PLAIN_KEYS if k in tree}
+    for jax_key, key in _STACKED.items():
+        if jax_key in tree:
+            out[key] = layers_from_segments(tree[jax_key])
     return out
 
 

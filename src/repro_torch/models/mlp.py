@@ -6,7 +6,11 @@ Switch-style load-balance loss:
 
 * :func:`moe_ref`, the dense oracle: every expert computes every token and
   the gates pick k of them. It is what the JAX package runs without a mesh
-  (``moe_forward(mesh=None)``), which is its serving path.
+  (``moe_forward(mesh=None)``), which is its serving path. The port runs it
+  over blocks of tokens sized by :data:`MOE_REF_BLOCK_BYTES`, so that its
+  (E, T, ff) and (E, T, d) intermediates fit beside deepseek-v3's weights
+  (a 2,048-token chunk at 256 experts would make 19 GB of them in f32);
+  each token's arithmetic is the same.
 * the expert dispatch (``moe_forward(dispatch=True)``): JAX's
   ``_device_moe`` at one expert-parallel rank, which is what its trainer
   runs under the one-device host mesh. Each (token, choice) row takes a
@@ -95,17 +99,37 @@ def _aux_loss(probs, gates, cfg: ModelConfig):
     return E * (frac * pbar).sum()
 
 
-def moe_ref(params, x, cfg: ModelConfig):
-    """Dense oracle: every expert computes every token, gated combine.
+# bytes of a block's (E, T, ff) and (E, T, d) intermediates in moe_ref
+MOE_REF_BLOCK_BYTES = 2 << 30
+
+
+def moe_ref_block_tokens(cfg: ModelConfig, itemsize: int = 4) -> int:
+    """Tokens a block of :func:`moe_ref`: its ``h`` (E, T, ff) and
+    ``y_all`` (E, T, d) within :data:`MOE_REF_BLOCK_BYTES`."""
+    per_token = cfg.moe_num_experts * (cfg.moe_d_ff + cfg.d_model) * itemsize
+    return max(1, MOE_REF_BLOCK_BYTES // per_token)
+
+
+def moe_ref(params, x, cfg: ModelConfig, *, block: int | None = None):
+    """Dense oracle: every expert computes every token, gated combine, over
+    blocks of ``block`` tokens (default :func:`moe_ref_block_tokens`).
     Returns (y in x's dtype, aux f32)."""
     B, S, d = x.shape
-    xt = x.reshape(B * S, d)
+    T = B * S
+    xt = x.reshape(T, d)
     probs, topw, topi = _route(xt, params["router"], cfg.moe_top_k)
-    h = torch.nn.functional.silu(torch.matmul(xt, params["w_gate"]))
-    h = h * torch.matmul(xt, params["w_up"])               # (E, T, ff)
-    y_all = torch.matmul(h, params["w_down"])              # (E, T, d)
     gates = _gates(probs, topw, topi)
-    y = torch.einsum("etd,te->td", y_all.float(), gates)
+    block = block or moe_ref_block_tokens(cfg, x.element_size())
+    ys = []
+    for i in range(0, T, block):
+        xb = xt[i:i + block]
+        h = torch.nn.functional.silu(torch.matmul(xb, params["w_gate"]))
+        h = h * torch.matmul(xb, params["w_up"])           # (E, T_b, ff)
+        y_all = torch.matmul(h, params["w_down"])          # (E, T_b, d)
+        del h
+        ys.append(torch.einsum("etd,te->td", y_all.float(),
+                               gates[i:i + block]))
+    y = ys[0] if len(ys) == 1 else torch.cat(ys)
     aux = _aux_loss(probs, gates, cfg)
     return y.reshape(B, S, d).to(x.dtype), aux
 

@@ -1,31 +1,41 @@
-"""Decoder stack for the dense, MoE, SSM, hybrid and VLM LM families: the
-training forward with its loss, prefill and decode.
+"""The LM stack of every family (dense, MoE, SSM, hybrid, VLM, enc-dec,
+MLA with MTP): the training forward with its loss, prefill and decode.
 
-The port of the JAX package's ``models/transformer.py`` for decoder-only
-LMs. JAX stacks the layers of each *segment* (``segments_of``) and scans
-over them; the port keeps one dict per layer in ``params["layers"]``, in
-the scan's group-major order, and loops in Python. ``models/convert.py``
-moves weights between the two layouts.
+The port of the JAX package's ``models/transformer.py``. JAX stacks the
+layers of each *segment* (``segments_of``) and scans over them; the port
+keeps one dict per layer in ``params["layers"]`` (an encoder's in
+``params["enc_layers"]``), in the scan's group-major order, and loops in
+Python. ``models/convert.py`` moves weights between the two layouts.
 
 Parameters: ``{"embed": (V, d), "final_norm": (d,), "layers": [{"ln1",
 "attn" | "mixer": {...}, "ln2", "ffn" | "moe": {...}}, ...]}`` plus
 ``"lm_head"`` (d, V) unless the embeddings are tied. A layer holds
-``"attn"`` where ``cfg.layer_types()[i]`` is "A" and the Mamba-2
-``"mixer"`` (``models/mamba.py``) where it is "M"; ``"moe"`` where
-``cfg.is_moe_layer(i)``; ``"ln2"`` only with an FFN or MoE block (mamba2's
-layers are ``ln1`` and ``mixer`` alone). Caches: one dict per layer,
-``attention.init_cache``'s or ``mamba.init_mamba_cache``'s.
+``"attn"`` where ``cfg.layer_types()[i]`` is "A" (MLA's leaves where
+``cfg.mla``) and the Mamba-2 ``"mixer"`` (``models/mamba.py``) where it is
+"M"; ``"moe"`` where ``cfg.is_moe_layer(i)``; ``"ln2"`` only with an FFN
+or MoE block (mamba2's layers are ``ln1`` and ``mixer`` alone). An
+enc-dec config adds ``"enc_layers"`` (``cfg.encoder_layers`` GQA layers,
+``mla`` off) and ``"enc_norm"``, and its decoder layers hold ``"ln_x"``
+and the GQA ``"cross"`` attention after the self-attention. An MTP config
+adds ``"mtp_proj"`` (2d, d), ``"mtp_layer"`` (one attention layer with the
+dense FFN, not stacked in JAX either) and ``"mtp_norm"``. Caches: one dict
+per layer, ``attention.init_cache``'s (with the encoder memory's
+``enc_k``, ``enc_v`` in an enc-dec decoder) or
+``mamba.init_mamba_cache``'s.
 
 Entry points: :func:`forward_train` (the full sequence, next-token cross
-entropy plus 0.01 times the MoE load-balance loss; its attention is the
-masked plain path, as JAX's training takes), :func:`prefill` (the prompt,
-in ``cfg.prefill_chunk`` chunks or whole, building the caches) and
-:func:`decode_step` (one token for the whole batch). A VLM batch's
-``patch_embeds`` (B, P, d) go before the token embeddings in the training
-forward and the prefill. ``moe_dispatch`` picks the MoE route of
-:func:`forward_train` (``models/mlp.py``); serving takes the dense oracle,
-as JAX serves without a mesh. Other families (MLA, MTP, enc-dec, audio)
-raise in :func:`check_family`.
+entropy plus 0.01 times the MoE load-balance loss plus 0.3 times the MTP
+loss; its attention is the masked plain path, as JAX's training takes),
+:func:`prefill` (the prompt, in ``cfg.prefill_chunk`` chunks or whole,
+building the caches) and :func:`decode_step` (one token for the whole
+batch). A VLM batch's ``patch_embeds`` (B, P, d) go before the token
+embeddings in the training forward and the prefill; an enc-dec batch's
+``frames`` (B, Se, d) are the encoder's input. The encoder is causal
+attention with RoPE, as the JAX reference runs it (``_encoder_forward``
+takes no mask of its own); in prefill its attention and each chunk's
+cross-attention take the flash kernel. ``moe_dispatch`` picks the MoE
+route of :func:`forward_train` (``models/mlp.py``); serving takes the
+dense oracle, as JAX serves without a mesh.
 """
 from __future__ import annotations
 
@@ -72,31 +82,37 @@ def segments_of(cfg: ModelConfig, num_layers: int | None = None,
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a decoder-only dense, MoE, SSM, hybrid or
-    vision LM."""
+    """Raise unless ``cfg`` is an LM of a modality and arch type the
+    stack knows (the embedding workload is not an LM)."""
     other = [name for name, on in (
-        ("MLA", cfg.mla), ("MTP", cfg.mtp), ("enc-dec", cfg.is_encdec),
-        (f"modality {cfg.modality!r}", cfg.modality not in ("text", "vision")),
+        (f"modality {cfg.modality!r}",
+         cfg.modality not in ("text", "vision", "audio")),
         (f"arch_type {cfg.arch_type!r}",
-         cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "vlm")))
+         cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "vlm",
+                               "audio")))
         if on]
     if other:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(other)} not ported to PyTorch yet "
-            f"(ROADMAP.md, Queue 1 item 1)")
+        raise NotImplementedError(f"{cfg.name}: {', '.join(other)} is not "
+                                  f"an LM of this stack")
 
 
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
-def _init_layer(gen, cfg: ModelConfig, i: int, device) -> dict:
+def _init_layer(gen, cfg: ModelConfig, i: int, device, *,
+                cross: bool = False, ltype: str | None = None,
+                is_moe: bool | None = None) -> dict:
     dt = getattr(torch, cfg.param_dtype)
-    is_moe = cfg.is_moe_layer(i)
+    is_moe = cfg.is_moe_layer(i) if is_moe is None else is_moe
     p = {"ln1": torch.ones((cfg.d_model,), dtype=dt, device=device)}
-    if cfg.layer_types()[i] == "A":
+    if (ltype or cfg.layer_types()[i]) == "A":
         p["attn"] = attn.init_attention_params(gen, cfg, device=device)
     else:
         p["mixer"] = ssm.init_mamba_params(gen, cfg, device=device)
+    if cross:
+        p["ln_x"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
+        p["cross"] = attn.init_attention_params(gen, cfg, cross=True,
+                                                device=device)
     if cfg.d_ff > 0 or is_moe:
         p["ln2"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
         if is_moe:
@@ -112,22 +128,32 @@ def param_count(cfg: ModelConfig) -> int:
     alone (nothing is allocated)."""
     check_family(cfg)
     d, V = cfg.d_model, cfg.vocab_size
-    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    attn_n = 2 * d * H * hd + 2 * d * Hkv * hd
-    if cfg.qkv_bias:
-        attn_n += (H + 2 * Hkv) * hd
     di, N, Hs = cfg.d_inner_ssm, cfg.ssm_state, cfg.ssm_heads
     conv_c = di + 2 * N
     mixer_n = (d * (2 * di + 2 * N + Hs) + (cfg.ssm_conv + 1) * conv_c
                + 3 * Hs + di + di * d)
+
+    def layer_n(c, ltype, is_moe, cross=False):
+        n = d + (attn.attention_param_count(c) if ltype == "A" else mixer_n)
+        if cross:
+            n += d + attn.attention_param_count(c, cross=True)
+        if is_moe:
+            E, ff = c.moe_num_experts, c.moe_d_ff
+            n += d + d * E + 3 * E * d * ff + 3 * d * ff * c.moe_num_shared
+        elif c.d_ff > 0:
+            n += d + 3 * d * c.d_ff
+        return n
+
     n = V * d * (1 if cfg.tie_embeddings else 2) + d
     for i, ltype in enumerate(cfg.layer_types()):
-        n += d + (attn_n if ltype == "A" else mixer_n)
-        if cfg.is_moe_layer(i):
-            E, ff = cfg.moe_num_experts, cfg.moe_d_ff
-            n += d + d * E + 3 * E * d * ff + 3 * d * ff * cfg.moe_num_shared
-        elif cfg.d_ff > 0:
-            n += d + 3 * d * cfg.d_ff
+        n += layer_n(cfg, ltype, cfg.is_moe_layer(i), cfg.is_encdec)
+    if cfg.is_encdec:
+        enc = dataclasses.replace(cfg, mla=False)
+        n += d + sum(layer_n(enc, ltype, is_moe)
+                     for seg in segments_of(cfg, cfg.encoder_layers)
+                     for _ in range(seg.groups) for ltype, is_moe in seg.sig)
+    if cfg.mtp:
+        n += 2 * d * d + layer_n(cfg, "A", False) + d
     return n
 
 
@@ -141,12 +167,29 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype=dt,
                             device=device),
         "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
-        "layers": [_init_layer(gen, cfg, i, device)
+        "layers": [_init_layer(gen, cfg, i, device, cross=cfg.is_encdec)
                    for i in range(cfg.num_layers)],
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size),
                                        dtype=dt, device=device)
+    if cfg.is_encdec:
+        # the encoder's layers in segments_of's group-major order, as JAX
+        # builds them, with MLA off
+        enc = dataclasses.replace(cfg, mla=False)
+        params["enc_layers"] = [
+            _init_layer(gen, enc, 0, device, ltype=ltype, is_moe=is_moe)
+            for seg in segments_of(cfg, cfg.encoder_layers)
+            for _ in range(seg.groups) for ltype, is_moe in seg.sig]
+        params["enc_norm"] = torch.ones((cfg.d_model,), dtype=dt,
+                                        device=device)
+    if cfg.mtp:
+        params["mtp_proj"] = embed_init(gen, (2 * cfg.d_model, cfg.d_model),
+                                        dtype=dt, device=device)
+        params["mtp_layer"] = _init_layer(gen, cfg, 0, device, ltype="A",
+                                          is_moe=False)
+        params["mtp_norm"] = torch.ones((cfg.d_model,), dtype=dt,
+                                        device=device)
     return params
 
 
@@ -165,33 +208,52 @@ def _ffn(p, x, cfg: ModelConfig, *, moe_dispatch: bool = False):
     return x, None
 
 
-def _layer_fwd(p, x, cfg: ModelConfig, *, positions=None,
-               moe_dispatch: bool = False):
+def _layer_fwd(p, x, cfg: ModelConfig, *, positions=None, enc_out=None,
+               moe_dispatch: bool = False, flash: bool = False):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if "mixer" in p:
         h = ssm.mamba_forward(p["mixer"], h, cfg)
     else:
-        h = attn.attention_forward(p["attn"], h, cfg, positions=positions)
-    return _ffn(p, x + h, cfg, moe_dispatch=moe_dispatch)
+        h = attn.attention_forward(p["attn"], h, cfg, positions=positions,
+                                   flash=flash)
+    x = x + h
+    if "cross" in p:
+        hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        x = x + attn.attention_forward(p["cross"], hx, cfg, enc_out=enc_out)
+    return _ffn(p, x, cfg, moe_dispatch=moe_dispatch)
 
 
 def _run_layers(layers, x, cfg: ModelConfig, *, positions=None,
-                moe_dispatch: bool = False):
+                enc_out=None, moe_dispatch: bool = False,
+                flash: bool = False):
     """Full-sequence forward through every layer: (x, the MoE aux loss
     summed over layers, f32)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in layers:
-        x, aux = _layer_fwd(p, x, cfg, positions=positions,
-                            moe_dispatch=moe_dispatch)
+        x, aux = _layer_fwd(p, x, cfg, positions=positions, enc_out=enc_out,
+                            moe_dispatch=moe_dispatch, flash=flash)
         if aux is not None:
             aux_total = aux_total + aux
     return x, aux_total
 
 
-def _run_segments(layers, x, cfg: ModelConfig, *, positions=None):
+def _run_segments(layers, x, cfg: ModelConfig, *, positions=None,
+                  enc_out=None):
     """Full-sequence forward through every layer (training-forward math,
     which prefill is held against)."""
-    return _run_layers(layers, x, cfg, positions=positions)[0]
+    return _run_layers(layers, x, cfg, positions=positions,
+                       enc_out=enc_out)[0]
+
+
+def _encoder_forward(params, frames, cfg: ModelConfig, *,
+                     moe_dispatch: bool = False, flash: bool = False):
+    """The encoder over ``frames`` (B, Se, d): causal self-attention with
+    RoPE at positions 0..Se-1, as JAX's reference runs it, then
+    ``enc_norm``. ``flash`` takes the flash kernel (prefill). Returns
+    (enc_out, the encoder's MoE aux loss)."""
+    x, aux = _run_layers(params["enc_layers"], frames, cfg,
+                         moe_dispatch=moe_dispatch, flash=flash)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps), aux
 
 
 def _embed_tokens(params, tokens):
@@ -228,16 +290,25 @@ def _with_prefix(params, batch: dict, cfg: ModelConfig):
 
 def forward_train(params, batch: dict, cfg: ModelConfig, *,
                   moe_dispatch: bool = False):
-    """Returns (loss, metrics ``{"xent", "aux"}``). batch: ``tokens`` (B, S)
-    int, optional ``positions`` (B, S), ``loss_mask`` (B, S) and, for a
-    VLM, ``patch_embeds`` (B, P, d): prepended to the token stream, the
-    positions extended on the left (the prefix takes 0..P-1, the tokens
-    shift by P), the prefix cut before the logits. Loss: next-token cross
-    entropy on the token positions 1..S-1 under the mask, plus 0.01 times
-    the MoE aux loss summed over layers."""
+    """Returns (loss, metrics ``{"xent", "aux"}``, plus ``"mtp"`` for an MTP
+    config). batch: ``tokens`` (B, S) int, optional ``positions`` (B, S),
+    ``loss_mask`` (B, S), for a VLM ``patch_embeds`` (B, P, d): prepended
+    to the token stream, the positions extended on the left (the prefix
+    takes 0..P-1, the tokens shift by P), the prefix cut before the logits;
+    for an enc-dec config ``frames`` (B, Se, d), the encoder's input. Loss:
+    next-token cross entropy on the token positions 1..S-1 under the mask,
+    plus 0.01 times the MoE aux loss summed over layers (the encoder's
+    too), plus 0.3 times the MTP loss: the final-normed hidden state of
+    positions 0..S-3 and the embeddings of tokens 1..S-2 through
+    ``mtp_proj``, ``mtp_layer`` and ``mtp_norm`` predict tokens 2..S-1."""
     check_family(cfg)
     tokens = batch["tokens"]
     x, prefix = _with_prefix(params, batch, cfg)
+    enc_out, aux_enc = None, 0.0
+    if cfg.is_encdec:
+        enc_out, aux_enc = _encoder_forward(
+            params, batch["frames"].to(x.dtype), cfg,
+            moe_dispatch=moe_dispatch)
     positions = batch.get("positions")
     if positions is not None and x.shape[1] != positions.shape[1]:
         pre = x.shape[1] - positions.shape[1]
@@ -245,17 +316,28 @@ def forward_train(params, batch: dict, cfg: ModelConfig, *,
             [torch.arange(pre, device=x.device).expand(x.shape[0], pre),
              positions + pre], dim=1)
     x, aux = _run_layers(params["layers"], x, cfg, positions=positions,
-                         moe_dispatch=moe_dispatch)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _lm_logits(params, x[:, prefix:])
+                         enc_out=enc_out, moe_dispatch=moe_dispatch)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)[:, prefix:]
+    logits = _lm_logits(params, x)
     labels = tokens[:, 1:]
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(tokens.shape, dtype=torch.float32,
                           device=tokens.device)
     loss = softmax_xent(logits[:, :-1], labels, mask[:, 1:])
-    metrics = {"xent": loss, "aux": aux}
-    return loss + 0.01 * aux, metrics
+    metrics = {"xent": loss, "aux": aux + aux_enc}
+    loss = loss + 0.01 * (aux + aux_enc)
+    if cfg.mtp:
+        nxt = _embed_tokens(params, tokens[:, 1:-1])
+        hm = torch.cat([x[:, :-2], nxt], dim=-1).to(x.dtype) \
+            @ params["mtp_proj"]
+        hm, _ = _layer_fwd(params["mtp_layer"], hm, cfg)
+        hm = rms_norm(hm, params["mtp_norm"], cfg.norm_eps)
+        mtp = softmax_xent(_lm_logits(params, hm), tokens[:, 2:],
+                           mask[:, 2:])
+        metrics["mtp"] = mtp
+        loss = loss + 0.3 * mtp
+    return loss, metrics
 
 
 # --------------------------------------------------------------------------
@@ -271,7 +353,11 @@ def _layer_extend(p, x, cache, cfg: ModelConfig, *, flash: bool = True):
     else:
         h, cache = attn.attention_extend(p["attn"], h, cache, cfg,
                                          flash=flash)
-    return _ffn(p, x + h, cfg)[0], cache
+    x = x + h
+    if "cross" in p:
+        hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        x = x + attn.cross_extend(p["cross"], hx, cache, flash=flash)
+    return _ffn(p, x, cfg)[0], cache
 
 
 def _layer_decode(p, x1, cache, cfg: ModelConfig):
@@ -280,16 +366,28 @@ def _layer_decode(p, x1, cache, cfg: ModelConfig):
         h, cache = ssm.mamba_decode(p["mixer"], h, cache, cfg)
     else:
         h, cache = attn.attention_decode(p["attn"], h, cache, cfg)
-    return _ffn(p, x1 + h, cfg)[0], cache
+    x1 = x1 + h
+    if "cross" in p:
+        hx = rms_norm(x1, p["ln_x"], cfg.norm_eps)
+        x1 = x1 + attn.cross_decode(p["cross"], hx, cache)
+    return _ffn(p, x1, cfg)[0], cache
 
 
-def init_caches(params, cfg: ModelConfig, batch: int, cache_len: int) -> list:
+def init_caches(params, cfg: ModelConfig, batch: int, cache_len: int, *,
+                enc_out=None) -> list:
     """One cache per layer, on the parameters' device: a ring buffer for an
-    attention layer, the (f32) SSM state and conv tail for a mixer."""
+    attention layer, the (f32) SSM state and conv tail for a mixer. With
+    ``enc_out``, each enc-dec decoder layer's cross-attention k and v of
+    it, projected once (``enc_k``, ``enc_v``)."""
     dev = params["embed"].device
-    return [ssm.init_mamba_cache(cfg, batch, device=dev) if "mixer" in p
-            else attn.init_cache(cfg, batch, cache_len, device=dev)
-            for p in params["layers"]]
+    caches = []
+    for p in params["layers"]:
+        c = (ssm.init_mamba_cache(cfg, batch, device=dev) if "mixer" in p
+             else attn.init_cache(cfg, batch, cache_len, device=dev))
+        if "cross" in p and enc_out is not None:
+            c["enc_k"], c["enc_v"] = attn.cross_kv(p["cross"], enc_out)
+        caches.append(c)
+    return caches
 
 
 def _run_segments_cached(params, x, caches, layer_step):
@@ -312,12 +410,18 @@ def extend_chunk(params, x, caches, cfg: ModelConfig, *, flash: bool = True):
 def prefill(params, batch: dict, cfg: ModelConfig, cache_len: int, *,
             flash: bool = True):
     """Chunked prefill of ``batch["tokens"]`` (B, S), after a VLM batch's
-    ``patch_embeds``. Returns (last-token logits (B, 1, V) f32, caches).
-    ``flash=False`` keeps every chunk on the masked attention route
-    (``attention.attention_extend``)."""
+    ``patch_embeds``; an enc-dec batch's ``frames`` (B, Se, d) go through
+    the encoder first, whose output every decoder layer's cross-attention
+    reads. Returns (last-token logits (B, 1, V) f32, caches).
+    ``flash=False`` keeps every chunk, the encoder and the cross-attention
+    on the masked attention route (``models/attention.py``)."""
     x, _ = _with_prefix(params, batch, cfg)
     B, S = x.shape[:2]
-    caches = init_caches(params, cfg, B, cache_len)
+    enc_out = None
+    if cfg.is_encdec:
+        enc_out, _ = _encoder_forward(params, batch["frames"].to(x.dtype),
+                                      cfg, flash=flash)
+    caches = init_caches(params, cfg, B, cache_len, enc_out=enc_out)
     chunk = cfg.prefill_chunk or S
     if S % chunk != 0:
         raise ValueError(f"prefill length {S} not divisible by chunk {chunk}")

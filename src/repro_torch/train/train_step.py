@@ -4,9 +4,8 @@ The port of the JAX package's ``train/train_step.py``.
 :func:`make_train_step` is loss + gradients (``torch.autograd``) + the
 optimizer update, with JAX's gradient accumulation over
 ``cfg.train_microbatches`` microbatches. :func:`synthetic_batch` is a numpy
-copy of its text and vision branches, so one seed gives the same prompt
-tokens and patch embeddings in both packages (the audio branch waits for
-its family).
+copy of its text, vision and audio branches, so one seed gives the same
+prompt tokens, patch embeddings and audio frames in both packages.
 """
 from __future__ import annotations
 
@@ -25,10 +24,9 @@ from repro_torch.train.optimizer import make_optimizer
 def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0):
     """Random-token batch with zipf-ish marginals (data pipeline stand-in).
     A vision config's ``seq`` holds ``P = min(frontend_len_cap, seq // 2)``
-    patch embeddings (N(0, 1), ``compute_dtype``) and ``seq - P`` tokens."""
-    if cfg.modality not in ("text", "vision"):
-        raise NotImplementedError(f"synthetic_batch: modality "
-                                  f"{cfg.modality!r} not ported yet")
+    patch embeddings (N(0, 1), ``compute_dtype``) and ``seq - P`` tokens;
+    an audio config's ``seq // 2`` encoder frames (N(0, 1),
+    ``compute_dtype``) and ``seq // 2`` tokens."""
     rng = np.random.default_rng(seed)
     out = {}
     if cfg.modality == "vision":
@@ -36,6 +34,10 @@ def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0):
         out["patch_embeds"] = rng.normal(0, 1, (batch, P, cfg.d_model)).astype(
             np.dtype(cfg.compute_dtype))
         seq = seq - P
+    if cfg.modality == "audio":
+        out["frames"] = rng.normal(0, 1, (batch, seq // 2, cfg.d_model)
+                                   ).astype(np.dtype(cfg.compute_dtype))
+        seq = seq // 2
     z = rng.zipf(1.3, size=(batch, seq))
     out["tokens"] = np.minimum(z, cfg.vocab_size - 1).astype(np.int32)
     out["positions"] = np.broadcast_to(np.arange(seq, dtype=np.int32),
@@ -58,10 +60,33 @@ def loss_and_grads(params, batch: dict, cfg: ModelConfig, *,
     with torch.enable_grad():
         loss, metrics = tfm.forward_train(tracked, batch, cfg,
                                           moe_dispatch=moe_dispatch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    # the dense oracle does not read the shared expert, as in JAX: its
+    # gradient is zero. Any other leaf the loss does not read is a fault.
+    unread = set() if moe_dispatch else {id(t) for t in _shared(params)}
     it = iter(grads)
+
+    def grad_of(p):
+        g = next(it)
+        if g is not None:
+            return g
+        if id(p) not in unread:
+            raise RuntimeError(f"forward_train does not read a parameter "
+                               f"leaf of shape {tuple(p.shape)}")
+        return torch.zeros_like(p)
+
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            tree_map(lambda _: next(it), params))
+            tree_map(grad_of, params))
+
+
+def _shared(tree) -> list:
+    """The leaves of every ``shared`` (shared-expert) subtree of ``tree``."""
+    if isinstance(tree, dict):
+        return [t for k, v in tree.items()
+                for t in (tree_leaves(v) if k == "shared" else _shared(v))]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _shared(v)]
+    return []
 
 
 def make_train_step(cfg: ModelConfig, *, lr: float = 1e-4,
@@ -69,16 +94,19 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 1e-4,
     """Returns ``(train_step(params, opt_state, step, batch) -> (params,
     opt_state, metrics), opt)``. ``batch`` holds tensors on the
     parameters' device: ``tokens`` (B, S) and optionally ``positions``,
-    ``loss_mask`` and a VLM's ``patch_embeds`` (B, P, d). ``moe_dispatch`` sends MoE layers through the expert
-    dispatch (JAX's trainer under its host mesh) instead of the dense
-    oracle.
+    ``loss_mask``, a VLM's ``patch_embeds`` (B, P, d) and an enc-dec
+    config's ``frames`` (B, Se, d). ``moe_dispatch`` sends MoE layers
+    through the expert dispatch (JAX's trainer under its host mesh)
+    instead of the dense oracle.
 
     The optimizer runs on the JAX tree layout (``convert.stack_layers``):
     JAX updates each segment slot's stacked layer leaves as one leaf, and
     Adafactor's factored moments and RMS clip span the stack (a layer's
     norm scale is a row of a factored matrix there, not a vector of its
     own). So ``opt.init`` takes the port's parameters and returns state in
-    JAX's layout, leaf for leaf (``opt.update`` takes that layout too);
+    JAX's layout, leaf for leaf (``opt.update`` takes that layout too; an
+    encoder's layers are stacked as its segments, ``mtp_layer`` stays one
+    layer, as in JAX);
     ``train_step`` stacks the layers (a copy, unless they are views of one
     stack already), accumulates the gradients into the stacked layout and
     returns parameters whose layer leaves are views into the updated
@@ -134,5 +162,6 @@ def _zero_grads(params, cfg: ModelConfig) -> dict:
 
     tree = stack_layers(params, cfg, stack=lambda ts: zeros(
         (len(ts), *ts[0].shape), ts[0]))
-    return {k: v if k == "segments" else zeros(v.shape, v)
+    return {k: v if k in ("segments", "enc_segments")
+            else tree_map(lambda t: zeros(t.shape, t), v)
             for k, v in tree.items()}

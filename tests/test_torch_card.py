@@ -818,6 +818,11 @@ FLASH_CASES = [  # B, H, Hkv, Sq, Skv, hd, causal, window
     (1, 2, 2, 190, 190, 128, True, 70), (2, 4, 2, 131, 259, 8, False, 0),
     (1, 8, 4, 257, 257, 8, True, 0), (1, 2, 1, 100, 40, 8, True, 8),
 ]
+# the (192, 128) instance: MLA's q/k heads of 192 against v heads of 128
+MLA_FLASH_CASES = [  # B, H, Hkv, Sq, Skv, causal, window
+    (2, 4, 4, 201, 77, False, 0), (1, 4, 4, 130, 130, True, 0),
+    (1, 2, 1, 100, 40, True, 8), (1, 4, 2, 33, 259, False, 0),
+]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -826,21 +831,24 @@ def test_flash_kernel_matches_plain(card, dtype):
     from repro_torch.kernels import flash_attention as fa
 
     before = fa.LAUNCHES["flash_attention"]
-    for i, (B, H, Hkv, Sq, Skv, hd, causal, window) in enumerate(FLASH_CASES):
+    cases = ([(*c[:6], c[5], *c[6:]) for c in FLASH_CASES]
+             + [(*c[:5], 192, 128, *c[5:]) for c in MLA_FLASH_CASES])
+    for i, (B, H, Hkv, Sq, Skv, hd, hd_v, causal, window) in enumerate(cases):
         g = torch.Generator().manual_seed(70 + i)
         q, k, v = (0.5 * torch.randn(shape, generator=g)
                    for shape in ((B, Sq, H, hd), (B, Skv, Hkv, hd),
-                                 (B, Skv, Hkv, hd)))
+                                 (B, Skv, Hkv, hd_v)))
         # (B, S, H, hd) buffers as (B, H, S, hd) views, as attention passes
         q, k, v = (t.to(card, dtype).transpose(1, 2) for t in (q, k, v))
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
         want = fa.mha_plain(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        assert got.stride() == q.stride()
+        assert got.shape == (B, H, Sq, hd_v)
+        assert got.transpose(1, 2).is_contiguous()
         tol = (dict(rtol=2e-4, atol=2e-5) if dtype == torch.float32
                else dict(rtol=2e-2, atol=2e-2))
         torch.testing.assert_close(got.float(), want.float(), **tol)
-    assert fa.LAUNCHES["flash_attention"] == before + len(FLASH_CASES)
+    assert fa.LAUNCHES["flash_attention"] == before + len(cases)
 
 
 def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(card):
@@ -850,10 +858,11 @@ def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(card):
     k = torch.zeros((1, 2, 8, 64), device=card)
     for bad in (dict(q=q[..., :48].contiguous(), k=k[..., :48].contiguous()),
                 dict(k=k.bfloat16()), dict(k=k.cpu()),
-                dict(q=q.transpose(2, 3).contiguous().transpose(2, 3))):
-        args = {"q": q, "k": k, **bad}
+                dict(q=q.transpose(2, 3).contiguous().transpose(2, 3)),
+                dict(v=k[..., :32].contiguous())):     # (64, 32): no instance
+        args = {"q": q, "k": k, "v": k, **bad}
         with pytest.raises(ValueError):
-            fa.flash_attention(args["q"], args["k"], args["k"])
+            fa.flash_attention(args["q"], args["k"], args["v"])
 
 
 def test_flash_wrapper_raises_on_unaligned_views(card):

@@ -71,23 +71,24 @@ def _product(a, b, terms):
 
 def _kernel_model(q, k, v, causal, window, terms=3):
     """The kernel's function on f32 numpy arrays: per (b, h) and block of
-    query rows (128 below hd 128, else 64), the block's key range in tiles
+    query rows (128 below a v width of 128, else 64), the block's key range in tiles
     of 64 from its first valid key (every tile when a row has no valid
     key), scores in the log2 domain
     masked to -1e30 (-inf past Skv), an online softmax with exp2, and P V
     with each 8-key group's columns taken in the kernel's A-fragment order
     (keys 0, 2, 4, 6, 1, 3, 5, 7) and v's rows in the same order."""
     B, H, Sq, hd = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
+    Hkv, Skv, hd_v = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
     sc = np.float32(1 / math.sqrt(hd)) * np.float32(math.log2(math.e))
     order = (np.arange(0, TILE, 8)[:, None] + KEY_ORDER).ravel()
-    out = np.zeros(q.shape, np.float32)
+    out = np.zeros((B, H, Sq, hd_v), np.float32)
     pad = -(-Skv // TILE) * TILE + TILE         # keys past Skv are zeros
-    rows = 128 if hd <= 64 else 64
+    rows = 128 if hd_v <= 64 else 64
     for b in range(B):
         for h in range(H):
-            K, V = (np.zeros((pad, hd), np.float32) for _ in range(2))
+            K = np.zeros((pad, hd), np.float32)
+            V = np.zeros((pad, hd_v), np.float32)
             K[:Skv], V[:Skv] = k[b, h // G], v[b, h // G]
             for q0 in range(0, Sq, rows):
                 n = min(rows, Sq - q0)
@@ -102,7 +103,7 @@ def _kernel_model(q, k, v, causal, window, terms=3):
                         k_lo = max(0, q0 - window + 1)
                 m = np.full(rows, -1e30, np.float32)
                 l = np.zeros(rows, np.float32)
-                o = np.zeros((rows, hd), np.float32)
+                o = np.zeros((rows, hd_v), np.float32)
                 qp = (q0 + np.arange(rows))[:, None]
                 for k0 in range(k_lo, k_hi + 1, TILE):
                     kp = (k0 + np.arange(TILE))[None, :]
@@ -152,6 +153,35 @@ def test_flash_matches_jax(B, H, Hkv, Sq, Skv, hd, causal, window, tq, tk):
         np.testing.assert_allclose(tp, want, **F32_TOL)
         np.testing.assert_allclose(model, want, **F32_TOL)
     np.testing.assert_allclose(model, tp, **F32_TOL)
+
+
+# MLA's (192, 128) instance: q/k heads of 192 against v heads of 128
+MLA_CASES = [  # B, H, Hkv, Sq, Skv, causal, window
+    (1, 2, 2, 130, 130, True, 0),     # three blocks of 64 rows, ragged
+    (2, 2, 1, 70, 33, False, 0),      # GQA, Sq > Skv, one ragged tile
+    (1, 2, 2, 100, 40, True, 8),      # rows with no valid key
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,causal,window", MLA_CASES)
+def test_mla_widths_match_mha_ref(B, H, Hkv, Sq, Skv, causal, window):
+    """At q/k 192 and v 128 (scores over sqrt(192), the output v's width)
+    the port's flash attention and mha_plain, and the numpy model of the
+    kernel's arithmetic, within F32_TOL of the JAX package's mha_ref."""
+    rng = np.random.default_rng(11)
+    q, k = ((rng.normal(0, 1, s) * 0.5).astype(np.float32)
+            for s in ((B, H, Sq, 192), (B, Hkv, Skv, 192)))
+    v = (rng.normal(0, 1, (B, Hkv, Skv, 128)) * 0.5).astype(np.float32)
+    want = np.asarray(mha_ref(*(jnp.asarray(a) for a in (q, k, v)),
+                              causal=causal, window=window))
+    assert want.shape == (B, H, Sq, 128)
+    tq_, tk_, tv_ = (torch.from_numpy(a) for a in (q, k, v))
+    for got in (fa.flash_attention(tq_, tk_, tv_, causal=causal,
+                                   window=window).numpy(),
+                fa.mha_plain(tq_, tk_, tv_, causal=causal,
+                             window=window).numpy(),
+                _kernel_model(q, k, v, causal, window)):
+        np.testing.assert_allclose(got, want, **F32_TOL)
 
 
 def test_flash_bf16_matches_jax():
@@ -209,14 +239,22 @@ def test_strided_views_and_no_launch_on_cpu():
     (((1, 4, 8, 24), (1, 2, 8, 24)), None, "head dim"),
     (((1, 4, 8, 16), (1, 2, 8, 16)), (torch.float32, torch.bfloat16),
      "one dtype"),
+    # MLA's (192, 128) instance takes its v width; (64, 32) has none
+    (((1, 4, 8, 192), (1, 4, 8, 192), (1, 4, 8, 128)), None, None),
+    (((1, 4, 8, 64), (1, 2, 8, 64), (1, 2, 8, 32)), None, "head dim"),
 ])
 def test_kernel_argument_checks(shapes, dtypes, match):
-    """What the CUDA wrapper refuses before it launches anything."""
+    """What the CUDA wrapper refuses before it launches anything, and the
+    (q/k, v) width pair it takes."""
     qd, kd = dtypes or (torch.float32, torch.float32)
     q = torch.zeros(shapes[0], dtype=qd)
     k = torch.zeros(shapes[1], dtype=kd)
+    v = torch.zeros(shapes[2], dtype=kd) if len(shapes) > 2 else k.clone()
+    if match is None:
+        assert fa._check_args(q, k, v, 0)[-2:] == (shapes[0][3], shapes[2][3])
+        return
     with pytest.raises(ValueError, match=match):
-        fa._check_args(q, k, k.clone(), 0)
+        fa._check_args(q, k, v, 0)
 
 
 @pytest.mark.parametrize("what", ["pointer", "row stride", "bf16 row stride"])

@@ -249,6 +249,19 @@ def test_gradient_tolerance_is_the_f32_noise_floor():
     assert GRAD_TOL / 10 < moved < GRAD_TOL
 
 
+def test_a_leaf_the_loss_does_not_read_raises():
+    """Only the shared expert on the dense oracle, which JAX's loss does not
+    read either, takes a zero gradient; any other unread leaf is a wiring
+    fault and raises."""
+    jcfg = _reduced("qwen1.5-0.5b")
+    params = params_from_jax(_np(_jax_params(jcfg)))
+    params["layers"][0]["stray"] = torch.zeros(3)
+    with pytest.raises(RuntimeError, match=r"does not read .* \(3,\)"):
+        loss_and_grads(params, {k: torch.from_numpy(v)
+                                for k, v in _batch(jcfg).items()},
+                       _port_cfg(jcfg))
+
+
 # ---------------------------------------------------------------------------
 # train steps
 # ---------------------------------------------------------------------------
@@ -318,10 +331,22 @@ def test_token_pipeline_matches_jax_bitwise(seed):
 
 
 def test_token_pipeline_refuses_other_modalities():
-    cfg = dataclasses.replace(_port_cfg(_reduced("qwen1.5-0.5b")),
-                              modality="audio")
-    with pytest.raises(NotImplementedError, match="audio"):
-        TokenPipeline(cfg, 2, 8)
+    """The pipeline's audio branch (which used to refuse): ``seq`` encoder
+    frames a row after the tokens, bit for bit JAX's."""
+    jcfg = dataclasses.replace(_reduced("qwen1.5-0.5b"), modality="audio")
+    jpipe = JaxTokenPipeline(jcfg, 2, 8, seed=2)
+    pipe = TokenPipeline(_port_cfg(jcfg), 2, 8, seed=2)
+    try:
+        for _ in range(2):
+            want, got = jpipe.next(), pipe.next()
+            assert sorted(got) == sorted(want) == ["frames", "tokens"]
+            assert got["frames"].shape == (2, 8, jcfg.d_model)
+            for key in want:
+                assert got[key].dtype == want[key].dtype
+                assert got[key].tobytes() == want[key].tobytes()
+    finally:
+        jpipe.close()
+        pipe.close()
 
 
 # ---------------------------------------------------------------------------
