@@ -326,7 +326,23 @@ SEAMLESS_LAYER_ATOL = 2e-3
 # dense, then the first MoE layer of 256 experts; serve a 2,048 prompt)
 DEEPSEEK_ARCH, DEEPSEEK_NEW = "deepseek-v3-671b", 16
 DEEPSEEK_TRAIN_S = 256
-PHASE_BUDGET_S = {"11c": 300.0, "11d": 150.0, "11e": 200.0, "11f": 200.0}
+# phase 12: long sequences (qwen1.5-0.5b at full width and depth, batch
+# 1), the sharded train step through the launcher (phi3.5-moe at full width
+# and 2 layers, 4 microbatches of 1 x 128) and the sharded serve steps
+# (granite-3-2b at full width and 4 layers), each on a (1, 2) mesh of two
+# ranks on the one card
+LONG_ARCH, LONG_S, LONG_S2 = "qwen1.5-0.5b", 2048, 4096
+SHARD_TRAIN_B, SHARD_TRAIN_S = 4, 128
+# granite at 4 layers (the main path) and 2 (the 2e-3 gate: from the
+# reference's init a rounding grows past it by 4 layers, PERF.md §6)
+SHARD_SERVE_DEPTHS, SHARD_SERVE_NEW = (4, 2), 4
+SHARD_SERVE_TOL = 2e-3
+# 12c at its first depth: the sharded logits within this many times the
+# largest move of the one-rank logits under SHARD_SERVE_NUDGES one-rounding
+# nudges of the weights
+SHARD_SERVE_NUDGE_X, SHARD_SERVE_NUDGES = 3.0, 3
+PHASE_BUDGET_S = {"11c": 300.0, "11d": 150.0, "11e": 200.0, "11f": 200.0,
+                  "12": 250.0}
 # the serving launcher's requests a leg (phases 3 and 9): its numpy oracle
 # sorts every row per request, which set those phases' time at 256
 SERVE_QUERIES = 64
@@ -2101,27 +2117,34 @@ def time_flash(torch, fa, dev, time_ms, wall_ms, profiled_calls):
     return rec
 
 
-# the shapes this slice's families give #11: B, H, S, hd (q/k), hd_v, causal
+# the shapes this slice's families give #11: B, H, S, hd (q/k), hd_v,
+# causal and, where k and v have fewer heads than q, Hkv
 FLASH_TIMED_SHAPES = {
     "seamless_cross": (4, 16, 1024, 64, 64, False),
     "seamless_encoder": (4, 16, 1024, 64, 64, True),
     "deepseek_mla": (1, 128, 2048, 192, 128, True),
+    # phase 12c: granite-3-2b's prefill on one rank of a (1, 2) mesh, its
+    # 32 / 8 heads halved
+    "granite_16_local_heads": (LM_B, 16, LM_S, 64, 64, True, 4),
 }
 
 
 def time_flash_shape(torch, fa, dev, time_ms, wall_ms, label, B, H, S, hd,
-                     hd_v, causal):
+                     hd_v, causal, Hkv=None):
     """The flash kernel at one f32 (B, S, H, hd) shape, q/k ``hd`` and v
-    ``hd_v`` wide: device and wall ms beside the bound (2 * (hd + hd_v)
-    flop a valid pair, three TF32 passes; or the bytes), ``mha_plain`` and
+    ``hd_v`` wide, k and v ``Hkv`` heads (default ``H``): device and wall
+    ms beside the bound (2 * (hd + hd_v) flop a valid pair, three TF32
+    passes; or the bytes), ``mha_plain`` and
     ``scaled_dot_product_attention`` (None where it refuses v's width, the
     refusal printed). Returns the numbers."""
+    Hkv = Hkv or H
     g = torch.Generator(device=dev).manual_seed(SEED + 300)
-    q, k = (torch.randn((B, S, H, hd), generator=g, device=dev).transpose(
-        1, 2) for _ in range(2))
-    v = torch.randn((B, S, H, hd_v), generator=g, device=dev).transpose(1, 2)
+    q = torch.randn((B, S, H, hd), generator=g, device=dev).transpose(1, 2)
+    k = torch.randn((B, S, Hkv, hd), generator=g, device=dev).transpose(1, 2)
+    v = torch.randn((B, S, Hkv, hd_v), generator=g, device=dev).transpose(
+        1, 2)
     flops = 2.0 * (hd + hd_v) * B * H * attention_pairs(S, S, causal, 0)
-    nbytes = 4 * B * H * S * (2 * hd + 2 * hd_v)
+    nbytes = 4 * B * S * (H + Hkv) * (hd + hd_v)
     bound = max((1e3 * nbytes / HBM_BYTES_PER_S, "bytes"),
                 (1e3 * 3 * flops / TF32_FLOP_PER_S, "operations"))
     out = dict(ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
@@ -2132,14 +2155,16 @@ def time_flash_shape(torch, fa, dev, time_ms, wall_ms, label, B, H, S, hd,
                                 3),
                bound_ms=bound[0], bound_by=bound[1])
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = {"enable_gqa": True} if Hkv < H else {}
     try:
-        out["library_ms"] = time_ms(lambda: sdpa(q, k, v, is_causal=causal),
-                                    10)
+        out["library_ms"] = time_ms(lambda: sdpa(q, k, v, is_causal=causal,
+                                                 **gqa), 10)
         lib = f"library (sdpa) {out['library_ms']:.4f} ms"
     except RuntimeError as e:
         out["library_ms"] = None
         lib = f"library: sdpa refused ({str(e).splitlines()[0][:160]})"
-    print(f"flash_attention {label} at B={B} H={H} S={S} q/k {hd} v {hd_v} "
+    print(f"flash_attention {label} at B={B} H={H} Hkv={Hkv} S={S} q/k {hd} "
+          f"v {hd_v} "
           f"f32 causal={causal}: {out['ms']:.4f} device ms/launch "
           f"({out['wall_ms']:.4f} wall), bound {bound[0]:.4f} ms ({bound[1]};"
           f" 3 x {flops:.4g} flop at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s "
@@ -3133,6 +3158,404 @@ def mla_family(torch, dev, counted):
     return paths
 
 
+class _Duck:
+    """A mesh's axes alone: the one-process plan of its ranks."""
+
+    def __init__(self, shape):
+        self.shape = dict(zip(("data", "model"), shape))
+        self.axis_names = ("data", "model")
+
+
+def long_sequences(torch, dev):
+    """Phase 12a: qwen1.5-0.5b at full width and depth, batch 1: the loss
+    and gradients at S = 2,048 with remat on and off (the losses agree;
+    each one's peak memory printed), then one AdamW step at S = 4,096 with
+    remat (a finite loss, the weights changed; its peak memory and ms)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+
+    cfg = dataclasses.replace(get_config(LONG_ARCH), train_microbatches=1)
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LONG_S2),
+                           generator=g).to(dev)
+    losses, peaks, secs = {}, {}, {}
+    for remat in (False, True, False, True):   # in turns; the later pair
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, _, grads = loss_and_grads(
+            params, {"tokens": tokens[:, :LONG_S]},
+            dataclasses.replace(cfg, remat=remat))
+        torch.cuda.synchronize()
+        secs.setdefault(remat, []).append(time.perf_counter() - t0)
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        losses.setdefault(remat, []).append(float(loss))
+        del grads
+    every = losses[True] + losses[False]
+    if not (np.isfinite(every).all() and max(every) - min(every)
+            <= 1e-6 * abs(every[0])):
+        raise AssertionError(f"12a: losses with remat {losses[True]}, "
+                             f"without {losses[False]}")
+    print(f"12a {LONG_ARCH} full width and depth, 1 x {LONG_S} tokens, "
+          f"loss and gradients: remat on {losses[True][-1]:.6f} (peak "
+          f"{peaks[True]:.2f} GB above the weights; {secs[True][0]:.2f}, "
+          f"{secs[True][1]:.2f} s), off {losses[False][-1]:.6f} (peak "
+          f"{peaks[False]:.2f} GB; {secs[False][0]:.2f}, "
+          f"{secs[False][1]:.2f} s); the four losses within "
+          f"{max(every) - min(every):.3g} [{card_line()}]")
+    step_fn, opt = make_train_step(dataclasses.replace(cfg, remat=True),
+                                   lr=3e-4)
+    state = opt.init(params)
+    before = params["layers"][0]["attn"]["wq"][:4, 0, :4].clone()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    new, state, m = step_fn(params, state, 0, {"tokens": tokens})
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    loss = float(m["loss"])
+    changed = not torch.equal(new["layers"][0]["attn"]["wq"][:4, 0, :4],
+                              before)
+    if not (np.isfinite(loss) and changed):
+        raise AssertionError(f"12a: the {LONG_S2}-token step: loss {loss}, "
+                             f"weights changed: {changed}")
+    print(f"12a {LONG_ARCH} one AdamW step at 1 x {LONG_S2} tokens with "
+          f"remat: loss {loss:.4f}, grad norm {float(m['grad_norm']):.2f}, "
+          f"{1e3 * step_s:.1f} ms (the first call), peak "
+          f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB above "
+          f"the weights and state [{card_line()}]")
+    del params, state, new, m
+    torch.cuda.empty_cache()
+
+
+# the training launcher's LM mode in one rank's process: its summary, its
+# peak memory and the flash kernel's launches
+SHARDED_LAUNCHER = r"""
+import json, sys
+import torch
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch import train
+r = train.main(sys.argv[1:])
+print("RESULT " + json.dumps({
+    "losses": r["losses"], "grad_norm": r["grad_norm"], "step_s": r["step_s"],
+    "ranks": r["ranks"], "collectives": r["collectives"],
+    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}))
+print("LAUNCHES " + json.dumps(fa.LAUNCHES))
+"""
+
+
+def _collective_line(c, steps=1) -> str:
+    return (f"{c['calls'] / steps:.0f} collectives, "
+            f"{c['bytes'] / steps / 1e6:.1f} MB sent, "
+            f"{1e3 * c['s'] / steps:.1f} ms a step a rank")
+
+
+def sharded_train(torch, dev, ranks=2, device="cuda:0"):
+    """Phase 12b: phi3.5-moe at full width and 2 layers through
+    ``repro_torch.launch.train`` on ``ranks`` ranks of a (1, ranks) mesh,
+    ``--device device`` (``cuda:0``: every rank on the one card, gloo,
+    host-staged; ``cuda``: a card a rank, nccl): one Adafactor step
+    against the one-process run of the same plan (``moe_dispatch`` the
+    mesh's axes:
+    ``mlp.moe_ep_plain``), run first with its leaves kept on the host: the
+    loss within 1e-4, the grad norm within 1e-3, every updated leaf within
+    2 lr (``tests/test_torch_sharded_step.py``'s); the plan's dropped-row
+    share at the config's capacity factor; the saved checkpoint read back.
+    Returns the ranks' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import mlp
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.convert import params_from_arrays
+    from repro_torch.train.checkpoint import _flatten, load_arrays
+    from repro_torch.train.train_step import make_train_step
+
+    lr = 3e-4
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    pipe = TokenPipeline(cfg, SHARD_TRAIN_B, SHARD_TRAIN_S, seed=SEED)
+    try:
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in pipe.next().items()}
+    finally:
+        pipe.close()
+    batch["positions"] = torch.arange(
+        SHARD_TRAIN_S, dtype=torch.int32, device=dev).expand(
+        SHARD_TRAIN_B, SHARD_TRAIN_S)
+    step_fn, opt = make_train_step(cfg, lr=lr,
+                                   moe_dispatch=_Duck((1, ranks)))
+    mlp.EP_ROWS = {}
+    t0 = time.perf_counter()
+    new, _, m = step_fn(params, opt.init(params), 0, batch)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    rows, mlp.EP_ROWS = mlp.EP_ROWS, None
+    want = {k: v.cpu() for k, v in _flatten(_jax_tree(torch, new,
+                                                      cfg)).items()}
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    del params, new, m, step_fn, opt
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        outs = run_ranks(SHARDED_LAUNCHER, ranks, "--arch", MOE_ARCH,
+                         "--layers", MOE_LAYERS, "--steps", 1,
+                         "--batch", SHARD_TRAIN_B, "--seq", SHARD_TRAIN_S,
+                         "--seed", SEED, "--lr", lr, "--device", device,
+                         "--save", "--out-dir", tmp, timeout=400)
+        ranks_s = time.perf_counter() - t1
+        res = rank_lines(outs, "RESULT")
+        launched = rank_lines(outs, "LAUNCHES")
+        arrays, step = load_arrays(str(Path(tmp) / "lm_final.npz"))
+    r0 = res[0]
+    if not (r0["ranks"] == ranks and step == 1):
+        raise AssertionError(f"12b: ranks {r0['ranks']}, step {step}")
+    got_loss, got_norm = r0["losses"][0], r0["grad_norm"][0]
+    if not (abs(got_loss - loss) <= 1e-4 * abs(loss)
+            and abs(got_norm - gnorm) <= 1e-3 * abs(gnorm)):
+        raise AssertionError(f"12b: 2 ranks loss {got_loss} grad norm "
+                             f"{got_norm}; the one-process plan {loss}, "
+                             f"{gnorm}")
+    if set(arrays) != set(want):
+        raise AssertionError(f"12b: checkpoint leaves "
+                             f"{sorted(set(arrays) ^ set(want))[:4]}")
+    worst = max(float((arrays[k].float() - want[k].float()).abs().max())
+                for k in want)
+    if worst > 2 * lr:
+        raise AssertionError(f"12b: a leaf differs by {worst} > 2 lr")
+    back = params_from_arrays(arrays)
+    n_back = sum(1 for _ in _flatten(back))
+    share = rows["dropped"] / max(rows["routed"], 1)
+    print(f"12b {MOE_ARCH} full width, {MOE_LAYERS} layers, Adafactor, "
+          f"{cfg.train_microbatches} microbatches of "
+          f"{SHARD_TRAIN_B // cfg.train_microbatches} x {SHARD_TRAIN_S}: "
+          f"the launcher on {ranks} ranks (1, {ranks}) --device {device} "
+          f"== the one-process {ranks}-rank plan: "
+          f"loss {got_loss:.6f} vs {loss:.6f}, grad norm {got_norm:.4f} vs "
+          f"{gnorm:.4f}, {len(want)} leaves within {worst:.3g} (2 lr "
+          f"{2 * lr:g}); dropped rows at capacity factor "
+          f"{cfg.moe_capacity_factor:g}: {rows['dropped']} of "
+          f"{rows['routed']} ({100 * share:.3f} %); checkpoint reads back "
+          f"({n_back} leaves); rank step {1e3 * r0['step_s']:.1f} ms (the "
+          f"first call), peak {r0['peak_gb']:.1f} GB a rank, "
+          f"{_collective_line(r0['collectives'])}; ranks' run "
+          f"{ranks_s:.1f} s with init and save, the one-process step "
+          f"{plan_s:.1f} s [{card_line()}]")
+    return {n: sum(c[n] for c in launched) for n in launched[0]}
+
+
+def _jax_tree(torch, params, cfg):
+    """``convert.params_to_jax``'s stacked layout, leaves still tensors."""
+    from repro_torch.models.convert import stack_layers
+    return stack_layers(params, cfg, stack=torch.stack)
+
+
+# the sharded serve steps in one rank's process, at each depth of
+# SHARD_SERVE_DEPTHS (the model cut from the first's shards): the global
+# batch's last logits (prefill, then each decode step), the tokens fed,
+# the times, the collectives and the flash launches of each depth's run
+SHARDED_SERVE = r"""
+import dataclasses, json, os, sys, time
+import numpy as np, torch
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models import transformer as tfm
+from repro_torch.sharding import param_shardings, shard
+from repro_torch.sharding.mesh import init_ranks, make_host_mesh
+from repro_torch.train.serve_step import make_decode_step, make_prefill_step
+from repro_torch.train.train_step import synthetic_batch
+arch, depths, B, S, new, out, device = sys.argv[1:8]
+depths = [int(n) for n in depths.split(",")]
+B, S, new = int(B), int(S), int(new)
+# "cuda": a card a rank; an explicit card: every rank on it
+dev = torch.device(f"cuda:{os.environ['LOCAL_RANK']}" if device == "cuda"
+                   else device)
+torch.cuda.set_device(dev)
+init_ranks(dev, device != "cuda")
+mesh = make_host_mesh()
+cfg = dataclasses.replace(get_config(arch), num_layers=depths[0])
+params = tfm.init_params(cfg, seed=0, device=dev)
+specs = param_shardings(params, mesh, cfg)
+local = shard.shard_params(params, specs, mesh)
+del params
+torch.cuda.empty_cache()
+tokens = torch.from_numpy(synthetic_batch(cfg, B, S, seed=0)["tokens"]).to(dev)
+res = {}
+# one prefill first, so that each depth's times below are warm calls
+with torch.no_grad():
+    make_prefill_step(cfg, S + new + 8, mesh=mesh, specs=specs)(
+        local, {"tokens": tokens})
+for L in depths:
+    c = dataclasses.replace(cfg, num_layers=L)
+    p = dict(local, layers=local["layers"][:L])
+    sp = dict(specs, layers=specs["layers"][:L])
+    pre = make_prefill_step(c, S + new + 8, mesh=mesh, specs=sp)
+    dec = make_decode_step(c, mesh=mesh, specs=sp)
+    for n in fa.LAUNCHES:
+        fa.LAUNCHES[n] = 0
+    shard.reset_counts()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = pre(p, {"tokens": tokens})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill_launches = dict(fa.LAUNCHES)
+        prefill_bytes = shard.COLLECTIVES["bytes"]
+        outs, fed = [logits[:, -1]], []
+        tok = logits.argmax(-1)
+        for _ in range(new):
+            fed.append(tok)
+            logits, caches = dec(p, tok, caches)
+            outs.append(logits[:, -1])
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    res[L] = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
+              "prefill_launches": prefill_launches,
+              "launches": dict(fa.LAUNCHES), "prefill_bytes": prefill_bytes,
+              "collectives": dict(shard.COLLECTIVES),
+              "logits": torch.stack(outs).cpu().numpy(),
+              "fed": torch.cat(fed, dim=1).cpu().numpy()}
+    del caches
+if mesh.rank == 0:
+    np.savez(out, **{f"{k}_{L}": v for L, r in res.items()
+                     for k, v in r.items() if k in ("logits", "fed")})
+print("RESULT " + json.dumps({
+    "local_heads": local["layers"][0]["attn"]["wq"].shape[1],
+    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+    "depths": {L: {k: v for k, v in r.items() if k not in ("logits", "fed")}
+               for L, r in res.items()}}))
+print("LAUNCHES " + json.dumps(res[depths[0]]["launches"]))
+"""
+
+
+def _one_rank_serve(torch, tfm, params, cfg, tokens, fed):
+    """One rank's prefill, then decode steps fed ``fed``: the last logits
+    of each (steps, B, V) on the host."""
+    with torch.no_grad():
+        logits, caches = tfm.prefill(params, {"tokens": tokens}, cfg,
+                                     tokens.shape[1] + fed.shape[1] + 8)
+        out = [logits[:, -1]]
+        for i in range(fed.shape[1]):
+            logits, caches = tfm.decode_step(params, fed[:, i:i + 1], caches,
+                                             cfg)
+            out.append(logits[:, -1])
+    return torch.stack(out).cpu().numpy()
+
+
+def sharded_serve(torch, dev, rec, ranks=2, device="cuda:0"):
+    """Phase 12c: granite-3-2b at full width on ``ranks`` ranks of a (1,
+    ranks) mesh (``device`` as :func:`sharded_train`'s), through the
+    sharded serve steps: at 4 layers (the main path) prefill of 4 x 2,048
+    (#11 once a layer on each rank, on its local heads: 16 on two ranks)
+    and 4 decode steps; at 2 layers the same, every step's
+    last logits within 2e-3 of the one-rank run on the same tokens. From
+    the reference's init a rounding grows with depth past 2e-3 by 4
+    layers, so there the sharded logits are held within 3 x the largest
+    move of the one-rank logits under three one-rounding nudges of the
+    weights (each seeded). The ranks run one prefill before the timed
+    ones. Returns the ranks' launches at 4 layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.train_step import synthetic_batch
+
+    arch = "granite-3-2b"
+    depths = SHARD_SERVE_DEPTHS
+    cfg = dataclasses.replace(get_config(arch), num_layers=depths[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "serve.npz")
+        t0 = time.perf_counter()
+        outs = run_ranks(SHARDED_SERVE, ranks, arch,
+                         ",".join(map(str, depths)), LM_B, LM_S,
+                         SHARD_SERVE_NEW, path, device, timeout=300)
+        ranks_s = time.perf_counter() - t0
+        got = dict(np.load(path))
+    res = rank_lines(outs, "RESULT")
+    launched = rank_lines(outs, "LAUNCHES")
+    for r in res:
+        for L in depths:
+            n = r["depths"][str(L)]["prefill_launches"]["flash_attention"]
+            if not (r["local_heads"] == cfg.num_heads // ranks and n == L):
+                raise AssertionError(f"12c: {n} flash launches at {L} "
+                                     f"layers on {r['local_heads']} heads; "
+                                     f"want one a layer on "
+                                     f"{cfg.num_heads // ranks}")
+    params = tfm.init_params(cfg, seed=SEED, device=dev)
+    tokens = torch.from_numpy(synthetic_batch(cfg, LM_B, LM_S, seed=0)[
+        "tokens"]).to(dev)
+    diffs, lines = {}, []
+    for L in depths:
+        c = dataclasses.replace(cfg, num_layers=L)
+        p = dict(params, layers=params["layers"][:L])
+        fed = torch.from_numpy(got[f"fed_{L}"]).to(dev)
+        t1 = time.perf_counter()
+        want = _one_rank_serve(torch, tfm, p, c, tokens, fed)
+        one_s = time.perf_counter() - t1
+        if not np.isfinite(got[f"logits_{L}"]).all():
+            raise AssertionError(f"12c: non-finite logits at {L} layers")
+        diffs[L] = float(np.abs(got[f"logits_{L}"] - want).max())
+        r0 = res[0]["depths"][str(L)]
+        lines.append(
+            f"{L} layers: prefill {LM_B} x {LM_S} "
+            f"{1e3 * r0['prefill_s']:.1f} ms, {SHARD_SERVE_NEW} decode "
+            f"steps {1e3 * r0['decode_s']:.1f} ms (one rank "
+            f"{1e3 * one_s:.1f} ms for both), max |logits - one rank's| "
+            f"{diffs[L]:.3g}, prefill collectives "
+            f"{r0['prefill_bytes'] / 1e6:.1f} MB a rank, all "
+            f"{_collective_line(r0['collectives'])} over prefill and "
+            f"decode")
+    # the one-rank run's own spread at the first depth: every weight
+    # nudged by one rounding (x (1 + u), u in {-2^-24, 0, 2^-24}), under
+    # several seeds; the sharded logits within a multiple of the largest
+    fed = torch.from_numpy(got[f"fed_{depths[0]}"]).to(dev)
+    base = _one_rank_serve(torch, tfm, params, cfg, tokens, fed)
+    spreads = []
+    for i in range(SHARD_SERVE_NUDGES):
+        g = torch.Generator(device=dev).manual_seed(SEED + 1 + i)
+        nudged = tree_map(lambda t: t * (1.0 + 2.0 ** -24 * torch.randint(
+            -1, 2, t.shape, generator=g, device=dev).float()), params)
+        spreads.append(float(np.abs(_one_rank_serve(
+            torch, tfm, nudged, cfg, tokens, fed) - base).max()))
+        del nudged
+    limit = SHARD_SERVE_NUDGE_X * max(spreads)
+    if not diffs[depths[0]] <= limit:
+        raise AssertionError(f"12c: sharded logits at {depths[0]} layers "
+                             f"differ from one rank's by {diffs[depths[0]]}"
+                             f" > {SHARD_SERVE_NUDGE_X:g} x the largest "
+                             f"nudge spread {max(spreads)}")
+    if diffs[depths[-1]] > SHARD_SERVE_TOL:
+        raise AssertionError(f"12c: sharded logits at {depths[-1]} layers "
+                             f"differ from one rank's by "
+                             f"{diffs[depths[-1]]} > {SHARD_SERVE_TOL}")
+    shape = rec["flash_attention"].get("shapes", {}).get(
+        "granite_16_local_heads")
+    timed = ("not measured" if shape is None else
+             f"{shape['ms']:.4f} device ms/launch, bound "
+             f"{shape['bound_ms']:.4f} ms, plain {shape['plain_ms']:.4f} ms")
+    print(f"12c {arch} full width on {ranks} ranks (1, {ranks}) --device "
+          f"{device}: flash_attention (#11) "
+          f"launched once a layer a rank on {res[0]['local_heads']} local "
+          f"heads (phase 10 times the 16-head shape: {timed}); " + "; ".join(lines)
+          + f"; at {depths[-1]} layers within {SHARD_SERVE_TOL}; at "
+          f"{depths[0]} layers {SHARD_SERVE_NUDGES} one-rounding nudges of "
+          f"the weights move the one-rank logits by "
+          f"{', '.join(f'{x:.3g}' for x in spreads)}, and the sharded "
+          f"logits are within {SHARD_SERVE_NUDGE_X:g} x the largest "
+          f"({limit:.3g}); prefill times warm (after one prefill); peak "
+          f"{res[0]['peak_gb']:.1f} GB a rank; ranks' run {ranks_s:.1f} s "
+          f"[{card_line()}]")
+    del params
+    torch.cuda.empty_cache()
+    return {n: sum(c[n] for c in launched) for n in launched[0]}
+
+
 def profile_split(torch, label, run):
     """``run()`` once under the profiler: wall ms, the device's busy share
     and the top device ops by self device time. Returns ``run()``'s
@@ -3954,6 +4377,14 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 12
     print(f"phase 12 starts at {time.perf_counter() - t_start:.1f}s")
+    t12 = time.perf_counter()
+    long_sequences(torch, dev)
+    paths["sharded_train"] = sharded_train(torch, dev)
+    paths["sharded_serve"] = sharded_serve(torch, dev, rec)
+    phase_budget("12", t12)
+
+    # ---------------------------------------------------------- phase 13
+    print(f"phase 13 starts at {time.perf_counter() - t_start:.1f}s")
     for name, r in rec.items():
         # the ranks' paths count only the training kernels
         by_path = {path: counts.get(name, 0)

@@ -6,8 +6,9 @@ parses unchanged: the dense LMs, the MoE LMs phi3.5-moe and deepseek-v3
 (MLA, MTP), the SSM mamba2, the hybrid jamba, the VLM llava-next, the
 enc-dec seamless-m4t and the paper's embedding workload. Every family
 runs; an arch too large for one device at full depth (deepseek-v3,
-jamba, phi3.5-moe) needs ``sharding/`` (``ROADMAP.md``, Queue 1 item 2),
-which the launchers say before they allocate.
+jamba, phi3.5-moe) needs a sharded init (``sharding/`` shards a tree each
+rank first makes whole; ``ROADMAP.md``, Queue 1 item 5), which the
+launchers say before they allocate.
 """
 from __future__ import annotations
 

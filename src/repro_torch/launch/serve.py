@@ -21,8 +21,9 @@ width 256 (4 experts for a MoE arch); ``--no-reduced`` runs it at its full
 width and depth, which must fit one device: the launcher raises before
 allocating when the f32 weights alone exceed the device's memory
 (deepseek-v3-671b: 2,687 GB, jamba-v0.1-52b: 206 GB, phi3.5-moe-42b-a6.6b:
-167 GB, qwen2.5-32b: 131 GB), as those archs need ``sharding/``
-(``ROADMAP.md``, Queue 1 item 2). ``serve.run`` takes any weights, so a
+167 GB, qwen2.5-32b: 131 GB), as those archs need a sharded init
+(``sharding/`` shards a whole tree; ``ROADMAP.md``, Queue 1 item 5).
+``serve.run`` takes any weights, so a
 caller can serve such an arch at full width and a cut depth. MoE layers
 take the dense oracle, as the JAX launcher serves without a mesh. A VLM's
 prompt is ``synthetic_batch``'s patch embeddings, then its tokens; an
@@ -59,7 +60,8 @@ def device_memory(dev: torch.device) -> int:
 
 def require_fit(arch: str, cfg, dev: torch.device) -> None:
     """Exit before allocating when ``cfg``'s f32 weights alone exceed
-    ``dev``'s memory: such an arch needs ``sharding/``."""
+    ``dev``'s memory: such an arch needs a sharded init, which
+    ``sharding/`` does not do yet (each rank makes the whole tree)."""
     from repro_torch.models import transformer as tfm
 
     need = 4 * tfm.param_count(cfg)
@@ -68,8 +70,8 @@ def require_fit(arch: str, cfg, dev: torch.device) -> None:
         raise SystemExit(
             f"{arch}: {need / 1e9:.0f} GB of f32 weights exceed one "
             f"{dev.type} device ({have / 1e9:.0f} GB); running it at full "
-            f"depth needs sharding/, not ported yet (ROADMAP.md, Queue 1 "
-            f"item 2): use --reduced")
+            f"depth needs a sharded init (sharding/ shards a tree each rank "
+            f"makes whole; ROADMAP.md, Queue 1 item 5): use --reduced")
 
 
 def run(params, cfg, tokens, *, new_tokens: int, cache_len: int,
@@ -141,8 +143,8 @@ def main(argv=None) -> dict:
                          "depth, which must fit one device: an arch whose "
                          "f32 weights exceed it (deepseek-v3-671b 2,687 "
                          "GB, jamba-v0.1-52b 206 GB, phi3.5-moe-42b-a6.6b "
-                         "167 GB, qwen2.5-32b 131 GB) needs sharding/, not "
-                         "ported yet, and raises")
+                         "167 GB, qwen2.5-32b 131 GB) needs a sharded "
+                         "init (sharding/ shards a whole tree), and raises")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--tokens", type=int, default=32)

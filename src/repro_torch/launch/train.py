@@ -20,11 +20,28 @@ JAX launcher's lines (``{arch}: {n}M params``, ``step {s:5d} loss ...
 grad_norm ...`` every ``--log-every`` steps and at the last) and with
 ``--save`` writes ``OUT_DIR/lm_final.npz`` in the JAX tree layout, which
 JAX's ``restore_checkpoint`` reads. ``--reduced`` cuts the arch to
-``--layers`` layers of width ``--d-model`` (4 experts, vocab ≤ 8,192, one
-microbatch). Its attention is the masked plain path, as JAX's training
+``--layers`` layers (4 unless given) of width ``--d-model`` (4 experts,
+vocab ≤ 8,192, one microbatch); without it ``--layers`` keeps the arch's
+widths and cuts its depth. Its attention is the masked plain path, as JAX's training
 takes: the LM mode launches no kernel of the port. An arch whose f32
 weights exceed the device (deepseek-v3-671b, jamba-v0.1-52b at full depth)
-exits before it allocates: it needs ``sharding/``.
+exits before it allocates.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) the LM mode builds the ``(1,
+WORLD_SIZE)`` ``("data", "model")`` mesh (``sharding/mesh.py``), as JAX's
+``train_lm`` builds ``make_host_mesh()``: every rank makes the whole tree
+from ``--seed`` and keeps its shards by ``param_shardings``, the optimizer
+state is sharded by its own specs, and each step is the sharded train step
+(tensor parallel over heads, FFN width and vocabulary, expert parallel
+MoE, ``train/train_step.py``). Rank 0 prints the step lines, and
+``--save`` writes the gathered tree in the same npz format. The devices
+and backend follow the embedding mode's rule (below): ``--device cuda`` a
+card a rank (``nccl``), ``cuda:N`` every rank on that card (``gloo``,
+host-staged), ``cpu`` ``gloo``:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch \
+        phi3.5-moe-42b-a6.6b --reduced --steps 3 --batch 4 --seq 64 \
+        --device cpu
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
         --reduced --steps 3 --batch 2 --seq 64 --device cpu
@@ -577,47 +594,82 @@ def _train_embedding_epochs(args, cfg, trainer, engine, store, pipe,
 
 
 def train_lm(args) -> dict:
-    """The LM mode (the module docstring). Returns ``{"losses", "grad_norm",
-    "params", "checkpoint", "step_s"}``: every step's loss and grad norm
-    (floats), the trained parameters, the ``lm_final.npz`` path (None
-    without ``--save``) and the mean seconds of a step after the first."""
+    """The LM mode (the module docstring). Returns ``{"losses",
+    "grad_norm", "params", "checkpoint", "step_s", "ranks",
+    "collectives"}``: every step's loss and grad norm (floats), the trained
+    parameters (under several ranks, this rank's shards), the
+    ``lm_final.npz`` path (None without ``--save``),
+    the mean seconds of a step after the first, the number of ranks and
+    this rank's collectives over the steps (``shard.COLLECTIVES``)."""
+    import torch.distributed as dist
+
+    world, rank, device, backend = _ranks(args)
+    if backend is not None:
+        dist.init_process_group(
+            backend, init_method=f"tcp://{os.environ['MASTER_ADDR']}:"
+                                 f"{os.environ['MASTER_PORT']}",
+            world_size=world, rank=rank)
+    try:
+        return _train_lm(args, world, rank, device)
+    finally:
+        if backend is not None:
+            dist.destroy_process_group()
+
+
+def _train_lm(args, world, rank, dev) -> dict:
     import dataclasses
 
     import torch
 
     from repro_torch import configs as cfgs
     from repro_torch.data.tokens import TokenPipeline
-    from repro_torch.device import resolve_device
     from repro_torch.launch.serve import require_fit
     from repro_torch.models import transformer as tfm
     from repro_torch.models.common import count_params
     from repro_torch.models.convert import params_to_jax
     from repro_torch.models.config import ModelConfig
+    from repro_torch.sharding import param_shardings, shard
+    from repro_torch.sharding.mesh import make_host_mesh
     from repro_torch.train.checkpoint import save_checkpoint
     from repro_torch.train.train_step import make_train_step
 
+    say = print if rank == 0 else (lambda *a, **k: None)
     cfg = cfgs.get_config(args.arch)
     if not isinstance(cfg, ModelConfig):
         raise SystemExit(f"--arch {args.arch} is not an LM")
     if args.reduced:
-        cfg = cfg.reduced(layers=args.layers, d_model=args.d_model, experts=4)
+        cfg = cfg.reduced(layers=args.layers or 4, d_model=args.d_model,
+                          experts=4)
         cfg = dataclasses.replace(
             cfg, vocab_size=min(cfg.vocab_size, 8192), train_microbatches=1)
+    elif args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     tfm.check_family(cfg)
-    dev = resolve_device(args.device)
     require_fit(args.arch, cfg, dev)
     params = tfm.init_params(cfg, seed=args.seed, device=dev)
-    print(f"{args.arch}: {count_params(params)/1e6:.1f}M params")
+    say(f"{args.arch}: {count_params(params)/1e6:.1f}M params")
 
-    # MoE layers take the expert dispatch: JAX's trainer runs under its
-    # host mesh, which on one device routes them so
-    step_fn, opt = make_train_step(cfg, lr=args.lr, moe_dispatch=True)
+    if world > 1:
+        # every rank makes the whole tree from the seed and keeps its
+        # shards: the (1, ranks) mesh JAX's launcher builds
+        mesh = make_host_mesh()
+        specs = param_shardings(params, mesh, cfg)
+        params = shard.shard_params(params, specs, mesh)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        step_fn, opt = make_train_step(cfg, lr=args.lr, mesh=mesh,
+                                       specs=specs)
+    else:
+        # MoE layers take the expert dispatch: JAX's trainer runs under its
+        # host mesh, which on one device routes them so
+        step_fn, opt = make_train_step(cfg, lr=args.lr, moe_dispatch=True)
     opt_state = opt.init(params)
     pipe = TokenPipeline(cfg, args.batch, args.seq, seed=args.seed)
     os.makedirs(args.out_dir, exist_ok=True)
     positions = torch.arange(args.seq, dtype=torch.int32,
                              device=dev).expand(args.batch, args.seq)
     losses, norms, times = [], [], []
+    shard.reset_counts()
     try:
         for step in range(args.steps):
             t0 = time.perf_counter()
@@ -629,17 +681,22 @@ def train_lm(args) -> dict:
             norms.append(float(m["grad_norm"]))
             times.append(time.perf_counter() - t0)
             if step % args.log_every == 0 or step == args.steps - 1:
-                print(f"step {step:5d} loss {losses[-1]:.4f} "
-                      f"grad_norm {norms[-1]:.2f}")
+                say(f"step {step:5d} loss {losses[-1]:.4f} "
+                    f"grad_norm {norms[-1]:.2f}")
     finally:
         pipe.close()
+    collectives = dict(shard.COLLECTIVES)
     path = None
     if args.save:
         path = os.path.join(args.out_dir, "lm_final.npz")
-        save_checkpoint(path, params_to_jax(params, cfg), step=args.steps)
+        whole = params if world == 1 else shard.gather_params(params, specs,
+                                                              mesh)
+        if rank == 0:
+            save_checkpoint(path, params_to_jax(whole, cfg), step=args.steps)
+        del whole
     later = times[1:] or times
     return {"losses": losses, "grad_norm": norms, "params": params,
-            "checkpoint": path,
+            "checkpoint": path, "ranks": world, "collectives": collectives,
             "step_s": sum(later) / len(later) if later else None}
 
 
@@ -805,7 +862,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
-    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="the LM's depth (default: the arch's; 4 with "
+                         "--reduced)")
     ap.add_argument("--d-model", type=int, default=256)
     ap.add_argument("--log-every", type=int, default=20)
     ap.add_argument("--save", action="store_true",

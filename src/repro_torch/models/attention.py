@@ -42,6 +42,7 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import shard
 
 NEG_INF = -1e30
 
@@ -193,24 +194,79 @@ def _gqa_scores_combine(q, k, v, mask):
     return out.reshape(B, Sq, H, v.shape[-1])
 
 
-def _attend(q, k, v, positions, kv_pos, cfg: ModelConfig):
-    """Masked attention of q against (k, v); kv entries with kv_pos < 0 are
-    invalid (empty ring slots). One pass: JAX's chunked-query loop computes
-    the same rows."""
+def _chunk_mask(qpos, kv_pos, cfg: ModelConfig):
+    """(b, 1, Sq, Skv) validity of a query chunk's positions against the kv
+    positions: causal, inside the window, kv_pos >= 0."""
     mask = (kv_pos[:, None, None, :] >= 0) & \
-        (positions[:, None, :, None] >= kv_pos[:, None, None, :])
+        (qpos[:, None, :, None] >= kv_pos[:, None, None, :])
     if cfg.sliding_window:
-        mask &= (positions[:, None, :, None] - kv_pos[:, None, None, :]
+        mask &= (qpos[:, None, :, None] - kv_pos[:, None, None, :]
                  < cfg.sliding_window)
-    return _gqa_scores_combine(q, k, v, mask)
+    return mask
 
 
-def _attend_all(q, k, v):
+def _chunked(q, positions, attn, q_chunk: int):
+    """``attn(q_chunk, its positions)`` over chunks of ``q_chunk`` queries
+    (the last one short), concatenated: no score tensor wider than a
+    chunk's is made."""
+    S = q.shape[1]
+    if S <= q_chunk:
+        return attn(q, positions)
+    return torch.cat([attn(q[:, i:i + q_chunk],
+                           None if positions is None
+                           else positions[:, i:i + q_chunk])
+                      for i in range(0, S, q_chunk)], dim=1)
+
+
+def _use_seq_parallel(cfg: ModelConfig, H: int, S: int, mesh) -> bool:
+    tp = cfg.tp_size
+    return (mesh is not None and tp > 1 and H % tp != 0 and S % tp == 0
+            and S > tp)
+
+
+def _attend(q, k, v, positions, kv_pos, cfg: ModelConfig, *,
+            q_chunk: int = 1024, mesh=None):
+    """Chunked-query attention of q against (k, v) with position-derived
+    masking; kv entries with kv_pos < 0 are invalid (empty ring slots).
+    Each chunk of ``q_chunk`` queries builds its own mask and scores. On a
+    mesh whose heads do not divide ``cfg.tp_size``, the sequence-parallel
+    island: each rank of the "model" axis takes its slice of the queries
+    (k and v whole), and the slices are gathered."""
+    def attn(qc, qpos):
+        return _gqa_scores_combine(qc, k, v, _chunk_mask(qpos, kv_pos, cfg))
+
+    if _use_seq_parallel(cfg, q.shape[2], q.shape[1], mesh):
+        out = _chunked(shard.block_of(q, mesh, "model", 1),
+                       shard.block_of(positions, mesh, "model", 1), attn,
+                       q_chunk)
+        return shard.all_gather(out, mesh, "model", 1)
+    return _chunked(q, positions, attn, q_chunk)
+
+
+def _attend_all(q, k, v, q_chunk: int = 1024):
     """Cross-attention: every query against every key (JAX's all-ones
-    mask)."""
-    B, Sq, Skv = q.shape[0], q.shape[1], k.shape[1]
-    mask = torch.ones((B, 1, Sq, Skv), dtype=torch.bool, device=q.device)
-    return _gqa_scores_combine(q, k, v, mask)
+    mask), in chunks of ``q_chunk`` queries."""
+    def attn(qc, _):
+        mask = torch.ones((qc.shape[0], 1, qc.shape[1], k.shape[1]),
+                          dtype=torch.bool, device=q.device)
+        return _gqa_scores_combine(qc, k, v, mask)
+    return _chunked(q, None, attn, q_chunk)
+
+
+def _view(params, spec, cfg: ModelConfig, mesh):
+    """The block's parameters for compute and whether its heads are split
+    over "model" (``sharding/shard.py::block_view``); (params, False)
+    without a mesh."""
+    if mesh is None:
+        return params, False
+    return shard.block_view(params, spec, mesh, shard.HEAD_DIMS)
+
+
+def _project_out(out, params, dtype, mesh, split: bool):
+    """``wo`` of the heads' output; row-parallel (then summed over "model")
+    when the heads are split."""
+    y = _out(out.to(dtype), params["wo"])
+    return shard.all_reduce(y, mesh, "model") if split else y
 
 
 def _flash(q, k, v, *, causal: bool, window: int = 0):
@@ -221,18 +277,22 @@ def _flash(q, k, v, *, causal: bool, window: int = 0):
 
 
 def attention_forward(params, x, cfg: ModelConfig, *, positions=None,
-                      enc_out=None, flash: bool = False):
+                      enc_out=None, flash: bool = False, q_chunk: int = 1024,
+                      mesh=None, spec=None):
     """Full-sequence attention (training, an encoder, JAX's whole-sequence
     prefill): causal, with the sliding window if set, or cross-attention
-    (no mask, no RoPE, k and v from ``enc_out``). ``flash`` takes the
-    flash kernel for the causal form over positions 0..S-1 (``positions``
-    None): an encoder in prefill; training keeps the masked plain path, as
-    JAX's does."""
+    (no mask, no RoPE, k and v from ``enc_out``), in chunks of ``q_chunk``
+    queries. ``flash`` takes the flash kernel for the causal form over
+    positions 0..S-1 (``positions`` None): an encoder in prefill; training
+    keeps the masked plain path, as JAX's does. ``mesh`` (with the block's
+    ``spec``): this rank's shards; the heads split over "model" where the
+    weights are sharded so, else gathered whole."""
+    params, split = _view(params, spec, cfg, mesh)
     B, S, _ = x.shape
     if enc_out is not None:
         k, v = cross_kv(params, enc_out)
-        out = _attend_all(_cross_q(params, x), k, v)
-        return _out(out.to(x.dtype), params["wo"])
+        out = _attend_all(_cross_q(params, x), k, v, q_chunk)
+        return _project_out(out, params, x.dtype, mesh, split)
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     if cfg.mla:
@@ -243,8 +303,9 @@ def attention_forward(params, x, cfg: ModelConfig, *, positions=None,
         ROUTE_CALLS["encoder_flash_calls"] += 1
         out = _flash(q, k, v, causal=True, window=cfg.sliding_window)
     else:
-        out = _attend(q, k, v, positions, positions, cfg)
-    return _out(out.to(x.dtype), params["wo"])
+        out = _attend(q, k, v, positions, positions, cfg, q_chunk=q_chunk,
+                      mesh=None if split else mesh)
+    return _project_out(out, params, x.dtype, mesh, split)
 
 
 def _ring_write(cache: dict, new: dict, positions):
@@ -262,7 +323,7 @@ def _ring_write(cache: dict, new: dict, positions):
 
 
 def attention_extend(params, x, cache: dict, cfg: ModelConfig, *,
-                     flash: bool = True):
+                     flash: bool = True, mesh=None, spec=None):
     """Prefill step: S_c tokens attend to the cache and themselves
     (causal), then are written into the ring. Returns (out (B, S_c, d),
     cache).
@@ -272,8 +333,11 @@ def attention_extend(params, x, cache: dict, cfg: ModelConfig, *,
     masked plain route. ``flash=False`` forces the masked route, for the
     tests that hold the two against each other. MLA writes the compressed
     entries and attends to them expanded (the absorbed form is
-    decode-only, as in JAX).
+    decode-only, as in JAX). ``mesh``/``spec``: as
+    :func:`attention_forward`; the cache then holds this rank's kv heads
+    where the heads are split.
     """
+    params, split = _view(params, spec, cfg, mesh)
     B, Sc, _ = x.shape
     t = cache["t"]
     W = cache["pos"].shape[1]
@@ -299,14 +363,17 @@ def attention_extend(params, x, cache: dict, cfg: ModelConfig, *,
         ROUTE_CALLS["masked_calls"] += 1
         out = _attend(q, k, v, positions, cache["pos"], cfg)
     cache["t"] = t + Sc
-    return _out(out.to(x.dtype), params["wo"]), cache
+    return _project_out(out, params, x.dtype, mesh, split), cache
 
 
-def cross_extend(params, x, cache: dict, *, flash: bool = True):
+def cross_extend(params, x, cache: dict, *, flash: bool = True, cfg=None,
+                 mesh=None, spec=None):
     """A prefill chunk's cross-attention: its q (no RoPE) against the
     cached encoder memory ``enc_k``/``enc_v``, every key valid (JAX's
     ``attention_decode(cross=True)`` on the chunk). The flash kernel with
-    ``causal=False`` unless ``flash=False``. Returns out (B, S_c, d)."""
+    ``causal=False`` unless ``flash=False``. Returns out (B, S_c, d).
+    ``cfg``/``mesh``/``spec``: as :func:`attention_forward`."""
+    params, split = _view(params, spec, cfg, mesh)
     q = _cross_q(params, x)
     k, v = cache["enc_k"], cache["enc_v"]
     if flash:
@@ -315,13 +382,15 @@ def cross_extend(params, x, cache: dict, *, flash: bool = True):
     else:
         ROUTE_CALLS["cross_masked_calls"] += 1
         out = _attend_all(q, k, v)
-    return _out(out.to(x.dtype), params["wo"])
+    return _project_out(out, params, x.dtype, mesh, split)
 
 
-def cross_decode(params, x1, cache: dict):
+def cross_decode(params, x1, cache: dict, *, cfg=None, mesh=None,
+                 spec=None):
     """One token's cross-attention, on the masked plain route."""
+    params, split = _view(params, spec, cfg, mesh)
     out = _attend_all(_cross_q(params, x1), cache["enc_k"], cache["enc_v"])
-    return _out(out.to(x1.dtype), params["wo"])
+    return _project_out(out, params, x1.dtype, mesh, split)
 
 
 def init_cache(cfg: ModelConfig, batch: int, length: int, *,
@@ -373,9 +442,12 @@ def _mla_decode(params, x1, cache: dict, cfg: ModelConfig, pos1, slot, t):
     return out[:, None]                                   # (B, 1, H, v)
 
 
-def attention_decode(params, x1, cache: dict, cfg: ModelConfig):
+def attention_decode(params, x1, cache: dict, cfg: ModelConfig, *,
+                     mesh=None, spec=None):
     """One-token decode against the ring. x1: (B, 1, d). Returns
-    (out (B, 1, d), cache). MLA takes the absorbed decode."""
+    (out (B, 1, d), cache). MLA takes the absorbed decode. ``mesh``/
+    ``spec``: as :func:`attention_extend`."""
+    params, split = _view(params, spec, cfg, mesh)
     B = x1.shape[0]
     t = cache["t"]
     W = cache["pos"].shape[1]
@@ -391,4 +463,4 @@ def attention_decode(params, x1, cache: dict, cfg: ModelConfig):
         out = _gqa_scores_combine(q, cache["k"], cache["v"],
                                   _valid(cache, t, cfg)[:, None, None, :])
     cache["t"] = t + 1
-    return _out(out.to(x1.dtype), params["wo"]), cache
+    return _project_out(out, params, x1.dtype, mesh, split), cache

@@ -35,7 +35,18 @@ attention with RoPE, as the JAX reference runs it (``_encoder_forward``
 takes no mask of its own); in prefill its attention and each chunk's
 cross-attention take the flash kernel. ``moe_dispatch`` picks the MoE
 route of :func:`forward_train` (``models/mlp.py``); serving takes the
-dense oracle, as JAX serves without a mesh.
+dense oracle, as JAX serves without a mesh. Training attention runs in
+query chunks of 1,024, and with ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``).
+
+On a mesh (``mesh``, a ``sharding.mesh.Mesh`` with its batch axes set,
+and ``specs``, ``param_shardings`` of the whole tree) every entry takes
+this rank's parameter shards and batch rows: attention heads, FFN width
+and the vocabulary (the embedding lookup, the logits and a vocab-parallel
+cross entropy) split over "model" where ``spec_for`` sharded them so,
+every other sharded leaf gathered just before its layer uses it, MoE
+layers expert-parallel; the caches are the rank's shards by
+``cache_shardings`` (:class:`ShardedCaches`).
 """
 from __future__ import annotations
 
@@ -48,6 +59,8 @@ from repro_torch.models import mamba as ssm
 from repro_torch.models import mlp
 from repro_torch.models.common import embed_init, rms_norm
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import shard
+from repro_torch.sharding.specs import cache_shardings
 
 
 # --------------------------------------------------------------------------
@@ -196,45 +209,79 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
 # --------------------------------------------------------------------------
 # layer body, embedding, head
 # --------------------------------------------------------------------------
-def _ffn(p, x, cfg: ModelConfig, *, moe_dispatch: bool = False):
+def _w(p, spec, name, mesh):
+    """Leaf ``name`` of ``p`` for compute: whole (gathered on a mesh)."""
+    return p[name] if mesh is None else shard.whole(p[name], spec[name], mesh)
+
+
+def _sub(spec, name):
+    return None if spec is None else spec[name]
+
+
+def _ffn(p, x, cfg: ModelConfig, *, moe_dispatch: bool = False, mesh=None,
+         spec=None):
     """The layer's FFN or MoE block with its residual: (x, MoE aux or
     None)."""
     if "moe" in p:
-        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        y, aux = mlp.moe_forward(p["moe"], h2, cfg, dispatch=moe_dispatch)
+        h2 = rms_norm(x, _w(p, spec, "ln2", mesh), cfg.norm_eps)
+        y, aux = mlp.moe_forward(p["moe"], h2, cfg, dispatch=moe_dispatch,
+                                 mesh=mesh, spec=_sub(spec, "moe"))
         return x + y, aux
     if "ffn" in p:
-        x = x + mlp.ffn_forward(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
+        h2 = rms_norm(x, _w(p, spec, "ln2", mesh), cfg.norm_eps)
+        y = (mlp.ffn_forward(p["ffn"], h2) if mesh is None else
+             mlp.ffn_sharded(p["ffn"], h2, mesh, spec["ffn"]))
+        x = x + y
     return x, None
 
 
 def _layer_fwd(p, x, cfg: ModelConfig, *, positions=None, enc_out=None,
-               moe_dispatch: bool = False, flash: bool = False):
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+               moe_dispatch: bool = False, flash: bool = False, mesh=None,
+               spec=None):
+    h = rms_norm(x, _w(p, spec, "ln1", mesh), cfg.norm_eps)
     if "mixer" in p:
-        h = ssm.mamba_forward(p["mixer"], h, cfg)
+        mixer = p["mixer"] if mesh is None else \
+            shard.whole_tree(p["mixer"], spec["mixer"], mesh)
+        h = ssm.mamba_forward(mixer, h, cfg)
     else:
         h = attn.attention_forward(p["attn"], h, cfg, positions=positions,
-                                   flash=flash)
+                                   flash=flash, mesh=mesh,
+                                   spec=_sub(spec, "attn"))
     x = x + h
     if "cross" in p:
-        hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
-        x = x + attn.attention_forward(p["cross"], hx, cfg, enc_out=enc_out)
-    return _ffn(p, x, cfg, moe_dispatch=moe_dispatch)
+        hx = rms_norm(x, _w(p, spec, "ln_x", mesh), cfg.norm_eps)
+        x = x + attn.attention_forward(p["cross"], hx, cfg, enc_out=enc_out,
+                                       mesh=mesh, spec=_sub(spec, "cross"))
+    return _ffn(p, x, cfg, moe_dispatch=moe_dispatch, mesh=mesh, spec=spec)
 
 
 def _run_layers(layers, x, cfg: ModelConfig, *, positions=None,
                 enc_out=None, moe_dispatch: bool = False,
-                flash: bool = False):
+                flash: bool = False, mesh=None, specs=None):
     """Full-sequence forward through every layer: (x, the MoE aux loss
-    summed over layers, f32)."""
+    summed over layers, f32). With ``cfg.remat`` and gradients on
+    (training), each layer runs under ``torch.utils.checkpoint``, as JAX
+    wraps ``_layer_fwd`` in ``jax.checkpoint``: its activations are
+    recomputed in the backward pass instead of kept."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in layers:
-        x, aux = _layer_fwd(p, x, cfg, positions=positions, enc_out=enc_out,
-                            moe_dispatch=moe_dispatch, flash=flash)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i, p in enumerate(layers):
+        kw = dict(cfg=cfg, moe_dispatch=moe_dispatch, flash=flash, mesh=mesh,
+                  spec=None if specs is None else specs[i])
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _layer_remat, p, x, positions, enc_out, kw,
+                use_reentrant=False)
+        else:
+            x, aux = _layer_fwd(p, x, positions=positions, enc_out=enc_out,
+                                **kw)
         if aux is not None:
             aux_total = aux_total + aux
     return x, aux_total
+
+
+def _layer_remat(p, x, positions, enc_out, kw):
+    return _layer_fwd(p, x, positions=positions, enc_out=enc_out, **kw)
 
 
 def _run_segments(layers, x, cfg: ModelConfig, *, positions=None,
@@ -246,25 +293,69 @@ def _run_segments(layers, x, cfg: ModelConfig, *, positions=None,
 
 
 def _encoder_forward(params, frames, cfg: ModelConfig, *,
-                     moe_dispatch: bool = False, flash: bool = False):
+                     moe_dispatch: bool = False, flash: bool = False,
+                     mesh=None, specs=None):
     """The encoder over ``frames`` (B, Se, d): causal self-attention with
     RoPE at positions 0..Se-1, as JAX's reference runs it, then
     ``enc_norm``. ``flash`` takes the flash kernel (prefill). Returns
     (enc_out, the encoder's MoE aux loss)."""
     x, aux = _run_layers(params["enc_layers"], frames, cfg,
-                         moe_dispatch=moe_dispatch, flash=flash)
-    return rms_norm(x, params["enc_norm"], cfg.norm_eps), aux
+                         moe_dispatch=moe_dispatch, flash=flash, mesh=mesh,
+                         specs=_sub(specs, "enc_layers"))
+    return rms_norm(x, _w(params, specs, "enc_norm", mesh),
+                    cfg.norm_eps), aux
 
 
-def _embed_tokens(params, tokens):
-    return params["embed"][tokens]
+def _vocab_view(params, specs, name, mesh):
+    """(leaf ``name`` for compute, first vocab row it holds or None when
+    whole): the vocabulary split over "model" where ``spec_for`` put it
+    there (``embed`` dim 0, ``lm_head`` dim 1), else gathered whole."""
+    dim = 0 if name == "embed" else 1
+    view, split = shard.block_view({name: params[name]},
+                                   {name: specs[name]}, mesh, {name: dim})
+    t = view[name]
+    if not split:
+        return t, None
+    return t, mesh.group("model").index * t.shape[dim]
 
 
-def _lm_logits(params, x):
-    head = params.get("lm_head")
-    if head is None:
-        head = params["embed"].T
-    return (x @ head).float()
+def _embed_tokens(params, tokens, mesh=None, specs=None):
+    """The token embeddings; on a mesh with the vocabulary split, each
+    rank looks up the rows it holds (zero elsewhere), summed over
+    "model"."""
+    if mesh is None:
+        return params["embed"][tokens]
+    table, v0 = _vocab_view(params, specs, "embed", mesh)
+    if v0 is None:
+        return table[tokens]
+    local = tokens.long() - v0
+    inside = (local >= 0) & (local < table.shape[0])
+    x = table[local.clamp(0, table.shape[0] - 1)]
+    x = torch.where(inside[..., None], x, torch.zeros_like(x))
+    return shard.all_reduce(x, mesh, "model")
+
+
+def _lm_logits(params, x, mesh=None, specs=None, *, whole: bool = True):
+    """Logits in f32. On a mesh: over this rank's vocabulary slice where
+    the head (``lm_head``, or ``embed`` when tied) is split over "model";
+    ``whole`` gathers the slices (serving). Returns the logits, and on a
+    mesh with ``whole=False`` also the slice's first vocab id (None when
+    the logits are whole)."""
+    if mesh is None:
+        head = params.get("lm_head")
+        if head is None:
+            head = params["embed"].T
+        return (x @ head).float()
+    if "lm_head" in params:
+        head, v0 = _vocab_view(params, specs, "lm_head", mesh)
+    else:
+        head, v0 = _vocab_view(params, specs, "embed", mesh)
+        head = head.T
+    logits = (x @ head).float()
+    if whole:
+        return logits if v0 is None else shard.all_gather(
+            logits, mesh, "model", logits.ndim - 1)
+    return logits, v0
 
 
 def softmax_xent(logits, labels, mask):
@@ -275,13 +366,43 @@ def softmax_xent(logits, labels, mask):
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)
 
 
+def _xent_share(logits, v0, labels, mask, mesh):
+    """This rank's share of :func:`softmax_xent` over the global batch: its
+    rows' masked nll sum over the global mask count, over the ranks that
+    hold the same rows. With ``v0`` (the vocabulary split over "model"),
+    the max, the sum of exponentials and the label's logit are each
+    reduced over "model"."""
+    if v0 is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels[..., None].long())[..., 0]
+    else:
+        mx = shard.all_reduce_(logits.detach().amax(dim=-1), mesh, "model",
+                               op=torch.distributed.ReduceOp.MAX)
+        se = shard.all_reduce((logits - mx[..., None]).exp().sum(dim=-1),
+                              mesh, "model")
+        lse = se.log() + mx
+        local = labels.long() - v0
+        inside = (local >= 0) & (local < logits.shape[-1])
+        ll = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1)[..., None]
+                           )[..., 0]
+        ll = shard.all_reduce(torch.where(inside, ll, torch.zeros_like(ll)),
+                              mesh, "model")
+    nll = ((lse - ll) * mask).sum()
+    count = mask.sum().detach()
+    if mesh.b_axes:
+        count = shard.all_reduce_(count, mesh, mesh.b_axes)
+    reps = mesh.size // mesh.axis_size(mesh.b_axes)
+    return nll / torch.clamp(count, min=1.0) / reps
+
+
 # --------------------------------------------------------------------------
 # training forward
 # --------------------------------------------------------------------------
-def _with_prefix(params, batch: dict, cfg: ModelConfig):
+def _with_prefix(params, batch: dict, cfg: ModelConfig, mesh=None,
+                 specs=None):
     """The token embeddings, after a VLM batch's ``patch_embeds`` (cast to
     their dtype) where the config is a vision one: (x, prefix length)."""
-    x = _embed_tokens(params, batch["tokens"])
+    x = _embed_tokens(params, batch["tokens"], mesh, specs)
     pe = batch.get("patch_embeds")
     if cfg.modality != "vision" or pe is None:
         return x, 0
@@ -289,7 +410,7 @@ def _with_prefix(params, batch: dict, cfg: ModelConfig):
 
 
 def forward_train(params, batch: dict, cfg: ModelConfig, *,
-                  moe_dispatch: bool = False):
+                  moe_dispatch: bool = False, mesh=None, specs=None):
     """Returns (loss, metrics ``{"xent", "aux"}``, plus ``"mtp"`` for an MTP
     config). batch: ``tokens`` (B, S) int, optional ``positions`` (B, S),
     ``loss_mask`` (B, S), for a VLM ``patch_embeds`` (B, P, d): prepended
@@ -300,15 +421,23 @@ def forward_train(params, batch: dict, cfg: ModelConfig, *,
     plus 0.01 times the MoE aux loss summed over layers (the encoder's
     too), plus 0.3 times the MTP loss: the final-normed hidden state of
     positions 0..S-3 and the embeddings of tokens 1..S-2 through
-    ``mtp_proj``, ``mtp_layer`` and ``mtp_norm`` predict tokens 2..S-1."""
+    ``mtp_proj``, ``mtp_layer`` and ``mtp_norm`` predict tokens 2..S-1.
+
+    ``mesh`` (a ``sharding.mesh.Mesh`` whose ``b_axes`` split the global
+    batch, ``Mesh.for_batch``) with ``specs`` (``param_shardings`` of the
+    whole tree): ``params`` are this rank's shards and ``batch`` its rows.
+    The loss returned is then this rank's share (the shares sum to the
+    loss over the global batch; the gradients of the shares, summed over
+    the ranks that hold a leaf, are the loss's), and the metrics are the
+    global values, detached."""
     check_family(cfg)
     tokens = batch["tokens"]
-    x, prefix = _with_prefix(params, batch, cfg)
+    x, prefix = _with_prefix(params, batch, cfg, mesh, specs)
     enc_out, aux_enc = None, 0.0
     if cfg.is_encdec:
         enc_out, aux_enc = _encoder_forward(
             params, batch["frames"].to(x.dtype), cfg,
-            moe_dispatch=moe_dispatch)
+            moe_dispatch=moe_dispatch, mesh=mesh, specs=specs)
     positions = batch.get("positions")
     if positions is not None and x.shape[1] != positions.shape[1]:
         pre = x.shape[1] - positions.shape[1]
@@ -316,126 +445,237 @@ def forward_train(params, batch: dict, cfg: ModelConfig, *,
             [torch.arange(pre, device=x.device).expand(x.shape[0], pre),
              positions + pre], dim=1)
     x, aux = _run_layers(params["layers"], x, cfg, positions=positions,
-                         enc_out=enc_out, moe_dispatch=moe_dispatch)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)[:, prefix:]
-    logits = _lm_logits(params, x)
+                         enc_out=enc_out, moe_dispatch=moe_dispatch,
+                         mesh=mesh, specs=_sub(specs, "layers"))
+    x = rms_norm(x, _w(params, specs, "final_norm", mesh),
+                 cfg.norm_eps)[:, prefix:]
     labels = tokens[:, 1:]
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(tokens.shape, dtype=torch.float32,
                           device=tokens.device)
-    loss = softmax_xent(logits[:, :-1], labels, mask[:, 1:])
+    if mesh is None:
+        loss = softmax_xent(_lm_logits(params, x)[:, :-1], labels,
+                            mask[:, 1:])
+    else:
+        logits, v0 = _lm_logits(params, x, mesh, specs, whole=False)
+        loss = _xent_share(logits[:, :-1], v0, labels, mask[:, 1:], mesh)
     metrics = {"xent": loss, "aux": aux + aux_enc}
-    loss = loss + 0.01 * (aux + aux_enc)
+    # on a mesh the aux loss is the same on every rank: a share of 1/size
+    share = 1.0 if mesh is None else 1.0 / mesh.size
+    loss = loss + 0.01 * (aux + aux_enc) * share
     if cfg.mtp:
-        nxt = _embed_tokens(params, tokens[:, 1:-1])
+        nxt = _embed_tokens(params, tokens[:, 1:-1], mesh, specs)
         hm = torch.cat([x[:, :-2], nxt], dim=-1).to(x.dtype) \
-            @ params["mtp_proj"]
-        hm, _ = _layer_fwd(params["mtp_layer"], hm, cfg)
-        hm = rms_norm(hm, params["mtp_norm"], cfg.norm_eps)
-        mtp = softmax_xent(_lm_logits(params, hm), tokens[:, 2:],
-                           mask[:, 2:])
+            @ _w(params, specs, "mtp_proj", mesh)
+        hm, _ = _layer_fwd(params["mtp_layer"], hm, cfg, mesh=mesh,
+                           spec=_sub(specs, "mtp_layer"))
+        hm = rms_norm(hm, _w(params, specs, "mtp_norm", mesh), cfg.norm_eps)
+        if mesh is None:
+            mtp = softmax_xent(_lm_logits(params, hm), tokens[:, 2:],
+                               mask[:, 2:])
+        else:
+            logits, v0 = _lm_logits(params, hm, mesh, specs, whole=False)
+            mtp = _xent_share(logits, v0, tokens[:, 2:], mask[:, 2:], mesh)
         metrics["mtp"] = mtp
         loss = loss + 0.3 * mtp
+    if mesh is not None:
+        metrics = {k: shard.all_reduce_(v.detach(), mesh, mesh.axis_names)
+                   if k != "aux" else v.detach()
+                   for k, v in metrics.items()}
     return loss, metrics
 
 
 # --------------------------------------------------------------------------
 # serving: prefill + decode
 # --------------------------------------------------------------------------
-def _layer_extend(p, x, cache, cfg: ModelConfig, *, flash: bool = True):
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+def _layer_extend(p, x, cache, cfg: ModelConfig, *, flash: bool = True,
+                  mesh=None, spec=None):
+    h = rms_norm(x, _w(p, spec, "ln1", mesh), cfg.norm_eps)
     if "mixer" in p:
+        mixer = p["mixer"] if mesh is None else \
+            shard.whole_tree(p["mixer"], spec["mixer"], mesh)
         h, cache["state"], tail = ssm.mamba_forward(
-            p["mixer"], h, cfg, init_state=cache["state"],
+            mixer, h, cfg, init_state=cache["state"],
             conv_init=cache["conv"], return_state=True)
         cache["conv"] = tail.to(cache["conv"].dtype)
     else:
         h, cache = attn.attention_extend(p["attn"], h, cache, cfg,
-                                         flash=flash)
+                                         flash=flash, mesh=mesh,
+                                         spec=_sub(spec, "attn"))
     x = x + h
     if "cross" in p:
-        hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
-        x = x + attn.cross_extend(p["cross"], hx, cache, flash=flash)
-    return _ffn(p, x, cfg)[0], cache
+        hx = rms_norm(x, _w(p, spec, "ln_x", mesh), cfg.norm_eps)
+        x = x + attn.cross_extend(p["cross"], hx, cache, flash=flash,
+                                  cfg=cfg, mesh=mesh,
+                                  spec=_sub(spec, "cross"))
+    return _ffn(p, x, cfg, mesh=mesh, spec=spec)[0], cache
 
 
-def _layer_decode(p, x1, cache, cfg: ModelConfig):
-    h = rms_norm(x1, p["ln1"], cfg.norm_eps)
+def _layer_decode(p, x1, cache, cfg: ModelConfig, *, mesh=None, spec=None):
+    h = rms_norm(x1, _w(p, spec, "ln1", mesh), cfg.norm_eps)
     if "mixer" in p:
-        h, cache = ssm.mamba_decode(p["mixer"], h, cache, cfg)
+        mixer = p["mixer"] if mesh is None else \
+            shard.whole_tree(p["mixer"], spec["mixer"], mesh)
+        h, cache = ssm.mamba_decode(mixer, h, cache, cfg)
     else:
-        h, cache = attn.attention_decode(p["attn"], h, cache, cfg)
+        h, cache = attn.attention_decode(p["attn"], h, cache, cfg, mesh=mesh,
+                                         spec=_sub(spec, "attn"))
     x1 = x1 + h
     if "cross" in p:
-        hx = rms_norm(x1, p["ln_x"], cfg.norm_eps)
-        x1 = x1 + attn.cross_decode(p["cross"], hx, cache)
-    return _ffn(p, x1, cfg)[0], cache
+        hx = rms_norm(x1, _w(p, spec, "ln_x", mesh), cfg.norm_eps)
+        x1 = x1 + attn.cross_decode(p["cross"], hx, cache, cfg=cfg,
+                                    mesh=mesh, spec=_sub(spec, "cross"))
+    return _ffn(p, x1, cfg, mesh=mesh, spec=spec)[0], cache
+
+
+class ShardedCaches(list):
+    """A rank's caches (one dict per layer, each leaf this rank's shard)
+    with their specs (``specs.cache_shardings``) in ``.specs``."""
+
+    def __init__(self, caches, specs):
+        super().__init__(caches)
+        self.specs = specs
+
+
+# the cache leaves that follow a split block's kv heads (dim 2)
+_HEAD_CACHES = {"attn": ("k", "v"), "cross": ("enc_k", "enc_v")}
+
+
+def _cache_wants(p, spec, cache, cspec):
+    """Each tensor leaf's (layout, compute layout): its spec less the
+    batch entry (the caches hold this rank's rows), with "model" kept only
+    on the kv heads (dim 2) of a block whose heads are split."""
+    keep = {n for block, names in _HEAD_CACHES.items()
+            if block in p and shard.is_split(p[block], spec[block],
+                                             shard.HEAD_DIMS)
+            for n in names}
+    wants = {}
+    for n, s in cspec.items():
+        if not torch.is_tensor(cache[n]):
+            continue
+        ents = [None, *tuple(s)[1:]]
+        ents += [None] * (cache[n].ndim - len(ents))
+        wants[n] = (shard.P(*ents), shard.P(*(
+            e if n in keep and d == 2 else None for d, e in enumerate(ents))))
+    return wants
+
+
+def _with_cache_views(step, p, x, cache, cspec, mesh, spec):
+    """``step(p, x, view)`` on the compute view of a rank's cache: leaves
+    whose model dim the compute does not split are gathered whole, and the
+    rank's blocks of what the step wrote go back into its shards."""
+    wants = {n: w for n, w in _cache_wants(p, spec, cache, cspec).items()
+             if w[0] != w[1]}
+    view = dict(cache)
+    for n, (have, want) in wants.items():
+        view[n] = shard.to_layout(cache[n], have, want, mesh)
+    x, view = step(p, x, view)
+    for n, v in view.items():
+        cache[n] = (shard.to_layout(v, wants[n][1], wants[n][0], mesh).clone()
+                    if n in wants else v)
+    return x, cache
 
 
 def init_caches(params, cfg: ModelConfig, batch: int, cache_len: int, *,
-                enc_out=None) -> list:
+                enc_out=None, mesh=None, specs=None) -> list:
     """One cache per layer, on the parameters' device: a ring buffer for an
     attention layer, the (f32) SSM state and conv tail for a mixer. With
     ``enc_out``, each enc-dec decoder layer's cross-attention k and v of
-    it, projected once (``enc_k``, ``enc_v``)."""
+    it, projected once (``enc_k``, ``enc_v``). On a mesh (``batch`` this
+    rank's rows of the global batch): a :class:`ShardedCaches` of this
+    rank's shards by ``cache_shardings``."""
     dev = params["embed"].device
     caches = []
-    for p in params["layers"]:
+    for i, p in enumerate(params["layers"]):
         c = (ssm.init_mamba_cache(cfg, batch, device=dev) if "mixer" in p
              else attn.init_cache(cfg, batch, cache_len, device=dev))
         if "cross" in p and enc_out is not None:
-            c["enc_k"], c["enc_v"] = attn.cross_kv(p["cross"], enc_out)
+            cross = p["cross"] if mesh is None else \
+                shard.whole_tree(p["cross"], specs["layers"][i]["cross"],
+                                 mesh)
+            c["enc_k"], c["enc_v"] = attn.cross_kv(cross, enc_out)
         caches.append(c)
-    return caches
+    if mesh is None:
+        return caches
+    B = batch * mesh.axis_size(mesh.b_axes)
+    cspecs = cache_shardings(caches, B, mesh)
+    for c, cs in zip(caches, cspecs):
+        for n, s in cs.items():
+            if torch.is_tensor(c[n]):
+                c[n] = shard.local_shard(c[n], shard.P(None, *tuple(s)[1:]),
+                                         mesh)
+    return ShardedCaches(caches, cspecs)
 
 
-def _run_segments_cached(params, x, caches, layer_step):
+def _run_segments_cached(params, x, caches, layer_step, *, mesh=None,
+                         specs=None):
     """The prefill-extend and decode loop: every layer in the scan's
-    group-major order, each updating its cache in place."""
+    group-major order, each updating its cache in place (on a mesh, its
+    shards through :func:`_with_cache_views`)."""
     new = []
-    for p, c in zip(params["layers"], caches):
-        x, c = layer_step(p, x, c)
+    for i, (p, c) in enumerate(zip(params["layers"], caches)):
+        if mesh is None:
+            x, c = layer_step(p, x, c)
+        else:
+            spec = specs["layers"][i]
+            x, c = _with_cache_views(
+                lambda p, x, c, spec=spec: layer_step(p, x, c, spec=spec),
+                p, x, c, caches.specs[i], mesh, spec)
         new.append(c)
-    return x, new
+    return x, (new if mesh is None else ShardedCaches(new, caches.specs))
 
 
-def extend_chunk(params, x, caches, cfg: ModelConfig, *, flash: bool = True):
+def extend_chunk(params, x, caches, cfg: ModelConfig, *, flash: bool = True,
+                 mesh=None, specs=None):
     """Run one chunk of tokens through all layers, updating caches."""
     return _run_segments_cached(
         params, x, caches,
-        lambda p, x, c: _layer_extend(p, x, c, cfg, flash=flash))
+        lambda p, x, c, spec=None: _layer_extend(p, x, c, cfg, flash=flash,
+                                                 mesh=mesh, spec=spec),
+        mesh=mesh, specs=specs)
 
 
 def prefill(params, batch: dict, cfg: ModelConfig, cache_len: int, *,
-            flash: bool = True):
+            flash: bool = True, mesh=None, specs=None):
     """Chunked prefill of ``batch["tokens"]`` (B, S), after a VLM batch's
     ``patch_embeds``; an enc-dec batch's ``frames`` (B, Se, d) go through
     the encoder first, whose output every decoder layer's cross-attention
     reads. Returns (last-token logits (B, 1, V) f32, caches).
     ``flash=False`` keeps every chunk, the encoder and the cross-attention
-    on the masked attention route (``models/attention.py``)."""
-    x, _ = _with_prefix(params, batch, cfg)
+    on the masked attention route (``models/attention.py``). ``mesh``
+    (``b_axes`` set by ``Mesh.for_batch``) with ``specs``: this rank's
+    parameter shards and batch rows; the logits are its rows', over the
+    whole vocabulary."""
+    x, _ = _with_prefix(params, batch, cfg, mesh, specs)
     B, S = x.shape[:2]
     enc_out = None
     if cfg.is_encdec:
         enc_out, _ = _encoder_forward(params, batch["frames"].to(x.dtype),
-                                      cfg, flash=flash)
-    caches = init_caches(params, cfg, B, cache_len, enc_out=enc_out)
+                                      cfg, flash=flash, mesh=mesh,
+                                      specs=specs)
+    caches = init_caches(params, cfg, B, cache_len, enc_out=enc_out,
+                         mesh=mesh, specs=specs)
     chunk = cfg.prefill_chunk or S
     if S % chunk != 0:
         raise ValueError(f"prefill length {S} not divisible by chunk {chunk}")
     for i in range(0, S, chunk):
         xi, caches = extend_chunk(params, x[:, i:i + chunk], caches, cfg,
-                                  flash=flash)
-    h_last = rms_norm(xi[:, -1:], params["final_norm"], cfg.norm_eps)
-    return _lm_logits(params, h_last), caches
+                                  flash=flash, mesh=mesh, specs=specs)
+    h_last = rms_norm(xi[:, -1:], _w(params, specs, "final_norm", mesh),
+                      cfg.norm_eps)
+    return _lm_logits(params, h_last, mesh, specs), caches
 
 
-def decode_step(params, token1, caches, cfg: ModelConfig):
-    """One serve step: token1 (B, 1) -> (logits (B, 1, V) f32, caches)."""
-    x = _embed_tokens(params, token1)
+def decode_step(params, token1, caches, cfg: ModelConfig, *, mesh=None,
+                specs=None):
+    """One serve step: token1 (B, 1) -> (logits (B, 1, V) f32, caches).
+    ``mesh``/``specs``: as :func:`prefill`, with its caches."""
+    x = _embed_tokens(params, token1, mesh, specs)
     x, caches = _run_segments_cached(
-        params, x, caches, lambda p, x, c: _layer_decode(p, x, c, cfg))
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _lm_logits(params, x), caches
+        params, x, caches,
+        lambda p, x, c, spec=None: _layer_decode(p, x, c, cfg, mesh=mesh,
+                                                 spec=spec),
+        mesh=mesh, specs=specs)
+    x = rms_norm(x, _w(params, specs, "final_norm", mesh), cfg.norm_eps)
+    return _lm_logits(params, x, mesh, specs), caches

@@ -18,6 +18,8 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import stack_layers, unstack_layers
+from repro_torch.sharding import shard
+from repro_torch.sharding.specs import P
 from repro_torch.train.optimizer import make_optimizer
 
 
@@ -46,9 +48,11 @@ def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0):
 
 
 def loss_and_grads(params, batch: dict, cfg: ModelConfig, *,
-                   moe_dispatch: bool = False):
+                   moe_dispatch: bool = False, mesh=None, specs=None):
     """``jax.value_and_grad(forward_train, has_aux=True)``: (loss,
-    metrics, gradients in the parameters' tree), all detached."""
+    metrics, gradients in the parameters' tree), all detached. On a mesh
+    (``forward_train``'s ``mesh``/``specs``) the loss is this rank's share
+    and the gradients are its copies' (not yet summed over replicas)."""
     leaves = []
 
     def track(p):
@@ -59,11 +63,14 @@ def loss_and_grads(params, batch: dict, cfg: ModelConfig, *,
     tracked = tree_map(track, params)
     with torch.enable_grad():
         loss, metrics = tfm.forward_train(tracked, batch, cfg,
-                                          moe_dispatch=moe_dispatch)
+                                          moe_dispatch=moe_dispatch,
+                                          mesh=mesh, specs=specs)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     # the dense oracle does not read the shared expert, as in JAX: its
     # gradient is zero. Any other leaf the loss does not read is a fault.
-    unread = set() if moe_dispatch else {id(t) for t in _shared(params)}
+    oracle = (not moe_dispatch if mesh is None
+              else cfg.moe_num_experts % mesh.shape["model"] != 0)
+    unread = {id(t) for t in _shared(params)} if oracle else set()
     it = iter(grads)
 
     def grad_of(p):
@@ -90,14 +97,16 @@ def _shared(tree) -> list:
 
 
 def make_train_step(cfg: ModelConfig, *, lr: float = 1e-4,
-                    moe_dispatch: bool = False):
+                    moe_dispatch: bool = False, mesh=None, specs=None):
     """Returns ``(train_step(params, opt_state, step, batch) -> (params,
     opt_state, metrics), opt)``. ``batch`` holds tensors on the
     parameters' device: ``tokens`` (B, S) and optionally ``positions``,
     ``loss_mask``, a VLM's ``patch_embeds`` (B, P, d) and an enc-dec
     config's ``frames`` (B, Se, d). ``moe_dispatch`` sends MoE layers
     through the expert dispatch (JAX's trainer under its host mesh)
-    instead of the dense oracle.
+    instead of the dense oracle; a duck mesh (``.shape``, ``.axis_names``)
+    there runs the expert-parallel dispatch of that mesh's ranks in one
+    process (``mlp.moe_ep_plain``), what a sharded step computes.
 
     The optimizer runs on the JAX tree layout (``convert.stack_layers``):
     JAX updates each segment slot's stacked layer leaves as one leaf, and
@@ -111,47 +120,76 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 1e-4,
     stack already), accumulates the gradients into the stacked layout and
     returns parameters whose layer leaves are views into the updated
     stacks.
+
+    ``mesh`` (``sharding.mesh.Mesh``) with ``specs`` (``param_shardings``
+    of the whole parameters, the port's layout): ``params`` and the state
+    are this rank's shards, and ``batch`` is the global batch (every rank
+    the same). Microbatch i is global rows ``[i * B/k, (i + 1) * B/k)``,
+    split over the data axes by ``batch_spec``, as JAX's scan reshards it;
+    MoE layers take the expert-parallel dispatch. Each microbatch's
+    gradients are summed into the accumulators; then every leaf's gradient
+    is summed over the ranks that replicate it, and ``grad_norm`` counts
+    each element once.
     """
-    base = make_optimizer(cfg.optimizer, lr=lr)
+    jspecs = None if mesh is None else stacked_specs(specs, cfg)
+    base = make_optimizer(cfg.optimizer, lr=lr, mesh=mesh, specs=jspecs)
     opt = dataclasses.replace(base, init=lambda params: base.init(
         stack_layers(params, cfg)))
+    everywhere = () if mesh is None else mesh.axis_names
 
     def train_step(params, opt_state, step, batch):
-        k = cfg.train_microbatches
-        if k <= 1:
-            loss, metrics, g = loss_and_grads(params, batch, cfg,
-                                              moe_dispatch=moe_dispatch)
-            grads = stack_layers(g, cfg)
-        else:
-            # grad accumulation over k microbatches of the leading dim,
-            # summed in f32 into the stacked layout
-            b = batch["tokens"].shape[0]
-            if b % k:
-                raise ValueError(f"batch {b} does not split into "
-                                 f"{k} microbatches")
-            m = b // k
-            grads = _zero_grads(params, cfg)
-            views = unstack_layers(grads)
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=batch["tokens"].device)
-            for i in range(k):
-                mb = {key: v[i * m:(i + 1) * m] for key, v in batch.items()}
-                l_i, _, g = loss_and_grads(params, mb, cfg,
-                                           moe_dispatch=moe_dispatch)
-                tree_map(lambda acc, gi: acc.add_(gi.float()), views, g)
-                del g
-                loss = loss + l_i
+        # grad accumulation over k microbatches of the leading dim, summed
+        # in f32 into the stacked layout
+        k = max(1, cfg.train_microbatches)
+        b = batch["tokens"].shape[0]
+        if b % k:
+            raise ValueError(f"batch {b} does not split into {k} "
+                             f"microbatches")
+        m = b // k
+        view = None if mesh is None else mesh.for_batch(m)
+        rows = slice(None) if mesh is None else mesh.batch_slice(m)
+        grads = None
+        loss = torch.zeros((), dtype=torch.float32,
+                           device=batch["tokens"].device)
+        for i in range(k):
+            mb = {key: v[i * m:(i + 1) * m][rows] for key, v in batch.items()}
+            l_i, metrics, g = loss_and_grads(params, mb, cfg,
+                                             moe_dispatch=moe_dispatch,
+                                             mesh=view, specs=specs)
+            if grads is None:
+                # made after the first backward, so not held through it
+                grads = _zero_grads(params, cfg)
+                views = unstack_layers(grads)
+            tree_map(lambda acc, gi: acc.add_(gi.float()), views, g)
+            del g
+            loss = loss + shard.all_reduce_(l_i, mesh, everywhere)
+        if k > 1:
             tree_map(lambda g: g.div_(k), grads)
             loss = loss / k
             metrics = {"xent": loss}
-        stacked = stack_layers(params, cfg)
-        new, opt_state = base.update(grads, opt_state, stacked, step)
-        gnorm = torch.sqrt(sum(g.float().square().sum()
-                               for g in tree_leaves(grads)))
+        if mesh is not None:
+            shard.reduce_replicas(grads, jspecs, mesh)
+        new, opt_state = base.update(grads, opt_state,
+                                     stack_layers(params, cfg), step)
+        sq = sum(g.float().square().sum() / shard.copies(s, mesh)
+                 for g, s in zip(tree_leaves(grads), _specs_of(grads, jspecs)))
+        gnorm = torch.sqrt(shard.all_reduce_(sq, mesh, everywhere))
         metrics = dict(metrics, loss=loss, grad_norm=gnorm)
         return unstack_layers(new), opt_state, metrics
 
     return train_step, opt
+
+
+def stacked_specs(specs, cfg: ModelConfig):
+    """The JAX-layout specs of the port-layout ``specs``: each stacked
+    leaf's spec is its layers' with the group dim (never sharded) first."""
+    return stack_layers(specs, cfg, stack=lambda ts: P(None, *ts[0]))
+
+
+def _specs_of(tree, specs) -> list:
+    """The leaves of ``specs``, or a whole spec a leaf of ``tree``."""
+    return tree_leaves(specs) if specs is not None else [P()] * len(
+        tree_leaves(tree))
 
 
 def _zero_grads(params, cfg: ModelConfig) -> dict:

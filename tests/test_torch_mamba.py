@@ -564,6 +564,6 @@ def test_jamba_at_full_depth_raises_before_allocating(tmp_path):
     with pytest.raises(SystemExit, match="sharding/"):
         serve.main(["--arch", "jamba-v0.1-52b", "--no-reduced", "--device",
                     "cpu"])
-    with pytest.raises(SystemExit, match="Queue 1 item 2"):
+    with pytest.raises(SystemExit, match="Queue 1 item 5"):
         ttrain.main(["--arch", "jamba-v0.1-52b", "--steps", "1",
                      "--device", "cpu", "--out-dir", str(tmp_path)])

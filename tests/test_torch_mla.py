@@ -433,6 +433,6 @@ def test_launchers_run_reduced_on_the_cpu(tmp_path, capsys):
         assert torch.equal(a, b)
     with pytest.raises(SystemExit, match="sharding/"):
         serve.main(["--arch", ARCH, "--no-reduced", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="Queue 1 item 2"):
+    with pytest.raises(SystemExit, match="Queue 1 item 5"):
         ttrain.main(["--arch", ARCH, "--steps", "1", "--device", "cpu",
                      "--out-dir", str(tmp_path)])
