@@ -224,6 +224,13 @@ failure ends the run with a non-zero exit:
    peak; one Adafactor step at 2 layers in 8 microbatches of 1 x 256 (a
    finite loss and ``mtp`` metric, a positive grad norm, the MTP and MLA
    leaves changed); the phase's time against its budget;
+12d. after the sharded phases (12a-12c), the dry-run
+   (``launch/dryrun.py``) of 12b's train step and 12c's 4-layer prefill,
+   each traced in a subprocess as rank 0 of a fake world of their (1, 2)
+   mesh on ``meta`` tensors: rank 0's parameter, optimizer-state and batch
+   bytes and its collective bytes (by kind) on the card predicted
+   exactly, and its temp bytes (the step's peak less what it held before)
+   within ``DRYRUN_PEAK_TOL``; the phase's time against its budget;
 12. a JSON line of per-kernel results (launches per path), the card's line,
    and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -342,7 +349,11 @@ SHARD_SERVE_TOL = 2e-3
 # nudges of the weights
 SHARD_SERVE_NUDGE_X, SHARD_SERVE_NUDGES = 3.0, 3
 PHASE_BUDGET_S = {"11c": 300.0, "11d": 150.0, "11e": 200.0, "11f": 200.0,
-                  "12": 250.0}
+                  "12": 250.0, "12d": 60.0}
+# phase 12d: the dry-run (launch/dryrun.py) of 12b's and 12c's steps on a
+# fake world of their two ranks predicts each rank's argument and
+# collective bytes exactly and its peak over the step within this share
+DRYRUN_PEAK_TOL = 0.15
 # the serving launcher's requests a leg (phases 3 and 9): its numpy oracle
 # sorts every row per request, which set those phases' time at 256
 SERVE_QUERIES = 64
@@ -406,6 +417,14 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
+
+
+def launcher_peak(torch, r) -> int:
+    """The card's peak over a run of the LM launcher that returned ``r``:
+    the launcher resets the peak stats as its first step starts and keeps
+    the peak before then in ``step_memory``."""
+    return max(r["step_memory"]["peak_before"],
+               torch.cuda.max_memory_allocated())
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -1989,16 +2008,6 @@ def ring_phase(torch, gate):
     return paths
 
 
-def attention_pairs(Sq, Skv, causal, window) -> int:
-    """(query, key) pairs a row-wise attention must score: the valid keys
-    of each row (a row with none scores all Skv, as the kernel does)."""
-    q = np.arange(Sq)
-    lo = np.maximum(0, q - window + 1) if window else np.zeros_like(q)
-    hi = np.minimum(Skv - 1, q) if causal else np.full_like(q, Skv - 1)
-    n = np.maximum(hi - lo + 1, 0)
-    return int(np.where(n > 0, n, Skv).sum())
-
-
 def check_flash_kernel(torch, fa, dev, err):
     """The flash kernel against ``mha_plain`` at :data:`FLASH_CASES`, f32 and
     bf16, on (B, S, H, hd) buffers passed as (B, H, S, hd) views; rows with
@@ -2065,7 +2074,7 @@ def time_flash(torch, fa, dev, time_ms, wall_ms, profiled_calls):
         plain_ms=time_ms(lambda: fa.mha_plain(q, k, v, causal=True), 3),
         library_ms=time_ms(lambda: sdpa(q, kr, vr, is_causal=True), 10))
     nbytes = 4 * (2 * B * H * S * hd + 2 * B * Hkv * S * hd)
-    flops = 4.0 * B * H * hd * attention_pairs(S, S, True, 0)
+    flops = 4.0 * B * H * hd * fa.valid_pairs(S, S, True, 0)
     f32_bound = bound_ms(nbytes, flops)
     # the kernel's products take three TF32 tensor-core passes each
     tf32x3_ms = 1e3 * 3 * flops / TF32_FLOP_PER_S
@@ -2074,7 +2083,7 @@ def time_flash(torch, fa, dev, time_ms, wall_ms, profiled_calls):
     win_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
                                                 window=512), 10)
     win_bound = bound_ms(nbytes, 4.0 * B * H * hd
-                         * attention_pairs(S, S, True, 512))
+                         * fa.valid_pairs(S, S, True, 512))
     qb, kb, vb = (t.bfloat16() for t in (q, k, v))
     bf16_ms = time_ms(lambda: fa.flash_attention(qb, kb, vb, causal=True), 10)
     print(f"flash_attention at B={B} H={H} Hkv={Hkv} S={S} hd={hd} f32 "
@@ -2097,7 +2106,7 @@ def time_flash(torch, fa, dev, time_ms, wall_ms, profiled_calls):
     krh, vrh = (t.repeat_interleave(H // Hkv, dim=1) for t in (kh, vh))
     hd2_ms = time_ms(lambda: fa.flash_attention(qh, kh, vh, causal=True), 10)
     hd2_lib = time_ms(lambda: sdpa(qh, krh, vrh, is_causal=True), 10)
-    hd2_flops = 4.0 * B2 * H * hd2 * attention_pairs(S, S, True, 0)
+    hd2_flops = 4.0 * B2 * H * hd2 * fa.valid_pairs(S, S, True, 0)
     print(f"flash_attention at B={B2} H={H} Hkv={Hkv} S={S} hd={hd2} f32 "
           f"causal (phi3.5-moe, jamba's first chunk, llava): {hd2_ms:.4f} "
           f"device ms/launch, 3xTF32 bound "
@@ -2143,7 +2152,7 @@ def time_flash_shape(torch, fa, dev, time_ms, wall_ms, label, B, H, S, hd,
     k = torch.randn((B, S, Hkv, hd), generator=g, device=dev).transpose(1, 2)
     v = torch.randn((B, S, Hkv, hd_v), generator=g, device=dev).transpose(
         1, 2)
-    flops = 2.0 * (hd + hd_v) * B * H * attention_pairs(S, S, causal, 0)
+    flops = 2.0 * (hd + hd_v) * B * H * fa.valid_pairs(S, S, causal, 0)
     nbytes = 4 * B * S * (H + Hkv) * (hd + hd_v)
     bound = max((1e3 * nbytes / HBM_BYTES_PER_S, "bytes"),
                 (1e3 * 3 * flops / TF32_FLOP_PER_S, "operations"))
@@ -2586,7 +2595,7 @@ def ssm_family(torch, dev, counted):
                 "--device", "cuda"]
         torch.cuda.reset_peak_memory_stats()
         r, launches = counted(lambda: train_launcher.main(argv))
-        peak = torch.cuda.max_memory_allocated()
+        peak = launcher_peak(torch, r)
         init = tfm.init_params(cfg, seed=0, device=dev)   # the launcher's
         changed = all(not torch.equal(init["layers"][i]["mixer"][k],
                                       r["params"]["layers"][i]["mixer"][k])
@@ -2951,7 +2960,7 @@ def encdec_family(torch, dev, counted):
                 "--out-dir", tmp, "--device", "cuda"]
         torch.cuda.reset_peak_memory_stats()
         r, launches = counted(lambda: train_launcher.main(argv))
-        peak = torch.cuda.max_memory_allocated()
+        peak = launcher_peak(torch, r)
         init = tfm.init_params(cfg, seed=0, device=dev)   # the launcher's
         trained = r["params"]
         pairs = [(init["enc_layers"][i]["attn"]["wq"],
@@ -3242,10 +3251,12 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import train
 r = train.main(sys.argv[1:])
+mem = r["step_memory"]
 print("RESULT " + json.dumps({
     "losses": r["losses"], "grad_norm": r["grad_norm"], "step_s": r["step_s"],
-    "ranks": r["ranks"], "collectives": r["collectives"],
-    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    "ranks": r["ranks"], "collectives": r["collectives"], "step_memory": mem,
+    "peak_gb": max(mem["peak_before"], torch.cuda.max_memory_allocated())
+    / 1e9}))
 print("LAUNCHES " + json.dumps(fa.LAUNCHES))
 """
 
@@ -3267,7 +3278,7 @@ def sharded_train(torch, dev, ranks=2, device="cuda:0"):
     loss within 1e-4, the grad norm within 1e-3, every updated leaf within
     2 lr (``tests/test_torch_sharded_step.py``'s); the plan's dropped-row
     share at the config's capacity factor; the saved checkpoint read back.
-    Returns the ranks' launches."""
+    Returns the ranks' launches and rank 0's result."""
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.models import mlp
@@ -3346,7 +3357,7 @@ def sharded_train(torch, dev, ranks=2, device="cuda:0"):
           f"{_collective_line(r0['collectives'])}; ranks' run "
           f"{ranks_s:.1f} s with init and save, the one-process step "
           f"{plan_s:.1f} s [{card_line()}]")
-    return {n: sum(c[n] for c in launched) for n in launched[0]}
+    return {n: sum(c[n] for c in launched) for n in launched[0]}, r0
 
 
 def _jax_tree(torch, params, cfg):
@@ -3362,9 +3373,11 @@ def _jax_tree(torch, params, cfg):
 SHARDED_SERVE = r"""
 import dataclasses, json, os, sys, time
 import numpy as np, torch
+from repro_torch import collectives
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import transformer as tfm
+from repro_torch.models.common import tree_leaves
 from repro_torch.sharding import param_shardings, shard
 from repro_torch.sharding.mesh import init_ranks, make_host_mesh
 from repro_torch.train.serve_step import make_decode_step, make_prefill_step
@@ -3385,11 +3398,16 @@ local = shard.shard_params(params, specs, mesh)
 del params
 torch.cuda.empty_cache()
 tokens = torch.from_numpy(synthetic_batch(cfg, B, S, seed=0)["tokens"]).to(dev)
+# the prefill reads the tokens; the positions ride along, as the dry-run's
+# input specs (and JAX's) hold them
+batch = {"tokens": tokens, "positions": torch.arange(
+    S, dtype=torch.int32, device=dev).expand(B, S)}
 res = {}
 # one prefill first, so that each depth's times below are warm calls
 with torch.no_grad():
-    make_prefill_step(cfg, S + new + 8, mesh=mesh, specs=specs)(
-        local, {"tokens": tokens})
+    make_prefill_step(cfg, S + new + 8, mesh=mesh, specs=specs)(local, batch)
+peak_before = torch.cuda.max_memory_allocated()
+step_memory = None
 for L in depths:
     c = dataclasses.replace(cfg, num_layers=L)
     p = dict(local, layers=local["layers"][:L])
@@ -3398,15 +3416,25 @@ for L in depths:
     dec = make_decode_step(c, mesh=mesh, specs=sp)
     for n in fa.LAUNCHES:
         fa.LAUNCHES[n] = 0
-    shard.reset_counts()
+    collectives.reset_counts()
     with torch.no_grad():
         torch.cuda.synchronize()
+        if step_memory is None:
+            # what the rank holds as the first depth's prefill starts, and
+            # that prefill's peak
+            step_memory = {"params": sum(t.numel() * t.element_size()
+                                         for t in tree_leaves(p)),
+                           "batch": sum(v.numel() * v.element_size()
+                                        for v in batch.values()),
+                           "before": torch.cuda.memory_allocated()}
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        logits, caches = pre(p, {"tokens": tokens})
+        logits, caches = pre(p, batch)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        step_memory.setdefault("step_peak", torch.cuda.max_memory_allocated())
         prefill_launches = dict(fa.LAUNCHES)
-        prefill_bytes = shard.COLLECTIVES["bytes"]
+        prefill = collectives.counts()
         outs, fed = [logits[:, -1]], []
         tok = logits.argmax(-1)
         for _ in range(new):
@@ -3418,8 +3446,10 @@ for L in depths:
         t2 = time.perf_counter()
     res[L] = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
               "prefill_launches": prefill_launches,
-              "launches": dict(fa.LAUNCHES), "prefill_bytes": prefill_bytes,
-              "collectives": dict(shard.COLLECTIVES),
+              "launches": dict(fa.LAUNCHES),
+              "prefill_bytes": prefill["bytes"],
+              "prefill_kinds": prefill["by_kind"],
+              "collectives": collectives.counts(),
               "logits": torch.stack(outs).cpu().numpy(),
               "fed": torch.cat(fed, dim=1).cpu().numpy()}
     del caches
@@ -3428,7 +3458,8 @@ if mesh.rank == 0:
                      for k, v in r.items() if k in ("logits", "fed")})
 print("RESULT " + json.dumps({
     "local_heads": local["layers"][0]["attn"]["wq"].shape[1],
-    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+    "step_memory": step_memory,
+    "peak_gb": max(peak_before, torch.cuda.max_memory_allocated()) / 1e9,
     "depths": {L: {k: v for k, v in r.items() if k not in ("logits", "fed")}
                for L, r in res.items()}}))
 print("LAUNCHES " + json.dumps(res[depths[0]]["launches"]))
@@ -3460,7 +3491,7 @@ def sharded_serve(torch, dev, rec, ranks=2, device="cuda:0"):
     layers, so there the sharded logits are held within 3 x the largest
     move of the one-rank logits under three one-rounding nudges of the
     weights (each seeded). The ranks run one prefill before the timed
-    ones. Returns the ranks' launches at 4 layers."""
+    ones. Returns the ranks' launches at 4 layers and rank 0's result."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tfm
     from repro_torch.models.common import tree_map
@@ -3553,7 +3584,106 @@ def sharded_serve(torch, dev, rec, ranks=2, device="cuda:0"):
           f"[{card_line()}]")
     del params
     torch.cuda.empty_cache()
-    return {n: sum(c[n] for c in launched) for n in launched[0]}
+    return {n: sum(c[n] for c in launched) for n in launched[0]}, res[0]
+
+
+# one step's dry-run record as rank 0 of a fake world of the (1, 2) mesh
+# (launch/dryrun.py::lm_record, f32 as the ranks run): arch, layers, kind,
+# batch, sequence, cache length (0: the step's default)
+DRYRUN_RECORD = r"""
+import dataclasses, json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import InputShape
+from repro_torch.launch.dryrun import lm_record
+arch, layers, kind, B, S, clen = sys.argv[1:7]
+cfg = dataclasses.replace(get_config(arch), num_layers=int(layers))
+rec = lm_record(cfg, InputShape(f"{kind}_{B}x{S}", int(S), int(B), kind),
+                (1, 2), ("data", "model"), dtype="float32",
+                cache_len=int(clen) or None)
+print("RESULT " + json.dumps(rec))
+"""
+
+
+def dryrun_against_ranks(train_rank, serve_rank):
+    """Phase 12d: the dry-run of 12b's train step (phi3.5-moe, full width,
+    2 layers, 4 microbatches of 1 x 128) and of 12c's prefill
+    (granite-3-2b, full width, 4 layers, 4 x 2,048), each traced in a
+    subprocess as rank 0 of a fake world of the same (1, 2) mesh, f32, on
+    tensors without storage (no card), against rank 0 of the runs on the
+    card: the parameter, optimizer-state and batch bytes and the
+    collective bytes (by kind) exactly; the temp bytes (the peak of what
+    the step allocates above what the rank held as it began) within
+    DRYRUN_PEAK_TOL of ``torch.cuda.max_memory_allocated`` over the step
+    less what the rank held before it."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    cases = {
+        "12b train": (train_rank, train_rank["collectives"],
+                      [MOE_ARCH, MOE_LAYERS, "train", SHARD_TRAIN_B,
+                       SHARD_TRAIN_S, 0]),
+        "12c prefill": (serve_rank, {
+            "bytes": serve_rank["depths"][str(SHARD_SERVE_DEPTHS[0])][
+                "prefill_bytes"],
+            "by_kind": serve_rank["depths"][str(SHARD_SERVE_DEPTHS[0])][
+                "prefill_kinds"]},
+            ["granite-3-2b", SHARD_SERVE_DEPTHS[0], "prefill", LM_B, LM_S,
+             LM_S + SHARD_SERVE_NEW + 8]),
+    }
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_RECORD, *map(str, argv)], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, (_, _, argv) in cases.items()}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            outs[name] = p.communicate(timeout=120)[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    lines = []
+    for name, (rank, coll, _) in cases.items():
+        if procs[name].returncode != 0:
+            raise AssertionError(f"12d: the dry-run of {name} exited "
+                                 f"{procs[name].returncode}:\n"
+                                 f"{outs[name][-3000:]}")
+        rec = json.loads([ln for ln in outs[name].splitlines()
+                          if ln.startswith("RESULT ")][-1][len("RESULT "):])
+        mem, m = rec["memory"], rank["step_memory"]
+        parts = mem["argument_parts"]
+        for part in parts:
+            if parts[part] != m[part]:
+                raise AssertionError(f"12d {name}: {part} bytes predicted "
+                                     f"{parts[part]}, the rank holds "
+                                     f"{m[part]}")
+        want = {k: v for k, v in rec["collectives"].items() if k != "total"}
+        if rec["collectives"]["total"] != coll["bytes"] or \
+                want != coll["by_kind"]:
+            raise AssertionError(f"12d {name}: collective bytes predicted "
+                                 f"{rec['collectives']}, the rank sent "
+                                 f"{coll}")
+        temp = m["step_peak"] - m["before"]
+        off = mem["temp_bytes"] / temp - 1
+        if abs(off) > DRYRUN_PEAK_TOL:
+            raise AssertionError(f"12d {name}: temp bytes predicted "
+                                 f"{mem['temp_bytes']}, the rank's peak over"
+                                 f" the step less what it held before "
+                                 f"{temp} ({100 * off:+.1f} %)")
+        arg = sum(parts.values())
+        lines.append(
+            f"{name}: argument bytes {arg} predicted = held ("
+            + ", ".join(f"{k} {v}" for k, v in parts.items())
+            + f"); collective bytes {rec['collectives']['total']} predicted"
+            f" = sent ({', '.join(f'{k} {v}' for k, v in want.items() if v)}"
+            f"); temp {mem['temp_bytes'] / 1e9:.3f} GB predicted vs "
+            f"{temp / 1e9:.3f} GB measured ({100 * off:+.1f} %), peak "
+            f"{mem['peak_bytes'] / 1e9:.3f} GB vs "
+            f"{(arg + temp) / 1e9:.3f} GB; traced in {rec['trace_s']} s")
+    print("12d the dry-run (launch/dryrun.py, a fake world of the (1, 2) "
+          "mesh, meta tensors, counted) against rank 0 on the card: "
+          + "; ".join(lines) + f" [{card_line()}]")
 
 
 def profile_split(torch, label, run):
@@ -4379,9 +4509,15 @@ def main() -> int:
     print(f"phase 12 starts at {time.perf_counter() - t_start:.1f}s")
     t12 = time.perf_counter()
     long_sequences(torch, dev)
-    paths["sharded_train"] = sharded_train(torch, dev)
-    paths["sharded_serve"] = sharded_serve(torch, dev, rec)
+    paths["sharded_train"], train_rank = sharded_train(torch, dev)
+    paths["sharded_serve"], serve_rank = sharded_serve(torch, dev, rec)
     phase_budget("12", t12)
+
+    # ---------------------------------------------------------- phase 12d
+    print(f"phase 12d starts at {time.perf_counter() - t_start:.1f}s")
+    t12d = time.perf_counter()
+    dryrun_against_ranks(train_rank, serve_rank)
+    phase_budget("12d", t12d)
 
     # ---------------------------------------------------------- phase 13
     print(f"phase 13 starts at {time.perf_counter() - t_start:.1f}s")

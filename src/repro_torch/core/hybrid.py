@@ -268,7 +268,8 @@ class HybridEmbeddingTrainer:
     def _negative_positions(self, R: int, k: int, nmb: int, neg_draws):
         S = self.cfg.negatives
         if neg_draws is not None:
-            draws = torch.as_tensor(np.asarray(neg_draws), dtype=torch.int64)
+            draws = (neg_draws if torch.is_tensor(neg_draws) else
+                     torch.as_tensor(np.asarray(neg_draws), dtype=torch.int64))
             if R == 1 and tuple(draws.shape) == (k, nmb, S):
                 draws = draws[None]
             if tuple(draws.shape) != (R, k, nmb, S):
@@ -315,6 +316,17 @@ class HybridEmbeddingTrainer:
         minibatch) order, in place of the device generator's draws; one
         rank also takes (k, minibatches per block, S).
         """
+        loss_sum, total = self.episode_sums(eb, lr=lr, neg_draws=neg_draws)
+        if loss_sum is None:
+            return 0.0
+        return float(loss_sum / total)
+
+    def episode_sums(self, eb: EpisodeBlocks | StagedEpisodeBlocks, *,
+                     lr: float | None = None, neg_draws=None):
+        """:meth:`train_episode` up to its loss: ``(loss sum, valid
+        samples)`` over every rank, read nowhere on the host. One rank:
+        its f32 loss sum (None without a minibatch) and the count, an int;
+        several: both summed over the ranks, in f64 tensors."""
         if not isinstance(eb, StagedEpisodeBlocks):
             eb = self.stage_blocks(eb)
         cfg = self.cfg
@@ -382,10 +394,12 @@ class HybridEmbeddingTrainer:
         total = max(int(eb.counts.sum()), 1)
         loss_sum = torch.stack(losses).sum() if losses else None
         if ring is None:
-            return float(loss_sum / total) if losses else 0.0
-        loss_sum, total = ring.all_sum(
-            [0.0 if loss_sum is None else float(loss_sum), total])
-        return loss_sum / total
+            return loss_sum, total
+        sums = ring.all_sum(torch.stack([
+            torch.zeros((), dtype=torch.float64, device=self.device)
+            if loss_sum is None else loss_sum.double(),
+            torch.tensor(total, dtype=torch.float64, device=self.device)]))
+        return sums[0], sums[1]
 
     def _gather(self, table: torch.Tensor) -> torch.Tensor:
         if self.ring is None:

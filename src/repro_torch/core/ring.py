@@ -18,12 +18,18 @@ starts (:func:`backend_for`), never by catching an error:
   ``gloo``, each tensor staged through a pinned host buffer.
 
 bf16 tensors travel as their bytes (``gloo`` has no bf16 or int16).
+Every transfer is counted in ``collectives.py``: a shift's sends as
+``collective-permute`` (the JAX step's ``ppermute``),
+:meth:`VertexRing.all_sum` as an all-reduce and
+:meth:`VertexRing.all_gather` as an all-gather.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch import collectives
 
 
 def backend_for(device: torch.device, shared_card: bool) -> str:
@@ -79,6 +85,9 @@ class VertexRing:
         nxt, prv = self.neighbours(axis)
         ops, landing = [], []
         for i, (s, r) in enumerate(zip(sends, recvs)):
+            collectives.count("collective-permute",
+                              s.numel() * s.element_size(),
+                              (self._global(self.rank), nxt))
             if self.host_staged:
                 hs = self._host(("send", tag + i), s)
                 hs.copy_(s)
@@ -101,19 +110,29 @@ class VertexRing:
             for host, dst in landing:
                 dst.copy_(host)
 
-    def all_sum(self, values) -> list[float]:
-        """The float64 sum of ``values`` over every rank."""
-        dev = (torch.device("cuda", torch.cuda.current_device())
+    def _all_ranks(self) -> tuple:
+        return tuple(self._global(r) for r in range(int(np.prod(self.dims))))
+
+    def all_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The float64 sum of the tensor ``t`` over every rank (a new
+        tensor; on the card under ``nccl``, else on the host; a ``meta``
+        tensor, the dry-run's, stays on ``meta``)."""
+        dev = (t.device if t.is_meta else
+               torch.device("cuda", torch.cuda.current_device())
                if dist.get_backend(self.group) == "nccl" else "cpu")
-        t = torch.tensor(list(values), dtype=torch.float64, device=dev)
+        t = t.to(dev, torch.float64, copy=True)
+        collectives.count("all-reduce", t.numel() * t.element_size(),
+                          self._all_ranks())
         dist.all_reduce(t, group=self.group)
-        return t.tolist()
+        return t
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` (same shape) stacked in rank order, on the
         CPU."""
         src = t if dist.get_backend(self.group) == "nccl" else t.cpu()
         parts = [torch.empty_like(src) for _ in range(int(np.prod(self.dims)))]
+        collectives.count("all-gather", src.numel() * src.element_size(),
+                          self._all_ranks())
         dist.all_gather([_words(p) for p in parts], _words(src.contiguous()),
                         group=self.group)
         return torch.cat([p.cpu() for p in parts])

@@ -12,6 +12,12 @@ Every C entry point takes its pointers and the stream as ``c_void_p``,
 launches on the stream it is given, allocates nothing and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero return into an
 exception.
+
+A wrapper given tensors without storage (on the ``meta`` device, as the
+dry-run traces a rank of a cluster) builds and launches nothing: it makes
+its outputs as the kernel would and reports the kernel's work to
+:func:`traced`, which hands it to the op counter (``launch/op_cost.py``)
+while one is active.
 """
 from __future__ import annotations
 
@@ -161,6 +167,17 @@ def library(name: str) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
+
+
+# the op counter's sink while it traces: fn(name, flops, nbytes)
+TRACE_SINK = None
+
+
+def traced(name: str, flops: float, nbytes: float) -> None:
+    """Report one shape-only call of kernel ``name``: the operations it
+    does and the bytes it must move."""
+    if TRACE_SINK is not None:
+        TRACE_SINK(name, flops, nbytes)
 
 
 def check(rc: int, what: str) -> None:

@@ -23,12 +23,16 @@ goes in without a copy; the output is a (B, Sq, H, hd_v) tensor seen the
 same way.
 
 A tensor on the CPU takes :func:`mha_plain`; a tensor on the card goes to
-the kernel or the call raises.
+the kernel or the call raises; a tensor without storage (the dry-run's
+``meta`` tensors) gets the kernel's output buffer and reports the kernel's
+work (:func:`valid_pairs`; ``build.traced``), never taking the plain
+version, whose score matrix the kernel never makes.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -64,6 +68,16 @@ def mha_plain(q, k, v, *, causal: bool = True, window: int = 0):
     return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
 
 
+def valid_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the kernel scores a (batch, head): each row's
+    valid keys (a row with none scores all Skv)."""
+    q = np.arange(Sq)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros_like(q)
+    hi = np.minimum(Skv - 1, q) if causal else np.full_like(q, Skv - 1)
+    n = np.maximum(hi - lo + 1, 0)
+    return int(np.where(n > 0, n, Skv).sum())
+
+
 def _check_args(q, k, v, window):
     if q.dim() != 4 or k.dim() != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"flash_attention: q (B, H, Sq, hd), k (B, Hkv, "
@@ -92,16 +106,18 @@ def _check_args(q, k, v, window):
         raise ValueError("flash_attention: the head dim must be contiguous")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not _aligned(t):
+            where = "" if t.is_meta else f"pointer {t.data_ptr():#x}, "
             raise ValueError(f"flash_attention: {name} is not 16-byte "
-                             f"aligned (pointer {t.data_ptr():#x}, strides "
-                             f"{t.stride()} of {t.element_size()} bytes)")
+                             f"aligned ({where}strides {t.stride()} of "
+                             f"{t.element_size()} bytes)")
     return B, H, Hkv, Sq, Skv, hd, hd_v
 
 
 def _aligned(t) -> bool:
     """The pointer and the batch, head and row strides (of dims longer than
-    1) are multiples of 16 bytes, as the kernel's 16-byte copies need."""
-    return t.data_ptr() % 16 == 0 and all(
+    1) are multiples of 16 bytes, as the kernel's 16-byte copies need (a
+    tensor without storage has its strides checked)."""
+    return (t.is_meta or t.data_ptr() % 16 == 0) and all(
         t.stride(i) * t.element_size() % 16 == 0
         for i in range(3) if t.shape[i] > 1)
 
@@ -120,6 +136,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     # a (B, Sq, H, hd_v) buffer, the model's layout, seen as (B, H, Sq, hd_v)
     out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    if q.is_meta:
+        build.traced("flash_attention", 2.0 * (hd + hd_v) * B * H
+                     * valid_pairs(Sq, Skv, causal, window),
+                     sum(t.numel() * t.element_size() for t in (q, k, v, out)))
+        return out
     lib = build.library("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

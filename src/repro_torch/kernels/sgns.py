@@ -43,7 +43,11 @@ three CUDA sources:
   (:func:`plan_scatter_rowwise`).
 
 A tensor on the CPU takes the plain version (``*_plain``); a tensor on the
-card goes to the kernel or the call raises. The plain versions compute the
+card goes to the kernel or the call raises. Tables without storage (the
+dry-run's ``meta`` tensors) take :func:`sgns_fused_update`'s shape-only
+path: the kernel's scratch and outputs, its work reported to
+``build.traced`` (:func:`fused_update_cost`), nothing launched. The plain
+versions compute the
 same function in plain PyTorch: gradients in f32 (:func:`tile_grads_plain`,
 the counterpart of ``_tile_grads``); for the fused update duplicates
 combined in f32 and one cast per row; for the scatter one rounding to the
@@ -453,7 +457,7 @@ def plan_fused_update(B: int, S: int, d: int, *,
 def _check_sgns_args(name, vert, ctx, idx_v, idx_c, idx_n, mask):
     """Validate what the CUDA kernels take; returns (B, S, d, mask_bf16)."""
     dev = vert.device
-    if dev.type != "cuda" or ctx.device != dev:
+    if (dev.type != "cuda" and not vert.is_meta) or ctx.device != dev:
         raise ValueError(f"{name}: vert and ctx must be on one CUDA device, "
                          f"got {vert.device} and {ctx.device}")
     if vert.dtype not in _TABLE_DTYPES or ctx.dtype != vert.dtype:
@@ -541,6 +545,17 @@ def sgns_fused_grads(vert, ctx, idx_v, idx_c, idx_n, mask):
     return out
 
 
+def fused_update_cost(B: int, S: int, d: int,
+                      itemsize: int) -> tuple[float, float]:
+    """(operations, bytes) of one fused update at most: 6BSd + 4Bd
+    operations; each position's row (2B + S) read and written once in the
+    tables' dtype, the ids and the mask read once (distinct ids only
+    lower the bytes, which a call without data cannot see)."""
+    rows = 2 * B + S
+    return (6.0 * B * S * d + 4.0 * B * d,
+            2.0 * rows * d * itemsize + (3 * B + S) * 4)
+
+
 def sgns_fused_update(vert, ctx, idx_v, idx_c, idx_n, mask, lr):
     """One fused SGNS SGD minibatch, in place on ``vert`` and ``ctx``.
 
@@ -557,11 +572,13 @@ def sgns_fused_update(vert, ctx, idx_v, idx_c, idx_n, mask, lr):
                                        lr)
     B, S, d, mask_bf16 = _check_sgns_args("sgns_fused_update", vert, ctx,
                                           idx_v, idx_c, idx_n, mask)
-    if _overlap(vert, ctx):
+    no_data = vert.is_meta
+    if not no_data and _overlap(vert, ctx):
         raise ValueError("sgns_fused_update: vert and ctx overlap in memory; "
                          "the in-place update needs two distinct tables")
     dev = vert.device
-    plan = plan_fused_update(B, S, d, sm_count=_sm_count(dev))
+    plan = plan_fused_update(B, S, d, **({} if no_data else dict(
+        sm_count=_sm_count(dev))))
     nblk = plan.grad_blocks
     n = 2 * B + S
     # f32 scratch: dv, dc (B, d), dn partials (nblk, S, d), the chunked
@@ -574,6 +591,10 @@ def sgns_fused_update(vert, ctx, idx_v, idx_c, idx_n, mask, lr):
                            dtype=torch.float32, device=dev)
     iscratch = torch.empty(2 * plan.sort_keys + n if plan.sort_chunk
                            else 5 * n + 2, dtype=torch.int32, device=dev)
+    if no_data:
+        build.traced("sgns_fused_update",
+                     *fused_update_cost(B, S, d, vert.element_size()))
+        return vert, ctx, fscratch[-1]
     rc = _launch(dev, build.library("sgns_update").sgns_fused_update,
                  _TABLE_DTYPES[vert.dtype], mask_bf16, vert.data_ptr(),
                  ctx.data_ptr(), idx_v.data_ptr(), idx_c.data_ptr(),

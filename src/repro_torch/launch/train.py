@@ -596,11 +596,16 @@ def _train_embedding_epochs(args, cfg, trainer, engine, store, pipe,
 def train_lm(args) -> dict:
     """The LM mode (the module docstring). Returns ``{"losses",
     "grad_norm", "params", "checkpoint", "step_s", "ranks",
-    "collectives"}``: every step's loss and grad norm (floats), the trained
-    parameters (under several ranks, this rank's shards), the
-    ``lm_final.npz`` path (None without ``--save``),
-    the mean seconds of a step after the first, the number of ranks and
-    this rank's collectives over the steps (``shard.COLLECTIVES``)."""
+    "collectives", "step_memory"}``: every step's loss and grad norm
+    (floats), the trained parameters (under several ranks, this rank's
+    shards), the ``lm_final.npz`` path (None without ``--save``), the
+    mean seconds of a step after the first, the number of ranks, this
+    rank's collectives over the steps (``collectives.COLLECTIVES``) and,
+    on the card, what it held as the first step began and that step's
+    peak (:func:`_memory_before`; None on the CPU). The card's peak stats
+    are reset as the first step starts: the peak over the whole run is
+    the larger of ``step_memory["peak_before"]`` and
+    ``torch.cuda.max_memory_allocated()`` read after it."""
     import torch.distributed as dist
 
     world, rank, device, backend = _ranks(args)
@@ -621,6 +626,7 @@ def _train_lm(args, world, rank, dev) -> dict:
 
     import torch
 
+    from repro_torch import collectives
     from repro_torch import configs as cfgs
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.launch.serve import require_fit
@@ -669,14 +675,22 @@ def _train_lm(args, world, rank, dev) -> dict:
     positions = torch.arange(args.seq, dtype=torch.int32,
                              device=dev).expand(args.batch, args.seq)
     losses, norms, times = [], [], []
-    shard.reset_counts()
+    step_memory = None
+    collectives.reset_counts()
     try:
         for step in range(args.steps):
             t0 = time.perf_counter()
             batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in pipe.next().items()}
-            params, opt_state, m = step_fn(params, opt_state, step,
-                                           dict(batch, positions=positions))
+            batch = dict(batch, positions=positions)
+            if step == 0 and dev.type == "cuda":
+                step_memory = _memory_before(torch, dev, params, opt_state,
+                                             batch)
+            params, opt_state, m = step_fn(params, opt_state, step, batch)
+            if step_memory is not None and "step_peak" not in step_memory:
+                torch.cuda.synchronize(dev)
+                step_memory["step_peak"] = torch.cuda.max_memory_allocated(
+                    dev)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
             times.append(time.perf_counter() - t0)
@@ -685,7 +699,7 @@ def _train_lm(args, world, rank, dev) -> dict:
                     f"grad_norm {norms[-1]:.2f}")
     finally:
         pipe.close()
-    collectives = dict(shard.COLLECTIVES)
+    sent = collectives.counts()
     path = None
     if args.save:
         path = os.path.join(args.out_dir, "lm_final.npz")
@@ -696,8 +710,29 @@ def _train_lm(args, world, rank, dev) -> dict:
         del whole
     later = times[1:] or times
     return {"losses": losses, "grad_norm": norms, "params": params,
-            "checkpoint": path, "ranks": world, "collectives": collectives,
-            "step_s": sum(later) / len(later) if later else None}
+            "checkpoint": path, "ranks": world, "collectives": sent,
+            "step_s": sum(later) / len(later) if later else None,
+            "step_memory": step_memory}
+
+
+def _memory_before(torch, dev, params, opt_state, batch) -> dict:
+    """What a rank on the card holds as the first step starts: the bytes
+    of its parameter and optimizer-state shards and of the batch (each
+    tensor's elements), the allocator's bytes in use and its peak so far;
+    the peak is then reset, so that the step's own peak can be read after
+    it (``step_peak``, added by the caller)."""
+    from repro_torch.models.common import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    torch.cuda.synchronize(dev)
+    mem = {"params": nbytes(params), "opt_state": nbytes(opt_state),
+           "batch": nbytes(batch),
+           "before": torch.cuda.memory_allocated(dev),
+           "peak_before": torch.cuda.max_memory_allocated(dev)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    return mem
 
 
 def main(argv=None) -> dict:

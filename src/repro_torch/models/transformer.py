@@ -53,6 +53,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as ssm
@@ -204,6 +205,24 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
         params["mtp_norm"] = torch.ones((cfg.d_model,), dtype=dt,
                                         device=device)
     return params
+
+
+class _NoDraws(TorchDispatchMode):
+    """Answers every read of a value with zero (False): on the ``meta``
+    device the initializers' rejection loops then end at once."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default:
+            return False if args[0].dtype == torch.bool else 0
+        return func(*args, **(kwargs or {}))
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """:func:`init_params`'s tree on the ``meta`` device: every leaf's
+    shape and dtype, nothing allocated or drawn (JAX's ``eval_shape`` of
+    its init)."""
+    with torch.device("meta"), _NoDraws():
+        return init_params(cfg)
 
 
 # --------------------------------------------------------------------------

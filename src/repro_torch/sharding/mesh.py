@@ -12,9 +12,18 @@ The backend is chosen before the default group starts
 (:func:`init_ranks`, ``core/ring.py::backend_for``): ``gloo`` on the CPU
 and for ranks that share one card (tensors staged through host memory by
 ``sharding/shard.py``), ``nccl`` for distinct cards.
+
+:func:`make_production_mesh` is the 16 x 16 mesh of one pod (256 ranks)
+or the 2 x 16 x 16 mesh of two (512), as the JAX package's
+``launch/mesh.py`` builds it. No machine here has that many cards: the
+dry-run (``launch/dryrun.py``) builds it inside :func:`fake_world`, a
+default group of ``torch.distributed``'s ``fake`` backend in which this
+process is one rank (rank 0) and every collective returns at once. Only
+the dry-run starts one; the launchers' entry points never do.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import os
@@ -45,6 +54,7 @@ class _Group:
     group: object          # the process group (None: the default group)
     size: int
     index: int             # this rank's flat index over the group's axes
+    ranks: tuple = ()      # the group's ranks in the default group
 
 
 class Mesh:
@@ -87,7 +97,8 @@ class Mesh:
                      else dist.new_group(ranks))
             if self.rank in ranks:
                 self._groups[axes] = _Group(group, len(ranks),
-                                            ranks.index(self.rank))
+                                            ranks.index(self.rank),
+                                            tuple(ranks))
 
     def group(self, axes) -> _Group:
         """The group over ``axes`` (a spec entry: a name or a tuple of
@@ -130,6 +141,37 @@ def make_host_mesh(shape=None, axes=("data", "model")):
     if shape is None:
         shape = (1, n)
     return Mesh(shape, axes)
+
+
+# multi_pod -> (shape, axes) of the production mesh
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production mesh over the default group: ``("data", "model")``
+    16 x 16, or ``("pod", "data", "model")`` 2 x 16 x 16 with
+    ``multi_pod``. The group must have 256 (512) ranks."""
+    return Mesh(*PRODUCTION[multi_pod])
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """A default group of ``world_size`` ranks on the ``fake`` backend, this
+    process being rank 0, for tracing one rank of a cluster on tensors
+    without storage (the dry-run); destroyed on exit. Collectives over it move
+    nothing. Raises if a default group exists already."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a default process group exists "
+                           "already")
+    dist.init_process_group("cpu:fake,cuda:fake,meta:fake", store=FakeStore(),
+                            rank=0, world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def data_axes_of(mesh) -> tuple[str, ...]:

@@ -17,8 +17,8 @@ that a leaf's gradient is the sum of its copies' gradients over the ranks
 that hold it (:func:`reduce_replicas`).
 
 Under ``gloo`` on a card (ranks sharing it), every collective stages its
-tensor through host memory. :data:`COLLECTIVES` counts the calls, the
-bytes each rank sends into them and their wall seconds.
+tensor through host memory. Each call is counted in ``collectives.py``:
+the bytes this rank sends, by kind and group, and its wall seconds.
 """
 from __future__ import annotations
 
@@ -27,14 +27,9 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch.collectives import COLLECTIVES, count
 from repro_torch.models.common import tree_map
 from repro_torch.sharding.specs import P, axes_of
-
-COLLECTIVES = {"calls": 0, "bytes": 0, "s": 0.0}
-
-
-def reset_counts() -> None:
-    COLLECTIVES.update(calls=0, bytes=0, s=0.0)
 
 
 def _entries(spec, ndim: int, mesh=None) -> list:
@@ -48,12 +43,12 @@ def _entries(spec, ndim: int, mesh=None) -> list:
     return [tuple(a for a in e if mesh.shape[a] > 1) for e in ents]
 
 
-def _staged(mesh, t, op):
+def _staged(mesh, t, op, kind, g):
     """``op(t)`` on a host copy when the mesh's ranks share a card under
-    ``gloo``; the result back on ``t``'s device. Counted."""
+    ``gloo``; the result back on ``t``'s device. Counted as ``kind`` over
+    the group ``g``."""
     t0 = time.perf_counter()
-    COLLECTIVES["calls"] += 1
-    COLLECTIVES["bytes"] += t.numel() * t.element_size()
+    count(kind, t.numel() * t.element_size(), g.ranks)
     if mesh.host_staged and t.is_cuda:
         out = op(t.detach().cpu()).to(t.device)
     else:
@@ -62,9 +57,10 @@ def _staged(mesh, t, op):
     return out
 
 
-def all_reduce_(t, mesh, axes, op=dist.ReduceOp.SUM):
+def all_reduce_(t, mesh, axes, op=dist.ReduceOp.SUM, *,
+                kind: str = "all-reduce"):
     """``t`` reduced over the group of ``axes`` (no autograd); ``t``
-    itself without a mesh."""
+    itself without a mesh. ``kind``: what the call is counted as."""
     if mesh is None:
         return t
     g = mesh.group(axes)
@@ -75,7 +71,7 @@ def all_reduce_(t, mesh, axes, op=dist.ReduceOp.SUM):
         x = x.clone()
         dist.all_reduce(x, op=op, group=g.group)
         return x
-    return _staged(mesh, t, run)
+    return _staged(mesh, t, run, kind, g)
 
 
 def _gather(t, mesh, axes, dim):
@@ -85,7 +81,7 @@ def _gather(t, mesh, axes, dim):
         parts = [torch.empty_like(x) for _ in range(g.size)]
         dist.all_gather(parts, x, group=g.group)
         return torch.cat(parts, dim=dim)
-    return _staged(mesh, t, run)
+    return _staged(mesh, t, run, "all-gather", g)
 
 
 class _AllReduce(torch.autograd.Function):
@@ -108,7 +104,7 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         g = ctx.mesh.group(ctx.axes)
-        total = all_reduce_(grad, ctx.mesh, ctx.axes)
+        total = all_reduce_(grad, ctx.mesh, ctx.axes, kind="reduce-scatter")
         return (total.narrow(ctx.dim, g.index * ctx.n, ctx.n).contiguous(),
                 None, None, None)
 
@@ -135,7 +131,7 @@ def all_to_all_(t, mesh, axes):
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=g.group)
         return out
-    return _staged(mesh, t, run)
+    return _staged(mesh, t, run, "all-to-all", g)
 
 
 def all_reduce(t, mesh, axes):
@@ -163,6 +159,14 @@ def all_to_all(t, mesh, axes):
 # --------------------------------------------------------------------------
 # layouts
 # --------------------------------------------------------------------------
+def local_shape(shape, spec, mesh) -> tuple:
+    """The shape of this rank's block of a whole tensor of ``shape`` under
+    ``spec``."""
+    ents = _entries(spec, len(shape))
+    return tuple(n // (mesh.axis_size(e) if e else 1)
+                 for n, e in zip(shape, ents))
+
+
 def block_of(t, mesh, axes, dim: int):
     """This rank's block of the (whole along ``dim``) tensor ``t`` over the
     group of ``axes``."""

@@ -2,8 +2,9 @@
 a mesh of ranks.
 
 The port of the JAX package's ``train/serve_step.py``: ``make_prefill_step``,
-``make_decode_step``, ``cache_len_for`` and ``cache_shardings`` (kept with
-the rule engine in ``sharding/specs.py``, re-exported here). With ``mesh``
+``make_decode_step``, ``cache_len_for``, ``cache_specs`` (the dry-run's
+caches on the ``meta`` device) and ``cache_shardings`` (kept with the
+rule engine in ``sharding/specs.py``, re-exported here). With ``mesh``
 (``sharding.mesh.Mesh``) and ``specs`` (``param_shardings`` of the whole
 parameters), ``params`` are this rank's shards; the steps take the global
 batch (every rank the same), compute this rank's rows (``batch_spec``)
@@ -24,7 +25,7 @@ from repro_torch.sharding import shard
 from repro_torch.sharding.specs import cache_shardings
 
 __all__ = ["make_prefill_step", "make_decode_step", "cache_len_for",
-           "cache_shardings"]
+           "cache_specs", "cache_shardings"]
 
 
 def _rows(batch: dict, mesh):
@@ -67,3 +68,19 @@ def make_decode_step(cfg: ModelConfig, *, mesh=None, specs=None):
 def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
     """Ring-buffer length: the sliding window if set, else the full context."""
     return min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+
+
+def cache_specs(cfg: ModelConfig, batch: int, cache_len: int, params=None):
+    """The caches of a ``batch`` x ``cache_len`` decode on the ``meta``
+    device (``init_caches`` of ``params``, by default
+    ``tfm.abstract_params(cfg)``): one dict per layer, nothing allocated.
+    Enc-dec archs decode against a cross-attention memory of
+    ``frontend_len_cap`` frames."""
+    if params is None:
+        params = tfm.abstract_params(cfg)
+    enc_out = None
+    if cfg.is_encdec:
+        enc_out = torch.empty((batch, cfg.frontend_len_cap, cfg.d_model),
+                              dtype=getattr(torch, cfg.compute_dtype),
+                              device="meta")
+    return tfm.init_caches(params, cfg, batch, cache_len, enc_out=enc_out)

@@ -88,3 +88,55 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                              env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+DRY_RUN = ("launch/dryrun.py", "launch/steps.py", "launch/op_cost.py",
+           "launch/roofline.py", "launch/report.py", "configs/shapes.py",
+           "collectives.py")
+
+
+@pytest.mark.parametrize("rel", DRY_RUN)
+def test_dry_run_modules_exist_and_import_nothing_banned(rel):
+    """The dry-run's modules are in the package (so the blocked-import
+    run above imports each) and name no banned import."""
+    path = PKG / rel
+    assert path.exists()
+    assert not set(_imported_roots(path)) & set(BANNED)
+
+
+def test_only_the_dry_run_starts_a_fake_world():
+    """``fake_world`` is defined in ``sharding/mesh.py`` and used by the
+    dry-run alone: no launcher's entry point can start a fake group."""
+    users = sorted(str(p.relative_to(PKG)) for p in PKG.rglob("*.py")
+                   if "fake_world" in p.read_text())
+    assert users == ["launch/dryrun.py", "launch/steps.py",
+                     "sharding/mesh.py"]
+    for launcher in ("launch/train.py", "launch/serve.py",
+                     "launch/embed_serve.py"):
+        assert "dryrun" not in (PKG / launcher).read_text()
+
+
+_AFTER_DRY_RUN = r"""
+import torch, torch.distributed as dist
+from repro_torch.device import resolve_device
+from repro_torch.launch import dryrun
+rec = dryrun.dryrun_one("qwen1.5-0.5b", "long_500k", verbose=False)
+assert not dist.is_initialized()
+torch.cuda.is_available = lambda: False
+try:
+    resolve_device("cuda")
+except RuntimeError as e:
+    assert "CUDA is not available" in str(e)
+    print("RAISED", rec["chips"])
+"""
+
+
+def test_dry_run_leaves_no_group_and_the_card_check():
+    """After a dry-run the process has no default group, and asking for
+    CUDA without it still raises."""
+    out = subprocess.run([sys.executable, "-c", _AFTER_DRY_RUN],
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                              "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "RAISED 256" in out.stdout
