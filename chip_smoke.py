@@ -145,12 +145,16 @@ failure ends the run with a non-zero exit:
    model passes, seamless's cross-attention (not causal) and encoder
    shapes (B = 4, H = 16, S = 1,024, hd = 64) and deepseek-v3's MLA
    prefill (B = 1, H = 128, S = 2,048, q/k 192 and v 128 wide) with a
-   ragged (192, 128) case; then timed at granite's prefill shape beside
-   its bound (f32 CUDA cores and 3xTF32 tensor cores), ``mha_plain`` and
-   PyTorch's ``scaled_dot_product_attention``, with the device kernels of
-   one call of each, at the hd-128 shape beside its bound and the
-   library, and at seamless's and deepseek-v3's shapes (device and wall
-   ms, bound, plain and library ms, or the library's refusal);
+   ragged (192, 128) case, and the wide instances' 128-row, 32-key
+   blocks under GQA, a window over ragged tiles and rows with no valid
+   key; the instances' registers, spilled and shared bytes and resident
+   blocks an SM as the card reports them; then timed at granite's prefill
+   shape beside its bound (f32 CUDA cores and 3xTF32 tensor cores),
+   ``mha_plain`` and PyTorch's ``scaled_dot_product_attention``, with the
+   device kernels of one call of each, and at the hd-128 shape,
+   seamless's and deepseek-v3's (device and wall ms, bound and its share,
+   plain and library ms and the ratio to the library, or the library's
+   refusal, and the instance's resources);
 11. the LM serving main path: ``repro_torch.launch.serve.main`` for
    granite-3-2b at full width (``--no-reduced``), batch 4, a 2,048-token
    prompt and 32 tokens, with exactly one flash launch per layer (40) and
@@ -287,6 +291,12 @@ FLASH_CASES = [  # B, H, Hkv, Sq, Skv, hd (q/k), hd_v, causal, window
     # deepseek-v3's MLA prefill (11f), then a ragged (192, 128) case
     (1, 128, 128, 2048, 2048, 192, 128, True, 0),
     (2, 4, 4, 201, 77, 192, 128, False, 0),
+    # the wide instances' 128-row, 32-key blocks: GQA under a window over
+    # ragged first and last tiles, and rows with no valid key
+    (1, 8, 2, 300, 300, 192, 128, True, 40),
+    (1, 8, 2, 300, 270, 128, 128, True, 100),
+    (1, 2, 1, 100, 40, 192, 128, True, 8),
+    (1, 2, 1, 100, 40, 128, 128, True, 8),
 ]
 LM_ARGV = ["--arch", "granite-3-2b", "--no-reduced", "--batch", str(LM_B),
            "--prompt-len", str(LM_S), "--tokens", str(LM_TOKENS),
@@ -2096,23 +2106,23 @@ def time_flash(torch, fa, dev, time_ms, wall_ms, profiled_calls):
     print(f"flash_attention 3xTF32 bound {tf32x3_ms:.4f} ms (3 x "
           f"{flops:.4g} flop at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s TF32), "
           f"achieved {flops / rec['ms'] / 1e9:.1f} effective TFLOP/s "
-          f"({100 * tf32x3_ms / rec['ms']:.1f} % of the 3xTF32 bound); "
-          f"sdpa {flops / rec['library_ms'] / 1e9:.1f} TFLOP/s")
-    # the hd-128 prefill of phi3.5-moe, jamba's first chunk and llava
-    B2, hd2 = 2, 128
-    qh, kh, vh = (torch.randn(shape, generator=g, device=dev).transpose(1, 2)
-                  for shape in ((B2, S, H, hd2), (B2, S, Hkv, hd2),
-                                (B2, S, Hkv, hd2)))
-    krh, vrh = (t.repeat_interleave(H // Hkv, dim=1) for t in (kh, vh))
-    hd2_ms = time_ms(lambda: fa.flash_attention(qh, kh, vh, causal=True), 10)
-    hd2_lib = time_ms(lambda: sdpa(qh, krh, vrh, is_causal=True), 10)
-    hd2_flops = 4.0 * B2 * H * hd2 * fa.valid_pairs(S, S, True, 0)
-    print(f"flash_attention at B={B2} H={H} Hkv={Hkv} S={S} hd={hd2} f32 "
-          f"causal (phi3.5-moe, jamba's first chunk, llava): {hd2_ms:.4f} "
-          f"device ms/launch, 3xTF32 bound "
-          f"{1e3 * 3 * hd2_flops / TF32_FLOP_PER_S:.4f} ms, library (sdpa) "
-          f"{hd2_lib:.4f} ms")
-    del qh, kh, vh, krh, vrh
+          f"({100 * tf32x3_ms / rec['ms']:.1f} % of the 3xTF32 bound, "
+          f"{rec['ms'] / rec['library_ms']:.2f}x the library's time); "
+          f"sdpa {flops / rec['library_ms'] / 1e9:.1f} TFLOP/s; instance "
+          f"{instance_line(flash_instance(torch, fa, 'float32', hd, hd))}")
+    for dtype in ("float32", "bfloat16"):
+        for hd_q, hd_v in FLASH_INSTANCES:
+            inst = flash_instance(torch, fa, dtype, hd_q, hd_v)
+            print(f"flash_attention instance {dtype} ({hd_q}, {hd_v}): "
+                  f"{instance_line(inst)}")
+            # the wide instances' design: no spill, 8 warps an SM; and the
+            # block the CPU tests' model of the kernel assumes
+            if ((hd_v == 128 and (inst["local_bytes"] or inst["warps"]
+                                  * inst["blocks_per_sm"] < 8))
+                    or (inst["rows"], inst["key_tile"])
+                    != fa.block_geometry(hd_q, hd_v)):
+                raise AssertionError(f"flash_attention ({hd_q}, {hd_v}) "
+                                     f"{dtype}: {instance_line(inst)}")
     rec["shapes"] = {label: time_flash_shape(torch, fa, dev, time_ms, wall_ms,
                                              label, *shape)
                      for label, shape in FLASH_TIMED_SHAPES.items()}
@@ -2126,9 +2136,30 @@ def time_flash(torch, fa, dev, time_ms, wall_ms, profiled_calls):
     return rec
 
 
+# the instances phase 10 reads off the card (cudaFuncGetAttributes,
+# occupancy): granite's hd 64, the hd-128 families', MLA's
+FLASH_INSTANCES = ((64, 64), (128, 128), (192, 128))
+
+
+def flash_instance(torch, fa, dtype, hd, hd_v) -> dict:
+    """#11's compiled instance: registers, local (spilled) bytes and shared
+    bytes, resident blocks an SM and its geometry (``fa.kernel_info``)."""
+    return fa.kernel_info(getattr(torch, dtype), hd, hd_v)
+
+
+def instance_line(i) -> str:
+    return (f"{i['registers']} registers, {i['local_bytes']} local bytes, "
+            f"{i['shared_bytes']} shared bytes, {i['blocks_per_sm']} blocks "
+            f"of {i['warps']} warps an SM ({i['blocks_per_sm'] * i['warps']} "
+            f"warps), {i['rows']} rows x {i['key_tile']}-key tiles, "
+            f"separate lo {i['separate_lo']}")
+
+
 # the shapes this slice's families give #11: B, H, S, hd (q/k), hd_v,
 # causal and, where k and v have fewer heads than q, Hkv
 FLASH_TIMED_SHAPES = {
+    # the hd-128 prefill of phi3.5-moe, jamba's first chunk and llava
+    "hd128": (2, 32, LM_S, 128, 128, True, 8),
     "seamless_cross": (4, 16, 1024, 64, 64, False),
     "seamless_encoder": (4, 16, 1024, 64, 64, True),
     "deepseek_mla": (1, 128, 2048, 192, 128, True),
@@ -2145,7 +2176,11 @@ def time_flash_shape(torch, fa, dev, time_ms, wall_ms, label, B, H, S, hd,
     ms beside the bound (2 * (hd + hd_v) flop a valid pair, three TF32
     passes; or the bytes), ``mha_plain`` and
     ``scaled_dot_product_attention`` (None where it refuses v's width, the
-    refusal printed). Returns the numbers."""
+    refusal printed; with fewer kv heads, ``enable_gqa`` and, as
+    ``library_repeated_ms``, on k and v repeated to H heads), the share of
+    the bound, the ratio to the faster library call and the f32 instance's
+    registers, spill, shared bytes and resident blocks. Returns the
+    numbers."""
     Hkv = Hkv or H
     g = torch.Generator(device=dev).manual_seed(SEED + 300)
     q = torch.randn((B, S, H, hd), generator=g, device=dev).transpose(1, 2)
@@ -2172,13 +2207,27 @@ def time_flash_shape(torch, fa, dev, time_ms, wall_ms, label, B, H, S, hd,
     except RuntimeError as e:
         out["library_ms"] = None
         lib = f"library: sdpa refused ({str(e).splitlines()[0][:160]})"
+    if Hkv < H:
+        kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+        out["library_repeated_ms"] = time_ms(
+            lambda: sdpa(q, kr, vr, is_causal=causal), 10)
+        lib += (f" (enable_gqa; on k, v repeated to {H} heads "
+                f"{out['library_repeated_ms']:.4f} ms)")
+        del kr, vr
+    fastest = min((t for t in (out["library_ms"],
+                               out.get("library_repeated_ms"))
+                   if t is not None), default=None)
+    if fastest is not None:
+        lib += f", the kernel {out['ms'] / fastest:.2f}x the faster one's time"
+    out["instance"] = flash_instance(torch, fa, "float32", hd, hd_v)
     print(f"flash_attention {label} at B={B} H={H} Hkv={Hkv} S={S} q/k {hd} "
           f"v {hd_v} "
           f"f32 causal={causal}: {out['ms']:.4f} device ms/launch "
           f"({out['wall_ms']:.4f} wall), bound {bound[0]:.4f} ms ({bound[1]};"
           f" 3 x {flops:.4g} flop at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s "
           f"TF32, {100 * bound[0] / out['ms']:.1f} % of it), plain "
-          f"{out['plain_ms']:.4f} ms, {lib}")
+          f"{out['plain_ms']:.4f} ms, {lib}; instance "
+          f"{instance_line(out['instance'])}")
     return out
 
 

@@ -149,19 +149,18 @@ class ParameterServerTrainer:
                         pos = draws[i, r, j].to(dev)
                     step += 1
                     idx_n = pool_dev[i][pos]
-                    losses = []
+                    lj = torch.zeros((), dtype=torch.float32, device=dev)
                     # minibatches past the count are all padding: skipped,
                     # as the hybrid trainer skips them
                     for t in range(-(-cnt // mb)):
                         sl = slice(t * mb, (t + 1) * mb)
-                        _, _, loss = ops.sgns_step(
-                            v_dev, ctx_dev[i], idx_v[sl], idx_c[sl],
-                            idx_n[t], mask[sl], lr, impl=cfg.impl,
-                            reduction=cfg.reduction)
-                        losses.append(loss)
+                        ops.sgns_step(v_dev, ctx_dev[i], idx_v[sl],
+                                      idx_c[sl], idx_n[t], mask[sl], lr,
+                                      impl=cfg.impl, reduction=cfg.reduction,
+                                      loss_into=lj)
                     # device -> host (the PS write-back), synchronous
                     self.vert[lo:lo + rows_sub].copy_(v_dev)
-                    loss_sum += float(torch.stack(losses).sum())
+                    loss_sum += float(lj)
                     self.counters.host_syncs += 2
                     self.counters.bytes_through_host += (
                         2 * v_dev.numel() * v_dev.element_size())

@@ -317,15 +317,13 @@ class HybridEmbeddingTrainer:
         rank also takes (k, minibatches per block, S).
         """
         loss_sum, total = self.episode_sums(eb, lr=lr, neg_draws=neg_draws)
-        if loss_sum is None:
-            return 0.0
         return float(loss_sum / total)
 
     def episode_sums(self, eb: EpisodeBlocks | StagedEpisodeBlocks, *,
                      lr: float | None = None, neg_draws=None):
         """:meth:`train_episode` up to its loss: ``(loss sum, valid
         samples)`` over every rank, read nowhere on the host. One rank:
-        its f32 loss sum (None without a minibatch) and the count, an int;
+        its f32 loss sum (0 without a minibatch) and the count, an int;
         several: both summed over the ranks, in f64 tensors."""
         if not isinstance(eb, StagedEpisodeBlocks):
             eb = self.stage_blocks(eb)
@@ -351,7 +349,12 @@ class HybridEmbeddingTrainer:
         held = list(home)              # the coordinate of the shard held
         model = len(dims) - 1
         move = ring is not None and dims[model] > 1
-        losses = []
+        # the loss summed as JAX's scan carries it: a running f32 sum over
+        # each block's minibatches from 0, added to the episode's sum block
+        # by block (a minibatch's loss lives only inside its launch)
+        zeros = torch.zeros(R * k + 1, dtype=torch.float32,
+                            device=self.device)
+        lacc, block_sums = zeros[-1], zeros[:-1].view(R, k)
         for r, rnd in enumerate(itertools.product(*map(range, dims))):
             want = rotation.vertex_shard_at(home, rnd, dims)
             if rotation.flatten_coord(tuple(held), dims) != want:
@@ -367,11 +370,12 @@ class HybridEmbeddingTrainer:
                 rows = zip(*(t[r, j, : n_run * mb].view(n_run, mb).unbind(0)
                              for t in (eb.idx_v, eb.idx_c, eb.mask)),
                            idx_n[r, j, :n_run].unbind(0))
+                lj = block_sums[r, j]
                 for iv, ic, m, inn in rows:
-                    _, _, loss = ops.sgns_step(subs[j], self.ctx, iv, ic,
-                                               inn, m, lr, impl=cfg.impl,
-                                               reduction=cfg.reduction)
-                    losses.append(loss)
+                    ops.sgns_step(subs[j], self.ctx, iv, ic, inn, m, lr,
+                                  impl=cfg.impl, reduction=cfg.reduction,
+                                  loss_into=lj)
+                lacc.add_(lj)
                 if move and cfg.fuse_subpart_permute:
                     # the ping-pong: sub-part j travels while j + 1 trains
                     pending.append(self._start([j], model))
@@ -392,12 +396,10 @@ class HybridEmbeddingTrainer:
             raise AssertionError(f"rank {self.rank}'s vertex shard is not "
                                  f"home after the episode: {tuple(held)}")
         total = max(int(eb.counts.sum()), 1)
-        loss_sum = torch.stack(losses).sum() if losses else None
         if ring is None:
-            return loss_sum, total
+            return lacc, total
         sums = ring.all_sum(torch.stack([
-            torch.zeros((), dtype=torch.float64, device=self.device)
-            if loss_sum is None else loss_sum.double(),
+            lacc.double(),
             torch.tensor(total, dtype=torch.float64, device=self.device)]))
         return sums[0], sums[1]
 

@@ -589,8 +589,12 @@ class TieredEmbeddingTrainer(HybridEmbeddingTrainer):
             self.ctx_t.note_access(eb.c_ids, eb.c_counts)
             self.vert_t.promote()
             self.ctx_t.promote()
-        losses, total = [], 0
-        for bp in eb.blocks:
+        # the loss summed as the resident trainer sums it (a running f32
+        # sum a block, added to the episode's block by block)
+        zeros = torch.zeros(len(eb.blocks) + 1, dtype=torch.float32,
+                            device=self.device)
+        lacc, total = zeros[-1], 0
+        for lj, bp in zip(zeros[:-1].unbind(0), eb.blocks):
             tabs = (self.vert_t, self.ctx_t)
             plans = (self.vert_t.plan(bp.v_uids, bp.Wv, bp.v_traffic),
                      self.ctx_t.plan(bp.c_uids, bp.Wc, bp.c_traffic))
@@ -604,17 +608,14 @@ class TieredEmbeddingTrainer(HybridEmbeddingTrainer):
             # minibatches past the block's count are all padding (mask 0):
             # their updates are zero, so they are not launched
             for i in range(-(-bp.cnt // mb)):
-                _, _, loss = ops.sgns_step(vcomp, ccomp, bp.idx_v[i],
-                                           bp.idx_c[i], bp.negs[i],
-                                           bp.mask[i], lr, impl=cfg.impl,
-                                           reduction=cfg.reduction)
-                losses.append(loss)
+                ops.sgns_step(vcomp, ccomp, bp.idx_v[i], bp.idx_c[i],
+                              bp.negs[i], bp.mask[i], lr, impl=cfg.impl,
+                              reduction=cfg.reduction, loss_into=lj)
+            lacc.add_(lj)
             for tab, plan, comp in zip(tabs, plans, comps):
                 # hot rows back to their slots in place; cold and pad
                 # positions land on the scratch row
                 tab.cache.index_copy_(0, plan.wslot, comp)
                 tab.write_back(plan, comp[plan.coldpos[: plan.cold_ids.size]])
             total += bp.cnt
-        if not losses:
-            return 0.0
-        return float(torch.stack(losses).sum() / max(total, 1))
+        return float(lacc / max(total, 1))

@@ -119,6 +119,8 @@ class ShardedEmbeddingStore:
         self.overfetch = overfetch            # default tier-one margin
         self.shard_timeout_s = shard_timeout_s  # None = never degrade
         self._pool = None                     # lazy shard-scan executor
+        self._busy = {}                       # shard -> its running scans
+        self._stale = set()                   # scans a call stopped awaiting
         self._streams = {}                    # CUDA shard -> its stream
         self._pool_mu = threading.Lock()
         self.hot_tiers = None                 # per-shard _HotShard or None
@@ -350,8 +352,10 @@ class ShardedEmbeddingStore:
     def _scan_pool(self) -> ThreadPoolExecutor:
         with self._pool_mu:
             if self._pool is None:
+                # two workers a shard: one may hold a scan past its
+                # deadline while a fresh one runs (see topk)
                 self._pool = ThreadPoolExecutor(
-                    max_workers=max(1, len(self.shards)),
+                    max_workers=max(1, 2 * len(self.shards)),
                     thread_name_prefix="shard-scan")
                 # made here, before any deadline runs: a process's first
                 # stream sets up the device's stream pool, a cost that
@@ -429,18 +433,35 @@ class ShardedEmbeddingStore:
             return (gv, gi, TopKMeta()) if return_meta else (gv, gi)
 
         pool = self._scan_pool()
-        futs = {s: pool.submit(self._scan_task, s, *on_dev[self.devices[s]],
-                               k, impl, ov) for s in live}
+        futs = {}
+        with self._pool_mu:
+            self._stale = {f for f in self._stale if not f.done()}
+            for s in live:
+                busy = self._busy[s] = [f for f in self._busy.get(s, ())
+                                        if not f.done()]
+                # every call gives every shard a fresh scan, except a shard
+                # still running one that an earlier call stopped waiting
+                # for and another besides: it is out of this answer. A
+                # stuck shard so holds two workers at most (the pool has
+                # two a shard), and the others always find theirs.
+                if len(busy) >= 2 and not self._stale.isdisjoint(busy):
+                    continue
+                futs[s] = pool.submit(self._scan_task, s,
+                                      *on_dev[self.devices[s]], k, impl, ov)
+                busy.append(futs[s])
         # wait for ALL to complete (a crashed shard completes immediately
         # with its exception; healthy shards keep their full deadline)
         _fut_wait(list(futs.values()), timeout=timeout)
+        with self._pool_mu:
+            self._stale.update(f for f in futs.values() if not f.done())
         staged, failed = [], []
-        for s, f in futs.items():
-            if f.done() and f.exception() is None:
+        for s in live:
+            f = futs.get(s)
+            if f is not None and f.done() and f.exception() is None:
                 staged.append(f.result())
             else:
-                # timed out (its result, if it ever lands, is discarded) or
-                # crashed: either way the shard is out of this answer
+                # timed out (its result, if it ever lands, is discarded),
+                # crashed or still stuck: the shard is out of this answer
                 failed.append(s)
         if not staged:
             raise RuntimeError(

@@ -65,10 +65,11 @@ SIGNATURES = {
     "sgns_update": {
         # dtype, mask_bf16, vert, ctx, idx_v, idx_c, idx_n, mask, B, S, d,
         # lr, bb, nblk, blocks, smem, nc, work_floats, sort_chunk,
-        # sort_keys, f32 scratch, int32 scratch, stream
+        # sort_keys, f32 scratch, int32 scratch, loss slot, accumulate,
+        # stream
         "sgns_fused_update": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                              _P],
+                              _P, _I, _P],
         # dtype, mask_bf16, vert, ctx, idx_v, idx_c, idx_n, mask, B, S, d,
         # bb, blocks, smem, nc, work_floats, work, dv, dc, dn_part,
         # loss_part, dn, loss, stream
@@ -94,6 +95,8 @@ SIGNATURES = {
         # stream
         "flash_attention_fwd": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _F, *[_LL] * 12, _P],
+        # dtype, hd, hd_v, out (8 int32)
+        "flash_attention_info": [_I, _I, _I, _P],
     },
 }
 

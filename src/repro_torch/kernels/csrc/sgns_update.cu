@@ -175,7 +175,7 @@ struct UpdateArgs {
   // sort_chunk > 0: the grid-wide sort of sort_keys keys (sgns_update_sorted)
   int sort_chunk, sort_keys;
   // scratch: f32 dv, dc (B, d), dn partials (nblk, S, d), the workspaces,
-  // loss partials (nblk,), the loss; int32 (start, end, id, first position)
+  // loss partials (nblk,); int32 (start, end, id, first position)
   // of each run, the sorted positions (2B + S), and the two sides' run
   // counts (the grid-wide sort: its 64-bit keys, then the positions)
   float* dv;
@@ -188,6 +188,9 @@ struct UpdateArgs {
   int* pos;
   int* runs;
   unsigned long long* keys;
+  // the caller's f32 loss slot: the loss is written there, or added to
+  // what it holds (acc_loss != 0; one f32 add, as a running sum adds)
+  int acc_loss;
 };
 
 // The gradients of tile `tile` of the fused launch, in f32: bb rows
@@ -625,12 +628,13 @@ __device__ __forceinline__ void combine_run(const UpdateArgs& a, int j, int e,
   }
 }
 
-// Block 0's first thread: the loss, the nblk loss partials in block order.
+// Block 0's first thread: the loss, the nblk loss partials in block order,
+// written to the loss slot or added to it.
 __device__ __forceinline__ void sum_loss(const UpdateArgs& a) {
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     float acc = __ldcg(a.loss_part);
     for (int b = 1; b < a.nblk; ++b) acc += __ldcg(a.loss_part + b);
-    *a.loss = acc;
+    *a.loss = a.acc_loss ? __fadd_rn(*a.loss, acc) : acc;
   }
 }
 
@@ -1186,10 +1190,11 @@ int launch_fused(const UpdateArgs& a, int grid, int smem, cudaStream_t st) {
 // tiles, nblk = min(blocks, tiles) hold partials, and the 2B + S keys,
 // sort_keys of them with the padding, are sorted sort_chunk at a time in
 // shared memory (smem at least 8 sort_chunk). fscratch: f32 dv, dc (B, d),
-// dn partials (nblk, S, d), the workspaces (blocks, work_floats), loss
-// partials (nblk,), then the loss (its last element, the output);
-// iscratch, 16-byte aligned: 5 (2B + S) + 2 int32 (sort_chunk == 0), or
-// sort_keys 64-bit keys and then 2B + S int32.
+// dn partials (nblk, S, d), the workspaces (blocks, work_floats), then loss
+// partials (nblk,); iscratch, 16-byte aligned: 5 (2B + S) + 2 int32
+// (sort_chunk == 0), or sort_keys 64-bit keys and then 2B + S int32. loss:
+// the caller's f32 slot, the output: the minibatch's loss is written there
+// (acc_loss == 0) or added to the value it holds.
 extern "C" int sgns_fused_update(int dtype, int mask_bf16, void* vert,
                                  void* ctx, const void* idx_v,
                                  const void* idx_c, const void* idx_n,
@@ -1197,8 +1202,8 @@ extern "C" int sgns_fused_update(int dtype, int mask_bf16, void* vert,
                                  float lr, int bb, int nblk, int blocks,
                                  int smem, int nc, int work_floats,
                                  int sort_chunk, int sort_keys,
-                                 void* fscratch, void* iscratch,
-                                 void* stream) {
+                                 void* fscratch, void* iscratch, void* loss,
+                                 int acc_loss, void* stream) {
   const int n = 2 * B + S;
   const long long bd = static_cast<long long>(B) * d;
   float* f = static_cast<float*>(fscratch);
@@ -1214,8 +1219,9 @@ extern "C" int sgns_fused_update(int dtype, int mask_bf16, void* vert,
                mask, mask_bf16, B, S, d, bb, nblk, -lr, nc, work_floats,
                sort_chunk, sort_keys,
                f, f + bd, dn_part, work_floats ? work : nullptr, loss_part,
-               loss_part + nblk,
-               reinterpret_cast<int4*>(i), i + 4 * n, i + 5 * n, keys};
+               static_cast<float*>(loss),
+               reinterpret_cast<int4*>(i), i + 4 * n, i + 5 * n, keys,
+               acc_loss};
   if (sort_chunk) a.pos = i + 2 * static_cast<long long>(sort_keys);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles = (B + bb - 1) / bb;

@@ -3,12 +3,15 @@
 Counterpart of the JAX package's ``kernels/flash_attention.py``.
 :func:`flash_attention` replaces the TPU kernel ``flash_attention``
 (``flash_attention.py:80``) and launches ``kernels/csrc/flash_attention.cu``:
-one block of 4 warps per (batch, head, 128 query rows; 64 at a v width of
-128) walking the keys in tiles of 64 through a double-buffered ring in shared
-memory, both products
-on the tensor cores in 3xTF32 (f32 accuracy), the running max, denominator
-and accumulator in f32 registers. :func:`mha_plain` is the counterpart of
-``mha_ref``: the whole score matrix, masked, softmaxed.
+one block per (batch, head, 128 query rows) walking the keys in tiles
+through a ring in shared memory (:data:`GEOMETRY`: 4 warps and 64-key
+tiles below a v width of 128, 4 warps and 16-key tiles at hd 128, 8 warps
+and 32-key tiles at (192, 128), each SM holding 8 warps), both products
+on the tensor cores in 3xTF32 (f32 accuracy), the running max,
+denominator and accumulator in f32 registers. :func:`mha_plain` is the
+counterpart of ``mha_ref``: the whole score matrix, masked, softmaxed.
+:func:`kernel_info` reads an instance's registers, spill, shared memory and
+resident blocks off the card.
 
 Layout as in the JAX package: q (B, H, Sq, hd), k (B, Hkv, Skv, hd), v
 (B, Hkv, Skv, hd_v), the kv head of head h being ``h // (H // Hkv)``. v's
@@ -41,6 +44,12 @@ NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64, 128)      # the kernel's (hd, hd) instantiations
 WIDTH_PAIRS = ((192, 128),)           # and its (q/k, v) ones (MLA)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# an instance's block as the .cu's GeomOf builds it: (warps, 16-row m-tiles
+# a warp, keys a tile); query rows a block are 16 x warps x m-tiles
+GEOMETRY = {**{(h, h): (4, 2, 64) for h in HEAD_DIMS},
+            (128, 128): (4, 2, 16), (192, 128): (8, 1, 32)}
+INFO_KEYS = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm",
+             "warps", "rows", "key_tile", "separate_lo")
 
 # launches of the CUDA kernel of this module (counted where it launches)
 LAUNCHES = {"flash_attention": 0}
@@ -76,6 +85,29 @@ def valid_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
     hi = np.minimum(Skv - 1, q) if causal else np.full_like(q, Skv - 1)
     n = np.maximum(hi - lo + 1, 0)
     return int(np.where(n > 0, n, Skv).sum())
+
+
+def block_geometry(hd: int, hd_v: int) -> tuple[int, int]:
+    """(query rows, keys) of one block's tile of instance (hd, hd_v)."""
+    warps, m_tiles, keys = GEOMETRY[hd, hd_v]
+    return 16 * warps * m_tiles, keys
+
+
+def kernel_info(dtype: torch.dtype, hd: int, hd_v: int, lib=None) -> dict:
+    """The compiled instance as the card runs it (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``): registers a thread,
+    local (spilled) bytes a thread, shared bytes a block, resident blocks an
+    SM, and its geometry (warps, rows, key tile, whether q k^T's f32 lo
+    terms take accumulators of their own). ``lib``: another build of the
+    source (default: the repo's)."""
+    import ctypes
+
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    lib = lib or build.library("flash_attention")
+    build.check(lib.flash_attention_info(_DTYPES[dtype], hd, hd_v,
+                                         ctypes.addressof(out)),
+                "flash_attention_info")
+    return dict(zip(INFO_KEYS, out))
 
 
 def _check_args(q, k, v, window):

@@ -62,12 +62,16 @@ def scatter_add_rows(table, idx, upd, *, impl: str = "ref"):
 
 
 def sgns_step(vert, ctx, idx_v, idx_c, idx_n, mask, lr, *,
-              impl: str = "pallas_fused2", reduction: str = "sum"):
+              impl: str = "pallas_fused2", reduction: str = "sum",
+              loss_into=None):
     """One SGNS SGD minibatch against local (vert, ctx) shards, in place.
 
     vert: (Nv, d), ctx: (Nc, d); idx_v/idx_c: (B,), idx_n: (S,) int32;
     mask: (B,). Returns (vert', ctx', summed loss), the tables being the
-    updated inputs.
+    updated inputs. ``loss_into``: a 0-d f32 tensor the loss is added to in
+    place (``loss_into + loss`` in f32, the running sum of JAX's scan
+    carry), returned in the loss's place; on the default route the kernel
+    adds it, with no launch of its own.
 
     ``reduction="sum"`` is word2vec-faithful: every pair's gradient is
     applied at full lr, and a shared-negative row accumulates up to B
@@ -87,7 +91,7 @@ def sgns_step(vert, ctx, idx_v, idx_c, idx_n, mask, lr, *,
         lr = lr / np.float32(mask.shape[0])
     if impl == "pallas_fused2":
         return sgns.sgns_fused_update(vert, ctx, idx_v, idx_c, idx_n, mask,
-                                      lr)
+                                      lr, loss_into=loss_into)
     rows = "ref" if impl == "ref" else "pallas"     # the row ops' route
     if impl == "pallas_fused":
         # the kernel masks its ragged tile: only the B real rows exist
@@ -102,4 +106,4 @@ def sgns_step(vert, ctx, idx_v, idx_c, idx_n, mask, lr, *,
     scatter_add_rows(vert, idx_v, dv.float() * neg_lr, impl=rows)
     scatter_add_rows(ctx, torch.cat([idx_c, idx_n]),
                      torch.cat([dc, dn]).float() * neg_lr, impl=rows)
-    return vert, ctx, loss
+    return vert, ctx, loss if loss_into is None else loss_into.add_(loss)

@@ -556,7 +556,8 @@ def fused_update_cost(B: int, S: int, d: int,
             2.0 * rows * d * itemsize + (3 * B + S) * 4)
 
 
-def sgns_fused_update(vert, ctx, idx_v, idx_c, idx_n, mask, lr):
+def sgns_fused_update(vert, ctx, idx_v, idx_c, idx_n, mask, lr, *,
+                      loss_into=None):
     """One fused SGNS SGD minibatch, in place on ``vert`` and ``ctx``.
 
     Arguments as :func:`sgns_fused_grads`, plus ``lr`` (a Python float,
@@ -565,13 +566,27 @@ def sgns_fused_update(vert, ctx, idx_v, idx_c, idx_n, mask, lr):
     value from the same table. On the card the call is one kernel launch
     and nothing else on the device: the ids are sorted on chip
     (:func:`plan_fused_update`). Returns ``(vert, ctx, loss)``, the tables
-    being the updated inputs. A CPU table takes the plain version.
+    being the updated inputs and the loss a 0-d f32 tensor of its own (no
+    view of the kernel's scratch, which is freed on return). With
+    ``loss_into``, a 0-d f32 tensor on the tables' device, the loss is
+    added to it in place (one f32 add, in the kernel on the card) and it is
+    returned in the loss's place: a running sum costs no launch of its
+    own. A CPU table takes the plain version.
     """
     if vert.device.type == "cpu":
-        return sgns_fused_update_plain(vert, ctx, idx_v, idx_c, idx_n, mask,
-                                       lr)
+        vert, ctx, loss = sgns_fused_update_plain(vert, ctx, idx_v, idx_c,
+                                                  idx_n, mask, lr)
+        return vert, ctx, (loss if loss_into is None
+                           else loss_into.add_(loss))
     B, S, d, mask_bf16 = _check_sgns_args("sgns_fused_update", vert, ctx,
                                           idx_v, idx_c, idx_n, mask)
+    if loss_into is not None and (
+            loss_into.shape != () or loss_into.dtype != torch.float32
+            or loss_into.device != vert.device):
+        raise ValueError(f"sgns_fused_update: loss_into must be a 0-d "
+                         f"float32 tensor on {vert.device}, got "
+                         f"{loss_into.dtype} {tuple(loss_into.shape)} on "
+                         f"{loss_into.device}")
     no_data = vert.is_meta
     if not no_data and _overlap(vert, ctx):
         raise ValueError("sgns_fused_update: vert and ctx overlap in memory; "
@@ -582,29 +597,33 @@ def sgns_fused_update(vert, ctx, idx_v, idx_c, idx_n, mask, lr):
     nblk = plan.grad_blocks
     n = 2 * B + S
     # f32 scratch: dv, dc (B, d), dn partials (nblk, S, d), the chunked
-    # tiles' workspaces (blocks, work_floats), loss partials (nblk,), loss;
+    # tiles' workspaces (blocks, work_floats), loss partials (nblk,);
     # int32: each run's (start, end, id, first position), the sorted
     # positions and the two sides' run counts; or, for the grid-wide sort,
-    # its 64-bit keys and the sorted positions
+    # its 64-bit keys and the sorted positions. Both are dropped on return:
+    # the loss has a slot of its own.
     fscratch = torch.empty(2 * B * d + nblk * S * d
-                           + plan.blocks * plan.work_floats + nblk + 1,
+                           + plan.blocks * plan.work_floats + nblk,
                            dtype=torch.float32, device=dev)
     iscratch = torch.empty(2 * plan.sort_keys + n if plan.sort_chunk
                            else 5 * n + 2, dtype=torch.int32, device=dev)
+    loss = (torch.empty((), dtype=torch.float32, device=dev)
+            if loss_into is None else loss_into)
     if no_data:
         build.traced("sgns_fused_update",
                      *fused_update_cost(B, S, d, vert.element_size()))
-        return vert, ctx, fscratch[-1]
+        return vert, ctx, loss
     rc = _launch(dev, build.library("sgns_update").sgns_fused_update,
                  _TABLE_DTYPES[vert.dtype], mask_bf16, vert.data_ptr(),
                  ctx.data_ptr(), idx_v.data_ptr(), idx_c.data_ptr(),
                  idx_n.data_ptr(), mask.data_ptr(), B, S, d, float(lr),
                  plan.bb, nblk, plan.blocks, plan.smem_bytes, plan.chunk,
                  plan.work_floats, plan.sort_chunk, plan.sort_keys,
-                 fscratch.data_ptr(), iscratch.data_ptr())
+                 fscratch.data_ptr(), iscratch.data_ptr(), loss.data_ptr(),
+                 int(loss_into is not None))
     build.check(rc, "sgns_fused_update")
     LAUNCHES["sgns_fused_update"] += 1
-    return vert, ctx, fscratch[-1]
+    return vert, ctx, loss
 
 
 def sgns_grads(v, c, n, mask):

@@ -813,15 +813,21 @@ FLASH_CASES = [  # B, H, Hkv, Sq, Skv, hd, causal, window
     (1, 2, 1, 100, 40, 64, True, 8),     # rows with no valid key, ragged
     (1, 4, 2, 33, 97, 128, True, 0),     # GQA, Sq < Skv, ragged, hd 128
     (2, 8, 2, 300, 300, 64, True, 50),   # granite's grouping, window
-    # hd 128 and hd 8 with Sq, Skv not multiples of the 64-row/64-key tiles
+    # hd 128 and hd 8 with Sq, Skv not multiples of their row and key tiles
     (2, 4, 2, 201, 77, 128, False, 0), (1, 4, 1, 150, 230, 128, True, 0),
     (1, 2, 2, 190, 190, 128, True, 70), (2, 4, 2, 131, 259, 8, False, 0),
     (1, 8, 4, 257, 257, 8, True, 0), (1, 2, 1, 100, 40, 8, True, 8),
+    # hd 128's 128-row, 32-key blocks: rows with no valid key; a window
+    # over ragged first and last tiles with GQA
+    (1, 2, 1, 100, 40, 128, True, 8), (1, 8, 2, 300, 270, 128, True, 100),
 ]
-# the (192, 128) instance: MLA's q/k heads of 192 against v heads of 128
+# the (192, 128) instance: MLA's q/k heads of 192 against v heads of 128,
+# 128-row blocks over 32-key tiles
 MLA_FLASH_CASES = [  # B, H, Hkv, Sq, Skv, causal, window
     (2, 4, 4, 201, 77, False, 0), (1, 4, 4, 130, 130, True, 0),
     (1, 2, 1, 100, 40, True, 8), (1, 4, 2, 33, 259, False, 0),
+    (1, 8, 2, 300, 300, True, 40), (2, 8, 2, 161, 97, False, 0),
+    (1, 4, 4, 250, 250, True, 100),
 ]
 
 

@@ -169,6 +169,12 @@ def test_dryrun_one_production_records(arch, shape):
         rows = -(-1_050_000_000 // 256 // 4) * 4
         assert parts["tables"] == 2 * rows * 128 * 4
         assert mem["replicated_batch_bytes"] == 0
+        # temp: the spare vertex shard the ring receives into, the
+        # episode's negative ids, then one minibatch's fused-update scratch
+        # at a time (344,192 + 10,348 B) and the block sums (16,388 B):
+        # 358,640 B, where holding every minibatch's scratch took 11.28 GB
+        spare, neg_ids = rows * 128 * 4, 256 * 4 * 32 * 5 * 4
+        assert 0 < mem["temp_bytes"] - spare - neg_ids < 400_000
     else:
         assert mem["argument_parts"]["caches"] > 0
         # the step takes the whole (B, 1) int32 token batch; the rank's
@@ -178,6 +184,26 @@ def test_dryrun_one_production_records(arch, shape):
             mem["argument_parts"]["batch"] > 0
         assert t["links"] == "ib"         # a "model" group spans 2 nodes
         assert rec["cost"]["kernels"] == {}
+
+
+def test_episode_temp_does_not_grow_with_its_minibatches():
+    """An embedding episode's temp on a 2 x 2 mesh at 4 and 16 minibatches a
+    block: it grows by the extra minibatches' negative ids (S int32 each)
+    and nothing else, since no minibatch's scratch outlives its launch."""
+    temps = {}
+    for cap in (256, 1024):
+        cfg = dataclasses.replace(cfgs.get_config("tencent-embedding"),
+                                  num_nodes=200_000, neg_pool=4096,
+                                  block_cap=cap)
+        _, counts = dryrun.trace_step(
+            lambda m: steps.build_embedding_step(cfg, shapes.SHAPES[
+                "train_4k"], m), 4, lambda: Mesh((2, 2), ("data", "model")))
+        assert not dist.is_initialized()
+        calls = counts["kernels"]["sgns_fused_update"]["calls"]
+        assert calls == 4 * cfg.subparts * cap // cfg.minibatch
+        temps[cap] = counts["temp_bytes"], calls
+    (t4, n4), (t16, n16) = temps[256], temps[1024]
+    assert t16 - t4 == (n16 - n4) * cfg.negatives * 4
 
 
 class _Spy:

@@ -2,7 +2,8 @@
 ``mha_plain`` against the JAX package's ``flash_attention`` (Pallas,
 interpret mode) and ``mha_ref``, on the same numpy-seeded inputs; and a
 numpy model of the CUDA kernel's arithmetic (3xTF32 tensor-core products,
-permuted key order in P V, online softmax over 64-key tiles) against both.
+permuted key order in P V, online softmax over each instance's key tiles)
+against both.
 
 Tolerances are those of ``tests/test_flash_attention.py``: rtol 2e-4,
 atol 2e-5 in f32 (two softmax-attention evaluations in f32 that sum in
@@ -48,7 +49,6 @@ def _both(q, k, v, causal, window, tq, tk, dtype=np.float32):
 # --------------------------------------------------------------------------
 # A numpy model of the CUDA kernel's arithmetic (csrc/flash_attention.cu)
 # --------------------------------------------------------------------------
-TILE = 64                                  # keys per tile
 KEY_ORDER = np.array([0, 2, 4, 6, 1, 3, 5, 7])   # P V's k-step columns
 
 
@@ -59,21 +59,29 @@ def _tf32(x):
     return ((u + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(np.float32)
 
 
+def _truncate_tf32(x):
+    """The TF32 a tensor core reads from an f32 register: its top 19 bits."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (u & np.uint32(0xffffe000)).view(np.float32)
+
+
 def _product(a, b, terms):
     """a @ b from TF32 operands in f32: 3 terms (lo * hi' + hi * lo', then
-    hi * hi') or 1 (hi * hi' alone)."""
+    hi * hi') or 1 (hi * hi' alone); hi rounded as cvt.rna rounds, lo = x -
+    hi passed unrounded, so the tensor core truncates it."""
     ah, bh = _tf32(a), _tf32(b)
     if terms == 1:
         return ah @ bh
-    al, bl = _tf32(a - ah), _tf32(b - bh)
+    al, bl = _truncate_tf32(a - ah), _truncate_tf32(b - bh)
     return (ah @ bl + al @ bh) + ah @ bh
 
 
 def _kernel_model(q, k, v, causal, window, terms=3):
     """The kernel's function on f32 numpy arrays: per (b, h) and block of
-    query rows (128 below a v width of 128, else 64), the block's key range in tiles
-    of 64 from its first valid key (every tile when a row has no valid
-    key), scores in the log2 domain
+    query rows, the block's key range in tiles from its first valid key
+    (every tile when a row has no valid key; rows and keys a tile as the
+    instance's geometry gives them, ``fa.block_geometry``), scores in the
+    log2 domain
     masked to -1e30 (-inf past Skv), an online softmax with exp2, and P V
     with each 8-key group's columns taken in the kernel's A-fragment order
     (keys 0, 2, 4, 6, 1, 3, 5, 7) and v's rows in the same order."""
@@ -81,10 +89,10 @@ def _kernel_model(q, k, v, causal, window, terms=3):
     Hkv, Skv, hd_v = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
     sc = np.float32(1 / math.sqrt(hd)) * np.float32(math.log2(math.e))
+    rows, TILE = fa.block_geometry(hd, hd_v)
     order = (np.arange(0, TILE, 8)[:, None] + KEY_ORDER).ravel()
     out = np.zeros((B, H, Sq, hd_v), np.float32)
     pad = -(-Skv // TILE) * TILE + TILE         # keys past Skv are zeros
-    rows = 128 if hd_v <= 64 else 64
     for b in range(B):
         for h in range(H):
             K = np.zeros((pad, hd), np.float32)
@@ -135,7 +143,8 @@ CASES = [  # B, H, Hkv, Sq, Skv, hd, causal, window, tq, tk
     (1, 8, 8, 128, 128, 8, True, 0, 128, 32),
     (1, 4, 2, 32, 96, 16, True, 0, 32, 32),       # GQA, Sq < Skv, ragged tiles
     (1, 2, 1, 192, 160, 64, True, 40, 64, 32),    # two query blocks, ragged
-    (1, 2, 1, 130, 130, 128, False, 0, 65, 65),   # hd 128: three blocks of 64
+    (1, 2, 1, 130, 130, 128, False, 0, 65, 65),   # hd 128: two blocks of 128
+    (1, 4, 2, 201, 77, 128, True, 24, 67, 77),    # ragged rows and 16-key tiles
 ]
 
 
@@ -157,9 +166,10 @@ def test_flash_matches_jax(B, H, Hkv, Sq, Skv, hd, causal, window, tq, tk):
 
 # MLA's (192, 128) instance: q/k heads of 192 against v heads of 128
 MLA_CASES = [  # B, H, Hkv, Sq, Skv, causal, window
-    (1, 2, 2, 130, 130, True, 0),     # three blocks of 64 rows, ragged
-    (2, 2, 1, 70, 33, False, 0),      # GQA, Sq > Skv, one ragged tile
+    (1, 2, 2, 130, 130, True, 0),     # two blocks of 128 rows, ragged
+    (2, 2, 1, 70, 33, False, 0),      # GQA, Sq > Skv, two tiles, one ragged
     (1, 2, 2, 100, 40, True, 8),      # rows with no valid key
+    (1, 4, 2, 150, 140, True, 40),    # GQA, a window over ragged tiles
 ]
 
 
@@ -275,6 +285,23 @@ def test_kernel_refuses_unaligned_views(what):
                 for n in (4, 2))                 # rows 40 bytes apart
     with pytest.raises(ValueError, match="16-byte"):
         fa._check_args(q, k, k, 0)
+
+
+def test_geometry_mirrors_the_kernel_source():
+    """``fa.GEOMETRY`` (the blocks the model above walks) is the .cu's
+    ``GeomOf``: the two-m-tile template and each wide instance's own."""
+    import re
+    from repro_torch.kernels import build
+
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    geom = lambda body: tuple(int(x) for x in body.split(","))[:3]  # noqa: E731
+    template = geom(re.search(r"struct GeomOf \{\s*using G = Geom<([^>]*)>",
+                              src).group(1))
+    wide = {(int(h), int(hv)): geom(body) for h, hv, body in re.findall(
+        r"struct GeomOf<(\d+), (\d+)> \{\s*using G = Geom<([^>]*)>", src)}
+    assert set(wide) == {(128, 128), (192, 128)}
+    assert fa.GEOMETRY == {**{(h, h): template for h in fa.HEAD_DIMS},
+                           **wide}
 
 
 def test_tf32_rounding_is_cvt_rna():

@@ -112,7 +112,26 @@ import json, os, sys
 import numpy as np, torch, torch.distributed as dist
 from repro_torch.core import HybridConfig, HybridEmbeddingTrainer
 from repro_torch.core.partition import build_episode_blocks
+from repro_torch.kernels import ops
 cfg, nodes, lr, ref, out = json.loads(sys.argv[1])
+# each minibatch's own loss and block (its running sum's offset), and the
+# rank's loss sum as it enters the f64 all-sum
+seen, local = [], []
+real_step = ops.sgns_step
+def spy(*args, loss_into, **kw):
+    v, c, loss = real_step(*args, **kw)
+    seen.append((loss_into.storage_offset(), np.float32(loss.item())))
+    return v, c, loss_into.add_(loss)
+ops.sgns_step = spy
+def scan_sum():
+    # JAX's scan carry: lacc + loss inside a block from 0, lacc + lj a block
+    blocks = {}
+    for blk, loss in seen:
+        blocks[blk] = np.float32(blocks.get(blk, np.float32(0)) + loss)
+    lacc = np.float32(0)
+    for blk in sorted(blocks):
+        lacc = np.float32(lacc + blocks[blk])
+    return lacc
 rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
 dist.init_process_group("gloo", init_method="tcp://localhost:"
                         + os.environ["MASTER_PORT"], world_size=world,
@@ -134,8 +153,15 @@ for dtype in ("float32", "bfloat16"):
         tt.set_embeddings(table(ref[f"{dtype}_v0"]), table(ref[f"{dtype}_c0"]))
         eb = build_episode_blocks(ref["pairs"], tt.part,
                                   pad_multiple=cfg["minibatch"])
+        seen.clear(), local.clear()
+        all_sum = tt.ring.all_sum
+        tt.ring.all_sum = lambda x: local.append(x.clone()) or all_sum(x)
         loss = tt.train_episode(eb, lr=lr,
                                 neg_draws=ref[f"{dtype}_draws"][rank])
+        # 4 rounds x k sub-parts, each block's sum then the episode's, in
+        # JAX's order and bit for bit
+        assert len({blk for blk, _ in seen}) == 4 * cfg["subparts"], seen
+        assert local[0][0].item() == float(scan_sum()), (local, seen)
         rows = tt.part.padded_rows_per_shard
         # the shard this rank holds after the episode is its own: its rows
         # of the gathered table
@@ -174,7 +200,9 @@ def episodes(tmp_path_factory):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_four_gloo_ranks_match_jax_episode(episodes, dtype):
     """Four ranks, 2x2 mesh, k = 2, the JAX stream of each device replayed:
-    tables within the one-episode tolerances, loss within 1e-4."""
+    tables within the one-episode tolerances, loss within 1e-4; each rank's
+    loss sum, 4 rounds x 2 sub-parts of blocks, was JAX's scan order of its
+    minibatches' losses bit for bit (checked in the ranks)."""
     jax_res, port = episodes
     rtol, atol = TOL[dtype]
     np.testing.assert_allclose(port[f"{dtype}_loss"], jax_res[f"{dtype}_loss"],

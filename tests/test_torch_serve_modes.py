@@ -207,6 +207,61 @@ def test_all_shards_failed_and_default_timeout_like_jax():
         assert _meta(meta) == (True, (0,), 0.4)
 
 
+def test_a_stuck_shard_does_not_starve_the_others():
+    """A shard whose every scan outlasts the deadline holds two scan workers
+    at most; the healthy shards answer every call (degraded). Queuing a
+    scan a call on it took every worker of a pool of one a shard by the
+    fourth call, which raised "all 3 shard scans failed" (the 3-shard chaos
+    leg on the card)."""
+    s = ShardedEmbeddingStore.from_array(_int(30, 8, 14), devices=["cpu"] * 3,
+                                         shard_timeout_s=0.05)
+    q = np.zeros((2, 8), np.float32)
+    with inject("serve.shard:delay:key=1:delay=0.4:times=inf"):
+        metas = [s.topk(q, 5, impl="xla", return_meta=True)[2]
+                 for _ in range(6)]
+    assert [_meta(m) for m in metas] == [(True, (1,), 0.05)] * 6
+
+
+def test_a_one_off_stall_leaves_later_calls_exact():
+    """A shard stalled once past the deadline is out of that call alone:
+    the next calls give it a fresh scan beside the stalled one and are
+    exact while the stall still runs."""
+    s = ShardedEmbeddingStore.from_array(_int(30, 8, 15), devices=["cpu"] * 3,
+                                         shard_timeout_s=0.3)
+    q = _int(2, 8, 16)
+    want = s.topk(q, 5, impl="xla", shard_timeout_s=None)
+    with inject("serve.shard:delay:key=1:delay=2.0:times=1"):
+        got = [s.topk(q, 5, impl="xla", return_meta=True) for _ in range(5)]
+    assert [_meta(m) for *_, m in got] == ([(True, (1,), 0.3)]
+                                           + [(False, (), 0.3)] * 4)
+    for gv, gi, _ in got[1:]:
+        _same((gv, gi), want)
+
+
+def test_two_threads_calling_at_once_are_both_exact():
+    """Calls from two threads at once each scan every shard: one call's
+    scans in flight are not the other's failures."""
+    s = ShardedEmbeddingStore.from_array(_int(30, 8, 17), devices=["cpu"] * 3,
+                                         shard_timeout_s=5.0)
+    q = _int(2, 8, 18)
+    want = s.topk(q, 5, impl="xla", shard_timeout_s=None)
+    go, got = threading.Barrier(2), [None, None]
+
+    def call(i):
+        go.wait()
+        got[i] = s.topk(q, 5, impl="xla", return_meta=True)
+
+    with inject("serve.shard:delay:delay=0.2:times=inf"):
+        threads = [threading.Thread(target=call, args=(i,)) for i in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    for gv, gi, meta in got:
+        assert _meta(meta) == (False, (), 5.0)
+        _same((gv, gi), want)
+
+
 # the same call sequence through both fault plans
 FAULT_SPECS = ["s:crash:at=1", "s:corrupt:key=0/2", "s:fire:key=walker-0/*",
                "t:delay:at=0:delay=0.01", "s:crash:key=3:times=2", "u:fire",

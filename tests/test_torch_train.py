@@ -18,6 +18,7 @@ from repro.train.checkpoint import load_arrays as jload
 from repro.train.checkpoint import save_checkpoint as jsave
 from repro_torch.core import HybridConfig, HybridEmbeddingTrainer
 from repro_torch.core.partition import build_episode_blocks
+from repro_torch.kernels import ops
 from repro_torch.launch import embed_serve
 from repro_torch.launch import train as ttrain
 
@@ -118,6 +119,75 @@ def test_episode_matches_jax_fused_kernel_bf16():
                       (tt.context_embeddings(), jt.context_embeddings())):
         np.testing.assert_allclose(_f32(got), _f32(want), rtol=3e-2,
                                    atol=3e-3)
+
+
+def _jax_scan_sum(seen):
+    """JAX's episode loss sum (``core/hybrid.py``'s scan carry) of the
+    minibatch losses ``seen`` as (block, loss) in launch order: a running
+    f32 sum over each block's minibatches from 0, then the blocks' sums
+    added one by one in their order, from 0."""
+    blocks = {}
+    for blk, loss in seen:
+        lj = blocks.get(blk, np.float32(0.0))
+        blocks[blk] = np.float32(lj + np.float32(loss))
+    lacc = np.float32(0.0)
+    for blk in sorted(blocks):
+        lacc = np.float32(lacc + blocks[blk])
+    return lacc
+
+
+def _loss_spy(monkeypatch):
+    """Record each minibatch's own loss and its block (the offset of the
+    block's running sum) as the trainer launches it; the running sum is
+    then added to as the routes add to it."""
+    seen = []
+    real = ops.sgns_step
+
+    def spy(*args, loss_into, **kw):
+        v, c, loss = real(*args, **kw)
+        seen.append((loss_into.storage_offset(), np.float32(loss.item())))
+        return v, c, loss_into.add_(loss)
+
+    monkeypatch.setattr(ops, "sgns_step", spy)
+    return seen
+
+
+@pytest.mark.parametrize("subparts", [1, 3])
+def test_episode_loss_is_summed_as_jax_scan_sums_it(monkeypatch, subparts):
+    """The episode's loss is JAX's scan carry (``lacc + loss`` a minibatch
+    inside a block from 0, ``lacc + lj`` a block): bitwise that order's f32
+    sum of the minibatches' own losses over the samples, and within 1e-4 of
+    the JAX trainer's episode loss with its negative stream replayed (the
+    ring tests hold several rounds to it)."""
+    seen = _loss_spy(monkeypatch)
+    cfg = dict(CFG, dtype="float32", subparts=subparts)
+    loss, jloss, tt, jt = _episode_pair(cfg, 257, 600, 7, "ref")
+    assert len({blk for blk, _ in seen}) == subparts
+    assert len(seen) > 2 * subparts          # several minibatches a block
+    total = np.float32(600)
+    assert loss == float(_jax_scan_sum(seen) / total)
+    np.testing.assert_allclose(loss, jloss, rtol=1e-4)
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas", "pallas_fused",
+                                  "pallas_fused2"])
+def test_sgns_step_adds_its_loss_into_a_running_sum(impl):
+    """``loss_into`` on every route: the same tables bit for bit, and the
+    running sum returned in the loss's place, plus the loss in one f32 add."""
+    rng = np.random.default_rng(5)
+    vert, ctx = (torch.from_numpy(rng.normal(0, 0.1, (64, 16)).astype(
+        np.float32)) for _ in range(2))
+    iv, ic = (torch.from_numpy(rng.integers(0, 64, 24).astype(np.int32))
+              for _ in range(2))
+    inn = torch.from_numpy(rng.integers(0, 64, 5).astype(np.int32))
+    mask = torch.ones(24)
+    v1, c1, loss = ops.sgns_step(vert.clone(), ctx.clone(), iv, ic, inn,
+                                 mask, 0.05, impl=impl)
+    acc = torch.tensor(1.625, dtype=torch.float32)
+    v2, c2, got = ops.sgns_step(vert.clone(), ctx.clone(), iv, ic, inn, mask,
+                                0.05, impl=impl, loss_into=acc)
+    assert got is acc and torch.equal(v1, v2) and torch.equal(c1, c2)
+    assert got.item() == float(np.float32(1.625) + np.float32(loss.item()))
 
 
 def test_trainer_refuses_more_shards_and_bad_draws():
