@@ -25,7 +25,13 @@ failure ends the run with a non-zero exit:
    bounds they run at, the f32 CUDA-core one beside them), and both scans
    at the launcher's batch shape (1,048,576 rows, 8 queries) beside
    ``torch.topk``, and with those 8 padded by zero queries to the 256 rows
-   the launcher sends, with the int8 scan's survivor share there;
+   the launcher sends, with the int8 scan's survivor share there; and
+   ``threefry.cu``'s two entry points (JAX's random streams) against their
+   plain versions: ``negative_positions`` bitwise at JAX's known values,
+   the per-card episode's (T, S, pool_n) and other chains, ``fill_random``
+   bitwise on bits and uniform draws and within 2 ulp on a full-width
+   ``dense_init`` and ``embed_init`` leaf, then both timed beside their
+   bounds (the hashes' int32 operations against the bytes written);
 3. the serving main path: a seeded 1,048,576 x 128 bf16 checkpoint written
    with the port's ``save_checkpoint``; every serving kernel against its
    plain version on that table and the launcher's own queries, at the
@@ -85,7 +91,10 @@ failure ends the run with a non-zero exit:
    ``--impl pallas_fused`` on the CI gate and on ``--impl pallas`` at the
    config's geometry, served at recall 1.0; the CI gate at ``--dim 100``
    (a width the scans read padded), its checkpoint served at recall 1.0;
-   the launch counts read around each run;
+   the launch counts read around each run (the default route must launch
+   ``negative_positions``: the trainers draw JAX's negatives); the CI
+   gate's one-rank AUC beside the JAX launcher's on one device
+   (``REF_ONE_DEVICE_AUC``);
 7b. the launcher's fault tolerance and telemetry, each leg bitwise its
    phase-7 run: the config's geometry through ``--store disk
    --keep-samples --metrics-dir --trace`` (its episode files against their
@@ -368,6 +377,10 @@ DRYRUN_PEAK_TOL = 0.15
 # sorts every row per request, which set those phases' time at 256
 SERVE_QUERIES = 64
 BF16_FLOP_PER_S = 989e12           # H100 SXM, dense bf16 tensor cores
+# H100 SXM's 32-bit integer rate: 64 int32 lanes an SM (Hopper white paper)
+# x 132 SMs x 1.98 GHz boost
+INT32_OP_PER_S = 64 * 132 * 1.98e9
+THREEFRY_OPS = 100                 # int32 operations a hash and its use
 TF32_FLOP_PER_S = 495e12           # H100 SXM, dense TF32 tensor cores
 # kernels (mangled-name parts) that must not spill registers: #2's int8
 # filter and export instantiations, #5's and #6's cooperative kernel and
@@ -375,7 +388,8 @@ TF32_FLOP_PER_S = 495e12           # H100 SXM, dense TF32 tensor cores
 NO_SPILL = ("filter_kernelIa", "filter_export_kernelIa", "sgns_grads_coop",
             "gather_kernel")
 # the kernels each kernel route of ops.sgns_step launches
-ROUTE_KERNELS = {"pallas_fused2": ("sgns_fused_update",),
+ROUTE_KERNELS = {"pallas_fused2": ("sgns_fused_update",
+                                   "negative_positions"),
                  "pallas_fused": ("sgns_fused_grads", "scatter_add_rows"),
                  "pallas": ("gather_rows", "sgns_grads", "scatter_add_rows")}
 
@@ -695,6 +709,135 @@ def check_any_shape_sgns(torch, sgns, dev, err, time_ms=None):
                       f"(CUDA events), plain {ms[1]:.4f} ms, bound "
                       f"{bound[0]:.6f} ms ({bound[1]})")
     return times
+
+
+def f32_ulps(torch, a, b) -> int:
+    """The largest distance in f32 steps between two f32 tensors."""
+    def ordered(x):
+        i = x.view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max().item()) if a.numel() else 0
+
+
+def episode_stream_shape():
+    """(T, S, pool_n) of the per-card episode's negative positions: one
+    rank's R = 1 round x k sub-parts x minibatches a block, the config's S
+    and pool."""
+    from repro_torch.configs.tencent_embedding import CONFIG
+    return (CONFIG.subparts * (CONFIG.block_cap // CONFIG.minibatch),
+            CONFIG.negatives, CONFIG.neg_pool)
+
+
+# a full-width dense_init leaf (granite-3-2b's w_gate, truncated normal)
+# and embed_init leaf (its embedding, normal), as init_params draws them
+INIT_LEAVES = (("truncated_normal", (2048, 8192), 2048 ** -0.5),
+               ("normal", (49155, 2048), 0.02))
+
+
+def check_threefry(torch, prng, dev, err):
+    """Both entry points of threefry.cu against their plain versions on the
+    card: positions and bits bitwise, uniform draws bitwise, normal and
+    truncated normal within 2 ulp (the CPU tests' bound against JAX).
+    Returns the cases."""
+    cases = 0
+
+    def positions(k, T, S, pool_n, what):
+        got = prng.negative_positions(k, T, S, pool_n, device=dev)
+        want = prng.negative_positions_plain(k, T, S, pool_n, device=dev)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"negative_positions {what}: kernel != "
+                                 f"plain")
+        return got
+
+    # JAX's known values: the chain's first kneg is split(key(0))[1], and
+    # randint(it, (5,), 0, 1000) is [22, 22, 496, 135, 51]
+    got = positions(prng.key(0), 1, 5, 1000, "known answer")
+    if got[0].tolist() != [22, 22, 496, 135, 51]:
+        raise AssertionError(f"negative_positions known answer: {got}")
+    # Random123's first known answer (key and counter 0): its words' xor
+    bits = torch.empty(2, dtype=torch.int32, device=dev)
+    prng.fill_random((0, 0), 1, "bits", 1.0, bits)
+    torch.cuda.synchronize()
+    if bits[0].item() != np.int32(np.uint32(0x6B200159 ^ 0x99BA4EFE)):
+        raise AssertionError(f"fill_random known answer: {bits[0].item()}")
+    cases += 2
+    T, S, pool_n = episode_stream_shape()
+    for shape in ((T, S, pool_n), (4 * T, S, pool_n), (4096, 8, 2048),
+                  (3000, 5, 100_003), (7, 1, 1)):
+        positions(prng.fold_in(prng.key(SEED), 0), *shape, f"{shape}")
+        cases += 1
+    k = prng.fold_in(prng.key(SEED), 7)
+    for kind, shape, scale in (*INIT_LEAVES, ("uniform", (1 << 20,), 1.0),
+                               ("bits", ((1 << 20) + 3,), 1.0)):
+        n = int(np.prod(shape))
+        dt = torch.int32 if kind == "bits" else torch.float32
+        got = prng.fill_random(k, n, kind, scale,
+                               torch.empty(n, dtype=dt, device=dev))
+        want = prng.fill_random_plain(k, n, kind, scale,
+                                      torch.empty(n, dtype=dt, device=dev))
+        torch.cuda.synchronize()
+        if kind in ("bits", "uniform"):
+            ok = torch.equal(got, want)
+        else:
+            ulps = f32_ulps(torch, got, want)
+            ok = ulps <= 2
+            err["fill_random"] = max(err["fill_random"],
+                                     (got - want).abs().max().item())
+            print(f"  fill_random {kind} {shape} x {scale:.6g}: kernel "
+                  f"within {ulps} ulp of plain")
+        if not ok:
+            raise AssertionError(f"fill_random {kind} {shape}: kernel != "
+                                 f"plain")
+        cases += 1
+        del got, want
+    torch.cuda.empty_cache()
+    return cases
+
+
+def time_threefry(torch, prng, dev, time_ms, wall_ms):
+    """The two entry points' records at the main path's shapes: the
+    per-card episode's negative positions and a full-width dense_init
+    leaf. Bounds: the bytes written against about THREEFRY_OPS int32
+    operations a hash (2 a link of the chain, 4 a position; 1 a draw)."""
+    T, S, pool_n = episode_stream_shape()
+    k = prng.fold_in(prng.key(SEED), 0)
+    kind, shape, scale = INIT_LEAVES[0]
+    n = int(np.prod(shape))
+    out = torch.empty(n, device=dev)
+
+    def bound(nbytes, hashes):
+        tb, to = nbytes / HBM_BYTES_PER_S, THREEFRY_OPS * hashes / INT32_OP_PER_S
+        return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
+
+    pos = lambda: prng.negative_positions(k, T, S, pool_n, device=dev)
+    fill = lambda: prng.fill_random(k, n, kind, scale, out)
+    rec = {
+        "negative_positions": dict(
+            source="src/repro_torch/kernels/csrc/threefry.cu",
+            replaces="src/repro/core/hybrid.py:105",
+            ms=time_ms(pos, 20), wall_ms=wall_ms(pos, 20),
+            plain_ms=time_ms(lambda: prng.negative_positions_plain(
+                k, T, S, pool_n, device=dev), 3),
+            library_ms=None, bound=bound(8 * T * S, 2 * T + 4 * T * S),
+            shapes=f"T={T} S={S} pool_n={pool_n}"),
+        "fill_random": dict(
+            source="src/repro_torch/kernels/csrc/threefry.cu",
+            replaces="src/repro/models/common.py:36",
+            ms=time_ms(fill, 10), wall_ms=wall_ms(fill, 10),
+            plain_ms=time_ms(lambda: prng.fill_random_plain(
+                k, n, kind, scale, torch.empty_like(out)), 2),
+            library_ms=None, bound=bound(4 * n, n),
+            shapes=f"{kind} {shape} x {scale:.6g}"),
+    }
+    for name, r in rec.items():
+        print(f"{name} ({r['shapes']}): {r['ms']:.4f} device ms/launch "
+              f"({r['wall_ms']:.4f} wall), bound {r['bound'][0]:.6f} ms "
+              f"({r['bound'][1]}), plain {r['plain_ms']:.4f} ms, library "
+              f"none (no PyTorch call draws threefry)")
+    del out
+    torch.cuda.empty_cache()
+    return rec
 
 
 # widths and depths the serving scans take past their compiled widths
@@ -1432,6 +1575,7 @@ import json, os, sys, time
 import numpy as np, torch, torch.distributed as dist
 from repro_torch.core import HybridConfig, HybridEmbeddingTrainer
 from repro_torch.core.partition import build_episode_blocks
+from repro_torch import prng
 from repro_torch.kernels import sgns
 dev, out = sys.argv[1], sys.argv[2]
 world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
@@ -1468,7 +1612,7 @@ for dtype in ("float32", "bfloat16"):
     res[f"{dtype}_loss"], res[f"{dtype}_s"] = loss, dt
 if rank == 0:
     np.savez(out, **res)
-print("LAUNCHES " + json.dumps(sgns.LAUNCHES))
+print("LAUNCHES " + json.dumps({**sgns.LAUNCHES, **prng.LAUNCHES}))
 if world > 1:
     dist.destroy_process_group()
 """
@@ -1476,6 +1620,7 @@ if world > 1:
 # the training launcher in one rank's process; its summary and launches
 RING_LAUNCHER = r"""
 import json, sys
+from repro_torch import prng
 from repro_torch.launch import train
 from repro_torch.kernels import sgns
 argv = sys.argv[1:]
@@ -1484,7 +1629,7 @@ i = argv.index("--min-auc")
 r = train.main(argv[:i] + argv[i + 2:])
 print("RESULT " + json.dumps({k: r[k] for k in ("auc", "episode_s",
                                                 "edges_per_s", "ranks")}))
-print("LAUNCHES " + json.dumps(sgns.LAUNCHES))
+print("LAUNCHES " + json.dumps({**sgns.LAUNCHES, **prng.LAUNCHES}))
 """
 
 
@@ -1494,6 +1639,9 @@ print("LAUNCHES " + json.dumps(sgns.LAUNCHES))
 # CPU): two devices lose about 0.1 against one (0.6680 on one device, 0.5917
 # on four), so the gate's 0.62 is a one-device threshold
 REF_TWO_DEVICE_AUC = 0.5731
+# the same launcher on one host device (python -m repro.launch.train
+# --arch tencent-embedding + the CI_GATE flags, on the CPU)
+REF_ONE_DEVICE_AUC = 0.6680
 
 
 # the host stages the launcher's --metrics-dir times (metrics_summary.json)
@@ -1979,9 +2127,11 @@ def ring_phase(torch, gate):
         if not (auc >= REF_TWO_DEVICE_AUC - 0.04 and res[0]["ranks"] == 2):
             raise AssertionError(f"2-rank CI gate: AUC {auc} (JAX on two "
                                  f"devices {REF_TWO_DEVICE_AUC}), {res[0]}")
-        if paths["train_2ranks"]["sgns_fused_update"] == 0:
-            raise AssertionError("2-rank CI gate: sgns_fused_update never "
-                                 "launched")
+        missing = [n for n in ("sgns_fused_update", "negative_positions")
+                   if paths["train_2ranks"][n] == 0]
+        if missing:
+            raise AssertionError(f"2-rank CI gate: {missing} never "
+                                 f"launched")
         card, cpu, one = (str(Path(tmp) / f"{n}.npz")
                           for n in ("card", "cpu", "one"))
         launched = rank_lines(run_ranks(RING_EPISODE, 2, "cuda:0", card),
@@ -2247,6 +2397,9 @@ def lm_serving(torch, dev, counted):
     print(f"lm_serve main-path launches: {launches}; prefill "
           f"routes {routes}")
     layers, vocab = cfg.num_layers, cfg.vocab_size
+    if launches["fill_random"] == 0:
+        raise AssertionError("LM serving path: init_params never launched "
+                             "fill_random")
     if not (launches["flash_attention"] == layers
             and routes == only_routes(lm_attn, flash_calls=layers)):
         raise AssertionError(f"LM serving path: {launches} flash "
@@ -3772,6 +3925,7 @@ def main() -> int:
                                                rescore_exact)
     from repro_torch.embed_serve.store import (ShardedEmbeddingStore,
                                                recall_at_k)
+    from repro_torch import prng
     from repro_torch.kernels import build, ops, sgns
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import embed_serve
@@ -3806,16 +3960,19 @@ def main() -> int:
     g = torch.Generator(device="cpu").manual_seed(SEED)
     err = {"topk_scan_exact": 0.0, "topk_scan_int8": 0.0, "topk_rowwise": 0.0,
            **{name: 0.0 for name in sgns.LAUNCHES},
-           "flash_attention float32": 0.0, "flash_attention bfloat16": 0.0}
+           "flash_attention float32": 0.0, "flash_attention bfloat16": 0.0,
+           **{name: 0.0 for name in prng.LAUNCHES}}
 
     def counted(run):
         """``run()`` with every launch count set to 0 just before it;
         returns its result and the counts read just after."""
-        for counts in (tk.LAUNCHES, sgns.LAUNCHES, fa.LAUNCHES):
+        for counts in (tk.LAUNCHES, sgns.LAUNCHES, fa.LAUNCHES,
+                       prng.LAUNCHES):
             for name in counts:
                 counts[name] = 0
         out = run()
-        return out, {**tk.LAUNCHES, **sgns.LAUNCHES, **fa.LAUNCHES}
+        return out, {**tk.LAUNCHES, **sgns.LAUNCHES, **fa.LAUNCHES,
+                     **prng.LAUNCHES}
 
     def int_table(n, d, lo=-4, hi=5):
         return torch.randint(lo, hi, (n, d), generator=g).float().to(dev)
@@ -3937,9 +4094,11 @@ def main() -> int:
     want = tk.topk_mips_plain(tbl, q, 10)
     check_pair("topk_scan_exact", got, want, "two-tier == exact")
     cases += 1
+    cases += check_threefry(torch, prng, dev, err)
     print(f"kernels == plain on {cases} integer cases (bitwise; "
           f"topk_rowwise on each topk_scan_exact case, and over many chunks "
-          f"== scan == plain)")
+          f"== scan == plain; threefry's positions, bits and uniform draws, "
+          f"its normals within 2 ulp)")
 
     # the per-card serving table, made on the card from a seed
     gd = torch.Generator(device=dev).manual_seed(SEED)
@@ -4266,6 +4425,7 @@ def main() -> int:
               f"wall), bound {r['bound'][0]:.5f} ms ({r['bound'][1]}), plain "
               f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
               f"max |kernel - plain| {err[name]:.3g}")
+    rec.update(time_threefry(torch, prng, dev, time_ms, wall_ms))
 
     # ---------------------------------------------------------- phase 3
     print(f"phase 3 starts at {time.perf_counter() - t_start:.1f}s")
@@ -4402,6 +4562,9 @@ def main() -> int:
             train_run(gate_name, CI_GATE, str(Path(tmp) / "gate")),
             train_run(config_name, CONFIG_RUN, str(Path(tmp) / "config"),
                       serve=True)))
+        print(f"CI gate on one rank: AUC {gate['auc']:.4f} (the JAX "
+              f"launcher on one device {REF_ONE_DEVICE_AUC}; both draw "
+              f"JAX's negative stream)")
         # a width the scan kernels read padded: trained and served on the
         # card, recall 1.0
         _, paths["train_dim100"] = counted(lambda: train_run(

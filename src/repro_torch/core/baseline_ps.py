@@ -15,11 +15,14 @@ structural:
     round, no ring, no overlap, and one dispatch a block from Python.
 
 Devices follow ``repro_torch.device.shard_devices`` (one card each, or
-every device on one named device, serially). Negatives: each block draws
-its (minibatches, S) pool positions from a ``torch.Generator`` on its
-device seeded with ``cfg.seed + 131·step`` (``step`` counts the non-empty
-blocks trained), as the JAX baseline keys each block ``PRNGKey(cfg.seed +
-131·step)``; ``train_episode(neg_draws=...)`` takes explicit positions.
+every device on one named device, serially). Negatives: JAX's stream.
+Each non-empty block draws its (minibatches, S) pool positions from
+``PRNGKey(cfg.seed + 131·step)`` (``step`` counts the non-empty blocks
+trained, in (round, device, sub-part) order), one ``split`` a minibatch,
+as the JAX baseline keys each block (``prng.negative_positions``, kept per
+(step, minibatches) on the device: a later episode of the same blocks
+draws nothing); ``train_episode(neg_draws=...)`` takes explicit
+positions.
 Given the resident trainer's draws on one device, it trains the same
 blocks in the same order on the same sub-part tables, so its tables are
 the resident trainer's bit for bit.
@@ -31,6 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core.hybrid import (_DTYPES, HybridConfig, build_neg_pool,
                                      init_vertex_rows)
 from repro_torch.core.partition import EpisodeBlocks, NodePartition
@@ -77,6 +81,21 @@ class ParameterServerTrainer:
             # host tables in pinned memory: the copies are plain DMA
             self.vert, self.ctx = self.vert.pin_memory(), self.ctx.pin_memory()
         self.pool = build_neg_pool(self.part, cfg, num_nodes, degrees)
+        self._positions: dict = {}     # (step, nmb, device) -> positions
+
+    def _block_positions(self, step: int, nmb: int, dev) -> torch.Tensor:
+        """The (nmb, S) pool positions of the ``step``-th non-empty block:
+        JAX's chain from ``PRNGKey(cfg.seed + 131 step)``, drawn once on
+        ``dev`` and kept."""
+        key = (step, nmb, str(dev))
+        pos = self._positions.get(key)
+        if pos is None:
+            cfg = self.cfg
+            pos = prng.negative_positions(
+                prng.key(cfg.seed + 131 * step), nmb, cfg.negatives,
+                cfg.neg_pool, device=dev)
+            self._positions[key] = pos
+        return pos
 
     def _draws(self, neg_draws, k: int, nmb: int):
         """``neg_draws`` as a (devices, rounds, k, nmb, S) tensor, or None."""
@@ -99,8 +118,8 @@ class ParameterServerTrainer:
 
         ``neg_draws``: optional (devices, rounds, k, minibatches per block,
         S) positions into each device's pool, indexed as ``eb.blocks``
-        (device i's block at round r, sub-part j), in place of the per-block
-        generators.
+        (device i's block at round r, sub-part j), in place of JAX's
+        per-block stream.
         """
         cfg, part = self.cfg, self.part
         n, k = self.n, part.subparts
@@ -140,11 +159,7 @@ class ParameterServerTrainer:
                     mask = (torch.arange(bmax, device=dev) < cnt).to(
                         v_dev.dtype)
                     if draws is None:
-                        gen = torch.Generator(device=dev)
-                        gen.manual_seed(cfg.seed + 131 * step)
-                        pos = torch.randint(0, cfg.neg_pool,
-                                            (nmb, cfg.negatives),
-                                            generator=gen, device=dev)
+                        pos = self._block_positions(step, nmb, dev)
                     else:
                         pos = draws[i, r, j].to(dev)
                     step += 1

@@ -31,12 +31,16 @@ checked against ``rotation.vertex_shard_at``, and the shard must be home
 again at the end of the episode.
 
 Negatives: each minibatch draws S positions into the rank's pool (sampled
-∝ deg^0.75). The positions come from a ``torch.Generator`` on the device,
-seeded anew at every episode from ``(cfg.seed, rank)`` — the JAX trainer
-likewise folds the device's flat index into ``PRNGKey(cfg.seed)`` at every
-episode, so both draw the same positions each episode. The generators
-differ, so ``train_episode(neg_draws=...)`` takes explicit positions, which
-is how the tests replay the JAX stream.
+∝ deg^0.75), JAX's stream: ``fold_in(PRNGKey(cfg.seed), rank)`` (the
+rank is the device's flat index), then ``key, kneg = split(key)`` and
+``randint(kneg, (S,), 0, neg_pool)`` for every minibatch of the episode in
+scan order (round, sub-part, minibatch, padding minibatches included),
+as the JAX episode step draws them (``repro_torch.prng``; on the card one
+``prng.negative_positions`` launch). The JAX step reseeds every episode,
+so the positions are a function of the episode's shape (rounds,
+sub-parts, minibatches a block): the trainer draws them once per shape
+and keeps them on its device. ``train_episode(neg_draws=...)`` takes
+explicit positions instead.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import prng
 from repro_torch.core import rotation
 from repro_torch.core.partition import EpisodeBlocks, NodePartition
 from repro_torch.core.ring import VertexRing
@@ -179,9 +184,10 @@ class HybridEmbeddingTrainer:
         self.pool = build_neg_pool(self.part, cfg, num_nodes, degrees)
         self._pool_dev = torch.from_numpy(self.pool[self.rank]).to(
             self.device)
-        # negative-draw seed: (cfg.seed, this rank's flat index)
-        self._neg_seed = int(np.random.SeedSequence(
-            [cfg.seed & 0x7FFFFFFF, self.rank]).generate_state(1)[0])
+        # JAX's negative stream: PRNGKey(cfg.seed) folded with this rank's
+        # flat index; its positions per episode shape (R, k, nmb)
+        self._neg_key = prng.fold_in(prng.key(cfg.seed), self.rank)
+        self._positions: dict = {}
         self._h2d = (torch.cuda.Stream(self.device)
                      if self.device.type == "cuda" else None)
 
@@ -276,10 +282,14 @@ class HybridEmbeddingTrainer:
                 raise ValueError(f"neg_draws of shape {tuple(draws.shape)}; "
                                  f"expected {(R, k, nmb, S)}")
             return draws.to(self.device)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self._neg_seed)
-        return torch.randint(0, self.pool.shape[1], (R, k, nmb, S),
-                             generator=gen, device=self.device)
+        shape = (R, k, nmb)
+        pos = self._positions.get(shape)
+        if pos is None:
+            pos = prng.negative_positions(
+                self._neg_key, R * k * nmb, S, self.pool.shape[1],
+                device=self.device).view(R, k, nmb, S)
+            self._positions[shape] = pos
+        return pos
 
     def _subparts(self) -> torch.Tensor:
         """The held vertex shard as (k, rows per sub-part, d) views."""
@@ -313,8 +323,8 @@ class HybridEmbeddingTrainer:
 
         ``neg_draws``: optional (R rounds, k, minibatches per block, S)
         positions into this rank's negative pool, in (round, sub-part,
-        minibatch) order, in place of the device generator's draws; one
-        rank also takes (k, minibatches per block, S).
+        minibatch) order, in place of JAX's stream; one rank also takes
+        (k, minibatches per block, S).
         """
         loss_sum, total = self.episode_sums(eb, lr=lr, neg_draws=neg_draws)
         return float(loss_sum / total)

@@ -470,9 +470,9 @@ class TieredEmbeddingTrainer(HybridEmbeddingTrainer):
     # ---------------------------------------------------------------- train
     def _negatives(self, R: int, k: int, nmb: int, neg_draws) -> np.ndarray:
         """(R, k, nmb, S) global context rows: the resident trainer's pool
-        positions (its device generator's, or ``neg_draws``) through the
-        pool. The generator is reseeded every episode, so its draws are
-        kept per shape."""
+        positions (JAX's stream from ``fold_in(PRNGKey(seed), 0)``, or
+        ``neg_draws``) through the pool. The stream restarts every
+        episode, so its rows are kept per shape."""
         key = (R, k, nmb)
         got = None if neg_draws is not None else self._neg_cache.get(key)
         if got is None:

@@ -35,8 +35,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_float)
+_P, _I, _LL, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_float, ctypes.c_uint)
 # source name -> {C function: argtypes}; every function returns an int
 SIGNATURES = {
     "topk_scan": {
@@ -97,6 +97,12 @@ SIGNATURES = {
                                 _I, _I, _I, _F, *[_LL] * 12, _P],
         # dtype, hd, hd_v, out (8 int32)
         "flash_attention_info": [_I, _I, _I, _P],
+    },
+    "threefry": {
+        # key words, T, S, span, kneg scratch, out, stream
+        "negative_positions": [_U, _U, _LL, _I, _U, _P, _P, _P],
+        # key words, n, kind, scale, out, stream
+        "fill_random": [_U, _U, _LL, _I, _F, _P, _P],
     },
 }
 

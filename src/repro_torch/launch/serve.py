@@ -29,10 +29,12 @@ take the dense oracle, as the JAX launcher serves without a mesh. A VLM's
 prompt is ``synthetic_batch``'s patch embeddings, then its tokens; an
 enc-dec arch's (seamless-m4t-large-v2) is its encoder frames and its
 decoder tokens (``--prompt-len`` counts both, half each).
-``--temperature 0`` is greedy decoding, the parity path; a positive
-temperature samples from a ``torch.Generator``, which cannot give
-``jax.random``'s numbers. The weights are random, from ``--seed``. Every
-family runs.
+``--temperature 0`` is greedy decoding; a positive temperature samples as
+the JAX launcher does, ``jax.random.categorical`` over ``PRNGKey(seed +
+1)`` for the prompt's token, then over ``fold_in(key, i)`` after decode
+step i (``repro_torch.prng``), so both packages sample the same tokens
+from the same logits. The weights are random, from ``--seed``: JAX's
+for the same seed. Every family runs.
 """
 from __future__ import annotations
 
@@ -86,6 +88,7 @@ def run(params, cfg, tokens, *, new_tokens: int, cache_len: int,
     Returns ``{"logits": prefill logits (B, 1, V) f32, "tokens": (B,
     new_tokens) int64 numpy, "prefill_s", "decode_s", "tok_per_s"}``.
     """
+    from repro_torch import prng
     from repro_torch.train.serve_step import make_decode_step, make_prefill_step
 
     dev = params["embed"].device
@@ -97,24 +100,25 @@ def run(params, cfg, tokens, *, new_tokens: int, cache_len: int,
     B = batch["tokens"].shape[0]
     prefill = make_prefill_step(cfg, cache_len, flash=flash)
     decode = make_decode_step(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    key = prng.key(seed + 1)
 
-    def sample(logits):
+    def sample(logits, key):
         if temperature <= 0:
             return logits[:, 0].argmax(dim=-1)[:, None]
-        probs = torch.softmax(logits[:, 0] / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=gen)
+        t = torch.tensor(temperature, dtype=torch.float32, device=dev)
+        return prng.categorical(key, logits[:, 0] / t)[:, None]
 
     t0 = time.perf_counter()
     logits, caches = prefill(params, batch)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
-    tok = sample(logits)
+    tok = sample(logits, key)
     outs = [tok.cpu()]
     t0 = time.perf_counter()
-    for _ in range(new_tokens - 1):
+    for i in range(new_tokens - 1):
         step_logits, caches = decode(params, tok, caches)
-        tok = sample(step_logits)
+        key = prng.fold_in(key, i)
+        tok = sample(step_logits, key)
         outs.append(tok.cpu())
     _sync(dev)
     t_decode = time.perf_counter() - t0

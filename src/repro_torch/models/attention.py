@@ -39,6 +39,7 @@ import math
 
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
 from repro_torch.models.config import ModelConfig
@@ -53,32 +54,34 @@ ROUTE_CALLS = {"flash_calls": 0, "masked_calls": 0, "cross_flash_calls": 0,
                "cross_masked_calls": 0, "encoder_flash_calls": 0}
 
 
-def init_attention_params(gen: torch.Generator, cfg: ModelConfig, *,
-                          cross: bool = False, device=None) -> dict:
+def init_attention_params(key, cfg: ModelConfig, *, cross: bool = False,
+                          device=None) -> dict:
+    """The layer's attention leaves from ``split(key, 8)``, as JAX's."""
     d = cfg.d_model
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dt = getattr(torch, cfg.param_dtype)
     kw = dict(dtype=dt, device=device)
+    ks = prng.split(key, 8)
     if cfg.mla and not cross:
         nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
                           cfg.v_head_dim)
         ql, kvl = cfg.q_lora_rank, cfg.kv_lora_rank
         return {
-            "wdq": dense_init(gen, (d, ql), **kw),
+            "wdq": dense_init(ks[0], (d, ql), **kw),
             "q_norm": torch.ones((ql,), **kw),
-            "wuq": dense_init(gen, (ql, H, nope + rope), in_axis=0, **kw),
-            "wdkv": dense_init(gen, (d, kvl), **kw),
+            "wuq": dense_init(ks[1], (ql, H, nope + rope), in_axis=0, **kw),
+            "wdkv": dense_init(ks[2], (d, kvl), **kw),
             "kv_norm": torch.ones((kvl,), **kw),
-            "wkr": dense_init(gen, (d, rope), **kw),
-            "wuk": dense_init(gen, (kvl, H, nope), in_axis=0, **kw),
-            "wuv": dense_init(gen, (kvl, H, vd), in_axis=0, **kw),
-            "wo": dense_init(gen, (H, vd, d), in_axis=1, **kw),
+            "wkr": dense_init(ks[3], (d, rope), **kw),
+            "wuk": dense_init(ks[4], (kvl, H, nope), in_axis=0, **kw),
+            "wuv": dense_init(ks[5], (kvl, H, vd), in_axis=0, **kw),
+            "wo": dense_init(ks[6], (H, vd, d), in_axis=1, **kw),
         }
     p = {
-        "wq": dense_init(gen, (d, H, hd), **kw),
-        "wk": dense_init(gen, (d, Hkv, hd), **kw),
-        "wv": dense_init(gen, (d, Hkv, hd), **kw),
-        "wo": dense_init(gen, (H, hd, d), in_axis=1, **kw),
+        "wq": dense_init(ks[0], (d, H, hd), **kw),
+        "wk": dense_init(ks[1], (d, Hkv, hd), **kw),
+        "wv": dense_init(ks[2], (d, Hkv, hd), **kw),
+        "wo": dense_init(ks[3], (H, hd, d), in_axis=1, **kw),
     }
     if cfg.qkv_bias:
         p["bq"] = torch.zeros((H, hd), **kw)

@@ -1,16 +1,19 @@
 """Shared model building blocks: norms, RoPE, initializers, parameter
 trees.
 
-The port of the JAX package's ``models/common.py``. Initializers draw from
-an explicit ``torch.Generator``; they cannot give ``jax.random``'s numbers,
-so the tests carry JAX weights across with ``models/convert.py``. A
-parameter tree is nested dicts and lists of tensors; :func:`tree_map` and
-:func:`tree_leaves` stand in for ``jax.tree``.
+The port of the JAX package's ``models/common.py``. Initializers take a
+``jax.random`` key (``repro_torch.prng``) and draw JAX's numbers for it
+(``prng.fill_random``: the CUDA kernel on a card), so the same key gives
+both packages the same weights. A parameter tree is nested dicts and lists
+of tensors; :func:`tree_map` and :func:`tree_leaves` stand in for
+``jax.tree``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch import prng
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -38,18 +41,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def dense_init(gen: torch.Generator, shape, *, in_axis: int = -2,
-               dtype=torch.float32, device=None) -> torch.Tensor:
-    """Truncated-normal (±2 std) fan-in init, std 1/sqrt(shape[in_axis])."""
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return t.mul_(1.0 / np.sqrt(shape[in_axis])).to(dtype)
-
-
-def embed_init(gen: torch.Generator, shape, *, dtype=torch.float32,
+def dense_init(key, shape, *, in_axis: int = -2, dtype=torch.float32,
                device=None) -> torch.Tensor:
+    """Truncated-normal (±2 std) fan-in init, std 1/sqrt(shape[in_axis]):
+    ``jax.random.truncated_normal(key, -2, 2, shape)`` times the f32 std,
+    then cast, as JAX's ``dense_init``."""
     t = torch.empty(shape, dtype=torch.float32, device=device)
-    return t.normal_(0.0, 0.02, generator=gen).to(dtype)
+    prng.fill_random(key, t.numel(), "truncated_normal",
+                     1.0 / np.sqrt(shape[in_axis]), t)
+    return t.to(dtype)
+
+
+def embed_init(key, shape, *, dtype=torch.float32,
+               device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` times 0.02 in f32, then cast."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    prng.fill_random(key, t.numel(), "normal", 0.02, t)
+    return t.to(dtype)
 
 
 def tree_map(fn, tree, *rest):

@@ -18,26 +18,29 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import prng
 from repro_torch.models.common import dense_init, rms_norm
 from repro_torch.models.config import ModelConfig
 
 
-def init_mamba_params(gen: torch.Generator, cfg: ModelConfig, *,
-                      device=None) -> dict:
+def init_mamba_params(key, cfg: ModelConfig, *, device=None) -> dict:
+    """The mixer's leaves, its projections from ``split(key, 6)`` as
+    JAX's."""
     d, di = cfg.d_model, cfg.d_inner_ssm
     H, N = cfg.ssm_heads, cfg.ssm_state
     dt = getattr(torch, cfg.param_dtype)
     kw = dict(dtype=dt, device=device)
     f32 = dict(dtype=torch.float32, device=device)
+    ks = prng.split(key, 6)
     return {
-        "in_proj": dense_init(gen, (d, 2 * di + 2 * N + H), **kw),
-        "conv_w": dense_init(gen, (cfg.ssm_conv, di + 2 * N), **kw),
+        "in_proj": dense_init(ks[0], (d, 2 * di + 2 * N + H), **kw),
+        "conv_w": dense_init(ks[1], (cfg.ssm_conv, di + 2 * N), **kw),
         "conv_b": torch.zeros((di + 2 * N,), **kw),
         "A_log": torch.zeros((H,), **f32),             # A = -exp(A_log)
         "D": torch.ones((H,), **f32),
         "dt_bias": torch.full((H,), -2.0, **f32),      # softplus ~ 0.12
         "norm": torch.ones((di,), **kw),
-        "out_proj": dense_init(gen, (di, d), in_axis=0, **kw),
+        "out_proj": dense_init(ks[2], (di, d), in_axis=0, **kw),
     }
 
 

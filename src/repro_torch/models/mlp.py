@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import prng
 from repro_torch.models.common import dense_init
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import shard
@@ -45,13 +46,15 @@ from repro_torch.sharding import shard
 # --------------------------------------------------------------------------
 # dense gated FFN
 # --------------------------------------------------------------------------
-def init_ffn_params(gen: torch.Generator, d_model: int, d_ff: int, dtype, *,
+def init_ffn_params(key, d_model: int, d_ff: int, dtype, *,
                     device=None) -> dict:
+    """The gated FFN from ``split(key, 3)``, as JAX's."""
     kw = dict(dtype=dtype, device=device)
+    k1, k2, k3 = prng.split(key, 3)
     return {
-        "w_gate": dense_init(gen, (d_model, d_ff), **kw),
-        "w_up": dense_init(gen, (d_model, d_ff), **kw),
-        "w_down": dense_init(gen, (d_ff, d_model), in_axis=0, **kw),
+        "w_gate": dense_init(k1, (d_model, d_ff), **kw),
+        "w_up": dense_init(k2, (d_model, d_ff), **kw),
+        "w_down": dense_init(k3, (d_ff, d_model), in_axis=0, **kw),
     }
 
 
@@ -63,22 +66,24 @@ def ffn_forward(params, x):
 # --------------------------------------------------------------------------
 # MoE
 # --------------------------------------------------------------------------
-def init_moe_params(gen: torch.Generator, cfg: ModelConfig, *,
-                    device=None) -> dict:
+def init_moe_params(key, cfg: ModelConfig, *, device=None) -> dict:
     """The router (always f32), ``w_gate``/``w_up`` (E, d, ff), ``w_down``
     (E, ff, d), and the ``shared`` FFN of width ``moe_d_ff *
-    moe_num_shared`` when the config has shared experts."""
+    moe_num_shared`` when the config has shared experts, from ``split(key,
+    5)`` as JAX's."""
     d, E, ff = cfg.d_model, cfg.moe_num_experts, cfg.moe_d_ff
     dt = getattr(torch, cfg.param_dtype)
     kw = dict(dtype=dt, device=device)
+    ks = prng.split(key, 5)
     p = {
-        "router": dense_init(gen, (d, E), dtype=torch.float32, device=device),
-        "w_gate": dense_init(gen, (E, d, ff), **kw),
-        "w_up": dense_init(gen, (E, d, ff), **kw),
-        "w_down": dense_init(gen, (E, ff, d), in_axis=1, **kw),
+        "router": dense_init(ks[0], (d, E), dtype=torch.float32,
+                             device=device),
+        "w_gate": dense_init(ks[1], (E, d, ff), **kw),
+        "w_up": dense_init(ks[2], (E, d, ff), **kw),
+        "w_down": dense_init(ks[3], (E, ff, d), in_axis=1, **kw),
     }
     if cfg.moe_num_shared:
-        p["shared"] = init_ffn_params(gen, d, ff * cfg.moe_num_shared, dt,
+        p["shared"] = init_ffn_params(ks[4], d, ff * cfg.moe_num_shared, dt,
                                       device=device)
     return p
 

@@ -53,8 +53,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch import prng
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as ssm
 from repro_torch.models import mlp
@@ -113,28 +113,47 @@ def check_family(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
-def _init_layer(gen, cfg: ModelConfig, i: int, device, *,
-                cross: bool = False, ltype: str | None = None,
-                is_moe: bool | None = None) -> dict:
+def _init_layer(key, cfg: ModelConfig, ltype: str, is_moe: bool, device, *,
+                cross: bool = False) -> dict:
+    """One layer from ``split(key, 6)``, as JAX's ``_init_slot``: the
+    attention or mixer from key 0, the cross-attention from 1, the FFN or
+    MoE from 2."""
     dt = getattr(torch, cfg.param_dtype)
-    is_moe = cfg.is_moe_layer(i) if is_moe is None else is_moe
+    ks = prng.split(key, 6)
     p = {"ln1": torch.ones((cfg.d_model,), dtype=dt, device=device)}
-    if (ltype or cfg.layer_types()[i]) == "A":
-        p["attn"] = attn.init_attention_params(gen, cfg, device=device)
+    if ltype == "A":
+        p["attn"] = attn.init_attention_params(ks[0], cfg, device=device)
     else:
-        p["mixer"] = ssm.init_mamba_params(gen, cfg, device=device)
+        p["mixer"] = ssm.init_mamba_params(ks[0], cfg, device=device)
     if cross:
         p["ln_x"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
-        p["cross"] = attn.init_attention_params(gen, cfg, cross=True,
+        p["cross"] = attn.init_attention_params(ks[1], cfg, cross=True,
                                                 device=device)
     if cfg.d_ff > 0 or is_moe:
         p["ln2"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
         if is_moe:
-            p["moe"] = mlp.init_moe_params(gen, cfg, device=device)
+            p["moe"] = mlp.init_moe_params(ks[2], cfg, device=device)
         else:
-            p["ffn"] = mlp.init_ffn_params(gen, cfg.d_model, cfg.d_ff, dt,
+            p["ffn"] = mlp.init_ffn_params(ks[2], cfg.d_model, cfg.d_ff, dt,
                                            device=device)
     return p
+
+
+def _init_layers(key, segs: list[Segment], cfg: ModelConfig, device, *,
+                 cross: bool) -> list[dict]:
+    """The layers of ``segs`` in group-major order, each from JAX's key:
+    segment i's ``fold_in(key, i)``, folded with the slot, split into the
+    segment's groups (``_init_segment``)."""
+    layers = []
+    for i, seg in enumerate(segs):
+        skey = prng.fold_in(key, i)
+        gks = [prng.split(prng.fold_in(skey, s), seg.groups)
+               for s in range(len(seg.sig))]
+        for g in range(seg.groups):
+            for s, (ltype, is_moe) in enumerate(seg.sig):
+                layers.append(_init_layer(gks[s][g], cfg, ltype, is_moe,
+                                          device, cross=cross))
+    return layers
 
 
 def param_count(cfg: ModelConfig) -> int:
@@ -172,56 +191,44 @@ def param_count(cfg: ModelConfig) -> int:
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
-    """Random weights from ``torch.Generator(device).manual_seed(seed)``,
-    made on ``device``."""
+    """Random weights made on ``device``: JAX's ``init_params(PRNGKey(seed),
+    cfg)`` leaf for leaf (its key tree: ``split(key, 8)`` at the root, then
+    each segment's and layer's keys as :func:`_init_layers` folds them)."""
     check_family(cfg)
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    ks = prng.split(prng.key(seed), 8)
     dt = getattr(torch, cfg.param_dtype)
     params = {
-        "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype=dt,
+        "embed": embed_init(ks[0], (cfg.vocab_size, cfg.d_model), dtype=dt,
                             device=device),
         "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
-        "layers": [_init_layer(gen, cfg, i, device, cross=cfg.is_encdec)
-                   for i in range(cfg.num_layers)],
+        "layers": _init_layers(ks[1], segments_of(cfg), cfg, device,
+                               cross=cfg.is_encdec),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size),
+        params["lm_head"] = embed_init(ks[2], (cfg.d_model, cfg.vocab_size),
                                        dtype=dt, device=device)
     if cfg.is_encdec:
-        # the encoder's layers in segments_of's group-major order, as JAX
-        # builds them, with MLA off
+        # the encoder's layers with MLA off
         enc = dataclasses.replace(cfg, mla=False)
-        params["enc_layers"] = [
-            _init_layer(gen, enc, 0, device, ltype=ltype, is_moe=is_moe)
-            for seg in segments_of(cfg, cfg.encoder_layers)
-            for _ in range(seg.groups) for ltype, is_moe in seg.sig]
+        params["enc_layers"] = _init_layers(
+            ks[3], segments_of(cfg, cfg.encoder_layers), enc, device,
+            cross=False)
         params["enc_norm"] = torch.ones((cfg.d_model,), dtype=dt,
                                         device=device)
     if cfg.mtp:
-        params["mtp_proj"] = embed_init(gen, (2 * cfg.d_model, cfg.d_model),
+        params["mtp_proj"] = embed_init(ks[4], (2 * cfg.d_model, cfg.d_model),
                                         dtype=dt, device=device)
-        params["mtp_layer"] = _init_layer(gen, cfg, 0, device, ltype="A",
-                                          is_moe=False)
+        params["mtp_layer"] = _init_layer(ks[5], cfg, "A", False, device)
         params["mtp_norm"] = torch.ones((cfg.d_model,), dtype=dt,
                                         device=device)
     return params
-
-
-class _NoDraws(TorchDispatchMode):
-    """Answers every read of a value with zero (False): on the ``meta``
-    device the initializers' rejection loops then end at once."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func is torch.ops.aten._local_scalar_dense.default:
-            return False if args[0].dtype == torch.bool else 0
-        return func(*args, **(kwargs or {}))
 
 
 def abstract_params(cfg: ModelConfig) -> dict:
     """:func:`init_params`'s tree on the ``meta`` device: every leaf's
     shape and dtype, nothing allocated or drawn (JAX's ``eval_shape`` of
     its init)."""
-    with torch.device("meta"), _NoDraws():
+    with torch.device("meta"):
         return init_params(cfg)
 
 

@@ -121,6 +121,41 @@ def test_ps_matches_jax_baseline(dtype):
     """One device, one episode, the ``ref`` route on both sides, the JAX key
     chain injected: tables and loss within tolerance, the counters
     exactly JAX's."""
+    _against_jax_baseline(dtype, inject=True, episodes=1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ps_matches_jax_baseline_on_its_own_draws(dtype):
+    """Two episodes with nothing injected: the port keys each non-empty
+    block as JAX does, so the checks above hold."""
+    _against_jax_baseline(dtype, inject=False, episodes=2)
+
+
+def test_ps_default_negatives_are_the_jax_chain():
+    """Two devices: with no ``neg_draws`` each non-empty block's positions,
+    in (round, device, sub-part) order, are JAX's ``PRNGKey(seed + 131
+    step)`` chain bit for bit, drawn once and kept."""
+    degrees, pairs = _episode(301, 900, 11)
+    cfg = dict(CFG, dtype="float32")
+    ps = ParameterServerTrainer(301, 2, HybridConfig(**cfg), degrees=degrees,
+                                device="cpu")
+    eb = build_episode_blocks(pairs, ps.part, pad_multiple=cfg["minibatch"])
+    nmb = eb.block_cap // cfg["minibatch"]
+    want = _jax_ps_draws(cfg, eb.counts, nmb)
+    step = 0
+    for r in range(2):
+        for i in range(2):
+            for j in range(cfg["subparts"]):
+                if eb.counts[i, 0, r, j] == 0:
+                    continue
+                got = ps._block_positions(step, nmb, ps.devices[i])
+                np.testing.assert_array_equal(got.numpy(), want[i, r, j])
+                assert ps._block_positions(step, nmb, ps.devices[i]) is got
+                step += 1
+    assert step > 2
+
+
+def _against_jax_baseline(dtype, *, inject, episodes):
     degrees, pairs = _episode(200, 700, 9)
     cfg = dict(CFG, dtype=dtype, impl="ref")
     jps = JPS(200, 1, JConfig(**cfg), degrees=degrees)
@@ -129,10 +164,12 @@ def test_ps_matches_jax_baseline(dtype):
     np.testing.assert_array_equal(ps.pool, jps._pool)
     jeb = jbuild(pairs, jps.part, pad_multiple=cfg["minibatch"])
     eb = build_episode_blocks(pairs, ps.part, pad_multiple=cfg["minibatch"])
-    draws = _jax_ps_draws(cfg, eb.counts, eb.block_cap // cfg["minibatch"])
-    jloss = jps.train_episode(jeb, lr=0.04)
-    loss = ps.train_episode(eb, lr=0.04, neg_draws=draws)
-    np.testing.assert_allclose(loss, jloss, rtol=1e-4)
+    draws = (_jax_ps_draws(cfg, eb.counts, eb.block_cap // cfg["minibatch"])
+             if inject else None)
+    for _ in range(episodes):
+        jloss = jps.train_episode(jeb, lr=0.04)
+        loss = ps.train_episode(eb, lr=0.04, neg_draws=draws)
+        np.testing.assert_allclose(loss, jloss, rtol=1e-4)
     assert (ps.counters.host_syncs, ps.counters.bytes_through_host) == (
         jps.counters.host_syncs, jps.counters.bytes_through_host)
     rtol, atol = TOL[dtype]

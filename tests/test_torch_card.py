@@ -13,11 +13,14 @@ blocked kernels with their row-wise references (the rowwise top-k
 with the scan even on continuous rows). The SGNS kernels sum in
 another order than their plain versions, so they are held to the JAX
 kernel tests' tolerances (bf16 tables also to two bf16 steps), and to
-themselves bitwise."""
+themselves bitwise. The threefry kernels draw JAX's random streams: their
+integers and uniform draws equal the plain versions bitwise, their normals
+within the 2 ulp the CPU tests hold the plain versions to against JAX."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import prng
 from repro_torch.embed_serve import ShardedEmbeddingStore
 from repro_torch.embed_serve import quant as qz
 from repro_torch.embed_serve import topk as tk
@@ -911,3 +914,55 @@ def test_lm_prefill_routes_agree_on_card(card):
     assert attn.ROUTE_CALLS["masked_calls"] == (before[1]["masked_calls"]
                                                 + cfg.num_layers)
     torch.testing.assert_close(lf, lm, rtol=2e-3, atol=2e-3)
+
+
+def _ulps(a, b) -> int:
+    def ordered(x):
+        i = x.view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max().item()) if a.numel() else 0
+
+
+@pytest.mark.parametrize("T,S,pool_n", [(128, 5, 65536), (1000, 8, 100_003),
+                                        (1, 5, 1000), (5, 1, 1), (0, 5, 9),
+                                        (3, 0, 9)])
+def test_negative_positions_kernel_matches_plain(card, T, S, pool_n):
+    k = prng.fold_in(prng.key(3), 1)
+    before = prng.LAUNCHES["negative_positions"]
+    got = prng.negative_positions(k, T, S, pool_n, device=card)
+    want = prng.negative_positions_plain(k, T, S, pool_n, device=card)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert prng.LAUNCHES["negative_positions"] == before + (T * S > 0)
+    if (T, S, pool_n) == (1, 5, 1000):
+        assert prng.negative_positions(prng.key(0), 1, 5, 1000,
+                                       device=card)[0].tolist() == [
+            22, 22, 496, 135, 51]
+
+
+@pytest.mark.parametrize("kind", sorted(prng.KINDS))
+@pytest.mark.parametrize("n", [1, 1000, 3 * 1024 * 1024 + 5])
+def test_fill_random_kernel_matches_plain(card, kind, n):
+    k = prng.fold_in(prng.key(7), 2)
+    dt = torch.int32 if kind == "bits" else torch.float32
+    got = prng.fill_random(k, n, kind, 0.0625,
+                           torch.full((n + 2,), -3, dtype=dt, device=card))
+    want = prng.fill_random_plain(k, n, kind, 0.0625,
+                                  torch.full((n + 2,), -3, dtype=dt,
+                                             device=card))
+    torch.cuda.synchronize()
+    if kind in ("bits", "uniform"):
+        assert torch.equal(got, want)
+    else:
+        assert torch.equal(got[n:], want[n:]) and _ulps(got, want) <= 2
+
+
+def test_threefry_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    with pytest.raises(ValueError, match="int32"):
+        prng.fill_random(prng.key(0), 4, "bits", 1.0,
+                         torch.empty(4, device=card))
+    with pytest.raises(ValueError, match="contiguous"):
+        prng.fill_random(prng.key(0), 4, "normal", 1.0,
+                         torch.empty((4, 2), device=card).t())
+    with pytest.raises(ValueError, match="pool_n"):
+        prng.negative_positions(prng.key(0), 4, 2, 0, device=card)

@@ -31,7 +31,7 @@ from repro.models import mamba as jmamba
 from repro.models import transformer as jtfm
 from repro.models.config import ModelConfig as JaxModelConfig
 from repro.train.train_step import make_train_step as jax_make_train_step
-from repro_torch import configs
+from repro_torch import configs, prng
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.launch import serve
 from repro_torch.launch import train as ttrain
@@ -95,7 +95,7 @@ def make_cfg(chunk=8, state=16, hd=16) -> ModelConfig:
 
 
 def _mixer(cfg, seed=0):
-    return mamba.init_mamba_params(torch.Generator().manual_seed(seed), cfg)
+    return mamba.init_mamba_params(prng.key(seed), cfg)
 
 
 def _x(shape, seed, scale=0.5):

@@ -5,7 +5,8 @@ mesh with k = 2 sub-parts and must match the JAX package's
 ``build_episode_fn`` on a 4-device host mesh (a subprocess with
 ``--xla_force_host_platform_device_count=4``, as ``tests/test_distributed.py``
 runs it), which also gives the tables' init, the pools and each device's
-negative stream. Then the port's own claims: the bulk shift
+negative stream. The ranks also draw that stream themselves, bit for bit,
+and train two episodes on it. Then the port's own claims: the bulk shift
 (``fuse_subpart_permute=False``) trains the same tables bit for bit, each
 rank's vertex shard is home after the episode, the 2x2 mesh reaches the
 quality of one rank (the port's form of
@@ -104,6 +105,12 @@ for dtype in ("float32", "bfloat16"):
                     jt.context_embeddings()).astype(np.float32),
                 f"{dtype}_loss": np.float64(loss), f"{dtype}_draws": draws,
                 "pool": jt.pool, "degrees": degrees, "pairs": pairs})
+    # a second episode on the same blocks (the stream restarts)
+    loss = jt.train_episode(eb, lr=lr)
+    res.update({f"{dtype}_v2": np.asarray(jt.embeddings()).astype(np.float32),
+                f"{dtype}_c2": np.asarray(
+                    jt.context_embeddings()).astype(np.float32),
+                f"{dtype}_loss2": np.float64(loss)})
 np.savez(out, **res)
 """
 
@@ -169,6 +176,27 @@ for dtype in ("float32", "bfloat16"):
         mine = tt.vert[: max(0, min(rows, nodes - rank * rows))]
         assert torch.equal(mine, V[rank * rows: rank * rows + mine.shape[0]])
         tables[fused] = (V, C, loss)
+    # nothing injected: the trainer draws each device's JAX stream itself
+    # (bit for bit), then trains two episodes on it
+    tt = HybridEmbeddingTrainer(nodes, HybridConfig(**cfg, dtype=dtype),
+                                degrees=ref["degrees"], dims=(2, 2),
+                                device="cpu")
+    tt.set_embeddings(table(ref[f"{dtype}_v0"]), table(ref[f"{dtype}_c0"]))
+    eb = build_episode_blocks(ref["pairs"], tt.part,
+                              pad_multiple=cfg["minibatch"])
+    pos = tt._negative_positions(4, cfg["subparts"],
+                                 eb.block_cap // cfg["minibatch"], None)
+    own_draws = bool(np.array_equal(pos.numpy(), ref[f"{dtype}_draws"][rank]))
+    for _ in range(2):
+        own_loss = tt.train_episode(eb, lr=lr)
+    V3, C3 = tt.embeddings(), tt.context_embeddings()
+    draws_ok = torch.tensor([int(own_draws)])
+    dist.all_reduce(draws_ok, op=dist.ReduceOp.MIN)
+    if rank == 0:
+        res.update({f"{dtype}_own_draws": bool(draws_ok.item()),
+                    f"{dtype}_v2": V3.float().numpy(),
+                    f"{dtype}_c2": C3.float().numpy(),
+                    f"{dtype}_loss2": own_loss})
     if rank == 0:
         (V, C, loss), (V2, C2, loss2) = tables[True], tables[False]
         res.update({f"{dtype}_v1": V.float().numpy(),
@@ -221,6 +249,28 @@ def test_bulk_shift_trains_the_same_bits(episodes, dtype):
     tables and loss bit for bit; every rank's shard was home (checked in
     the ranks)."""
     assert bool(episodes[1][f"{dtype}_bulk_same"])
+
+
+def test_four_ranks_draw_each_devices_jax_stream(episodes):
+    """With no ``neg_draws`` every rank's positions are its device's JAX
+    stream, ``fold_in(PRNGKey(seed), rank)`` split once a minibatch over 4
+    rounds x 2 sub-parts, bit for bit (checked in the ranks)."""
+    for dtype in ("float32", "bfloat16"):
+        assert bool(episodes[1][f"{dtype}_own_draws"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_four_ranks_two_episodes_on_their_own_draws(episodes, dtype):
+    """Two episodes with nothing injected meet the one-episode tolerances
+    against the JAX step's two episodes."""
+    jax_res, port = episodes
+    rtol, atol = TOL[dtype]
+    np.testing.assert_allclose(port[f"{dtype}_loss2"],
+                               jax_res[f"{dtype}_loss2"], rtol=1e-4)
+    for name in ("v2", "c2"):
+        np.testing.assert_allclose(port[f"{dtype}_{name}"],
+                                   jax_res[f"{dtype}_{name}"], rtol=rtol,
+                                   atol=atol)
 
 
 QUALITY = r"""

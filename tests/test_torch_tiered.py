@@ -192,6 +192,33 @@ def test_tiered_matches_jax_tiered(small_graph, dtype):
     (the ``ref`` route on both), the JAX negative stream injected: tables
     and loss within test_torch_train's tolerances, cache statistics and
     residency exactly JAX's after each episode."""
+    _against_jax_tiered(small_graph, dtype, inject=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiered_matches_jax_tiered_on_its_own_draws(small_graph, dtype):
+    """The same two episodes with nothing injected: the port's own
+    negatives are JAX's, so every check above holds."""
+    _against_jax_tiered(small_graph, dtype, inject=False)
+
+
+def test_tiered_default_negatives_are_the_jax_replay(small_graph):
+    """With no ``neg_draws`` the positions are JAX's ``_replay_neg_indices``
+    bit for bit, and the rows they give are kept per episode shape."""
+    cfg = _cfg()
+    tt = TieredEmbeddingTrainer(small_graph.num_nodes, HybridConfig(**cfg),
+                                degrees=small_graph.degrees(), hbm_rows=48,
+                                device="cpu")
+    k, nmb = cfg["subparts"], 5
+    np.testing.assert_array_equal(
+        tt._negative_positions(1, k, nmb, None).numpy(),
+        _jax_draws(cfg, k, nmb))
+    rows = tt._negatives(1, k, nmb, None)
+    np.testing.assert_array_equal(rows, tt.pool[0][_jax_draws(cfg, k, nmb)])
+    assert tt._negatives(1, k, nmb, None) is rows
+
+
+def _against_jax_tiered(small_graph, dtype, *, inject):
     g, cfg = small_graph, _cfg(dtype=dtype, impl="ref")
     mesh = jax.make_mesh((1, 1), ("data", "model"))
     jt = JTiered(g.num_nodes, mesh, JConfig(**cfg), degrees=g.degrees(),
@@ -208,7 +235,8 @@ def test_tiered_matches_jax_tiered(small_graph, dtype):
         jeb = jbuild(pairs, jt.part, pad_multiple=cfg["minibatch"])
         eb = build_episode_blocks(pairs, tt.part,
                                   pad_multiple=cfg["minibatch"])
-        draws = _jax_draws(cfg, k, eb.block_cap // cfg["minibatch"])
+        draws = (_jax_draws(cfg, k, eb.block_cap // cfg["minibatch"])
+                 if inject else None)
         lr = cfg["lr"] * (1 - i / 2)
         jloss = jt.train_episode(jeb, lr=lr)
         loss = tt.train_episode(eb, lr=lr, neg_draws=draws)

@@ -76,11 +76,12 @@ def test_init_and_negative_pool_bitwise(dtype):
     assert tt.vert.shape[0] == tt.part.padded_num_nodes
 
 
-def _episode_pair(cfg, nodes, n_pairs, seed, jimpl, impl="pallas_fused2"):
-    """One episode through both trainers from the same init, the JAX one on
-    route ``jimpl`` and the port on ``impl``, the port given the JAX
-    negative stream. Returns (port loss, jax loss, port trainer, jax
-    trainer)."""
+def _episode_pair(cfg, nodes, n_pairs, seed, jimpl, impl="pallas_fused2",
+                  *, inject=True, episodes=1):
+    """``episodes`` episodes through both trainers from the same init, the
+    JAX one on route ``jimpl`` and the port on ``impl``, the port given the
+    JAX negative stream replayed (``inject``) or drawing its own. Returns
+    (port loss, jax loss, port trainer, jax trainer) of the last."""
     degrees, pairs = _pair_episode(nodes, n_pairs, seed)
     jt = JTrainer(nodes, _mesh(), JConfig(**cfg, impl=jimpl), degrees=degrees)
     tt = HybridEmbeddingTrainer(nodes, HybridConfig(**cfg, impl=impl),
@@ -90,11 +91,13 @@ def _episode_pair(cfg, nodes, n_pairs, seed, jimpl, impl="pallas_fused2"):
     jeb = jbuild(pairs, jt.part, pad_multiple=cfg["minibatch"])
     eb = build_episode_blocks(pairs, tt.part, pad_multiple=cfg["minibatch"])
     k, nmb = cfg["subparts"], eb.block_cap // cfg["minibatch"]
-    draws = _jax_neg_draws(cfg["seed"], k, nmb, cfg["negatives"],
-                           cfg["neg_pool"])
+    draws = (_jax_neg_draws(cfg["seed"], k, nmb, cfg["negatives"],
+                            cfg["neg_pool"]) if inject else None)
     lr = 0.04
-    return (tt.train_episode(eb, lr=lr, neg_draws=draws),
-            jt.train_episode(jeb, lr=lr), tt, jt)
+    for _ in range(episodes):
+        losses = (tt.train_episode(eb, lr=lr, neg_draws=draws),
+                  jt.train_episode(jeb, lr=lr))
+    return (*losses, tt, jt)
 
 
 def test_episode_matches_jax_trainer_f32():
@@ -119,6 +122,35 @@ def test_episode_matches_jax_fused_kernel_bf16():
                       (tt.context_embeddings(), jt.context_embeddings())):
         np.testing.assert_allclose(_f32(got), _f32(want), rtol=3e-2,
                                    atol=3e-3)
+
+
+def test_default_negatives_are_the_jax_stream():
+    """With no ``neg_draws`` the trainer draws the JAX trainer's positions
+    (``fold_in(PRNGKey(seed), 0)``, one split a minibatch) bit for bit, and
+    draws them once per episode shape."""
+    tt = HybridEmbeddingTrainer(257, HybridConfig(**CFG), device="cpu")
+    k, nmb, S = CFG["subparts"], 6, CFG["negatives"]
+    got = tt._negative_positions(1, k, nmb, None)
+    np.testing.assert_array_equal(
+        got[0].numpy(), _jax_neg_draws(CFG["seed"], k, nmb, S,
+                                       CFG["neg_pool"]))
+    assert tt._negative_positions(1, k, nmb, None) is got
+    assert tuple(tt._negative_positions(1, k, nmb + 1, None).shape) == (
+        1, k, nmb + 1, S)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", (2e-4, 1e-6)),
+                                       ("bfloat16", (3e-2, 3e-3))])
+def test_two_episodes_match_jax_trainer_on_their_own_draws(dtype, tol):
+    """Two episodes with nothing injected: the port's own negatives are
+    JAX's, so its tables meet the replayed cases' tolerances."""
+    loss, jloss, tt, jt = _episode_pair(dict(CFG, dtype=dtype), 257, 600, 7,
+                                        "ref", inject=False, episodes=2)
+    np.testing.assert_allclose(loss, jloss, rtol=1e-4)
+    for got, want in ((tt.embeddings(), jt.embeddings()),
+                      (tt.context_embeddings(), jt.context_embeddings())):
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol[0],
+                                   atol=tol[1])
 
 
 def _jax_scan_sum(seen):
