@@ -175,8 +175,9 @@ failure ends the run with a non-zero exit:
    151,936, f32, AdamW, 4 microbatches; 20 steps of batch 8 x 256 with
    ``--save``), its last loss below its first, ``lm_final.npz`` loaded
    back through the port's loader leaf for leaf, its steps/s, tokens/s and
-   rate by 6 * params * tokens, and no kernel launched (the masked plain
-   attention, as JAX's training takes); then phi3.5-moe at full width (d
+   rate by 6 * params * tokens, and no kernel launched but the init's
+   ``fill_random`` (the masked plain attention, as JAX's training takes);
+   then phi3.5-moe at full width (d
    4,096, 16 experts of ff 6,400, 32/8 heads of 128) and 2 layers:
    ``serve.run`` at batch 2 with a 2,048-token prompt and 16 new tokens
    (one flash launch a layer, no masked prefill, the kernel route's
@@ -188,7 +189,7 @@ failure ends the run with a non-zero exit:
 11c. the SSM and hybrid families: mamba2-1.3b at full width and depth
    (48 layers) served through ``repro_torch.launch.serve.main`` (batch 4,
    a 2,048-token prompt, 32 tokens; no flash launch and no prefill route:
-   the family has no attention), at 2 layers its prefill logits and one
+   the family has no attention; the init's ``fill_random`` only), at 2 layers its prefill logits and one
    decode step against the full forward within 2e-3, and five AdamW steps
    of 8 x 256 in 4 microbatches through the training launcher (finite
    losses, positive grad norms, changed parameters, ``lm_final.npz`` read
@@ -339,7 +340,10 @@ SEAMLESS_TRAIN_STEPS, SEAMLESS_TRAIN_B, SEAMLESS_TRAIN_S = 5, 8, 256
 # Seamless's logits at full width, 2 + 2 layers, move past 2e-3 when every
 # weight moves by one f32 rounding (relative 1e-7): by 1.09e-2 over the
 # prompt and 1.65e-2 over the extended prompt, as tools/seamless_spread.py
-# measures on the H100. Those spreads are its routes' absolute limits.
+# measured on the H100 under the earlier torch.Generator init. Those spreads
+# are its routes' absolute limits. On JAX's init the tool reads 1.26e-2 and
+# 3.20e-2, and the routes stay inside the earlier limits (8.3e-3 at most),
+# so the limits were left as they were.
 SEAMLESS_LOGIT_ATOL = {"prompt": 1.09e-2, "extended": 1.65e-2}
 # Layer 0's attention on the model's own q, k, v (scores up to ~320): the
 # flash kernel and the masked route each within tests/test_models.py's
@@ -2452,8 +2456,8 @@ def lm_training(torch, dev, counted):
     """The LM training launcher at qwen1.5-0.5b's full width and depth: its
     loss falls over the run, ``lm_final.npz`` loads back through the port's
     loader leaf for leaf, and its rate against ``6 * params * tokens``.
-    Returns the path's launch counts (none: the masked plain attention, as
-    JAX's training takes)."""
+    Returns the path's launch counts (the init's ``fill_random`` only: the
+    masked plain attention, as JAX's training takes)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train as train_launcher
     from repro_torch.models.common import count_params
@@ -2485,7 +2489,7 @@ def lm_training(torch, dev, counted):
           f"{100 * rate / FP32_FLOP_PER_S:.1f} % of the f32 CUDA-core peak); "
           f"{wall:.1f} s with init; lm_final.npz loads back with all "
           f"{n_leaves} leaves' shapes; launches {launches}")
-    if any(launches.values()):
+    if any(past_init(launches, f"LM training {LM_TRAIN_ARCH}").values()):
         raise AssertionError(f"LM training launched {launches}: its "
                              f"attention is the masked plain path")
     del r
@@ -2674,6 +2678,16 @@ def only_routes(lm_attn, **calls):
     return {name: calls.get(name, 0) for name in lm_attn.ROUTE_CALLS}
 
 
+def past_init(launches, what):
+    """``launches`` of a run that initialised its weights on the card, with
+    the init's ``fill_random`` taken out; fails if the init drew nothing
+    there (``init_params`` draws each random leaf with that kernel)."""
+    if launches["fill_random"] == 0:
+        raise AssertionError(f"{what}: init_params never launched "
+                             f"fill_random ({launches})")
+    return {k: v for k, v in launches.items() if k != "fill_random"}
+
+
 def one_train_step(torch, counted, what, cfg, params, batch, gate_leaves):
     """One step of ``make_train_step`` (the config's optimizer and
     microbatches, MoE layers through the dispatch) with its gate: a finite
@@ -2749,7 +2763,8 @@ def ssm_family(torch, dev, counted):
     torch.cuda.reset_peak_memory_stats()
     out, launches = counted(lambda: lm_serve.main(argv))
     routes = dict(lm_attn.ROUTE_CALLS)
-    if any(launches.values()) or any(routes.values()):
+    if (any(past_init(launches, f"{SSM_ARCH} serving").values())
+            or any(routes.values())):
         raise AssertionError(f"{SSM_ARCH} serving: launches {launches}, "
                              f"routes {routes}; the family has no attention")
     check_served(torch, SSM_ARCH, out, SSM_B, SSM_TOKENS, cfg.vocab_size)
@@ -2807,7 +2822,8 @@ def ssm_family(torch, dev, counted):
         checkpoint_reads_back(torch, r, SSM_TRAIN_STEPS)
     losses, norms = r["losses"], r["grad_norm"]
     if not (np.isfinite(losses).all() and min(norms) > 0 and changed
-            and not any(launches.values())):
+            and not any(past_init(launches,
+                                  f"{SSM_ARCH} training").values())):
         raise AssertionError(f"{SSM_ARCH} training: losses {losses}, grad "
                              f"norms {norms}, changed {changed}, launches "
                              f"{launches}")
@@ -3193,7 +3209,8 @@ def encdec_family(torch, dev, counted):
     if not (np.isfinite(losses).all() and all(x > 0 for x in norms)
             and not np.isnan(norms).any() and finite
             and 0 < g64 < float("inf") and changed
-            and not any(launches.values())):
+            and not any(past_init(launches,
+                                  f"{SEAMLESS_ARCH} training").values())):
         raise AssertionError(f"{SEAMLESS_ARCH} training: losses {losses}, "
                              f"grad norms {norms}, a microbatch's gradients "
                              f"finite {finite} (largest |g| {gmax:.4g}, f64 "
